@@ -1,0 +1,213 @@
+"""Llama-3-family transformer in PyTorch.
+
+Port of ``ray_tpu/models/llama.py``. Parameters stay a plain dictionary
+with JAX's stacked ``[L, ...]`` block layout, its names (``embedding``,
+``blocks.wq``, ..., ``final_norm``, ``lm_head``) and its ``x @ W``
+orientation, so weights carry across name for name
+(``ray_tpu_torch.convert``). The ``lax.scan`` over layers is a Python loop
+over the layer index. Attention goes through ``ops.attention.attention``,
+which sends a CUDA tensor of a supported shape to the flash kernel.
+
+Remat and the fused cross-entropy belong to the training slice and are not
+here yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._device import dtype_of, resolve_device
+from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.rope import apply_rope, rope_sin_cos
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    # kept for config parity with the JAX package; the inference slice
+    # saves no activations, so it reads no remat policy
+    remat: str = "full"
+    tie_embeddings: bool = False
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return dtype_of(self.dtype)
+
+
+def llama3_8b() -> LlamaConfig:
+    return LlamaConfig()
+
+
+def llama3_70b() -> LlamaConfig:
+    return LlamaConfig(d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8,
+                       d_ff=28672)
+
+
+def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
+    """Test-size config."""
+    return LlamaConfig(
+        vocab_size=vocab_size, d_model=128, n_layers=2, n_heads=4,
+        n_kv_heads=2, d_ff=256, head_dim=32, remat="none",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LlamaConfig, *, seed: int = 0,
+                generator: torch.Generator | None = None,
+                device="cuda") -> dict:
+    """Random parameters in the stacked-block layout: fan-in-scaled normal
+    draws in float32, cast to the config's dtype. Stacked weights are drawn
+    one layer at a time, so the float32 draw never holds a whole stack.
+    ``generator`` (on ``device``) overrides ``seed``. The draws are not
+    JAX's: carry JAX weights across with ``convert.params_from_numpy``."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    dt = cfg.param_dtype
+    d, n_layers = cfg.d_model, cfg.n_layers
+    qdim = cfg.n_heads * cfg.head_dim
+    kvdim = cfg.n_kv_heads * cfg.head_dim
+
+    def dense(shape, fan_in, stacked=True):
+        out = torch.empty(((n_layers,) if stacked else ()) + shape,
+                          dtype=dt, device=dev)
+        rows = out if stacked else out[None]
+        for i in range(rows.shape[0]):
+            rows[i] = (torch.randn(shape, generator=generator, device=dev,
+                                   dtype=torch.float32) * fan_in ** -0.5)
+        return out
+
+    def ones(shape):
+        return torch.ones(shape, dtype=dt, device=dev)
+
+    params = {"embedding": dense((cfg.vocab_size, d), d, stacked=False)}
+    params["blocks"] = {
+        "attn_norm": ones((n_layers, d)),
+        "wq": dense((d, qdim), d),
+        "wk": dense((d, kvdim), d),
+        "wv": dense((d, kvdim), d),
+        "wo": dense((qdim, d), qdim),
+        "mlp_norm": ones((n_layers, d)),
+        "w_gate": dense((d, cfg.d_ff), d),
+        "w_up": dense((d, cfg.d_ff), d),
+        "w_down": dense((cfg.d_ff, d), cfg.d_ff),
+    }
+    params["final_norm"] = ones((d,))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size), d, stacked=False)
+    return params
+
+
+def num_params(params: dict) -> int:
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) for v in tree.values())
+        return tree.numel()
+    return count(params)
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked blocks (views, no copies)."""
+    return {name: w[i] for name, w in params["blocks"].items()}
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with a float32 result, for the LM head: the float32
+    accumulator is written out as it is, never rounded to the operands'
+    dtype (JAX's ``preferred_element_type=float32``). On CUDA, low-precision
+    operands go to one GEMM with a float32 output type, with no float32
+    copy of the head (2 GB at Llama-3-8B); elsewhere both widen first."""
+    if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def mlp_sublayer(cfg, x, p):
+    """Pre-norm SwiGLU MLP sublayer; returns the residual-added stream."""
+    h = rms_norm(x, p["mlp_norm"], eps=cfg.rms_eps)
+    gated = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
+    return x + gated @ p["w_down"]
+
+
+def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl):
+    """Pre-norm attention sublayer; returns the residual-added stream."""
+    b, s, _ = x.shape
+    h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    attn_out = attention(q, k, v, causal=True, segment_ids=segment_ids,
+                         impl=attn_impl)
+    attn_out = attn_out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return x + attn_out @ p["wo"]
+
+
+def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, *,
+            positions=None, segment_ids=None,
+            attn_impl: str = "auto") -> torch.Tensor:
+    """Token ids [batch, seq] -> logits [batch, seq, vocab] (float32)."""
+    x = forward_hidden(cfg, params, tokens, positions=positions,
+                       segment_ids=segment_ids, attn_impl=attn_impl)
+    return matmul_f32(x, lm_head_weights(cfg, params))
+
+
+def forward_hidden(cfg, params, tokens, *, positions=None, segment_ids=None,
+                   attn_impl="auto") -> torch.Tensor:
+    """Token ids -> final normalized hidden states [b, s, d]."""
+    s = tokens.shape[1]
+    x = params["embedding"][tokens]
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+    sin, cos = rope_sin_cos(positions, cfg.head_dim, theta=cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        x = attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl)
+        x = mlp_sublayer(cfg, x, p)
+    return rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
+
+
+def lm_head_weights(cfg, params) -> torch.Tensor:
+    """The LM head matrix [d, vocab], honouring tie_embeddings."""
+    return (params["embedding"].T if cfg.tie_embeddings
+            else params["lm_head"])
+
+
+def cross_entropy_loss(logits, targets, *, mask=None,
+                       z_loss: float = 0.0) -> torch.Tensor:
+    """Token-level cross-entropy in float32 with an optional z-loss.
+    ``mask`` [batch, seq] in {0, 1} excludes padding from the mean."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - target_logit
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -1,0 +1,1 @@
+"""Port of the matching ray_tpu subpackage."""

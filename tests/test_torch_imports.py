@@ -1,0 +1,71 @@
+"""Import hygiene of the PyTorch port, checked in a fresh interpreter.
+
+Every module of ray_tpu_torch imports without pulling in jax or any
+module of ray_tpu, and without starting CUDA (a CUDA context made at
+import time would be inherited by forked workers).
+"""
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import ray_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = r"""
+import importlib, json, pkgutil, sys
+import ray_tpu_torch
+names = ["ray_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
+    ray_tpu_torch.__path__, "ray_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401  (the module only; main() is not run)
+import torch
+print(json.dumps({
+    "modules": names,
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
+    proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    expected = {"ray_tpu_torch." + m.name for m in pkgutil.walk_packages(
+        ray_tpu_torch.__path__)}
+    assert expected <= set(out["modules"])
+    assert "ray_tpu_torch.serve.paged_llm" in out["modules"]
+    assert out["jax"] == []
+    assert out["ray_tpu"] == []
+    assert out["cuda_initialized"] is False
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """With no card, chip_smoke.py exits non-zero and prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: chip_smoke.py would run in full")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr
