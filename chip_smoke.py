@@ -5,12 +5,15 @@ Run from the root of the repository, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from the sources in the checkout, holds
-each kernel against its plain PyTorch version at the shapes the main path
-gives it, then drives the main path at the full width of Llama-3-8B with
-seeded random weights: the full 32-layer forward over 2048 tokens, and the
-paged serving engine answering 10 requests. Every phase prints one JSON
-line; the last line is the contract line
+It builds the port's CUDA kernels from the sources in the checkout (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version at the shapes the main path gives it, then drives
+the main path at the full width of Llama-3-8B with seeded random weights:
+the full 32-layer forward over 2048 tokens, the paged serving engine
+answering 10 requests, the model's gradient through the flash kernels at
+depth 2 against the same gradient through reference attention, and the
+trainer taking steps on the full 32-layer model. Every phase prints one
+JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
 without the rest of the repository beside this file, it exits non-zero
@@ -19,6 +22,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -98,6 +102,18 @@ def row_rel_err(got, want) -> float:
     got, want = got.double(), want.double()
     return float(((got - want).norm(dim=-1)
                   / want.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def grad_row_err(got, want) -> float:
+    """``row_rel_err`` for a gradient: the largest ||got_r - want_r|| /
+    ||want_r|| over rows, with the denominator floored at 1e-2 of the RMS
+    row norm. Some gradient rows are zero up to rounding (dQ of query 0
+    under the causal mask: one visible key, so dS = P (dP - delta) = 0),
+    and their relative error says nothing."""
+    got, want = got.double(), want.double()
+    norms = want.norm(dim=-1)
+    floor = 1e-2 * float(norms.square().mean().sqrt())
+    return float(((got - want).norm(dim=-1) / norms.clamp_min(floor)).max())
 
 
 def dense_attention(qt, kt, vt, *, scale, causal, round_p=None,
@@ -248,6 +264,188 @@ def check_flash(torch, peaks):
         if main is None:
             main = row
         del q, k, v, qt, kt, vt, kr, vr, want, want_lse, got
+    return main
+
+
+def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
+                          round_ds=None, drop_diag_from=None,
+                          first_head_only=False):
+    """Plain attention gradients over whole rows in float32 on the kernel
+    layout, causal (top left), from the forward's lse and the kernels'
+    delta: P = exp(S - lse), dS = P (dP - delta) scale, no rounding of P or
+    dS unless asked. Deliberately wrong variants the K2/K3 check must
+    reject: ``round_ds`` rounds dS, ``drop_diag_from`` hides each row's
+    diagonal 64-key tile from that row on, ``first_head_only`` sums dK and
+    dV over the first q head of each group only. Returns (dq, dk, dv)."""
+    import torch
+
+    b, h, s, d = qt.shape
+    hk = kt.shape[1]
+    n_rep = h // hk
+    k = kt.repeat_interleave(n_rep, dim=1).float()
+    v = vt.repeat_interleave(n_rep, dim=1).float()
+    q, do = qt.float(), dot.float()
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    hide = kp > qp
+    if drop_diag_from is not None:
+        hide = hide | ((kp // 64 == qp // 64) & (qp >= drop_diag_from))
+    p = torch.exp((q @ k.transpose(-1, -2) * scale).masked_fill(
+        hide, float("-inf")) - lse[..., None])
+    ds = p * (do @ v.transpose(-1, -2) - delta[..., None]) * scale
+    if round_ds is not None:
+        ds = round_ds(ds)
+    dq = (ds @ k).to(qt.dtype)
+    weight = torch.ones(h, device=q.device)
+    if first_head_only:
+        weight = (torch.arange(h, device=q.device) % n_rep == 0).float()
+    w = weight[None, :, None, None]
+    dk = ((ds.transpose(-1, -2) @ q) * w).unflatten(1, (hk, n_rep)).sum(2)
+    dv = ((p.transpose(-1, -2) @ do) * w).unflatten(1, (hk, n_rep)).sum(2)
+    return dq, dk.to(kt.dtype), dv.to(vt.dtype)
+
+
+def backward_bound(b, h, hk, s, d, itemsize, peaks, products):
+    """The least time for K2 (3 products, reads q k v dO lse delta, writes
+    dq) or K3 (4 products, writes dk dv) over the causal pairs on this
+    card."""
+    pairs = float(np.minimum(np.arange(s) + 1, s).sum())
+    flops = products * 2.0 * b * h * d * pairs
+    nbytes = itemsize * (2 * b * h * s * d + 2 * b * hk * s * d) \
+        + 2 * 4 * b * h * s
+    nbytes += itemsize * (b * h * s * d if products == 3
+                          else 2 * b * hk * s * d)
+    bf16_peak, f32_peak, mem_rate = peaks
+    peak = bf16_peak if itemsize == 2 else f32_peak
+    t_ops, t_bytes = flops / peak, nbytes / mem_rate
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
+                             tol):
+    """Show that the K2/K3 tolerance tells right gradients from subtly
+    wrong ones at the main shape: gradients with float32 P and dS pass
+    it; dS through float8 e4m3, the diagonal kv tile missing for the later
+    half of the rows, and dK/dV summed over the first q head of each group
+    only each fail it."""
+    kw = dict(scale=qt.shape[-1] ** -0.5)
+    variants = {
+        "float32_p_and_ds": ({}, True),
+        "ds_float8_e4m3": (dict(round_ds=lambda x: x.to(
+            torch.float8_e4m3fn).float()), False),
+        "diag_tile_dropped_late_rows": (dict(
+            drop_diag_from=qt.shape[2] // 2), False),
+        "dkv_first_q_head_only": (dict(first_head_only=True), False),
+    }
+    errs = {}
+    for name, (extra, should_pass) in variants.items():
+        got = dense_attention_grads(qt, kt, vt, dot, lse, delta, **kw,
+                                    **extra)
+        err = max(grad_row_err(g, w) for g, w in zip(got, want))
+        errs[name] = err
+        del got
+        if (err <= tol) != should_pass:
+            raise AssertionError(
+                f"K2/K3 tolerance {tol} does not separate: {name} has row "
+                f"relative error {err}, should {'pass' if should_pass else 'fail'}")
+    emit("flash_bwd_controls", row_rel_tol=tol, row_rel_err=errs)
+
+
+def check_flash_bwd(torch, peaks):
+    """Hold K2 and K3 against their plain versions. Returns the main
+    shape's row (b 2, s 2048, h 32, hk 8, d 128, bf16, causal: the shape
+    the training step gives them)."""
+    from ray_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+        flash_fwd)
+
+    # Both sides round P and dS to bf16 at the same points and accumulate
+    # in float32; they differ in summation order and in exp versus exp2,
+    # so in bf16 rows differ by a few ulps (readings in PERF.md: row
+    # errors of order 3e-3). float32: summation order only.
+    # check_flash_bwd_controls shows the bf16 tolerance rejects subtly
+    # wrong gradients.
+    row_tol = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+    cases = [
+        # (name, b, h, hk, s, d, dtype, causal)
+        ("llama3_8b_train", 2, 32, 8, 2048, 128, torch.bfloat16, True),
+        ("llama3_8b_noncausal", 1, 32, 8, 2048, 128, torch.bfloat16, False),
+        ("d64_gqa1", 2, 8, 8, 1024, 64, torch.bfloat16, True),
+        ("d256_gqa2", 1, 4, 2, 1024, 256, torch.bfloat16, True),
+        ("f32_small", 1, 4, 2, 384, 128, torch.float32, True),
+        ("f32_ragged_d256", 1, 2, 1, 200, 256, torch.float32, True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    main = None
+    for name, b, h, hk, s, d, dt, causal in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(dt)
+        # the training step's layout: [b, s, heads, d], read through strides
+        qt, kt, vt, dot = (x.transpose(1, 2) for x in (
+            randn(b, s, h, d), randn(b, s, hk, d), randn(b, s, hk, d),
+            randn(b, s, h, d)))
+        scale = d ** -0.5
+        kw = dict(scale=scale, causal=causal)
+        out, lse = flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
+        delta = (dot.float() * out.float()).sum(dim=-1).contiguous()
+        args = (qt, kt, vt, dot, lse, delta)
+        got = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
+        torch.cuda.synchronize()
+        want = (flash_bwd_dq_plain(*args, **kw),
+                *flash_bwd_dkv_plain(*args, **kw))
+        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
+        abs_err = max(float((g.float() - w.float()).abs().max())
+                      for g, w in zip(got, want))
+        if not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"flash_bwd {name}: non-finite gradient")
+        if max(errs) > row_tol[dt]:
+            raise AssertionError(
+                f"flash_bwd {name}: row rel err dq/dk/dv {errs} (tol "
+                f"{row_tol[dt]})")
+        if main is None:
+            check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta,
+                                     want, row_tol[dt])
+        row = dict(case=name, shape=[b, h, hk, s, s, d], dtype=str(dt),
+                   causal=causal, row_rel_err={"dq": errs[0], "dk": errs[1],
+                                               "dv": errs[2]},
+                   row_rel_tol=row_tol[dt], max_abs_err=abs_err)
+        if main is None:
+            # timed at the main shape only (the others are checks)
+            row["dq_kernel_ms"] = cuda_ms(lambda: flash_bwd_dq(*args, **kw),
+                                          10)
+            row["dkv_kernel_ms"] = cuda_ms(
+                lambda: flash_bwd_dkv(*args, **kw), 10)
+            row["dq_plain_ms"] = cuda_ms(
+                lambda: flash_bwd_dq_plain(*args, **kw), 1)
+            row["dkv_plain_ms"] = cuda_ms(
+                lambda: flash_bwd_dkv_plain(*args, **kw), 1)
+            # library yardstick only (the port never calls it): SDPA's
+            # backward with GQA, as forward + backward minus forward
+            q, k, v = (x.detach().requires_grad_() for x in (qt, kt, vt))
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa(), (q, k, v), dot)
+            with torch.no_grad():
+                fwd_ms = cuda_ms(sdpa, 10)
+            row["library_ms"] = cuda_ms(sdpa_fwd_bwd, 10) - fwd_ms
+            row["library_fwd_ms"] = fwd_ms
+            for kernel, products in (("dq", 3), ("dkv", 4)):
+                bound_ms, bound_by, flops, nbytes = backward_bound(
+                    b, h, hk, s, d, qt.element_size(), peaks, products)
+                row[f"{kernel}_bound_ms"] = bound_ms
+                row[f"{kernel}_bound_by"] = bound_by
+                row[f"{kernel}_gflop"] = flops / 1e9
+                row[f"{kernel}_mbytes"] = nbytes / 1e6
+                row[f"{kernel}_tflops"] = flops / (
+                    row[f"{kernel}_kernel_ms"] * 1e-3) / 1e12
+            main = row
+        emit("flash_bwd_check", **row)
+        del qt, kt, vt, dot, out, lse, delta, args, got, want
     return main
 
 
@@ -438,6 +636,171 @@ def check_serve(torch, cfg, params):
         raise AssertionError(f"paged logits rel err {errs} > tol {tol}")
 
 
+def launch_counts():
+    from ray_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
+                                                   flash_bwd_dq, flash_fwd)
+    return {"flash_fwd": flash_fwd.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches}
+
+
+def zero_counts():
+    from ray_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
+                                                   flash_bwd_dq, flash_fwd)
+    flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+
+
+def named_leaves(tree, prefix=""):
+    """(dotted name, tensor) of a nested dictionary, in the order of
+    ``train.optim.tree_leaves``."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in named_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def train_batch(cfg, b: int, s: int, seed: int):
+    """A [b, s + 1] int64 token batch on the card, from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)).cuda()
+
+
+def check_grad(torch, cfg, params):
+    """The gradient of the training loss through the flash kernels (K1
+    with lse, K2, K3) against the same gradient through reference
+    attention, at full width and depth 2, on [2, 2049] tokens. The
+    control: the same loss with q detached before attention (the fault of
+    a forward with no gradient) must fail the tolerance."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    # the first two layers, as leaves that share the full model's storage
+    params2 = {k: ({n: w[:depth].detach() for n, w in v.items()}
+                   if k == "blocks" else v.detach())
+               for k, v in params.items()}
+    names, leaves = zip(*named_leaves(params2))
+    for t in leaves:
+        t.requires_grad_(True)
+    batch = train_batch(cfg, 2, 2048, SEED + 3)
+
+    def grads(attn_impl):
+        hidden = llama.forward_hidden(cfg2, params2, batch[:, :-1],
+                                      attn_impl=attn_impl)
+        loss = llama.fused_cross_entropy(cfg2, params2, hidden, batch[:, 1:],
+                                         chunk=1024)
+        # the detached-q control leaves wq without a gradient: zeros
+        return loss, torch.autograd.grad(loss, leaves, allow_unused=True,
+                                         materialize_grads=True)
+
+    zero_counts()
+    loss, got = grads("auto")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want_counts = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth,
+                   "flash_bwd_dkv": depth}   # remat "full": K1 reruns
+    if counts != want_counts:
+        raise AssertionError(f"launches in one gradient {counts}, expected "
+                             f"{want_counts}")
+    ref_loss, want = grads("reference")
+    orig = llama.attention
+    llama.attention = lambda q, k, v, **kw: orig(q.detach(), k, v, **kw)
+    try:
+        _, bad = grads("auto")
+    finally:
+        llama.attention = orig
+    # bf16 model: the two attentions round at other points (the kernels
+    # round P and dS to bf16, the reference its normalized probabilities),
+    # and that reaches every gradient through the residual stream
+    tol = 5e-2
+    errs = {n: rel_rms(g, w) for n, g, w in zip(names, got, want)}
+    bad_errs = {n: rel_rms(g, w) for n, g, w in zip(names, bad, want)}
+    emit("grad", config="llama3_8b", n_layers=depth, tokens=[2, 2049],
+         loss=float(loss.detach()), reference_loss=float(ref_loss.detach()),
+         launches=counts, rel_rms_err=errs, tol=tol,
+         q_detached_rel_rms_err=bad_errs)
+    if max(errs.values()) > tol or max(bad_errs.values()) <= tol:
+        raise AssertionError(
+            f"gradient rel err {errs} vs tol {tol}; the detached-q control "
+            f"must exceed it: {bad_errs}")
+    for t in leaves:
+        t.requires_grad_(False)
+
+
+def check_train(torch, cfg, params, peaks):
+    """The trainer on llama3_8b() at full width and depth, bf16, with the
+    fused loss: 6 steps on one repeated [2, 2049] batch, then one step
+    under remat "attn". Returns the launch counts of one step under each
+    policy."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    b, s, steps = 2, 2048, 6
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(fused_loss=True, loss_chunk=1024,
+                                       warmup_steps=1))
+    state = TrainState.create(params, trainer.optimizer)
+    # parameters, gradients and the two moments, all in the params' dtype
+    state_bytes = 4 * sum(t.numel() * t.element_size()
+                          for _, t in named_leaves(params))
+    batch = train_batch(cfg, b, s, SEED + 4)
+    losses, times, norms = [], [], []
+    for i in range(steps):
+        if i == steps - 1:
+            zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))   # synchronizes
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    full_counts = launch_counts()
+    trainer.model_cfg = dataclasses.replace(cfg, remat="attn")
+    zero_counts()
+    state, m = trainer.train_step(state, batch)
+    attn_loss = float(m["loss"])
+    attn_counts = launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want_full = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want_attn = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    step_s = float(np.median(times[1:]))
+    # matmul parameters: the blocks' seven matrices and the LM head
+    n_matmul = sum(params["blocks"][k].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + llama.lm_head_weights(cfg, params).numel()
+    pairs = s * (s + 1) // 2
+    flops = 6.0 * n_matmul * b * s + \
+        12.0 * L * b * cfg.n_heads * cfg.head_dim * pairs
+    emit("train", config="llama3_8b", n_layers=L, depth_cut=None,
+         tokens=[b, s + 1], remat=cfg.remat, fused_loss=True,
+         loss_chunk=1024, steps=steps, losses=losses, grad_norms=norms,
+         step_s=times, median_step_s=step_s, tokens_per_s=b * s / step_s,
+         flops_per_step=flops, mfu=flops / step_s / peaks[0],
+         peak_memory_bytes=peak_bytes, state_bytes=state_bytes,
+         launches_full=full_counts, launches_attn=attn_counts,
+         attn_step_loss=attn_loss)
+    first_ok = abs(losses[0] - float(np.log(cfg.vocab_size))) < 1.0
+    if not (all(np.isfinite(losses + [attn_loss])) and first_ok
+            and losses[-1] < losses[1]):
+        raise AssertionError(f"training losses {losses} (first should be "
+                             f"near ln(vocab) {np.log(cfg.vocab_size):.2f} "
+                             "and the last below the second)")
+    if full_counts != want_full or attn_counts != want_attn:
+        raise AssertionError(
+            f"launches in one step: full {full_counts} (want {want_full}), "
+            f"attn {attn_counts} (want {want_attn})")
+    return full_counts, attn_counts
+
+
 def main() -> int:
     import torch
 
@@ -465,16 +828,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    path = _kernels.build()
-    log = path.with_suffix(".log")
-    log = log.read_text() if log.exists() else ""
-    ptxas = sorted({ln.split("info    :")[-1].strip()
-                    for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln})
-    emit("build", seconds=time.perf_counter() - t0, library=path.name,
-         ptxas=ptxas)
+    paths = _kernels.build()   # one nvcc per source, all together
+    ptxas = {}
+    for src, path in paths.items():
+        log = path.with_suffix(".log")
+        log = log.read_text() if log.exists() else ""
+        ptxas[src] = sorted({ln.split("info    :")[-1].strip()
+                             for ln in log.splitlines()
+                             if "Used" in ln or "spill" in ln})
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries=[p.name for p in paths.values()], ptxas=ptxas)
 
     main_case = check_flash(torch, peaks)
+    bwd_case = check_flash_bwd(torch, peaks)
 
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -482,23 +848,55 @@ def main() -> int:
     torch.cuda.synchronize()
     emit("init", config="llama3_8b", params=llama.num_params(params),
          seconds=time.perf_counter() - t0)
-    # main path: the forward (its count is zeroed right before its timed
-    # run and read right after), then the serving engine (its own count)
+    # main path, each part with its counts zeroed right before it and read
+    # right after: the forward, the serving engine, the gradient at depth
+    # 2, then the trainer at full depth (one step under each policy)
     launches = check_model(torch, cfg, params)
     check_lm_head(torch, cfg, params)
     check_serve(torch, cfg, params)
+    gc.collect()   # the engine and its KV pool
+    torch.cuda.empty_cache()
+    check_grad(torch, cfg, params)
+    full_counts, attn_counts = check_train(torch, cfg, params, peaks)
 
+    by_path = {k: {"forward": launches if k == "flash_fwd" else 0,
+                   "train_step_full": full_counts[k],
+                   "train_step_attn": attn_counts[k]}
+               for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
         "source": "ray_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash_attention.py:55",
-        "launches": launches,
+        "launches": full_counts["flash_fwd"],
+        "launches_by_path": by_path["flash_fwd"],
         "max_abs_err": main_case["max_err"], "tol": main_case["tol"],
+        "row_rel_err": main_case["row_rel_err"],
+        "row_rel_tol": main_case["row_rel_tol"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
     }]
+    errs = bwd_case["row_rel_err"]
+    for kernel, line, tag in (("flash_bwd_dq", 181, "dq"),
+                              ("flash_bwd_dkv", 224, "dkv")):
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": "ray_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": full_counts[kernel],
+            "launches_by_path": by_path[kernel],
+            "max_abs_err": bwd_case["max_abs_err"],
+            "row_rel_err": (errs["dq"] if tag == "dq"
+                            else max(errs["dk"], errs["dv"])),
+            "row_rel_tol": bwd_case["row_rel_tol"],
+            "ms": bwd_case[f"{tag}_kernel_ms"],
+            "plain_ms": bwd_case[f"{tag}_plain_ms"],
+            "bound_ms": bwd_case[f"{tag}_bound_ms"],
+            "bound_by": bwd_case[f"{tag}_bound_by"],
+            # SDPA's whole backward (dQ, dK and dV) in one call
+            "library_ms": bwd_case["library_ms"],
+        })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

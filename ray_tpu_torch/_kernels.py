@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``csrc/flash_fwd.cu`` compiles with ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``. It is built at first use into
-``_build/`` beside this file, named by a hash of its source and flags, so
-an edited source rebuilds and an unchanged one loads at once.
+Each source in ``csrc/`` (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and
+K3) compiles with ``nvcc`` into its own shared library with a plain C
+interface, loaded with ``ctypes``. A library is built at first use into
+``_build/`` beside this file, named by a hash of its source, the shared
+header and the flags, so an edited source rebuilds and an unchanged one
+loads at once. ``build()`` starts one ``nvcc`` per source, all together.
 
 Nothing here runs at import time: the CPU tests import every module, on
 hosts that may have neither ``nvcc`` nor a card.
@@ -19,21 +21,36 @@ import subprocess
 import threading
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_fwd.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+HEADERS = (CSRC / "mma_sync.cuh",)
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# rt_flash_fwd's arguments (ctypes cuts an undeclared pointer to 32 bits):
-# q, k, v, out, lse pointers; dtype, b, h, hk, sq, skv, d; the batch,
-# sequence and head strides of q, k, v and out; scale, causal, stream
+# ctypes cuts an undeclared pointer to 32 bits, so every entry point has
+# its argument types: pointers; dtype, b, h, hk, sq, skv, d; the batch,
+# sequence and head strides of each tensor; scale, causal, stream
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-FLASH_FWD_ARGTYPES = ([_P] * 5 + [_I] * 7 + [_LL] * 12
-                      + [ctypes.c_float, _I, _P])
+
+
+def _argtypes(n_ptr: int, n_strided: int) -> list:
+    return [_P] * n_ptr + [_I] * 7 + [_LL] * (3 * n_strided) + \
+        [ctypes.c_float, _I, _P]
+
+
+# source name -> {entry point: argtypes}
+SOURCES = {
+    # q, k, v, out, lse; strides of q, k, v, out
+    "flash_fwd": {"rt_flash_fwd": _argtypes(5, 4)},
+    # q, k, v, dout, lse, delta, dq (dk, dv); strides of q, k, v, dout,
+    # dq (dk, dv)
+    "flash_bwd": {"rt_flash_bwd_dq": _argtypes(7, 5),
+                  "rt_flash_bwd_dkv": _argtypes(8, 6)},
+}
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -52,42 +69,62 @@ def nvcc_path() -> str:
                        "to build the CUDA kernels")
 
 
-def lib_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libflash_fwd-{digest[:16]}.so"
+def source(name: str) -> Path:
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    return CSRC / f"{name}.cu"
 
 
-def build() -> Path:
-    """Compile the library unless it is built already, and return its
-    path. Raises with the compiler's output if the build fails. The
-    ``-Xptxas -v`` report (registers, shared memory, spills) is kept in
-    ``<lib>.log``."""
-    out = lib_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                          str(SOURCE)], capture_output=True, text=True)
-    log = res.stdout + res.stderr
-    out.with_suffix(".log").write_text(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
-    os.replace(tmp, out)
-    return out
+def lib_path(name: str) -> Path:
+    h = hashlib.sha256(source(name).read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
+def build(names=None) -> dict[str, Path]:
+    """Compile the libraries of ``names`` (default: every source) that are
+    not built yet, one ``nvcc`` per source, all started together, and
+    return their paths. Raises with the compiler's output if a build
+    fails. Each ``-Xptxas -v`` report (registers, shared memory, spills) is
+    kept in ``<lib>.log``."""
+    names = list(SOURCES) if names is None else list(names)
+    paths = {name: lib_path(name) for name in names}
+    todo = {name: path for name, path in paths.items() if not path.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        procs = {}
+        for name, out in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            todo[name].with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {source(name).name}:\n{log}")
+            else:
+                os.replace(tmp, todo[name])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name``, built first if needed."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.rt_flash_fwd.argtypes = FLASH_FWD_ARGTYPES
-            lib.rt_flash_fwd.restype = _I
-            _lib = lib
-        return _lib
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            for fn, argtypes in SOURCES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _I
+            _libs[name] = lib
+        return lib
 
 
 def check(err: int, what: str) -> None:

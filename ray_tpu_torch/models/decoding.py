@@ -190,6 +190,7 @@ def sample(logits, generator, params: SamplingParams):
 # Whole-batch generation (offline / eval path)
 # ---------------------------------------------------------------------------
 
+@torch.inference_mode()
 def generate(cfg, params, prompts, *, generator=None,
              sampling: SamplingParams | None = None,
              eos_id: int | None = None, pad_id: int = 0):

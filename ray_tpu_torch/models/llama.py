@@ -5,22 +5,43 @@ with JAX's stacked ``[L, ...]`` block layout, its names (``embedding``,
 ``blocks.wq``, ..., ``final_norm``, ``lm_head``) and its ``x @ W``
 orientation, so weights carry across name for name
 (``ray_tpu_torch.convert``). The ``lax.scan`` over layers is a Python loop
-over the layer index. Attention goes through ``ops.attention.attention``,
-which sends a CUDA tensor of a supported shape to the flash kernel.
+over the layers of ``torch.unbind``: each stacked weight is split once a
+forward, so the backward stacks the per-layer gradients in one
+allocation (indexing ``w[i]`` in the loop would make a zero-filled
+gradient the size of the whole stack for every layer). Attention goes
+through ``ops.attention.attention``, which sends a CUDA tensor of a
+supported shape to the flash kernels.
 
-Remat and the fused cross-entropy belong to the training slice and are not
-here yet.
+Remat (``LlamaConfig.remat``) maps JAX's ``jax.checkpoint`` policies onto
+``torch.utils.checkpoint`` per layer (``use_reentrant=False``):
+``full`` saves only the layer input; ``dots`` also saves the outputs of
+``aten.mm`` (the ``x @ W`` products with no batch dims, not the batched
+products of reference attention: JAX's
+``checkpoint_dots_with_no_batch_dims``); ``attn`` saves the flash
+operator's ``out`` and ``lse`` (or the reference path's ``attn_out``), so
+the backward never reruns the flash forward; ``dots_attn`` saves both.
+The selective policies go through
+``torch.utils.checkpoint.create_selective_checkpoint_contexts``.
+
+``fused_cross_entropy`` is JAX's chunked loss: the LM-head product and
+the log-sum-exp run one sequence chunk at a time and the backward
+recomputes each chunk's logits, so the ``[b, s, vocab]`` float32 logits
+never exist. ``param_logical_axes`` is not ported: there is no mesh.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._device import dtype_of, resolve_device
-from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.attention import ATTN_OUT_OP, attention
+from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_sin_cos
 
@@ -37,8 +58,8 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     rms_eps: float = 1e-5
     dtype: str = "bfloat16"
-    # kept for config parity with the JAX package; the inference slice
-    # saves no activations, so it reads no remat policy
+    # remat policy of each layer under autograd: none | full | dots |
+    # attn | dots_attn (see the module docstring)
     remat: str = "full"
     tie_embeddings: bool = False
 
@@ -131,6 +152,23 @@ def layer_params(params: dict, i: int) -> dict:
 # Forward
 # ---------------------------------------------------------------------------
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm`` with a float32 output type, which has no derivative of
+    its own: the backward rounds the float32 cotangent to the operands'
+    dtype and runs the two transposed products in that dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return g @ w.T, x.T @ g
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with a float32 result, for the LM head: the float32
     accumulator is written out as it is, never rounded to the operands'
@@ -138,8 +176,7 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     operands go to one GEMM with a float32 output type, with no float32
     copy of the head (2 GB at Llama-3-8B); elsewhere both widen first."""
     if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return x.float() @ w.float()
 
@@ -175,19 +212,52 @@ def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, *,
     return matmul_f32(x, lm_head_weights(cfg, params))
 
 
+def _block(cfg, x, p, sin, cos, segment_ids, attn_impl):
+    """One transformer block: pre-norm attention + SwiGLU MLP."""
+    x = attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl)
+    return mlp_sublayer(cfg, x, p)
+
+
+# operators whose outputs each selective remat policy saves
+_SAVED_OPS = {
+    "dots": (torch.ops.aten.mm.default,),
+    "attn": (FLASH_FWD_OP, ATTN_OUT_OP),
+    "dots_attn": (torch.ops.aten.mm.default, FLASH_FWD_OP, ATTN_OUT_OP),
+}
+REMAT_POLICIES = ("none", "full", *_SAVED_OPS)
+
+
+def remat_block(cfg, block):
+    """``block`` wrapped in the config's remat policy (a no-op when autograd
+    is off: nothing is saved then)."""
+    if cfg.remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {cfg.remat!r}; expected one "
+                         f"of {REMAT_POLICIES}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return block
+    if cfg.remat == "full":
+        return partial(checkpoint, block, use_reentrant=False)
+    return partial(checkpoint, block, use_reentrant=False,
+                   context_fn=partial(create_selective_checkpoint_contexts,
+                                      list(_SAVED_OPS[cfg.remat])))
+
+
 def forward_hidden(cfg, params, tokens, *, positions=None, segment_ids=None,
                    attn_impl="auto") -> torch.Tensor:
-    """Token ids -> final normalized hidden states [b, s, d]."""
+    """Token ids -> final normalized hidden states [b, s, d] (the input to
+    the LM head; split out so losses can fuse the head product)."""
     s = tokens.shape[1]
     x = params["embedding"][tokens]
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None, :]
     sin, cos = rope_sin_cos(positions, cfg.head_dim, theta=cfg.rope_theta)
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
-        x = attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl)
-        x = mlp_sublayer(cfg, x, p)
+    body = remat_block(cfg, partial(_block, cfg, sin=sin, cos=cos,
+                                    segment_ids=segment_ids,
+                                    attn_impl=attn_impl))
+    names = list(params["blocks"])
+    for ws in zip(*(torch.unbind(params["blocks"][n]) for n in names)):
+        x = body(x, dict(zip(names, ws)))
     return rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
 
 
@@ -195,6 +265,70 @@ def lm_head_weights(cfg, params) -> torch.Tensor:
     """The LM head matrix [d, vocab], honouring tie_embeddings."""
     return (params["embedding"].T if cfg.tie_embeddings
             else params["lm_head"])
+
+
+class _FusedCrossEntropy(torch.autograd.Function):
+    """Mean cross-entropy over rows x [n, d] against the head [d, vocab],
+    one chunk of rows at a time. The forward keeps each row's log-sum-exp
+    (n floats) and no logits; the backward recomputes a chunk's logits,
+    turns them into their gradient in place and runs the two transposed
+    products, summing the head's gradient over chunks in its own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, head, targets, mask, chunk, z_loss):
+        n = x.shape[0]
+        lse = torch.empty(n, dtype=torch.float32, device=x.device)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c0 in range(0, n, chunk):
+            c1 = min(c0 + chunk, n)
+            logits = matmul_f32(x[c0:c1], head)
+            lse[c0:c1] = torch.logsumexp(logits, dim=-1)
+            nll = lse[c0:c1] - logits.gather(1, targets[c0:c1, None])[:, 0]
+            if z_loss > 0.0:
+                nll = nll + z_loss * lse[c0:c1].square()
+            total += (nll * mask[c0:c1]).sum()
+        count = mask.sum().clamp(min=1.0)
+        ctx.save_for_backward(x, head, targets, mask, lse, count)
+        ctx.chunk, ctx.z_loss = chunk, z_loss
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, targets, mask, lse, count = ctx.saved_tensors
+        n = x.shape[0]
+        # d loss / d logits of row i = w_i ((1 + 2 z lse_i) softmax_i - onehot_i)
+        w = mask * (g / count)
+        dx = torch.empty_like(x)
+        dhead = torch.zeros_like(head)
+        for c0 in range(0, n, ctx.chunk):
+            c1 = min(c0 + ctx.chunk, n)
+            grad = matmul_f32(x[c0:c1], head)
+            grad.sub_(lse[c0:c1, None]).exp_()
+            coef = w[c0:c1] * (1.0 + 2.0 * ctx.z_loss * lse[c0:c1])
+            grad.mul_(coef[:, None])
+            rows = torch.arange(c1 - c0, device=x.device)
+            grad[rows, targets[c0:c1]] -= w[c0:c1]
+            grad = grad.to(x.dtype)
+            dx[c0:c1] = grad @ head.T
+            dhead.addmm_(x[c0:c1].T, grad)
+        return dx, dhead, None, None, None, None
+
+
+def fused_cross_entropy(cfg, params, hidden, targets, *, mask=None,
+                        chunk: int = 1024, z_loss: float = 0.0):
+    """Cross-entropy without the full [b, s, vocab] float32 logits: the
+    LM-head product and the log-sum-exp run per chunk of ``chunk`` rows,
+    and the backward recomputes them (about twice the head's FLOPs for
+    vocab / chunk times less logits memory). hidden [b, s, d] from
+    ``forward_hidden``; targets [b, s] int (-1 = padding); mask [b, s] in
+    {0, 1}, by default ``targets >= 0``."""
+    head = lm_head_weights(cfg, params)
+    n = hidden.shape[0] * hidden.shape[1]
+    flat = targets.reshape(n)
+    mk = ((flat >= 0) if mask is None else mask.reshape(n)).float()
+    return _FusedCrossEntropy.apply(hidden.reshape(n, -1), head,
+                                    flat.clamp(min=0).long(), mk, chunk,
+                                    float(z_loss))
 
 
 def cross_entropy_loss(logits, targets, *, mask=None,

@@ -1,9 +1,13 @@
 """Attention ops: GQA/MHA attention with float32 softmax.
 
 Port of ``ray_tpu/ops/attention.py``. ``reference_attention`` is plain
-tensor code; ``attention()`` dispatches to the hand-written flash kernel
+tensor code; ``attention()`` dispatches to the hand-written flash kernels
 (``ray_tpu_torch.ops.flash_attention``) by the same gate as the JAX
 package, with "the tensor is on CUDA" in place of "the backend is TPU".
+The reference path's output passes through ``attn_out``, the save point
+of the ``attn``/``dots_attn`` remat policies (JAX names it with
+``checkpoint_name(..., "attn_out")``); the flash path's save point is its
+forward operator, whose outputs are the backward's residuals.
 
 Conventions: q/k/v are [batch, seq, heads, head_dim]; GQA is expressed by
 n_kv_heads < n_heads with n_heads % n_kv_heads == 0.
@@ -16,6 +20,17 @@ import torch
 from ray_tpu_torch.ops.flash_attention import flash_attention
 
 F32_MIN = torch.finfo(torch.float32).min
+
+
+@torch.library.custom_op("ray_tpu_torch::attn_out", mutates_args=())
+def attn_out(x: torch.Tensor) -> torch.Tensor:
+    """The identity, as an operator that selective checkpointing can save
+    (an operator's output may not alias its input, hence the copy)."""
+    return x.clone()
+
+
+attn_out.register_autograd(lambda ctx, g: g)
+ATTN_OUT_OP = torch.ops.ray_tpu_torch.attn_out.default
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -78,9 +93,9 @@ def attention(q, k, v, *, causal=True, segment_ids=None,
         return flash_attention(q, k, v, causal=causal)
     if impl != "reference":
         raise ValueError(f"unknown attention impl {impl!r}")
-    return reference_attention(q, k, v, causal=causal,
-                               segment_ids=segment_ids,
-                               logits_soft_cap=logits_soft_cap)
+    return attn_out(reference_attention(q, k, v, causal=causal,
+                                        segment_ids=segment_ids,
+                                        logits_soft_cap=logits_soft_cap))
 
 
 def _flash_supported(q, segment_ids, logits_soft_cap, causal) -> bool:

@@ -1,27 +1,49 @@
-"""Flash attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels, their plain versions, and the
+gradient that joins them.
 
-Port of ``ray_tpu/ops/flash_attention.py``'s forward (the Pallas
-``_fwd_kernel``). Blocked attention with an online softmax: the running
-max, the denominator and the output accumulator are float32, the
-[seq, seq] logits never exist in device memory, and GQA reads kv head
-``h // n_rep`` with no repeat. The causal mask keeps ``k_pos <= q_pos``
-aligned at the TOP LEFT, as the TPU kernel does; this differs from
-``reference_attention``'s bottom-right mask when ``sq != skv``. A row with
-no visible key gets output 0 and lse -inf.
+Port of ``ray_tpu/ops/flash_attention.py``: the forward (the Pallas
+``_fwd_kernel``, K1), the dQ backward (``_bwd_dq_kernel``, K2) and the
+dK/dV backward (``_bwd_dkv_kernel``, K3), with the custom VJP
+(``_flash``) that runs the forward with its log-sum-exp, saves
+``(q, k, v, out, lse)`` and runs both backward kernels.
 
-- A CPU tensor goes to ``flash_fwd_plain``, a blocked loop in plain
-  PyTorch that computes what the kernel computes.
-- A CUDA tensor goes to the kernel (``csrc/flash_fwd.cu``, built at first
-  use by ``ray_tpu_torch._kernels``), or the call raises. There is no
-  fallback.
+- Forward: blocked attention with an online softmax. The running max, the
+  denominator and the output accumulator are float32, the [seq, seq]
+  logits never exist in device memory, and GQA reads kv head
+  ``h // n_rep`` with no repeat. The causal mask keeps ``k_pos <= q_pos``
+  aligned at the TOP LEFT, as the TPU kernel does; this differs from
+  ``reference_attention``'s bottom-right mask when ``sq != skv``. A row
+  with no visible key gets output 0 and lse -inf.
+- Backward: P = exp(S - lse) is recomputed block by block, and
+  delta = rowsum(dO * O) is a plain op before the kernels. dQ sums over
+  kv blocks; dK and dV sum over q blocks and over the whole GQA group, so
+  they come out kv-head shaped. P is rounded to dO's dtype before dV and
+  dS to K's (Q's) before dQ (dK), as on the TPU. A row with lse -inf gets
+  a zero gradient (JAX computes exp(-inf - -inf) = nan there; the
+  top-left causal mask never makes such a row).
 
-The kernel masks a ragged tail, so any sequence length works: a superset
+Each kernel has a wrapper (``flash_fwd``/``_forward``, ``flash_bwd_dq``,
+``flash_bwd_dkv``) that takes its plain version (``flash_fwd_plain``,
+``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``, blocked loops in plain
+PyTorch) for a CPU tensor, and for a CUDA tensor launches the kernel
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, built at first use by
+``ray_tpu_torch._kernels``) or raises. There is no fallback. Each wrapper
+counts its kernel launches in ``<wrapper>.launches``; ``flash_fwd.calls``
+counts the forward's runs on either device (the remat tests read it).
+
+The gradient: the forward and the backward are ``torch.library``
+operators (``ray_tpu_torch::flash_fwd``, ``ray_tpu_torch::flash_bwd``)
+joined by ``register_autograd``. Being operators, they are visible to
+selective activation checkpointing, which can then save ``out`` and
+``lse`` by name (the ``attn`` remat policies of ``models/llama.py``), so
+the backward never reruns K1. On the CPU the same seam runs the plain
+versions, so a CPU backward goes through the backward plain versions,
+not through autograd of the forward loop.
+
+The kernels mask ragged tails, so any sequence length works: a superset
 of what the JAX package accepts, which requires multiples of 128 or one
 whole-sequence block. ``block_q``/``block_k`` are TPU tiling arguments,
-kept in the signature and ignored; the kernel picks its own tiles.
-
-The backward kernels (dQ, dK/dV) are not ported yet; ``flash_fwd`` with
-``with_lse=True`` is the forward they will pair with.
+kept in the signature and ignored; the kernels pick their own tiles.
 """
 
 from __future__ import annotations
@@ -31,12 +53,17 @@ import torch
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte load
 _HEAD_DIMS = (64, 128, 256)
+_NEG_INF = float("-inf")
 
+
+# ---------------------------------------------------------------------------
+# Plain versions (kernel layout: q [b, h, sq, d], k and v [b, hk, skv, d])
+# ---------------------------------------------------------------------------
 
 def flash_fwd_plain(q, k, v, *, scale: float, causal: bool = True,
                     with_lse: bool = False, block_q: int = 64,
                     block_k: int = 64):
-    """The plain PyTorch version of the kernel, on the kernel layout:
+    """The plain PyTorch version of K1, on the kernel layout:
     q [b, h, sq, d], k and v [b, hk, skv, d]. Returns (out [b, h, sq, d] in
     q's dtype, lse [b, h, sq] float32 or None)."""
     b, h, sq, d = q.shape
@@ -81,6 +108,92 @@ def flash_fwd_plain(q, k, v, *, scale: float, causal: bool = True,
     return out, lse
 
 
+def _probs(s, lse, q_pos, k_pos, causal):
+    """P = exp(S - lse) under the top-left causal mask; a row with lse -inf
+    (no visible key) gets P = 0."""
+    if causal:
+        s = s.masked_fill(k_pos > q_pos, _NEG_INF)
+    lse = torch.where(lse == _NEG_INF, torch.full_like(lse, float("inf")),
+                      lse)
+    return torch.exp(s - lse)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
+                       causal: bool = True, block_q: int = 64,
+                       block_k: int = 64):
+    """The plain PyTorch version of K2: dQ [b, h, sq, d] in q's dtype from
+    q and dO [b, h, sq, d], k and v [b, hk, skv, d], lse and delta
+    [b, h, sq] float32."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    n_rep = h // k.shape[1]
+    kx = k.repeat_interleave(n_rep, dim=1)
+    vx = v.repeat_interleave(n_rep, dim=1).float()
+    dq = torch.empty_like(q)
+    for q0 in range(0, sq, block_q):
+        q1 = min(q0 + block_q, sq)
+        qb, dob = q[:, :, q0:q1].float(), do[:, :, q0:q1].float()
+        lb, db = lse[:, :, q0:q1, None], delta[:, :, q0:q1, None]
+        q_pos = torch.arange(q0, q1, device=q.device)[:, None]
+        acc = torch.zeros((b, h, q1 - q0, d), device=q.device)
+        for k0 in range(0, skv, block_k):
+            if causal and k0 > q1 - 1:
+                break
+            k1 = min(k0 + block_k, skv)
+            kb = kx[:, :, k0:k1]
+            s = (qb @ kb.float().transpose(-1, -2)) * scale
+            p = _probs(s, lb, q_pos,
+                       torch.arange(k0, k1, device=q.device)[None, :], causal)
+            dp = dob @ vx[:, :, k0:k1].transpose(-1, -2)
+            ds = p * (dp - db) * scale
+            acc += ds.to(k.dtype).float() @ kb.float()
+        dq[:, :, q0:q1] = acc.to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
+                        causal: bool = True, block_q: int = 64,
+                        block_k: int = 64):
+    """The plain PyTorch version of K3: (dK, dV) [b, hk, skv, d] in k's and
+    v's dtypes, each summed over the q heads of its GQA group."""
+    b, hk, skv, d = k.shape
+    h, sq = q.shape[1], q.shape[2]
+    n_rep = h // hk
+    # [b, hk, n_rep, s, ...]: q head hk * n_rep + r is group hk, member r
+    qg, dog = q.unflatten(1, (hk, n_rep)), do.unflatten(1, (hk, n_rep))
+    lg, dg = lse.unflatten(1, (hk, n_rep)), delta.unflatten(1, (hk, n_rep))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, skv, block_k):
+        k1 = min(k0 + block_k, skv)
+        kb = k[:, :, None, k0:k1].float()
+        vb = v[:, :, None, k0:k1].float()
+        k_pos = torch.arange(k0, k1, device=k.device)[None, :]
+        acc_k = torch.zeros((b, hk, k1 - k0, d), device=k.device)
+        acc_v = torch.zeros((b, hk, k1 - k0, d), device=k.device)
+        for q0 in range(0, sq, block_q):
+            q1 = min(q0 + block_q, sq)
+            if causal and q1 - 1 < k0:
+                continue   # the q block ends before this kv block starts
+            qb, dob = qg[:, :, :, q0:q1], dog[:, :, :, q0:q1]
+            s = (qb.float() @ kb.transpose(-1, -2)) * scale
+            p = _probs(s, lg[:, :, :, q0:q1, None],
+                       torch.arange(q0, q1, device=k.device)[:, None], k_pos,
+                       causal)
+            acc_v += (p.to(do.dtype).float().transpose(-1, -2)
+                      @ dob.float()).sum(dim=2)
+            dp = dob.float() @ vb.transpose(-1, -2)
+            ds = p * (dp - dg[:, :, :, q0:q1, None]) * scale
+            acc_k += (ds.to(q.dtype).float().transpose(-1, -2)
+                      @ qb.float()).sum(dim=2)
+        dk[:, :, k0:k1] = acc_k.to(k.dtype)
+        dv[:, :, k0:k1] = acc_v.to(v.dtype)
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     """``x`` itself when the kernel's 16-byte loads can read it (head dim
     contiguous, strides and address aligned), else an aligned copy."""
@@ -91,89 +204,218 @@ def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(q, k, v, out, lse, *, seq_dim: int, head_dim: int,
-            scale: float, causal: bool):
-    """Launch the CUDA kernel on 4-d tensors whose sequence and head axes
-    are ``seq_dim`` and ``head_dim`` (the last axis is the head dim)."""
-    from ray_tpu_torch import _kernels
-
-    for name, x in (("k", k), ("v", v)):
+def _check_operands(what, q, k, v, *more):
+    """Raise on what the kernels do not take: other devices or dtypes
+    than q's, a dtype other than float32/bfloat16, a head dim outside
+    (64, 128, 256), q heads not a multiple of kv heads (kernel layout)."""
+    for name, x in (("k", k), ("v", v), *more):
         if x.device != q.device or x.dtype != q.dtype:
-            raise ValueError(f"flash_fwd: {name} must match q's device and "
+            raise ValueError(f"{what}: {name} must match q's device and "
                              f"dtype, got {x.device}/{x.dtype}")
     if q.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash_fwd kernel takes float32 or bfloat16, "
+        raise ValueError(f"{what} kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
     d = q.shape[-1]
     if d not in _HEAD_DIMS or k.shape[-1] != d or v.shape != k.shape:
-        raise ValueError(f"flash_fwd kernel takes head_dim in {_HEAD_DIMS} "
+        raise ValueError(f"{what} kernel takes head_dim in {_HEAD_DIMS} "
                          f"and matching k/v, got q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    b, h, hk = q.shape[0], q.shape[head_dim], k.shape[head_dim]
-    if h % hk:
-        raise ValueError(f"flash_fwd: {h} q heads not a multiple of {hk} "
-                         "kv heads")
-    sq, skv = q.shape[seq_dim], k.shape[seq_dim]
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"{what}: {q.shape[1]} q heads not a multiple of "
+                         f"{k.shape[1]} kv heads")
+
+
+def _strides(x):
+    """Batch, sequence and head strides of a kernel-layout tensor."""
+    return (x.stride(0), x.stride(2), x.stride(1))
+
+
+def _shape_args(q, k):
+    b, h, sq, d = q.shape
+    return (_KERNEL_DTYPES[q.dtype], b, h, k.shape[1], sq, k.shape[2], d)
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, out, lse, *, scale: float, causal: bool):
+    from ray_tpu_torch import _kernels
+
+    _check_operands("flash_fwd", q, k, v)
     q, k, v = _kernel_operand(q), _kernel_operand(k), _kernel_operand(v)
-
-    def strides(x):
-        return (x.stride(0), x.stride(seq_dim), x.stride(head_dim))
-
-    lib = _kernels.load()
+    lib = _kernels.load("flash_fwd")
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.rt_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            _KERNEL_DTYPES[q.dtype], b, h, hk, sq, skv, d,
-            *strides(q), *strides(k), *strides(v), *strides(out),
-            float(scale), int(causal), stream)
+            lse.data_ptr() if lse is not None else None, *_shape_args(q, k),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+            float(scale), int(causal), _stream(q))
     _kernels.check(err, "flash_fwd kernel launch")
     flash_fwd.launches += 1
+
+
+def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
+    """One run of the forward: K1 on CUDA, its plain version on the CPU.
+    ``out`` takes q's layout, so a transposed [b, s, h, d] view gives an
+    output that is contiguous as [b, s, h, d]."""
+    flash_fwd.calls += 1
+    if q.device.type == "cpu":
+        return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
+                               with_lse=with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd: unsupported device {q.device}")
+    out = torch.empty_like(q)
+    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    _launch_fwd(q, k, v, out, lse, scale=scale, causal=causal)
+    return out, lse
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
+                 causal: bool = True):
+    """K2 on the kernel layout: dQ from q, dO [b, h, sq, d], k, v
+    [b, hk, skv, d] and float32 lse, delta [b, h, sq]."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                                  causal=causal)
+    from ray_tpu_torch import _kernels
+
+    _check_operands("flash_bwd_dq", q, k, v, ("do", do))
+    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
+    dq = torch.empty_like(q)
+    lib = _kernels.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.rt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_shape_args(q, k), *_strides(q), *_strides(k), *_strides(v),
+            *_strides(do), *_strides(dq), float(scale), int(causal),
+            _stream(q))
+    _kernels.check(err, "flash_bwd_dq kernel launch")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
+                  causal: bool = True):
+    """K3 on the kernel layout: (dK, dV) [b, hk, skv, d], summed over each
+    kv head's group of q heads."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                   causal=causal)
+    from ray_tpu_torch import _kernels
+
+    _check_operands("flash_bwd_dkv", q, k, v, ("do", do))
+    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _kernels.load("flash_bwd")
+    with torch.cuda.device(q.device):
+        err = lib.rt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_shape_args(q, k), *_strides(q), *_strides(k), *_strides(v),
+            *_strides(do), *_strides(dk), *_strides(dv), float(scale),
+            int(causal), _stream(q))
+    _kernels.check(err, "flash_bwd_dkv kernel launch")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+# kernel launches since the last reset (the plain versions never count)
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd(q, k, v, out, lse, do, *, scale: float, causal: bool = True):
+    """The backward on the kernel layout, the counterpart of JAX's
+    ``_flash_bwd``: (dq, dk, dv) from the forward's inputs, its output and
+    lse, and the output's cotangent ``do``. delta = rowsum(dO * O) is a
+    plain op; K2 and K3 do the rest. Ring attention calls this with
+    ``causal=False`` off the diagonal."""
+    do = do.to(q.dtype)
+    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
+    lse = lse.contiguous()
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, causal=causal)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
+                           causal=causal)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# The differentiable forward: two operators joined by register_autograd
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float, causal: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    return _forward(q, k, v, scale, causal, True)
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                  scale: float, causal: bool
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return flash_bwd(q, k, v, out, lse, do, scale=scale, causal=causal)
+
+
+def _flash_setup_context(ctx, inputs, output):
+    q, k, v, scale, causal = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.scale, ctx.causal = scale, causal
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_op(q, k, v, out, lse, dout, ctx.scale,
+                               ctx.causal)
+    return dq, dk, dv, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_backward,
+                                setup_context=_flash_setup_context)
+
+# the operator overload that selective checkpointing saves (its outputs
+# are out and lse: the backward's residuals)
+FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_fwd.default
+
+
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def flash_fwd(q, k, v, *, scale: float | None = None, causal: bool = True,
               with_lse: bool = False):
     """Flash forward on the kernel layout: q [b, h, sq, d], k and v
     [b, hk, skv, d]. Returns (out [b, h, sq, d] in q's dtype, lse
-    [b, h, sq] float32 when ``with_lse`` else None). This is the entry the
-    training backward and ring attention call."""
+    [b, h, sq] float32 when ``with_lse`` else None). Differentiable in
+    q, k and v (lse is not); a call that needs no gradient runs the
+    forward alone."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
-                               with_lse=with_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd: unsupported device {q.device}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = (torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    _launch(q, k, v, out, lse, seq_dim=2, head_dim=1, scale=scale,
-            causal=causal)
-    return out, lse
+    if _needs_grad(q, k, v):
+        out, lse = _flash_fwd_op(q, k, v, float(scale), bool(causal))
+        return out, (lse if with_lse else None)
+    return _forward(q, k, v, scale, causal, with_lse)
 
 
-# kernel launches since the last reset (the plain version never counts)
+# K1 launches and forward runs (either device) since the last reset
 flash_fwd.launches = 0
+flash_fwd.calls = 0
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, block_q: int | None = None,
                     block_k: int | None = None):
     """Flash attention on [batch, seq, heads, head_dim] (the layout of
-    ``reference_attention``); returns [batch, seq, heads, head_dim]. On
-    CUDA the kernel reads this layout through strides, with no transpose.
-    ``block_q``/``block_k`` are accepted for the JAX signature and
-    ignored."""
+    ``reference_attention``); returns [batch, seq, heads, head_dim],
+    differentiable in q, k and v. The kernels read this layout through
+    strides, with no transpose. ``block_q``/``block_k`` are accepted for
+    the JAX signature and ignored."""
     del block_q, block_k
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        out, _ = flash_fwd_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), scale=scale,
-                                 causal=causal)
-        return out.transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, None, seq_dim=1, head_dim=2, scale=scale,
-            causal=causal)
-    return out
+    out, _ = flash_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), scale=scale, causal=causal)
+    return out.transpose(1, 2)

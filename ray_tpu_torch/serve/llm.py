@@ -229,6 +229,7 @@ class LLMEngine:
 
     # -- device programs ---------------------------------------------------
 
+    @torch.inference_mode()
     def _decode_impl(self, tokens, lengths, active, temps, *, chunk):
         """``chunk`` decode steps over every slot; returns the
         [chunk, max_batch] token matrix, the advanced lengths (kept on the
@@ -247,6 +248,7 @@ class LLMEngine:
         toks = torch.stack(toks)
         return toks, lens, torch.where(active, toks[-1], tokens)
 
+    @torch.inference_mode()
     def _prefill_batch_impl(self, tokens, plens, slots, temps):
         """Prefill ``n`` prompts (one bucket, padded) into cache rows
         ``slots`` and sample each row's first token. Rows are gathered,

@@ -228,6 +228,7 @@ class PagedLLMEngine(LLMEngine):
 
     # -- device programs ---------------------------------------------------
 
+    @torch.inference_mode()
     def _paged_decode_impl(self, table, tokens, lengths, active, temps, *,
                            chunk):
         """``chunk`` decode steps over every slot through the (bucketed)
@@ -244,6 +245,7 @@ class PagedLLMEngine(LLMEngine):
         toks = torch.stack(toks)
         return toks, lens, torch.where(active, toks[-1], tokens)
 
+    @torch.inference_mode()
     def _paged_prefill_impl(self, table_rows, tokens, slens, starts, temps):
         logits = paged_prefill_logits(
             self.cfg, self.params, self._pools, table_rows, tokens, slens,

@@ -1,0 +1,176 @@
+"""Trainer: the training step of the Llama family on one card.
+
+Port of ``ray_tpu/train/trainer.py`` (``JaxTrainer``) for one device:
+``TrainConfig`` keeps the same fields and defaults, and ``Trainer`` keeps
+its surface (``init_state``, ``train_step``, ``fit``, the ``loss_fn``
+hook, ``fused_loss`` and ``loss_chunk``). Where JAX jit-compiles one SPMD
+step over a mesh and donates the state, the port runs eagerly on one
+card and updates the state's tensors in place: the gradients come from
+``torch.autograd.grad``, and the optimizer (``train.optim.AdamW``, the
+same recipe as JAX's optax chain) updates one tensor at a time. A mesh,
+strategy or microbatch count that needs more than one card raises
+``NotImplementedError``: the multi-card harness is not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models import llama
+from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
+                                       warmup_cosine_decay_schedule)
+from ray_tpu_torch.train.state import TrainState
+
+# the JAX package's sharding presets (ray_tpu/parallel/sharding.py); on one
+# card every one of them places the whole state on that card
+STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_sp", "moe", "pp_fsdp")
+
+
+@dataclass
+class TrainConfig:
+    """Scaling and optimization config (the fields of the JAX package's
+    ``TrainConfig``; the scaling fields must describe one card)."""
+
+    mesh_axes: dict = field(default_factory=lambda: {"dp": -1})
+    strategy: str = "fsdp"
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    max_grad_norm: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    # JAX donates the old state to the step; the port updates it in place
+    donate_state: bool = True
+    # chunked cross-entropy that never holds the [B, S, vocab] float32
+    # logits (llama.fused_cross_entropy)
+    fused_loss: bool = False
+    loss_chunk: int = 1024
+    # pipeline microbatches: more than one needs a pipeline over cards
+    n_microbatches: int | None = None
+
+
+def _check_one_card(cfg: TrainConfig) -> None:
+    if not isinstance(cfg.strategy, str):
+        raise NotImplementedError(
+            "sharding rules need a mesh of cards; the port trains on one "
+            "card (pass a preset name)")
+    if cfg.strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "
+                         f"of {STRATEGIES}")
+    wide = {ax: n for ax, n in cfg.mesh_axes.items() if n not in (1, -1)}
+    if wide:
+        raise NotImplementedError(
+            f"mesh axes {wide} need more than one card; the port trains on "
+            "one card (the multi-card harness is not ported yet)")
+    if cfg.n_microbatches not in (None, 1):
+        raise NotImplementedError(
+            f"n_microbatches={cfg.n_microbatches} needs a pipeline over "
+            "cards; the port trains on one card")
+
+
+def make_optimizer(cfg: TrainConfig) -> AdamW:
+    """AdamW + warmup-cosine schedule + global-norm clip, the Llama recipe
+    (``JaxTrainer._make_optimizer``)."""
+    schedule = warmup_cosine_decay_schedule(
+        init_value=0.0, peak_value=cfg.learning_rate,
+        warmup_steps=cfg.warmup_steps,
+        decay_steps=max(cfg.total_steps, cfg.warmup_steps + 1),
+        end_value=cfg.learning_rate * 0.1)
+    return AdamW(schedule, max_grad_norm=cfg.max_grad_norm, b1=cfg.b1,
+                 b2=cfg.b2, weight_decay=cfg.weight_decay)
+
+
+class Trainer:
+    """Single-card trainer of a Llama-family model.
+
+    Usage::
+
+        trainer = Trainer(llama.llama3_8b(), TrainConfig())
+        state = trainer.init_state(seed=0)
+        state, metrics = trainer.train_step(state, batch)  # [B, S+1] tokens
+    """
+
+    def __init__(self, model_cfg, cfg: TrainConfig, *,
+                 loss_fn: Callable | None = None, device="cuda"):
+        """``loss_fn(model_cfg, params, batch) -> scalar`` overrides the
+        default next-token cross-entropy."""
+        if not isinstance(model_cfg, llama.LlamaConfig):
+            raise TypeError(f"unsupported model config "
+                            f"{type(model_cfg).__name__}; the port has the "
+                            "llama family only")
+        _check_one_card(cfg)
+        if loss_fn is not None and cfg.fused_loss:
+            raise ValueError("custom loss_fn cannot combine with fused_loss "
+                             "(both own the loss computation)")
+        self.model_cfg = model_cfg
+        self.cfg = cfg
+        self.loss_fn = loss_fn
+        self.device = resolve_device(device)
+        self.optimizer = make_optimizer(cfg)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        params = llama.init_params(self.model_cfg, seed=seed,
+                                   device=self.device)
+        return TrainState.create(params, self.optimizer)
+
+    def _loss_fn(self, params, batch):
+        if self.loss_fn is not None:
+            return self.loss_fn(self.model_cfg, params, batch)
+        inputs, targets = batch[:, :-1], batch[:, 1:]
+        mask = (targets != -1).float()
+        if self.cfg.fused_loss:
+            hidden = llama.forward_hidden(self.model_cfg, params, inputs)
+            return llama.fused_cross_entropy(
+                self.model_cfg, params, hidden, targets, mask=mask,
+                chunk=self.cfg.loss_chunk)
+        logits = llama.forward(self.model_cfg, params, inputs)
+        return llama.cross_entropy_loss(logits, targets.clamp(min=0),
+                                        mask=mask)
+
+    def _to_device(self, batch):
+        if isinstance(batch, dict):
+            return {k: self._to_device(v) for k, v in batch.items()}
+        return torch.as_tensor(np.asarray(batch) if not
+                               isinstance(batch, torch.Tensor) else batch,
+                               device=self.device)
+
+    def train_step(self, state: TrainState, batch):
+        """One optimization step, in place on ``state``. ``batch``: int
+        [B, S+1] tokens (the last column is the shifted target; -1 =
+        padding), or, with a custom ``loss_fn``, any dictionary of arrays.
+        Returns ``(state, {"loss", "grad_norm", "step"})``; loss and
+        grad_norm (before clipping) are float32 scalars on the card."""
+        batch = self._to_device(batch)
+        leaves = tree_leaves(state.params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = self._loss_fn(state.params, batch)
+        # a parameter the loss does not use gets a zero gradient, as jax.grad
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        gnorm = self.optimizer.update(leaves, list(grads), state.opt_state)
+        del grads
+        state.step += 1
+        return state, {"loss": loss.detach(), "grad_norm": gnorm,
+                       "step": state.step}
+
+    def fit(self, state: TrainState, data_iter, *, steps: int,
+            log_every: int = 10, callback: Callable | None = None):
+        history = []
+        t0 = time.perf_counter()
+        for i in range(steps):
+            state, metrics = self.train_step(state, next(data_iter))
+            if (i + 1) % log_every == 0 or i == steps - 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["steps_per_s"] = (i + 1) / (time.perf_counter() - t0)
+                history.append(m)
+                if callback:
+                    callback(m)
+        return state, history

@@ -54,6 +54,9 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
         ray_tpu_torch.__path__)}
     assert expected <= set(out["modules"])
     assert "ray_tpu_torch.serve.paged_llm" in out["modules"]
+    for name in ("train.trainer", "train.state", "train.checkpoint",
+                 "train.optim"):
+        assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
     assert out["cuda_initialized"] is False
