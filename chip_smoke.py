@@ -6,8 +6,12 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version at the shapes the main path gives it, then drives
+``nvcc`` per source, all started together), checks that K1's binary is the
+Hopper design (wgmma and TMA instructions in its SASS, no spill, no ptxas
+note that setmaxnreg was ignored or wgmma serialized), holds each kernel
+against its plain PyTorch version at the shapes the main path gives it
+(K1 timed by CUDA-graph replay, as its wrapper's host work per call
+exceeds the kernel's time on the card), then drives
 the main path at the full width of Llama-3-8B with seeded random weights:
 the full 32-layer forward over 2048 tokens, the paged serving engine
 answering 10 requests, the model's gradient through the flash kernels at
@@ -66,6 +70,37 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_graph_ms(fn, iters: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls captured in
+    one CUDA graph and replayed three times: the card's time with no host
+    in the loop. A kernel that takes less time than its Python wrapper's
+    host work is otherwise timed by the host (cuda_ms). Two warm-up calls
+    run on a side stream first, as capture requires."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
 
 
 def attention_bound(b, h, hk, sq, skv, d, causal, itemsize, with_lse,
@@ -175,7 +210,8 @@ def check_flash_controls(torch, qt, kt, vt, want, tol):
 
 def check_flash(torch, peaks):
     """Hold the flash kernel against its plain version. Returns the main
-    path's case (the Llama-3-8B attention shape, no lse)."""
+    path's case (the Llama-3-8B attention shape, no lse) and the training
+    step's (b 2, with lse)."""
     from ray_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_fwd,
                                                    flash_fwd_plain)
@@ -196,8 +232,18 @@ def check_flash(torch, peaks):
          True),
         ("llama3_8b_noncausal", 1, 32, 8, 2048, 2048, 128, torch.bfloat16,
          False, False),
+        # the training step's shape: b 2, with lse
+        ("llama3_8b_train", 2, 32, 8, 2048, 2048, 128, torch.bfloat16, True,
+         True),
         ("d64_gqa1", 2, 8, 8, 1024, 1024, 64, torch.bfloat16, True, True),
         ("d256_gqa2", 1, 4, 2, 1024, 1024, 256, torch.bfloat16, True, True),
+        # edge cases: ragged tails, sq != skv, a short d 256
+        ("ragged_d128", 1, 2, 2, 200, 200, 128, torch.bfloat16, True, True),
+        ("noncausal_ragged_d64", 1, 2, 1, 333, 333, 64, torch.bfloat16,
+         False, True),
+        ("d256_small", 1, 2, 1, 384, 384, 256, torch.bfloat16, True, True),
+        ("sq_lt_skv", 1, 4, 2, 128, 300, 128, torch.bfloat16, True, True),
+        ("sq_gt_skv", 1, 4, 2, 300, 100, 64, torch.bfloat16, True, True),
         ("f32_small", 1, 4, 2, 384, 384, 128, torch.float32, True, True),
         ("f32_ragged_d256", 1, 2, 1, 200, 200, 256, torch.float32, True,
          True),
@@ -240,22 +286,32 @@ def check_flash(torch, peaks):
         else:
             def kernel():
                 flash_attention(q, k, v, causal=causal)
-        kernel_ms = cuda_ms(kernel, 20)
+        # device time by graph replay; the loop of wrapper calls beside it
+        # shows where the host's work per call exceeds the kernel's
+        kernel_ms = cuda_graph_ms(kernel, 20)
+        kernel_loop_ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(lambda: flash_fwd_plain(
             qt, kt, vt, scale=scale, causal=causal, with_lse=with_lse), 2)
-        # library yardstick only; the port never calls it
-        kr = kt.repeat_interleave(h // hk, dim=1)
-        vr = vt.repeat_interleave(h // hk, dim=1)
-        library_ms = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kr, vr, is_causal=causal), 20)
+        # library yardstick only; the port never calls it (at the training
+        # shape with SDPA's own GQA, elsewhere on repeated kv heads)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if name == "llama3_8b_train":
+            kr, vr = kt, vt
+            library_ms = cuda_graph_ms(lambda: sdpa(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+        else:
+            kr = kt.repeat_interleave(h // hk, dim=1)
+            vr = vt.repeat_interleave(h // hk, dim=1)
+            library_ms = cuda_graph_ms(
+                lambda: sdpa(qt, kr, vr, is_causal=causal), 20)
         bound_ms, bound_by, flops, nbytes = attention_bound(
             b, h, hk, sq, skv, d, causal, q.element_size(), with_lse, peaks)
         row = dict(case=name, shape=[b, h, hk, sq, skv, d], dtype=str(dt),
                    causal=causal, with_lse=with_lse, max_err=err,
                    tol=abs_tol[dt], row_rel_err=rel, row_rel_tol=row_tol[dt],
                    lse_err=lse_err, lse_tol=lse_tol,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   kernel_ms=kernel_ms, kernel_loop_ms=kernel_loop_ms,
+                   plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms,
                    bound_by=bound_by, gflop=flops / 1e9,
                    mbytes=nbytes / 1e6,
@@ -263,8 +319,10 @@ def check_flash(torch, peaks):
         emit("kernel_check", **row)
         if main is None:
             main = row
+        if name == "llama3_8b_train":
+            train = row
         del q, k, v, qt, kt, vt, kr, vr, want, want_lse, got
-    return main
+    return main, train
 
 
 def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
@@ -801,6 +859,44 @@ def check_train(torch, cfg, params, peaks):
     return full_counts, attn_counts
 
 
+def k1_build_facts(kernels_mod, path) -> dict:
+    """What the card runs for K1, from the flash_fwd library: its SASS
+    counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions, and for
+    each bf16 instance (one per head dim) the registers and spill bytes
+    ptxas reported. Raises if the design did not make it into the binary:
+    no HGMMA or UTMALDG, a spill in a bf16 instance, setmaxnreg ignored
+    (C7508), or a wgmma serialized (C75xx "serialized")."""
+    import re
+
+    log = path.with_suffix(".log").read_text()
+    sass = kernels_mod.sass("flash_fwd")
+    facts = {"HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
+             "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass)),
+             "instances": {}, "ptxas_notes": []}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            d = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", m.group(1))
+            current = f"bf16_d{d.group(1)}" if d else None
+            if current:
+                facts["instances"][current] = {}
+        elif current and "spill stores" in line:
+            facts["instances"][current]["spill_bytes"] = sum(
+                int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif current and "Used" in line:
+            facts["instances"][current]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        if "setmaxnreg ignored" in line or re.search(r"\(C75\d\d\)", line):
+            facts["ptxas_notes"].append(line.split("info    :")[-1].strip()[:200])
+    bad = [f"{k} {v}" for k, v in facts["instances"].items()
+           if v.get("spill_bytes", 1) != 0]
+    if facts["HGMMA"] == 0 or facts["UTMALDG"] == 0 or bad or \
+            len(facts["instances"]) != 3 or facts["ptxas_notes"]:
+        raise AssertionError(f"K1's build is not the Hopper design: {facts}")
+    return facts
+
+
 def main() -> int:
     import torch
 
@@ -836,10 +932,12 @@ def main() -> int:
         ptxas[src] = sorted({ln.split("info    :")[-1].strip()
                              for ln in log.splitlines()
                              if "Used" in ln or "spill" in ln})
+    k1_facts = k1_build_facts(_kernels, paths["flash_fwd"])
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in paths.values()], ptxas=ptxas)
+         libraries=[p.name for p in paths.values()], ptxas=ptxas,
+         flash_fwd=k1_facts)
 
-    main_case = check_flash(torch, peaks)
+    main_case, train_case = check_flash(torch, peaks)
     bwd_case = check_flash_bwd(torch, peaks)
 
     cfg = llama.llama3_8b()
@@ -876,6 +974,12 @@ def main() -> int:
         "plain_ms": main_case["plain_ms"], "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+        "tflops": main_case["tflops"],
+        # b 2, s 2048, with lse: the shape of the training step's launches
+        "train_shape": {k: train_case[k] for k in (
+            "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops", "max_err", "row_rel_err", "lse_err")},
+        "sass": {k: k1_facts[k] for k in ("HGMMA", "UTMALDG")},
     }]
     errs = bwd_case["row_rel_err"]
     for kernel, line, tag in (("flash_bwd_dq", 181, "dq"),

@@ -3,9 +3,15 @@
 Each source in ``csrc/`` (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and
 K3) compiles with ``nvcc`` into its own shared library with a plain C
 interface, loaded with ``ctypes``. A library is built at first use into
-``_build/`` beside this file, named by a hash of its source, the shared
-header and the flags, so an edited source rebuilds and an unchanged one
-loads at once. ``build()`` starts one ``nvcc`` per source, all together.
+``_build/`` beside this file, named by a hash of its source, every shared
+header (``HEADERS``: ``common.cuh``, what every source uses;
+``hopper.cuh``, the Hopper TMA, mbarrier and wgmma helpers;
+``mma_sync.cuh``, the ``mma.sync`` ones) and the flags, so an
+edited source or header rebuilds and an unchanged one loads at once.
+``build()`` starts one ``nvcc`` per source, all together. The libraries
+link nothing beyond the CUDA runtime: ``cuTensorMapEncodeTiled`` is
+looked up at run time through the runtime's entry-point query, so no
+``-lcuda``.
 
 Nothing here runs at import time: the CPU tests import every module, on
 hosts that may have neither ``nvcc`` nor a card.
@@ -23,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-HEADERS = (CSRC / "mma_sync.cuh",)
+# every header under csrc/, by name: each is part of every library's hash
+HEADERS = ("common.cuh", "hopper.cuh", "mma_sync.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -76,9 +83,11 @@ def source(name: str) -> Path:
 
 
 def lib_path(name: str) -> Path:
+    """The library of source ``name``: ``_build/lib<name>-<hash>.so``, the
+    hash over the source, every header and the flags."""
     h = hashlib.sha256(source(name).read_bytes())
     for header in HEADERS:
-        h.update(header.read_bytes())
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -127,7 +136,23 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def sass(name: str) -> str:
+    """The SASS of source ``name``'s built library (``cuobjdump -sass``,
+    from nvcc's toolkit): what the card runs, to count its instructions."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(build([name])[name])],
+                          capture_output=True, text=True, check=True).stdout
+
+
+# hopper.cuh's kTensorMapError: a failed tensor-map encode returns it plus
+# cuTensorMapEncodeTiled's CUresult
+TENSOR_MAP_ERROR = 1 << 20
+
+
 def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+    """Raise if a C entry point returned an error code."""
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what} failed: tensor map encode returned "
+                           f"CUresult {err - TENSOR_MAP_ERROR}")
     if err != 0:
         raise RuntimeError(f"{what} failed with CUDA error {err}")

@@ -1,15 +1,15 @@
-// Device helpers shared by the flash-attention kernels (flash_fwd.cu and
-// flash_bwd.cu): cp.async copies into shared memory, ldmatrix fragment
-// loads and the bf16 mma.sync m16n8k16 tensor-core product.
+// Device helpers of the mma.sync kernels (flash_bwd.cu): cp.async copies
+// into shared memory, ldmatrix fragment loads and the bf16 mma.sync
+// m16n8k16 tensor-core product.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "common.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem, bool valid) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -39,11 +39,6 @@ __device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // The A fragment of one 16-wide k step from the accumulator fragments of
 // two adjacent 8-wide n-tiles (a score tile reused as the left operand of
 // the next product), rounded to bf16.
@@ -52,16 +47,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
   a[1] = pack_bf16(lo[2], lo[3]);
   a[2] = pack_bf16(hi[0], hi[1]);
   a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// Set a kernel's dynamic shared-memory limit once per process.
-template <typename Kernel>
-cudaError_t configure(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done = true;
-  return err;
 }
 
 }  // namespace

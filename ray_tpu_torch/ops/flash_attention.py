@@ -195,10 +195,14 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 # ---------------------------------------------------------------------------
 
 def _kernel_operand(x: torch.Tensor) -> torch.Tensor:
-    """``x`` itself when the kernel's 16-byte loads can read it (head dim
-    contiguous, strides and address aligned), else an aligned copy."""
+    """``x`` itself when the kernels can read it through its strides (head
+    dim contiguous; the other strides multiples of 16 bytes, and not 0
+    where the extent is above 1, as TMA's tensor maps need; address 16-byte
+    aligned), else an aligned copy."""
     vec = _VEC[x.dtype]
-    if (x.stride(-1) == 1 and all(s % vec == 0 for s in x.stride()[:-1])
+    if (x.stride(-1) == 1
+            and all(s % vec == 0 and (s > 0 or n == 1)
+                    for s, n in zip(x.stride()[:-1], x.shape[:-1]))
             and x.data_ptr() % 16 == 0):
         return x
     return x.clone(memory_format=torch.contiguous_format)
