@@ -6,12 +6,13 @@ Run from the root of the repository, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in the checkout (one
-``nvcc`` per source, all started together), checks that K1's binary is the
-Hopper design (wgmma and TMA instructions in its SASS, no spill, no ptxas
-note that setmaxnreg was ignored or wgmma serialized), holds each kernel
-against its plain PyTorch version at the shapes the main path gives it
-(K1 timed by CUDA-graph replay, as its wrapper's host work per call
-exceeds the kernel's time on the card), then drives
+``nvcc`` per source, all started together), checks that the binaries of
+K1 and of the fused backward (K2 and K3) are the Hopper design (wgmma and
+TMA instructions in their SASS, no spill, no ptxas note that setmaxnreg
+was ignored or wgmma serialized), holds each kernel against its plain
+PyTorch version at the shapes the main path gives it (timed by CUDA-graph
+replay, as a wrapper's host work per call can exceed the kernel's time
+on the card), then drives
 the main path at the full width of Llama-3-8B with seeded random weights:
 the full 32-layer forward over 2048 tokens, the paged serving engine
 answering 10 requests, the model's gradient through the flash kernels at
@@ -329,12 +330,12 @@ def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
                           round_ds=None, drop_diag_from=None,
                           first_head_only=False):
     """Plain attention gradients over whole rows in float32 on the kernel
-    layout, causal (top left), from the forward's lse and the kernels'
-    delta: P = exp(S - lse), dS = P (dP - delta) scale, no rounding of P or
-    dS unless asked. Deliberately wrong variants the K2/K3 check must
-    reject: ``round_ds`` rounds dS, ``drop_diag_from`` hides each row's
-    diagonal 64-key tile from that row on, ``first_head_only`` sums dK and
-    dV over the first q head of each group only. Returns (dq, dk, dv)."""
+    layout, causal (top left), from the forward's lse and delta: P =
+    exp(S - lse), dS = P (dP - delta) scale, no rounding of P or dS unless
+    asked. Deliberately wrong variants the backward check must reject:
+    ``round_ds`` rounds dS, ``drop_diag_from`` hides each row's diagonal
+    64-key tile from that row on, ``first_head_only`` sums dK and dV over
+    the first q head of each group only. Returns (dq, dk, dv)."""
     import torch
 
     b, h, s, d = qt.shape
@@ -363,16 +364,17 @@ def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
     return dq, dk.to(kt.dtype), dv.to(vt.dtype)
 
 
-def backward_bound(b, h, hk, s, d, itemsize, peaks, products):
-    """The least time for K2 (3 products, reads q k v dO lse delta, writes
-    dq) or K3 (4 products, writes dk dv) over the causal pairs on this
-    card."""
+def backward_bound(b, h, hk, s, d, itemsize, peaks):
+    """The least time for the fused backward (K2 and K3) over the causal
+    pairs on this card: its 5 products (S, dP, dV, dK, dQ) at the dtype's
+    peak, or its compulsory bytes at the memory rate: q, k, v, out, dO and
+    lse read once (delta = rowsum(dO * O) is computed inside from out and
+    dO), dq, dk and dv written once."""
     pairs = float(np.minimum(np.arange(s) + 1, s).sum())
-    flops = products * 2.0 * b * h * d * pairs
-    nbytes = itemsize * (2 * b * h * s * d + 2 * b * hk * s * d) \
-        + 2 * 4 * b * h * s
-    nbytes += itemsize * (b * h * s * d if products == 3
-                          else 2 * b * hk * s * d)
+    flops = 5 * 2.0 * b * h * d * pairs
+    # q, out, dO in and dq out; k, v in and dk, dv out; lse in
+    nbytes = itemsize * (4 * b * h * s * d + 4 * b * hk * s * d) \
+        + 4 * b * h * s
     bf16_peak, f32_peak, mem_rate = peaks
     peak = bf16_peak if itemsize == 2 else f32_peak
     t_ops, t_bytes = flops / peak, nbytes / mem_rate
@@ -382,7 +384,7 @@ def backward_bound(b, h, hk, s, d, itemsize, peaks, products):
 
 def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
                              tol):
-    """Show that the K2/K3 tolerance tells right gradients from subtly
+    """Show that the backward's tolerance tells right gradients from subtly
     wrong ones at the main shape: gradients with float32 P and dS pass
     it; dS through float8 e4m3, the diagonal kv tile missing for the later
     half of the rows, and dK/dV summed over the first q head of each group
@@ -405,17 +407,22 @@ def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
         del got
         if (err <= tol) != should_pass:
             raise AssertionError(
-                f"K2/K3 tolerance {tol} does not separate: {name} has row "
+                f"backward tolerance {tol} does not separate: {name} has row "
                 f"relative error {err}, should {'pass' if should_pass else 'fail'}")
     emit("flash_bwd_controls", row_rel_tol=tol, row_rel_err=errs)
 
 
 def check_flash_bwd(torch, peaks):
-    """Hold K2 and K3 against their plain versions. Returns the main
-    shape's row (b 2, s 2048, h 32, hk 8, d 128, bf16, causal: the shape
-    the training step gives them)."""
+    """Hold the fused backward (K2 and K3 in one kernel, through
+    ``flash_bwd``) against K2's and K3's plain versions. At the main shape
+    it runs the backward a second time: dK and dV, summed in registers,
+    must come out bitwise equal, and dQ, summed across CTAs in a float32
+    buffer in an order that changes from run to run, within the limit of
+    the first run; then it is timed. Returns the main shape's row (b 2,
+    s 2048, h 32, hk 8, d 128, bf16, causal: the shape the training step
+    gives it)."""
     from ray_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
+        flash_bwd, flash_bwd_delta, flash_bwd_dkv_plain, flash_bwd_dq_plain,
         flash_fwd)
 
     # Both sides round P and dS to bf16 at the same points and accumulate
@@ -446,40 +453,59 @@ def check_flash_bwd(torch, peaks):
         scale = d ** -0.5
         kw = dict(scale=scale, causal=causal)
         out, lse = flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
-        delta = (dot.float() * out.float()).sum(dim=-1).contiguous()
-        args = (qt, kt, vt, dot, lse, delta)
-        got = (flash_bwd_dq(*args, **kw), *flash_bwd_dkv(*args, **kw))
+        got = flash_bwd(qt, kt, vt, out, lse, dot, **kw)
         torch.cuda.synchronize()
+        # delta as the kernel sums it (float64, rounded to float32)
+        delta = flash_bwd_delta(out, dot)
+        args = (qt, kt, vt, dot, lse, delta)
         want = (flash_bwd_dq_plain(*args, **kw),
                 *flash_bwd_dkv_plain(*args, **kw))
-        errs = [grad_row_err(g, w) for g, w in zip(got, want)]
-        abs_err = max(float((g.float() - w.float()).abs().max())
-                      for g, w in zip(got, want))
+        names = ("dq", "dk", "dv")
+        errs = {n: grad_row_err(g, w) for n, g, w in zip(names, got, want)}
+        abs_errs = {n: float((g.float() - w.float()).abs().max())
+                    for n, g, w in zip(names, got, want)}
         if not all(torch.isfinite(g).all() for g in got):
             raise AssertionError(f"flash_bwd {name}: non-finite gradient")
-        if max(errs) > row_tol[dt]:
+        if max(errs.values()) > row_tol[dt]:
             raise AssertionError(
-                f"flash_bwd {name}: row rel err dq/dk/dv {errs} (tol "
-                f"{row_tol[dt]})")
+                f"flash_bwd {name}: row rel err {errs} (tol {row_tol[dt]})")
         if main is None:
             check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta,
                                      want, row_tol[dt])
         row = dict(case=name, shape=[b, h, hk, s, s, d], dtype=str(dt),
-                   causal=causal, row_rel_err={"dq": errs[0], "dk": errs[1],
-                                               "dv": errs[2]},
-                   row_rel_tol=row_tol[dt], max_abs_err=abs_err)
+                   causal=causal, row_rel_err=errs, row_rel_tol=row_tol[dt],
+                   max_abs_err=abs_errs)
         if main is None:
-            # timed at the main shape only (the others are checks)
-            row["dq_kernel_ms"] = cuda_ms(lambda: flash_bwd_dq(*args, **kw),
-                                          10)
-            row["dkv_kernel_ms"] = cuda_ms(
-                lambda: flash_bwd_dkv(*args, **kw), 10)
-            row["dq_plain_ms"] = cuda_ms(
-                lambda: flash_bwd_dq_plain(*args, **kw), 1)
-            row["dkv_plain_ms"] = cuda_ms(
-                lambda: flash_bwd_dkv_plain(*args, **kw), 1)
+            again = flash_bwd(qt, kt, vt, out, lse, dot, **kw)
+            torch.cuda.synchronize()
+            row["dkv_bitwise_equal_across_runs"] = bool(
+                torch.equal(again[1], got[1]) and
+                torch.equal(again[2], got[2]))
+            row["dq_run_to_run_row_err"] = grad_row_err(again[0], got[0])
+            if not row["dkv_bitwise_equal_across_runs"] or \
+                    row["dq_run_to_run_row_err"] > row_tol[dt]:
+                raise AssertionError(
+                    f"flash_bwd {name} run twice: dK/dV bitwise equal "
+                    f"{row['dkv_bitwise_equal_across_runs']}, dQ row "
+                    f"difference {row['dq_run_to_run_row_err']} (tol "
+                    f"{row_tol[dt]})")
+            del again
+
+            # timed at the main shape only (the others are checks): by
+            # graph replay, and the loop of wrapper calls beside it
+            def kernel():
+                flash_bwd(qt, kt, vt, out, lse, dot, **kw)
+
+            def plain():
+                dl = flash_bwd_delta(out, dot)
+                flash_bwd_dq_plain(qt, kt, vt, dot, lse, dl, **kw)
+                flash_bwd_dkv_plain(qt, kt, vt, dot, lse, dl, **kw)
+            row["kernel_ms"] = cuda_graph_ms(kernel, 10)
+            row["kernel_loop_ms"] = cuda_ms(kernel, 10)
+            row["plain_ms"] = cuda_ms(plain, 1)
             # library yardstick only (the port never calls it): SDPA's
-            # backward with GQA, as forward + backward minus forward
+            # backward with GQA, as forward + backward minus forward, both
+            # by graph replay
             q, k, v = (x.detach().requires_grad_() for x in (qt, kt, vt))
 
             def sdpa():
@@ -489,19 +515,16 @@ def check_flash_bwd(torch, peaks):
             def sdpa_fwd_bwd():
                 torch.autograd.grad(sdpa(), (q, k, v), dot)
             with torch.no_grad():
-                fwd_ms = cuda_ms(sdpa, 10)
-            row["library_ms"] = cuda_ms(sdpa_fwd_bwd, 10) - fwd_ms
+                fwd_ms = cuda_graph_ms(sdpa, 10)
+            row["library_ms"] = cuda_graph_ms(sdpa_fwd_bwd, 10) - fwd_ms
             row["library_fwd_ms"] = fwd_ms
-            for kernel, products in (("dq", 3), ("dkv", 4)):
-                bound_ms, bound_by, flops, nbytes = backward_bound(
-                    b, h, hk, s, d, qt.element_size(), peaks, products)
-                row[f"{kernel}_bound_ms"] = bound_ms
-                row[f"{kernel}_bound_by"] = bound_by
-                row[f"{kernel}_gflop"] = flops / 1e9
-                row[f"{kernel}_mbytes"] = nbytes / 1e6
-                row[f"{kernel}_tflops"] = flops / (
-                    row[f"{kernel}_kernel_ms"] * 1e-3) / 1e12
+            bound_ms, bound_by, flops, nbytes = backward_bound(
+                b, h, hk, s, d, qt.element_size(), peaks)
+            row.update(bound_ms=bound_ms, bound_by=bound_by,
+                       gflop=flops / 1e9, mbytes=nbytes / 1e6,
+                       tflops=flops / (row["kernel_ms"] * 1e-3) / 1e12)
             main = row
+            del q, k, v
         emit("flash_bwd_check", **row)
         del qt, kt, vt, dot, out, lse, delta, args, got, want
     return main
@@ -695,17 +718,13 @@ def check_serve(torch, cfg, params):
 
 
 def launch_counts():
-    from ray_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
-                                                   flash_bwd_dq, flash_fwd)
-    return {"flash_fwd": flash_fwd.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches}
+    from ray_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    return {"flash_fwd": flash_fwd.launches, "flash_bwd": flash_bwd.launches}
 
 
 def zero_counts():
-    from ray_tpu_torch.ops.flash_attention import (flash_bwd_dkv,
-                                                   flash_bwd_dq, flash_fwd)
-    flash_fwd.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+    from ray_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    flash_fwd.launches = flash_bwd.launches = 0
 
 
 def named_leaves(tree, prefix=""):
@@ -728,7 +747,7 @@ def train_batch(cfg, b: int, s: int, seed: int):
 
 def check_grad(torch, cfg, params):
     """The gradient of the training loss through the flash kernels (K1
-    with lse, K2, K3) against the same gradient through reference
+    with lse, the fused backward) against the same gradient through reference
     attention, at full width and depth 2, on [2, 2049] tokens. The
     control: the same loss with q detached before attention (the fault of
     a forward with no gradient) must fail the tolerance."""
@@ -760,8 +779,8 @@ def check_grad(torch, cfg, params):
     loss, got = grads("auto")
     torch.cuda.synchronize()
     counts = launch_counts()
-    want_counts = {"flash_fwd": 2 * depth, "flash_bwd_dq": depth,
-                   "flash_bwd_dkv": depth}   # remat "full": K1 reruns
+    want_counts = {"flash_fwd": 2 * depth,
+                   "flash_bwd": depth}   # remat "full": K1 reruns
     if counts != want_counts:
         raise AssertionError(f"launches in one gradient {counts}, expected "
                              f"{want_counts}")
@@ -828,8 +847,8 @@ def check_train(torch, cfg, params, peaks):
     attn_counts = launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
     L = cfg.n_layers
-    want_full = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
-    want_attn = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    want_full = {"flash_fwd": 2 * L, "flash_bwd": L}
+    want_attn = {"flash_fwd": L, "flash_bwd": L}
     step_s = float(np.median(times[1:]))
     # matmul parameters: the blocks' seven matrices and the LM head
     n_matmul = sum(params["blocks"][k].numel() for k in
@@ -859,17 +878,18 @@ def check_train(torch, cfg, params, peaks):
     return full_counts, attn_counts
 
 
-def k1_build_facts(kernels_mod, path) -> dict:
-    """What the card runs for K1, from the flash_fwd library: its SASS
-    counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions, and for
-    each bf16 instance (one per head dim) the registers and spill bytes
-    ptxas reported. Raises if the design did not make it into the binary:
-    no HGMMA or UTMALDG, a spill in a bf16 instance, setmaxnreg ignored
-    (C7508), or a wgmma serialized (C75xx "serialized")."""
+def build_facts(kernels_mod, name, path, kernel) -> dict:
+    """What the card runs for one Hopper kernel, from library ``name``:
+    its SASS counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions,
+    and for each bf16 instance of ``kernel`` (one per head dim) the
+    registers and spill bytes ptxas reported. Raises if the design did not
+    make it into the binary: no HGMMA or UTMALDG, a spill in a bf16
+    instance, setmaxnreg ignored (C7508), or a wgmma serialized (C75xx
+    "serialized")."""
     import re
 
     log = path.with_suffix(".log").read_text()
-    sass = kernels_mod.sass("flash_fwd")
+    sass = kernels_mod.sass(name)
     facts = {"HGMMA": len(re.findall(r"\bHGMMA\.", sass)),
              "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass)),
              "instances": {}, "ptxas_notes": []}
@@ -877,7 +897,7 @@ def k1_build_facts(kernels_mod, path) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            d = re.search(r"flash_fwd_bf16_kernelILi(\d+)E", m.group(1))
+            d = re.search(rf"{kernel}ILi(\d+)E", m.group(1))
             current = f"bf16_d{d.group(1)}" if d else None
             if current:
                 facts["instances"][current] = {}
@@ -893,7 +913,8 @@ def k1_build_facts(kernels_mod, path) -> dict:
            if v.get("spill_bytes", 1) != 0]
     if facts["HGMMA"] == 0 or facts["UTMALDG"] == 0 or bad or \
             len(facts["instances"]) != 3 or facts["ptxas_notes"]:
-        raise AssertionError(f"K1's build is not the Hopper design: {facts}")
+        raise AssertionError(f"{name}'s build is not the Hopper design: "
+                             f"{facts}")
     return facts
 
 
@@ -932,10 +953,11 @@ def main() -> int:
         ptxas[src] = sorted({ln.split("info    :")[-1].strip()
                              for ln in log.splitlines()
                              if "Used" in ln or "spill" in ln})
-    k1_facts = k1_build_facts(_kernels, paths["flash_fwd"])
+    facts = {name: build_facts(_kernels, name, paths[name],
+                               f"{name}_bf16_kernel")
+             for name in ("flash_fwd", "flash_bwd")}
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in paths.values()], ptxas=ptxas,
-         flash_fwd=k1_facts)
+         libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
 
     main_case, train_case = check_flash(torch, peaks)
     bwd_case = check_flash_bwd(torch, peaks)
@@ -979,27 +1001,30 @@ def main() -> int:
         "train_shape": {k: train_case[k] for k in (
             "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
             "tflops", "max_err", "row_rel_err", "lse_err")},
-        "sass": {k: k1_facts[k] for k in ("HGMMA", "UTMALDG")},
+        "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
     }]
-    errs = bwd_case["row_rel_err"]
-    for kernel, line, tag in (("flash_bwd_dq", 181, "dq"),
-                              ("flash_bwd_dkv", 224, "dkv")):
+    # K2 and K3 are one fused kernel: each TPU kernel keeps its entry,
+    # both with the fused kernel's one launch count and time
+    errs, abs_errs = bwd_case["row_rel_err"], bwd_case["max_abs_err"]
+    for line, other, outs in ((181, 224, ("dq",)), (224, 181, ("dk", "dv"))):
         kernels.append({
-            "name": kernel, "route": "cuda",
+            "name": "flash_bwd", "route": "cuda",
             "source": "ray_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-            "launches": full_counts[kernel],
-            "launches_by_path": by_path[kernel],
-            "max_abs_err": bwd_case["max_abs_err"],
-            "row_rel_err": (errs["dq"] if tag == "dq"
-                            else max(errs["dk"], errs["dv"])),
+            "shares_launch_with": f"ray_tpu/ops/flash_attention.py:{other}",
+            "outputs": list(outs),
+            "launches": full_counts["flash_bwd"],
+            "launches_by_path": by_path["flash_bwd"],
+            "max_abs_err": max(abs_errs[o] for o in outs),
+            "row_rel_err": max(errs[o] for o in outs),
             "row_rel_tol": bwd_case["row_rel_tol"],
-            "ms": bwd_case[f"{tag}_kernel_ms"],
-            "plain_ms": bwd_case[f"{tag}_plain_ms"],
-            "bound_ms": bwd_case[f"{tag}_bound_ms"],
-            "bound_by": bwd_case[f"{tag}_bound_by"],
+            "ms": bwd_case["kernel_ms"], "plain_ms": bwd_case["plain_ms"],
+            "bound_ms": bwd_case["bound_ms"],
+            "bound_by": bwd_case["bound_by"],
             # SDPA's whole backward (dQ, dK and dV) in one call
             "library_ms": bwd_case["library_ms"],
+            "tflops": bwd_case["tflops"],
+            "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}), flush=True)

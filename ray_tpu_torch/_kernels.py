@@ -1,13 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` (``flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 and
-K3) compiles with ``nvcc`` into its own shared library with a plain C
-interface, loaded with ``ctypes``. A library is built at first use into
-``_build/`` beside this file, named by a hash of its source, every shared
-header (``HEADERS``: ``common.cuh``, what every source uses;
-``hopper.cuh``, the Hopper TMA, mbarrier and wgmma helpers;
-``mma_sync.cuh``, the ``mma.sync`` ones) and the flags, so an
-edited source or header rebuilds and an unchanged one loads at once.
+K3, fused into one backward) compiles with ``nvcc`` into its own shared
+library with a plain C interface, loaded with ``ctypes``. A library is
+built at first use into ``_build/`` beside this file, named by a hash of
+its source, every shared header (``HEADERS``: ``common.cuh``, what every
+source uses; ``hopper.cuh``, the Hopper TMA, mbarrier and wgmma helpers)
+and the flags, so an edited source or header rebuilds and an unchanged
+one loads at once.
 ``build()`` starts one ``nvcc`` per source, all together. The libraries
 link nothing beyond the CUDA runtime: ``cuTensorMapEncodeTiled`` is
 looked up at run time through the runtime's entry-point query, so no
@@ -30,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # every header under csrc/, by name: each is part of every library's hash
-HEADERS = ("common.cuh", "hopper.cuh", "mma_sync.cuh")
+HEADERS = ("common.cuh", "hopper.cuh")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -50,10 +50,9 @@ def _argtypes(n_ptr: int, n_strided: int) -> list:
 SOURCES = {
     # q, k, v, out, lse; strides of q, k, v, out
     "flash_fwd": {"rt_flash_fwd": _argtypes(5, 4)},
-    # q, k, v, dout, lse, delta, dq (dk, dv); strides of q, k, v, dout,
-    # dq (dk, dv)
-    "flash_bwd": {"rt_flash_bwd_dq": _argtypes(7, 5),
-                  "rt_flash_bwd_dkv": _argtypes(8, 6)},
+    # q, k, v, out, dout, lse, work, dq, dk, dv; strides of q, k, v, out,
+    # dout, dq, dk, dv
+    "flash_bwd": {"rt_flash_bwd": _argtypes(10, 8)},
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 // Helpers every kernel source uses (flash_fwd.cu and flash_bwd.cu): the
-// bf16 type, packing two floats into a bf16 pair, and the kernel's dynamic
-// shared-memory limit.
+// bf16 type, packing two floats into a bf16 pair, a one-instruction exp2,
+// and the kernel's dynamic shared-memory limit.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,14 @@ using bf16 = __nv_bfloat16;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one special-function-unit instruction (flushes subnormal results
+// to 0; 2^-inf is 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Set a kernel's dynamic shared-memory limit once per process.

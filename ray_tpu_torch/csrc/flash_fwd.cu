@@ -165,14 +165,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   }
 }
 
-// 2^x in one special-function-unit instruction (flushes subnormal results
-// to 0: a probability below 2^-126 of the row's largest)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One online-softmax step on a score tile in the wgmma accumulator layout
 // (this thread: rows row0 and row0 + 8, columns kv0 + 8 i + 2 t, + 1):
 // scale to base 2, hide the columns at or past lim[r] (the row's first

@@ -117,6 +117,26 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
+// Copy `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global memory at src into shared memory at dst; the bytes
+// complete a transaction on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Add `bytes` of float32 (a multiple of 16, both addresses 16-byte aligned)
+// from shared memory at src into global memory at dst, element by element
+// and atomically, in a bulk group (tma_store_commit / tma_store_wait_*).
+// Shared memory written by ordinary stores needs fence_proxy_async() first.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
 __device__ __forceinline__ void tma_store_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 // Wait until the committed stores have read their shared memory (it may
 // be written again), or, full, until they are complete.
@@ -176,12 +196,28 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes
 }
 
 // wgmma.mma_async m64nNk16, float32 accumulator, bf16 operands, for the
-// widths K1 uses. ss: A and B from shared memory (TA, TB: 1 reads the
+// widths the kernels use. ss: A and B from shared memory (TA, TB: 1 reads the
 // operand MN-major); rs: A from registers (four 32-bit registers of packed
 // bf16 pairs). scale_d 0 overwrites the accumulator, 1 adds to it. Another
 // width is one more specialisation of the same two patterns.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // d (64 x 32, float32) += A (64 x 16, bf16, shared memory) * B (16 x 32, bf16, shared memory)
+  template <int TA, int TB>
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<48> {
@@ -203,6 +239,21 @@ struct Wgmma<48> {
 
 template <>
 struct Wgmma<64> {
+  // d (64 x 64, float32) += A (64 x 16, bf16, shared memory) * B (16 x 64, bf16, shared memory)
+  template <int TA, int TB>
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+  }
   // d (64 x 64, float32) += A (64 x 16, bf16, registers) * B (16 x 64, bf16, shared memory)
   template <int TB>
   __device__ __forceinline__ static void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int scale_d) {

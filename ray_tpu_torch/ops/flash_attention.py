@@ -14,22 +14,26 @@ dK/dV backward (``_bwd_dkv_kernel``, K3), with the custom VJP
   aligned at the TOP LEFT, as the TPU kernel does; this differs from
   ``reference_attention``'s bottom-right mask when ``sq != skv``. A row
   with no visible key gets output 0 and lse -inf.
-- Backward: P = exp(S - lse) is recomputed block by block, and
-  delta = rowsum(dO * O) is a plain op before the kernels. dQ sums over
-  kv blocks; dK and dV sum over q blocks and over the whole GQA group, so
-  they come out kv-head shaped. P is rounded to dO's dtype before dV and
-  dS to K's (Q's) before dQ (dK), as on the TPU. A row with lse -inf gets
-  a zero gradient (JAX computes exp(-inf - -inf) = nan there; the
-  top-left causal mask never makes such a row).
+- Backward: P = exp(S - lse) is recomputed block by block, with
+  delta = rowsum(dO * O) summed in float64. dQ sums over kv blocks; dK
+  and dV sum over q blocks and over the whole GQA group, so they come out
+  kv-head shaped. P is rounded to dO's dtype before dV and dS to K's
+  (Q's) before dQ (dK), as on the TPU. A row with lse -inf gets a zero
+  gradient (JAX computes exp(-inf - -inf) = nan there; the top-left
+  causal mask never makes such a row). On the card K2 and K3 are one
+  fused kernel, which adds each kv tile's share of dQ into a float32
+  buffer: dQ's summation order changes from run to run, dK and dV are
+  summed in registers and come out the same every run.
 
-Each kernel has a wrapper (``flash_fwd``/``_forward``, ``flash_bwd_dq``,
-``flash_bwd_dkv``) that takes its plain version (``flash_fwd_plain``,
-``flash_bwd_dq_plain``, ``flash_bwd_dkv_plain``, blocked loops in plain
-PyTorch) for a CPU tensor, and for a CUDA tensor launches the kernel
-(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, built at first use by
-``ray_tpu_torch._kernels``) or raises. There is no fallback. Each wrapper
-counts its kernel launches in ``<wrapper>.launches``; ``flash_fwd.calls``
-counts the forward's runs on either device (the remat tests read it).
+Each kernel has a wrapper (``flash_fwd``/``_forward``; ``flash_bwd`` for
+K2 and K3 together) that takes its plain version (``flash_fwd_plain``;
+``flash_bwd_dq_plain`` with ``flash_bwd_dkv_plain``, blocked loops in
+plain PyTorch) for a CPU tensor, and for a CUDA tensor launches the
+kernel (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, built at first use
+by ``ray_tpu_torch._kernels``) or raises. There is no fallback. Each
+wrapper counts its kernel launches in ``<wrapper>.launches``;
+``flash_fwd.calls`` counts the forward's runs on either device (the remat
+tests read it).
 
 The gradient: the forward and the backward are ``torch.library``
 operators (``ray_tpu_torch::flash_fwd``, ``ray_tpu_torch::flash_bwd``)
@@ -276,74 +280,73 @@ def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
-                 causal: bool = True):
-    """K2 on the kernel layout: dQ from q, dO [b, h, sq, d], k, v
-    [b, hk, skv, d] and float32 lse, delta [b, h, sq]."""
-    if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
-                                  causal=causal)
+def _launch_bwd(q, k, v, out, lse, do, *, scale: float, causal: bool):
+    """K2 and K3 as one launch of ``rt_flash_bwd`` (a preprocess for
+    delta, the fused kernel, a postprocess for dQ): (dq, dk, dv)."""
     from ray_tpu_torch import _kernels
 
-    _check_operands("flash_bwd_dq", q, k, v, ("do", do))
-    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
-    dq = torch.empty_like(q)
+    _check_operands("flash_bwd", q, k, v, ("out", out), ("do", do))
+    if lse.dtype != torch.float32 or lse.shape != q.shape[:3] or \
+            lse.device != q.device:
+        raise ValueError(f"flash_bwd: lse must be float32 {tuple(q.shape[:3])}"
+                         f" on {q.device}, got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    q, k, v, out, do = (_kernel_operand(x) for x in (q, k, v, out, do))
+    lse = lse.contiguous()
+    b, h, sq, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if sq == 0 or k.shape[2] == 0:   # nothing to launch: no pair of (q, k)
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # float32 scratch: lse in base 2 and delta, a row each padded to whole
+    # 64-row q tiles, and for bf16 the dQ accumulator (see rt_flash_bwd)
+    bf16 = q.dtype == torch.bfloat16
+    ld = -(-sq // 64) * 64 if bf16 else sq
+    work = torch.empty(b * h * ld * (2 + (d if bf16 else 0)),
+                       dtype=torch.float32, device=q.device)
     lib = _kernels.load("flash_bwd")
     with torch.cuda.device(q.device):
-        err = lib.rt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            *_shape_args(q, k), *_strides(q), *_strides(k), *_strides(v),
-            *_strides(do), *_strides(dq), float(scale), int(causal),
-            _stream(q))
-    _kernels.check(err, "flash_bwd_dq kernel launch")
-    flash_bwd_dq.launches += 1
-    return dq
-
-
-def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
-                  causal: bool = True):
-    """K3 on the kernel layout: (dK, dV) [b, hk, skv, d], summed over each
-    kv head's group of q heads."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
-                                   causal=causal)
-    from ray_tpu_torch import _kernels
-
-    _check_operands("flash_bwd_dkv", q, k, v, ("do", do))
-    q, k, v, do = (_kernel_operand(x) for x in (q, k, v, do))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _kernels.load("flash_bwd")
-    with torch.cuda.device(q.device):
-        err = lib.rt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_shape_args(q, k), *_strides(q), *_strides(k), *_strides(v),
-            *_strides(do), *_strides(dk), *_strides(dv), float(scale),
+        err = lib.rt_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *_shape_args(q, k), *_strides(q),
+            *_strides(k), *_strides(v), *_strides(out), *_strides(do),
+            *_strides(dq), *_strides(dk), *_strides(dv), float(scale),
             int(causal), _stream(q))
-    _kernels.check(err, "flash_bwd_dkv kernel launch")
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    _kernels.check(err, "flash_bwd kernel launch")
+    flash_bwd.launches += 1
+    return dq, dk, dv
 
 
-# kernel launches since the last reset (the plain versions never count)
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+def flash_bwd_delta(out, do):
+    """delta = rowsum(dO * O) [b, h, sq] float32, summed in float64 as the
+    kernel's preprocess sums it: dS = P (dP - delta) cancels, so a float32
+    sum in another order would move dQ by more than float32 rounding."""
+    return (do.double() * out.double()).sum(dim=-1).float()
 
 
 def flash_bwd(q, k, v, out, lse, do, *, scale: float, causal: bool = True):
     """The backward on the kernel layout, the counterpart of JAX's
     ``_flash_bwd``: (dq, dk, dv) from the forward's inputs, its output and
-    lse, and the output's cotangent ``do``. delta = rowsum(dO * O) is a
-    plain op; K2 and K3 do the rest. Ring attention calls this with
-    ``causal=False`` off the diagonal."""
+    lse, and the output's cotangent ``do``. On the card one launch of the
+    fused kernel computes all three; on the CPU delta = rowsum(dO * O) and
+    K2's and K3's plain versions, which together are its plain version.
+    Ring attention calls this with ``causal=False`` off the diagonal."""
     do = do.to(q.dtype)
-    delta = (do.float() * out.float()).sum(dim=-1).contiguous()
-    lse = lse.contiguous()
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, scale=scale, causal=causal)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale,
-                           causal=causal)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse, do, scale=scale, causal=causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_bwd: unsupported device {q.device}")
+    delta = flash_bwd_delta(out, do)
+    dq = flash_bwd_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                            causal=causal)
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                 causal=causal)
     return dq, dk, dv
+
+
+# fused backward launches since the last reset (the plain versions never
+# count)
+flash_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------

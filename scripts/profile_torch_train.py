@@ -12,8 +12,9 @@ the full 32), bf16, the fused loss with 1024-row chunks, one repeated
 prints one JSON line: the step's wall time split into forward + loss,
 backward and optimizer update (host clock, each phase ended by a
 synchronize), then under the profiler the device-busy time, the idle
-share, device time by kernel family (cuBLAS GEMMs, the three flash
-kernels, everything else) and the top kernels. Full tables go to
+share, device time by kernel family (cuBLAS GEMMs, the flash forward,
+the fused flash backward and its pre- and postprocess, everything else)
+and the top kernels. Full tables go to
 ``DIR/profile_train_<policy>.txt`` (default profiles/).
 """
 
@@ -38,8 +39,8 @@ from profile_torch_serve import _device_us, _kernels, summarize  # noqa: E402
 # several names across versions)
 FAMILIES = (
     ("flash_fwd (K1)", ("flash_fwd_bf16_kernel",)),
-    ("flash_bwd_dq (K2)", ("flash_bwd_dq_bf16_kernel",)),
-    ("flash_bwd_dkv (K3)", ("flash_bwd_dkv_bf16_kernel",)),
+    ("flash_bwd (K2+K3, fused)", ("flash_bwd_bf16_kernel",)),
+    ("flash_bwd pre/post", ("flash_bwd_pre_kernel", "flash_bwd_post_kernel")),
     ("gemm", ("gemm", "nvjet", "xmma", "cutlass", "sm90_", "Kernel2")),
 )
 

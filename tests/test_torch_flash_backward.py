@@ -1,7 +1,8 @@
 """The port's flash-attention backward against ray_tpu's Pallas kernels.
 
-On the CPU the port's backward wrappers run their plain versions (the
-blocked loops that the CUDA kernels K2 and K3 compute); the JAX side runs
+On the CPU the port's backward runs its plain versions (the blocked
+loops of K2 and K3, which the fused CUDA kernel computes in one launch);
+the JAX side runs
 the Pallas backward in interpret mode, as tests/test_flash_attention.py
 does. Both sides get the same q, k, v, dO (numpy seeds) and the same
 forward output and lse (from JAX's forward), so only the backward is
@@ -9,7 +10,7 @@ compared. Tolerances: float32 at 2e-3 (the JAX package's own flash
 gradient tolerance; the two sides sum in other orders and blocks) and
 bf16 at 3e-2 (its bf16 tolerance: both round P and dS to bf16 at the
 same points, but the bf16 roundings of those values flip on different
-summation orders). The CUDA kernels are checked by the test marked
+summation orders). The CUDA kernel is checked by the test marked
 ``cuda`` (skipped without a card) and by chip_smoke.py on the card.
 """
 
@@ -60,13 +61,13 @@ def test_plain_backward_matches_jax_kernels_f32(causal, gqa, s):
     q, k, v, do = _arrays(1, 4, 4 // gqa, s, 64, seed=s + gqa)
     out, lse, want = _jax_backward(q, k, v, do, causal=causal,
                                    dtype=jnp.float32)
-    launches = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
+    launches = fa.flash_bwd.launches
     got = fa.flash_bwd(*(torch.from_numpy(x) for x in (q, k, v)),
                        _torch(out, torch.float32),
                        _torch(np.asarray(lse)[..., 0], torch.float32),
                        torch.from_numpy(do), scale=64 ** -0.5, causal=causal)
     # the plain versions never count as launches
-    assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == launches
+    assert fa.flash_bwd.launches == launches
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-3,
@@ -87,6 +88,29 @@ def test_plain_backward_matches_jax_kernels_bf16(causal):
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(w, np.float32), rtol=3e-2,
                                    atol=3e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("h,hk,d,dtype,tol", [
+    (8, 2, 128, jnp.float32, 2e-3),
+    (8, 2, 128, jnp.bfloat16, 3e-2),
+    (4, 2, 256, jnp.float32, 2e-3),
+], ids=["d128_gqa4_f32", "d128_gqa4_bf16", "d256_gqa2_f32"])
+def test_plain_backward_matches_jax_at_main_path_widths(h, hk, d, dtype, tol):
+    """The fused kernel's plain version (flash_bwd on the CPU) against
+    _flash_bwd at the head widths the main path runs: Llama-3-8B's d 128
+    with its GQA group of 4, and d 256, causal, in two 128-blocks."""
+    q, k, v, do = _arrays(1, h, hk, 256, d, seed=d + h)
+    out, lse, want = _jax_backward(q, k, v, do, causal=True, dtype=dtype)
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    got = fa.flash_bwd(*(_torch(x, tdt) for x in (q, k, v)),
+                       _torch(out, tdt),
+                       _torch(np.asarray(lse)[..., 0], torch.float32),
+                       _torch(do, tdt), scale=d ** -0.5, causal=True)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tdt and g.shape == w.shape, name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32), rtol=tol,
+                                   atol=tol, err_msg=name)
 
 
 @pytest.mark.parametrize("gqa", [1, 2])
@@ -183,13 +207,13 @@ def test_backward_takes_strided_layouts():
 
 @pytest.mark.cuda
 def test_cuda_backward_kernels_match_plain():
-    """K2 and K3 against their plain versions on the card (bf16 at the
-    Llama-3-8B head widths, float32 with a ragged tail), each launch
-    counted once."""
+    """The fused backward kernel (K2 and K3 in one launch) against their
+    plain versions on the card (bf16 at the Llama-3-8B head widths,
+    float32 with a ragged tail), one launch counted per backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # per-row relative limit of chip_smoke.py's K2/K3 check, its row floor
+    # per-row relative limit of chip_smoke.py's backward check, its row floor
     for (b, h, hk, s, d, dt, tol) in [
             (1, 32, 8, 512, 128, torch.bfloat16, 1e-2),
             (1, 4, 2, 200, 64, torch.float32, 1e-5)]:
@@ -200,10 +224,9 @@ def test_cuda_backward_kernels_match_plain():
         out, lse = fa.flash_fwd(q, k, v, with_lse=True)
         delta = (do.float() * out.float()).sum(-1)
         args, kw = (q, k, v, do, lse, delta), dict(scale=d ** -0.5)
-        before = (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
-        got = (fa.flash_bwd_dq(*args, **kw), *fa.flash_bwd_dkv(*args, **kw))
-        assert (fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == \
-            (before[0] + 1, before[1] + 1)
+        before = fa.flash_bwd.launches
+        got = fa.flash_bwd(q, k, v, out, lse, do, **kw)
+        assert fa.flash_bwd.launches == before + 1
         want = (fa.flash_bwd_dq_plain(*args, **kw),
                 *fa.flash_bwd_dkv_plain(*args, **kw))
         torch.cuda.synchronize()
