@@ -17,8 +17,16 @@ the main path at the full width of Llama-3-8B with seeded random weights:
 the full 32-layer forward over 2048 tokens, the paged serving engine
 answering 10 requests, the model's gradient through the flash kernels at
 depth 2 against the same gradient through reference attention, and the
-trainer taking steps on the full 32-layer model. Every phase prints one
-JSON line; the last line is the contract line
+trainer taking steps on the full 32-layer model. Then the other model
+families, each at its published width and one after another on the
+card's memory: GPT-2 XL at full depth (the forward and the gradient
+through the kernels against reference attention, trainer steps), BERT-large
+trained through the trainer's loss hook (no kernel runs there), ViT-L/16
+in float32 (forward and Adam steps), the last two also held against the
+CPU at depth 2, and Mixtral 8x7B at depths 16, 2 and 4 (the forward and
+gradient against reference attention with the routing held fixed, AdamW
+steps). Every phase prints one JSON line; the last line is the contract
+line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
 without the rest of the repository beside this file, it exits non-zero
@@ -27,6 +35,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -37,6 +46,13 @@ import time
 import numpy as np
 
 SEED = 0
+# The forwards of the other families through K1 against reference
+# attention, in relative RMS of the logits: both are bf16 models that
+# differ only in attention's rounding points. Llama's 5e-2 would not
+# separate a float8 attention at GPT-2 XL (its logits move by about
+# 3.4e-2 there), so these limits sit at half of it, below every float8
+# control (PERF.md section 2).
+FAMILY_FORWARD_TOL = 2.5e-2
 # Datasheet peaks by card name: (dense bf16 FLOP/s, float32 FLOP/s outside
 # the tensor cores, device memory bytes/s). H100 SXM and PCIe data sheets.
 PEAKS = {
@@ -124,9 +140,15 @@ def attention_bound(b, h, hk, sq, skv, d, causal, itemsize, with_lse,
 
 
 def rel_rms(a, b) -> float:
-    """||a - b|| / ||b|| over all elements, in float64."""
-    a, b = a.double(), b.double()
-    return float((a - b).norm() / b.norm())
+    """||a - b|| / ||b|| over all elements, in float64, summed a slice of
+    2^24 elements at a time (no float64 copy of a large gradient)."""
+    num = den = 0.0
+    n = 1 << 24
+    for x, y in zip(a.reshape(-1).split(n), b.reshape(-1).split(n)):
+        x, y = x.double(), y.double()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return (num / den) ** 0.5
 
 
 def row_rel_err(got, want) -> float:
@@ -180,9 +202,9 @@ def dense_attention(qt, kt, vt, *, scale, causal, round_p=None,
     return ((p @ v) / l).to(qt.dtype)
 
 
-def check_flash_controls(torch, qt, kt, vt, want, tol):
+def check_flash_controls(torch, case, qt, kt, vt, want, tol):
     """Show that K1's tolerance tells a right kernel from a subtly wrong
-    one at the main shape: attention rounded at other points (float32
+    one at ``case``'s shape: attention rounded at other points (float32
     probabilities) passes it; probabilities through float8 e4m3, the
     diagonal kv tile missing for the later half of the rows, and a scale
     2% off each fail it."""
@@ -206,13 +228,16 @@ def check_flash_controls(torch, qt, kt, vt, want, tol):
             raise AssertionError(
                 f"K1 tolerance {tol} does not separate: {name} has row "
                 f"relative error {err}, should {'pass' if should_pass else 'fail'}")
-    emit("kernel_check_controls", row_rel_tol=tol, row_rel_err=errs)
+    emit("kernel_check_controls", case=case, row_rel_tol=tol,
+         row_rel_err=errs)
 
 
 def check_flash(torch, peaks):
     """Hold the flash kernel against its plain version. Returns the main
-    path's case (the Llama-3-8B attention shape, no lse) and the training
-    step's (b 2, with lse)."""
+    path's case (the Llama-3-8B attention shape, no lse), the training
+    step's (b 2, with lse) and GPT-2 XL's training step's (b 8, 25 heads,
+    no GQA, d 64, with lse). The tolerance's controls run at the main shape
+    and at GPT-2 XL's."""
     from ray_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_fwd,
                                                    flash_fwd_plain)
@@ -237,6 +262,9 @@ def check_flash(torch, peaks):
         ("llama3_8b_train", 2, 32, 8, 2048, 2048, 128, torch.bfloat16, True,
          True),
         ("d64_gqa1", 2, 8, 8, 1024, 1024, 64, torch.bfloat16, True, True),
+        # GPT-2 XL's training step: an odd head count, a group of one
+        ("gpt2_xl_train", 8, 25, 25, 1024, 1024, 64, torch.bfloat16, True,
+         True),
         ("d256_gqa2", 1, 4, 2, 1024, 1024, 256, torch.bfloat16, True, True),
         # edge cases: ragged tails, sq != skv, a short d 256
         ("ragged_d128", 1, 2, 2, 200, 200, 128, torch.bfloat16, True, True),
@@ -279,8 +307,8 @@ def check_flash(torch, peaks):
                 f"flash kernel {name}: max err {err} (tol {abs_tol[dt]}), "
                 f"row rel err {rel} (tol {row_tol[dt]}), lse err {lse_err} "
                 f"(tol {lse_tol})")
-        if main is None:
-            check_flash_controls(torch, qt, kt, vt, want, row_tol[dt])
+        if main is None or name == "gpt2_xl_train":
+            check_flash_controls(torch, name, qt, kt, vt, want, row_tol[dt])
         if with_lse:
             def kernel():
                 flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
@@ -322,8 +350,10 @@ def check_flash(torch, peaks):
             main = row
         if name == "llama3_8b_train":
             train = row
+        if name == "gpt2_xl_train":
+            gpt2 = row
         del q, k, v, qt, kt, vt, kr, vr, want, want_lse, got
-    return main, train
+    return main, train, gpt2
 
 
 def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
@@ -382,13 +412,13 @@ def backward_bound(b, h, hk, s, d, itemsize, peaks):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
-def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
-                             tol):
+def check_flash_bwd_controls(torch, case, qt, kt, vt, dot, lse, delta,
+                             want, tol):
     """Show that the backward's tolerance tells right gradients from subtly
-    wrong ones at the main shape: gradients with float32 P and dS pass
+    wrong ones at ``case``'s shape: gradients with float32 P and dS pass
     it; dS through float8 e4m3, the diagonal kv tile missing for the later
-    half of the rows, and dK/dV summed over the first q head of each group
-    only each fail it."""
+    half of the rows, and (where a kv head has more than one q head)
+    dK/dV summed over the first q head of each group only each fail it."""
     kw = dict(scale=qt.shape[-1] ** -0.5)
     variants = {
         "float32_p_and_ds": ({}, True),
@@ -396,8 +426,10 @@ def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
             torch.float8_e4m3fn).float()), False),
         "diag_tile_dropped_late_rows": (dict(
             drop_diag_from=qt.shape[2] // 2), False),
-        "dkv_first_q_head_only": (dict(first_head_only=True), False),
     }
+    if qt.shape[1] > kt.shape[1]:
+        variants["dkv_first_q_head_only"] = (dict(first_head_only=True),
+                                             False)
     errs = {}
     for name, (extra, should_pass) in variants.items():
         got = dense_attention_grads(qt, kt, vt, dot, lse, delta, **kw,
@@ -409,18 +441,19 @@ def check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta, want,
             raise AssertionError(
                 f"backward tolerance {tol} does not separate: {name} has row "
                 f"relative error {err}, should {'pass' if should_pass else 'fail'}")
-    emit("flash_bwd_controls", row_rel_tol=tol, row_rel_err=errs)
+    emit("flash_bwd_controls", case=case, row_rel_tol=tol, row_rel_err=errs)
 
 
 def check_flash_bwd(torch, peaks):
     """Hold the fused backward (K2 and K3 in one kernel, through
-    ``flash_bwd``) against K2's and K3's plain versions. At the main shape
-    it runs the backward a second time: dK and dV, summed in registers,
-    must come out bitwise equal, and dQ, summed across CTAs in a float32
-    buffer in an order that changes from run to run, within the limit of
-    the first run; then it is timed. Returns the main shape's row (b 2,
-    s 2048, h 32, hk 8, d 128, bf16, causal: the shape the training step
-    gives it)."""
+    ``flash_bwd``) against K2's and K3's plain versions. At the two
+    training shapes it runs the tolerance's controls and the backward a
+    second time: dK and dV, summed in registers, must come out bitwise
+    equal, and dQ, summed across CTAs in a float32 buffer in an order that
+    changes from run to run, within the limit of the first run; then it is
+    timed. Returns those two rows: the main shape (b 2, s 2048, h 32, hk 8,
+    d 128, bf16, causal: the shape Llama-3-8B's training step gives it) and
+    GPT-2 XL's (b 8, s 1024, h 25, hk 25, d 64)."""
     from ray_tpu_torch.ops.flash_attention import (
         flash_bwd, flash_bwd_delta, flash_bwd_dkv_plain, flash_bwd_dq_plain,
         flash_fwd)
@@ -437,12 +470,13 @@ def check_flash_bwd(torch, peaks):
         ("llama3_8b_train", 2, 32, 8, 2048, 128, torch.bfloat16, True),
         ("llama3_8b_noncausal", 1, 32, 8, 2048, 128, torch.bfloat16, False),
         ("d64_gqa1", 2, 8, 8, 1024, 64, torch.bfloat16, True),
+        ("gpt2_xl_train", 8, 25, 25, 1024, 64, torch.bfloat16, True),
         ("d256_gqa2", 1, 4, 2, 1024, 256, torch.bfloat16, True),
         ("f32_small", 1, 4, 2, 384, 128, torch.float32, True),
         ("f32_ragged_d256", 1, 2, 1, 200, 256, torch.float32, True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    main = None
+    timed = {}
     for name, b, h, hk, s, d, dt, causal in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -469,13 +503,14 @@ def check_flash_bwd(torch, peaks):
         if max(errs.values()) > row_tol[dt]:
             raise AssertionError(
                 f"flash_bwd {name}: row rel err {errs} (tol {row_tol[dt]})")
-        if main is None:
-            check_flash_bwd_controls(torch, qt, kt, vt, dot, lse, delta,
-                                     want, row_tol[dt])
+        is_timed = name in ("llama3_8b_train", "gpt2_xl_train")
+        if is_timed:
+            check_flash_bwd_controls(torch, name, qt, kt, vt, dot, lse,
+                                     delta, want, row_tol[dt])
         row = dict(case=name, shape=[b, h, hk, s, s, d], dtype=str(dt),
                    causal=causal, row_rel_err=errs, row_rel_tol=row_tol[dt],
                    max_abs_err=abs_errs)
-        if main is None:
+        if is_timed:
             again = flash_bwd(qt, kt, vt, out, lse, dot, **kw)
             torch.cuda.synchronize()
             row["dkv_bitwise_equal_across_runs"] = bool(
@@ -491,7 +526,7 @@ def check_flash_bwd(torch, peaks):
                     f"{row_tol[dt]})")
             del again
 
-            # timed at the main shape only (the others are checks): by
+            # timed at the training shapes only (the others are checks): by
             # graph replay, and the loop of wrapper calls beside it
             def kernel():
                 flash_bwd(qt, kt, vt, out, lse, dot, **kw)
@@ -523,11 +558,11 @@ def check_flash_bwd(torch, peaks):
             row.update(bound_ms=bound_ms, bound_by=bound_by,
                        gflop=flops / 1e9, mbytes=nbytes / 1e6,
                        tflops=flops / (row["kernel_ms"] * 1e-3) / 1e12)
-            main = row
+            timed[name] = row
             del q, k, v
         emit("flash_bwd_check", **row)
         del qt, kt, vt, dot, out, lse, delta, args, got, want
-    return main
+    return timed["llama3_8b_train"], timed["gpt2_xl_train"]
 
 
 def fp8_rounded_attention(q, k, v, **kwargs):
@@ -543,60 +578,88 @@ def fp8_rounded_attention(q, k, v, **kwargs):
                                causal=kwargs.get("causal", True))
 
 
+def forward_against_reference(torch, forward, module, ctx=None):
+    """``forward(attn_impl)`` (logits) through the flash kernel, timed with
+    the launches counted, against the same forward with reference
+    attention, and a control: the forward with attention fed
+    float8-rounded inputs (``module.attention`` patched), what a lower
+    precision than bf16-in / f32-accumulate does to the same logits.
+    ``ctx(role)`` (role: "flash", "reference" or "control") gives a
+    context each run goes in. Returns (logits, reference logits, a
+    dictionary of the errors, the launch counts, the seconds of each
+    forward)."""
+    ctx = ctx or (lambda role: contextlib.nullcontext())
+    forward("auto")                       # warm-up, not counted
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with ctx("flash"):
+        logits = forward("auto")
+        torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    counts = launch_counts()
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    t0 = time.perf_counter()
+    with ctx("reference"):
+        ref = forward("reference")
+        torch.cuda.synchronize()
+    reference_s = time.perf_counter() - t0
+    orig = module.attention
+    module.attention = fp8_rounded_attention
+    try:
+        with ctx("control"):
+            low = forward("auto")
+    finally:
+        module.attention = orig
+    errs = {"logits_rel_rms_err": rel_rms(logits, ref),
+            "fp8_attention_rel_rms_err": rel_rms(low, ref),
+            "argmax_agreement": float(
+                (logits.argmax(-1) == ref.argmax(-1)).float().mean()),
+            "max_abs_err": float((logits - ref).abs().max())}
+    del low
+    return logits, ref, errs, counts, (forward_s, reference_s)
+
+
+def hold_forward(name, errs, tol):
+    """Raise unless the flash forward's logits are within ``tol`` of the
+    reference forward's and the float8 control is not."""
+    err = errs["logits_rel_rms_err"]
+    err_low = errs["fp8_attention_rel_rms_err"]
+    if not err <= tol < err_low:
+        raise AssertionError(
+            f"{name}: forward logits rel err {err} vs tol {tol} (float8 "
+            f"attention gives {err_low}; the tolerance must sit between)")
+
+
 def check_model(torch, cfg, params) -> int:
     """The full forward through the flash kernel against the same forward
     with reference attention. Returns the flash kernel's launches in the
     timed forward, read right after it."""
     from ray_tpu_torch.models import llama
-    from ray_tpu_torch.ops.flash_attention import flash_fwd
 
     rng = np.random.default_rng(SEED)
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, (1, 2048)).astype(np.int64)).cuda()
-    llama.forward(cfg, params, tokens)          # warm-up, not counted
-    torch.cuda.synchronize()
-    flash_fwd.launches = 0
-    t0 = time.perf_counter()
-    logits = llama.forward(cfg, params, tokens)
-    torch.cuda.synchronize()
-    forward_s = time.perf_counter() - t0
-    launches = flash_fwd.launches
+    logits, _, errs, counts, (forward_s, reference_s) = \
+        forward_against_reference(torch, lambda impl: llama.forward(
+            cfg, params, tokens, attn_impl=impl), llama)
+    launches = counts["flash_fwd"]
     if launches != cfg.n_layers:
         raise AssertionError(f"flash kernel launched {launches} times in "
                              f"one forward, expected {cfg.n_layers}")
-    if logits.shape != (1, 2048, cfg.vocab_size) or \
-            not torch.isfinite(logits).all():
+    if logits.shape != (1, 2048, cfg.vocab_size):
         raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
-    t0 = time.perf_counter()
-    ref = llama.forward(cfg, params, tokens, attn_impl="reference")
-    torch.cuda.synchronize()
-    reference_s = time.perf_counter() - t0
-    # one forward with attention fed float8-rounded inputs: what a lower
-    # precision than bf16-in / f32-accumulate does to the same logits
-    orig = llama.attention
-    llama.attention = fp8_rounded_attention
-    try:
-        low = llama.forward(cfg, params, tokens)
-    finally:
-        llama.attention = orig
     # Both forwards are bf16 models that differ only in attention's
     # rounding points (the kernel rounds unnormalized probabilities to
     # bf16, the reference normalized ones); over 32 layers that leaves a
     # relative RMS logit error of order 1e-2. The tolerance sits below the
     # float8 variant's error, so a lower-precision attention fails it.
     tol = 5e-2
-    err = rel_rms(logits, ref)
-    err_low = rel_rms(low, ref)
-    agree = float((logits.argmax(-1) == ref.argmax(-1)).float().mean())
     emit("model", config="llama3_8b", n_layers=cfg.n_layers, seq=2048,
          flash_launches=launches, forward_s=forward_s,
-         reference_forward_s=reference_s, logits_rel_rms_err=err, tol=tol,
-         fp8_attention_rel_rms_err=err_low, argmax_agreement=agree,
-         max_abs_err=float((logits - ref).abs().max()))
-    if not err <= tol < err_low:
-        raise AssertionError(
-            f"forward logits rel err {err} vs tol {tol} (float8 attention "
-            f"gives {err_low}; the tolerance must sit between)")
+         reference_forward_s=reference_s, tol=tol, **errs)
+    hold_forward("llama3_8b", errs, tol)
     return launches
 
 
@@ -745,68 +808,122 @@ def train_batch(cfg, b: int, s: int, seed: int):
         rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int64)).cuda()
 
 
-def check_grad(torch, cfg, params):
-    """The gradient of the training loss through the flash kernels (K1
-    with lse, the fused backward) against the same gradient through reference
-    attention, at full width and depth 2, on [2, 2049] tokens. The
-    control: the same loss with q detached before attention (the fault of
-    a forward with no gradient) must fail the tolerance."""
-    import dataclasses
+def first_layers(params, depth: int) -> dict:
+    """The first ``depth`` layers of a stacked parameter tree, as detached
+    leaves that share the full model's storage."""
+    return {k: ({n: w[:depth].detach() for n, w in v.items()}
+                if k == "blocks" else v.detach())
+            for k, v in params.items()}
 
-    from ray_tpu_torch.models import llama
 
-    depth = 2
-    cfg2 = dataclasses.replace(cfg, n_layers=depth)
-    # the first two layers, as leaves that share the full model's storage
-    params2 = {k: ({n: w[:depth].detach() for n, w in v.items()}
-                   if k == "blocks" else v.detach())
-               for k, v in params.items()}
-    names, leaves = zip(*named_leaves(params2))
+def grads_against_reference(torch, params, loss, module, want_counts,
+                            ctx=None, **fields):
+    """The gradient of ``loss(attn_impl)`` in every leaf of ``params``
+    through the flash kernels (K1 with lse, the fused backward) against
+    the same gradient through reference attention. The control: the same
+    loss with q detached before attention (``module.attention`` patched:
+    the fault of a forward with no gradient) must fail the tolerance.
+    ``ctx(role)`` (role: "flash", "reference" or "control") gives a
+    context each loss and its backward go in. Emits the "grad" line with
+    ``fields``; returns the launch counts and the flash path's gradients
+    by leaf name."""
+    ctx = ctx or (lambda role: contextlib.nullcontext())
+    names, leaves = zip(*named_leaves(params))
     for t in leaves:
         t.requires_grad_(True)
-    batch = train_batch(cfg, 2, 2048, SEED + 3)
 
-    def grads(attn_impl):
-        hidden = llama.forward_hidden(cfg2, params2, batch[:, :-1],
-                                      attn_impl=attn_impl)
-        loss = llama.fused_cross_entropy(cfg2, params2, hidden, batch[:, 1:],
-                                         chunk=1024)
-        # the detached-q control leaves wq without a gradient: zeros
-        return loss, torch.autograd.grad(loss, leaves, allow_unused=True,
-                                         materialize_grads=True)
+    def grads(attn_impl, role):
+        with ctx(role):
+            value = loss(attn_impl)
+            # the detached-q control leaves wq without a gradient: zeros
+            return value, torch.autograd.grad(
+                value, leaves, allow_unused=True, materialize_grads=True)
 
     zero_counts()
-    loss, got = grads("auto")
+    value, got = grads("auto", "flash")
     torch.cuda.synchronize()
     counts = launch_counts()
-    want_counts = {"flash_fwd": 2 * depth,
-                   "flash_bwd": depth}   # remat "full": K1 reruns
     if counts != want_counts:
         raise AssertionError(f"launches in one gradient {counts}, expected "
                              f"{want_counts}")
-    ref_loss, want = grads("reference")
-    orig = llama.attention
-    llama.attention = lambda q, k, v, **kw: orig(q.detach(), k, v, **kw)
-    try:
-        _, bad = grads("auto")
-    finally:
-        llama.attention = orig
+    ref_value, want = grads("reference", "reference")
     # bf16 model: the two attentions round at other points (the kernels
     # round P and dS to bf16, the reference its normalized probabilities),
     # and that reaches every gradient through the residual stream
     tol = 5e-2
     errs = {n: rel_rms(g, w) for n, g, w in zip(names, got, want)}
+    orig = module.attention
+    module.attention = lambda q, k, v, **kw: orig(q.detach(), k, v, **kw)
+    try:
+        _, bad = grads("auto", "control")
+    finally:
+        module.attention = orig
     bad_errs = {n: rel_rms(g, w) for n, g, w in zip(names, bad, want)}
-    emit("grad", config="llama3_8b", n_layers=depth, tokens=[2, 2049],
-         loss=float(loss.detach()), reference_loss=float(ref_loss.detach()),
-         launches=counts, rel_rms_err=errs, tol=tol,
-         q_detached_rel_rms_err=bad_errs)
+    del bad, want
+    emit("grad", **fields, loss=float(value.detach()),
+         reference_loss=float(ref_value.detach()), launches=counts,
+         rel_rms_err=errs, tol=tol, q_detached_rel_rms_err=bad_errs)
     if max(errs.values()) > tol or max(bad_errs.values()) <= tol:
         raise AssertionError(
             f"gradient rel err {errs} vs tol {tol}; the detached-q control "
             f"must exceed it: {bad_errs}")
     for t in leaves:
         t.requires_grad_(False)
+    return counts, dict(zip(names, got))
+
+
+def check_grad(torch, cfg, params):
+    """The gradient of the training loss through the flash kernels
+    against reference attention (``grads_against_reference``), at full
+    width and depth 2, on [2, 2049] tokens."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+    batch = train_batch(cfg, 2, 2048, SEED + 3)
+
+    def loss(attn_impl):
+        hidden = llama.forward_hidden(cfg2, params2, batch[:, :-1],
+                                      attn_impl=attn_impl)
+        return llama.fused_cross_entropy(cfg2, params2, hidden, batch[:, 1:],
+                                         chunk=1024)
+
+    # remat "full": K1 reruns in the backward
+    grads_against_reference(
+        torch, params2, loss, llama,
+        {"flash_fwd": 2 * depth, "flash_bwd": depth}, config="llama3_8b",
+        n_layers=depth, tokens=[2, 2049])
+
+
+def free_card(torch):
+    """Return the card's memory of the previous phase's model."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_flops(n_matmul, b, s, n_layers, n_heads, head_dim) -> float:
+    """A causal LM training step's FLOPs: 6 N T for the N matmul
+    parameters over T tokens, plus attention's 12 L b h hd (q, k) pairs
+    under the causal mask; no recompute."""
+    pairs = s * (s + 1) // 2
+    return 6.0 * n_matmul * b * s + 12.0 * n_layers * b * n_heads * \
+        head_dim * pairs
+
+
+def check_losses(name, losses, vocab_size):
+    """Training losses finite, the first within 1.0 of ln(vocab) (random
+    weights), the last below the second (the first step's learning rate
+    is 0 under the warmup)."""
+    first_ok = abs(losses[0] - float(np.log(vocab_size))) < 1.0
+    if not (all(np.isfinite(losses)) and first_ok
+            and losses[-1] < losses[1]):
+        raise AssertionError(f"{name} training losses {losses} (first "
+                             f"should be near ln(vocab) "
+                             f"{np.log(vocab_size):.2f} and the last below "
+                             "the second)")
 
 
 def check_train(torch, cfg, params, peaks):
@@ -854,9 +971,7 @@ def check_train(torch, cfg, params, peaks):
     n_matmul = sum(params["blocks"][k].numel() for k in
                    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
         + llama.lm_head_weights(cfg, params).numel()
-    pairs = s * (s + 1) // 2
-    flops = 6.0 * n_matmul * b * s + \
-        12.0 * L * b * cfg.n_heads * cfg.head_dim * pairs
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
     emit("train", config="llama3_8b", n_layers=L, depth_cut=None,
          tokens=[b, s + 1], remat=cfg.remat, fused_loss=True,
          loss_chunk=1024, steps=steps, losses=losses, grad_norms=norms,
@@ -865,17 +980,503 @@ def check_train(torch, cfg, params, peaks):
          peak_memory_bytes=peak_bytes, state_bytes=state_bytes,
          launches_full=full_counts, launches_attn=attn_counts,
          attn_step_loss=attn_loss)
-    first_ok = abs(losses[0] - float(np.log(cfg.vocab_size))) < 1.0
-    if not (all(np.isfinite(losses + [attn_loss])) and first_ok
-            and losses[-1] < losses[1]):
-        raise AssertionError(f"training losses {losses} (first should be "
-                             f"near ln(vocab) {np.log(cfg.vocab_size):.2f} "
-                             "and the last below the second)")
+    check_losses("llama3_8b", losses + [attn_loss], cfg.vocab_size)
     if full_counts != want_full or attn_counts != want_attn:
         raise AssertionError(
             f"launches in one step: full {full_counts} (want {want_full}), "
             f"attn {attn_counts} (want {want_attn})")
     return full_counts, attn_counts
+
+
+def check_gpt(torch, peaks) -> dict:
+    """gpt2_xl() at full width and depth (48 layers, 25 heads of 64, tied
+    head), bf16, seeded random weights: the forward over [8, 1024] through
+    K1 against reference attention; the gradient at depth 2 against
+    reference attention; then the trainer on [8, 1025] tokens under remat
+    "full". Returns the launch counts of the forward and of one step."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt, llama
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = gpt.gpt2_xl()
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", config="gpt2_xl", params=gpt.num_params(params),
+         seconds=time.perf_counter() - t0)
+    b, s = 8, 1024
+    batch = train_batch(cfg, b, s, SEED + 5)
+    t_phase = time.perf_counter()
+    logits, _, errs, fwd_counts, (forward_s, reference_s) = \
+        forward_against_reference(torch, lambda impl: gpt.forward(
+            cfg, params, batch[:, :-1], attn_impl=impl), gpt)
+    if fwd_counts != {"flash_fwd": cfg.n_layers, "flash_bwd": 0} or \
+            logits.shape != (b, s, cfg.vocab_size):
+        raise AssertionError(f"gpt2_xl forward: launches {fwd_counts}, "
+                             f"logits {tuple(logits.shape)}")
+    del logits
+    emit("model", config="gpt2_xl", n_layers=cfg.n_layers, tokens=[b, s],
+         launches=fwd_counts, forward_s=forward_s,
+         reference_forward_s=reference_s, tol=FAMILY_FORWARD_TOL, **errs,
+         seconds=time.perf_counter() - t_phase)
+    hold_forward("gpt2_xl", errs, FAMILY_FORWARD_TOL)
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+
+    def loss(attn_impl):
+        logits = gpt.forward(cfg2, params2, batch[:, :-1],
+                             attn_impl=attn_impl)
+        return llama.cross_entropy_loss(logits, batch[:, 1:])
+
+    grads_against_reference(
+        torch, params2, loss, gpt,
+        {"flash_fwd": 2 * depth, "flash_bwd": depth}, config="gpt2_xl",
+        n_layers=depth, tokens=[b, s + 1])
+    del params2
+    free_card(torch)
+
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(warmup_steps=1))
+    state = TrainState.create(params, trainer.optimizer)
+    losses, times, norms = [], [], []
+    for i in range(steps):
+        if i == steps - 1:
+            zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))   # synchronizes
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+    step_counts = launch_counts()
+    step_s = float(np.median(times[1:]))
+    # matmul parameters: the blocks' four matrices and the tied head
+    n_matmul = sum(params["blocks"][k].numel() for k in
+                   ("wqkv", "wo", "w_up", "w_down")) + \
+        params["embedding"].numel()
+    flops = step_flops(n_matmul, b, s, cfg.n_layers, cfg.n_heads,
+                       cfg.head_dim)
+    emit("train", config="gpt2_xl", n_layers=cfg.n_layers,
+         tokens=[b, s + 1], remat=cfg.remat, steps=steps, losses=losses,
+         grad_norms=norms, step_s=times, median_step_s=step_s,
+         tokens_per_s=b * s / step_s, matmul_params=n_matmul,
+         flops_per_step=flops, mfu=flops / step_s / peaks[0],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=step_counts)
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd": cfg.n_layers}
+    if step_counts != want:
+        raise AssertionError(f"gpt2_xl launches in one step {step_counts}, "
+                             f"expected {want}")
+    check_losses("gpt2_xl", losses, cfg.vocab_size)
+    return {"forward": fwd_counts, "train_step_full": step_counts}
+
+
+def to_cpu(tree):
+    return {k: (to_cpu(v) if isinstance(v, dict) else v.detach().cpu())
+            for k, v in tree.items()}
+
+
+def card_against_cpu(torch, name, run, params, inputs):
+    """``run(params, *inputs)`` on the card against the same port code on
+    the CPU, both in float32 (TF32 off), with a control: the card's run
+    with bf16 parameters and inputs must miss the limit. The CPU path is
+    the one the CPU tests hold to the JAX package, so this ties the card
+    to JAX. Returns the relative RMS error."""
+    tol = 1e-3
+    got = run(params, *inputs)
+    want = run(to_cpu(params), *(x.cpu() for x in inputs))
+    low = run({k: ({n: w.bfloat16() for n, w in v.items()}
+                   if isinstance(v, dict) else v.bfloat16())
+               for k, v in params.items()},
+              *(x.bfloat16() if x.is_floating_point() else x
+                for x in inputs))
+    err, err_low = rel_rms(got.cpu(), want), rel_rms(low.float().cpu(), want)
+    emit("card_vs_cpu", config=name, shape=list(got.shape), tol=tol,
+         rel_rms_err=err, bf16_rel_rms_err=err_low)
+    if not err <= tol < err_low:
+        raise AssertionError(f"{name} card vs CPU rel err {err}, tol {tol} "
+                             f"(bf16 gives {err_low}; the tolerance must "
+                             "sit between)")
+    return err
+
+
+def mlm_batch(cfg, b, s, seed):
+    """An MLM batch on the card from a numpy seed: each row real for a
+    random length in [s/2, s] and padded after; 15% of the real positions
+    masked (id 103) with the original ids as targets; token types 0 then
+    1 from the middle of each row."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    targets = rng.integers(1000, cfg.vocab_size, (b, s))
+    real = np.arange(s)[None, :] < rng.integers(s // 2, s + 1, b)[:, None]
+    masked = (rng.random((b, s)) < 0.15) & real
+    batch = {"tokens": np.where(masked, 103, np.where(real, targets, 0)),
+             "targets": targets, "attention_mask": real,
+             "loss_mask": masked,
+             "token_type_ids": (np.arange(s)[None, :] >= s // 2)
+             .repeat(b, 0)}
+    return {k: torch.from_numpy(v.astype(np.int64)).cuda()
+            for k, v in batch.items()}
+
+
+def check_bert(torch, peaks) -> dict:
+    """bert_large() at full width and depth, bf16, through the trainer's
+    loss_fn hook wrapping mlm_loss, on [8, 512] tokens with seeded padding
+    and 15% MLM positions: attention is non-causal with segment ids, so
+    no kernel may launch. Then the same port code at depth 2 and full
+    width in float32 on the card against the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = bert.bert_large()
+    b, s, steps = 8, 512, 4
+
+    def mlm(model_cfg, params, batch):
+        return bert.mlm_loss(model_cfg, params, batch["tokens"],
+                             batch["targets"],
+                             attention_mask=batch["attention_mask"],
+                             loss_mask=batch["loss_mask"])
+
+    trainer = Trainer(cfg, TrainConfig(warmup_steps=1), loss_fn=mlm)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(seed=SEED)
+    batch = mlm_batch(cfg, b, s, SEED + 6)
+    losses, times = [], []
+    zero_counts()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    step_s = float(np.median(times[1:]))
+    emit("train", config="bert_large", n_layers=cfg.n_layers, tokens=[b, s],
+         remat=cfg.remat, loss="mlm_loss through loss_fn", steps=steps,
+         losses=losses, step_s=times, median_step_s=step_s,
+         tokens_per_s=b * s / step_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts)
+    if counts != {"flash_fwd": 0, "flash_bwd": 0}:
+        raise AssertionError(f"bert_large launched kernels {counts}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
+        raise AssertionError(f"bert_large losses {losses}")
+    del state, trainer
+    free_card(torch)
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    small = mlm_batch(cfg2, 2, s, SEED + 7)
+    card_against_cpu(
+        torch, "bert_large_depth2_f32",
+        lambda p, t, mask, types: bert.encode(
+            cfg2, p, t, attention_mask=mask, token_type_ids=types),
+        bert.init_params(cfg2, seed=SEED + 1, device="cuda"),
+        (small["tokens"], small["attention_mask"], small["token_type_ids"]))
+    return {"train_step": counts}
+
+
+def check_vit(torch) -> dict:
+    """vit_l16() at full depth in float32: the forward on [32, 224, 224,
+    3] seeded images, then gradient steps with Adam (a constant 1e-4, no
+    decay or clip) on seeded labels; then the same port code at depth 2 on
+    the card against the CPU."""
+    import dataclasses
+
+    from ray_tpu_torch.models import vit
+    from ray_tpu_torch.train.optim import AdamW, tree_leaves
+
+    cfg = vit.vit_l16()
+    params = vit.init_params(cfg, seed=SEED, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    images = torch.rand((32, cfg.image_size, cfg.image_size, cfg.channels),
+                        generator=gen, device="cuda")
+    labels = torch.randint(0, cfg.n_classes, (32,), generator=gen,
+                           device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    logits = vit.forward(cfg, params, images)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    if logits.shape != (32, cfg.n_classes) or \
+            logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+        raise AssertionError(f"vit_l16 logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = AdamW(lambda count: 1e-4, max_grad_norm=float("inf"), b1=0.9,
+                b2=0.999, weight_decay=0.0)
+    opt_state = opt.init(params)
+    losses, times = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = torch.nn.functional.cross_entropy(
+            vit.forward(cfg, params, images), labels)
+        grads = torch.autograd.grad(loss, leaves)
+        opt.update(leaves, list(grads), opt_state)
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+        del grads, loss
+    counts = launch_counts()
+    emit("vit", config="vit_l16", n_layers=cfg.n_layers,
+         images=[32, cfg.image_size, cfg.image_size, cfg.channels],
+         dtype="float32", forward_s=forward_s, step_s=times, losses=losses,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts)
+    if counts != {"flash_fwd": 0, "flash_bwd": 0} or \
+            not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"vit_l16 steps: losses {losses}, launches "
+                             f"{counts}")
+    del params, opt_state, leaves, logits
+    free_card(torch)
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    card_against_cpu(torch, "vit_l16_depth2_f32",
+                     lambda p, x: vit.forward(cfg2, p, x),
+                     vit.init_params(cfg2, seed=SEED + 1, device="cuda"),
+                     (images[:4],))
+    return {"steps": counts}
+
+
+class Routing:
+    """While installed, records or replays each Mixtral layer's top-k
+    expert choice, keyed by the layer's router weight (the same view when
+    a remat recompute reruns the layer): it wraps ``mixtral.moe_ffn`` and,
+    inside it, ``ops.moe._top_k``. Recording changes nothing. Replaying
+    ``replay``'s choice makes every token go to the experts, in the slot
+    order, that it went to in the recorded run; the gate values are this
+    run's own probabilities of those experts. Routing is discontinuous: a
+    token whose top-2 set flips under attention's rounding changes its
+    output by a whole expert, so two attentions are compared with the
+    routing held fixed, and the flips are counted apart."""
+
+    def __init__(self, replay: "Routing | None" = None):
+        self.replay = replay
+        self.choice = {}     # router data_ptr -> [T, k] expert ids
+
+    def __enter__(self):
+        from ray_tpu_torch.models import mixtral
+        from ray_tpu_torch.ops import moe
+
+        orig_ffn, orig_top_k = mixtral.moe_ffn, moe._top_k
+
+        def ffn(x, router_w, *args, **kwargs):
+            key = router_w.data_ptr()
+            if self.replay is not None:
+                idx = self.replay.choice[key]
+
+                def top_k(probs, k):
+                    return probs.gather(-1, idx), idx
+            else:
+                def top_k(probs, k):
+                    vals, idx = orig_top_k(probs, k)
+                    self.choice.setdefault(key, idx.detach())
+                    return vals, idx
+            moe._top_k = top_k
+            try:
+                return orig_ffn(x, router_w, *args, **kwargs)
+            finally:
+                moe._top_k = orig_top_k
+
+        mixtral.moe_ffn = ffn
+        self._restore = lambda: setattr(mixtral, "moe_ffn", orig_ffn)
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def flips(self, other) -> list:
+        """Per layer, the share of tokens whose top-k set differs from
+        ``other``'s."""
+        return [float((a.sort(-1).values != b.sort(-1).values).any(-1)
+                      .float().mean())
+                for a, b in zip(self.choice.values(), other.choice.values())]
+
+    def dropped_share(self, cfg) -> list:
+        """Per layer, the share of the top-k assignments that capacity
+        dropped: an expert chosen n times keeps min(n, C) of them."""
+        out = []
+        for idx in self.choice.values():
+            t = idx.shape[0]
+            cap = max(1, int(cfg.capacity_factor * t * cfg.top_k
+                             / cfg.n_experts))
+            n = idx.flatten().bincount(minlength=cfg.n_experts)
+            out.append(float((n - cap).clamp(min=0).sum()) / (t * cfg.top_k))
+        return out
+
+
+def fixed_routing(recorded):
+    """The ``ctx`` of the comparisons: the flash run records its routing,
+    the reference run and the control replay it."""
+    return lambda role: recorded if role == "flash" else Routing(recorded)
+
+
+def mixtral_forwards(torch, cfg, params) -> dict:
+    """The forward over [1, 2048] through K1 at depth 16 and at depth 2
+    (the first layers of ``params``) against reference attention with the
+    flash run's routing, the float8 control failing the limit; the
+    natural routing's error and flips reported. Returns the depth-16
+    launch counts."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama, mixtral
+
+    tokens = train_batch(cfg, 1, 2047, SEED + 9)     # [1, 2048]
+    tol = FAMILY_FORWARD_TOL
+    results = {}
+    for depth in (16, 2):
+        cfg_d = dataclasses.replace(cfg, n_layers=depth)
+        p_d = first_layers(params, depth)
+        aux = []
+
+        def forward(impl):
+            out, a = mixtral.forward(cfg_d, p_d, tokens, attn_impl=impl,
+                                     return_aux_loss=True)
+            aux.append(a)
+            return out
+        flash = Routing()
+        logits, ref, errs, counts, (forward_s, reference_s) = \
+            forward_against_reference(torch, forward, llama,
+                                      fixed_routing(flash))
+        if counts != {"flash_fwd": depth, "flash_bwd": 0}:
+            raise AssertionError(f"mixtral depth {depth} forward launches "
+                                 f"{counts}")
+        # the same reference forward with its own routing
+        with Routing() as natural:
+            ref_natural = forward("reference")
+        natural_err = rel_rms(logits, ref_natural)
+        natural_agree = float((logits.argmax(-1) == ref_natural.argmax(-1))
+                              .float().mean())
+        del logits, ref, ref_natural
+        emit("model", config="mixtral_8x7b", n_layers=depth,
+             tokens=[1, 2048], launches=counts, forward_s=forward_s,
+             reference_forward_s=reference_s, routing="fixed", tol=tol,
+             **errs, natural_routing_logits_rel_rms_err=natural_err,
+             natural_routing_argmax_agreement=natural_agree,
+             routing_flip_share=flash.flips(natural),
+             aux_loss=float(aux[1]),
+             capacity_dropped_share=flash.dropped_share(cfg))
+        hold_forward(f"mixtral_8x7b depth {depth}", errs, tol)
+        results[depth] = counts
+    return results[16]
+
+
+def mixtral_grad(torch, cfg, params, batch) -> dict:
+    """The gradient of the loss (cross-entropy plus the weighted aux loss,
+    loss_fn's sum) at depth 2 on ``batch`` against reference attention
+    with the flash run's routing; the natural routing's error and flips
+    reported. Returns the launch counts."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama, mixtral
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+
+    def loss(attn_impl):
+        logits, aux = mixtral.forward(cfg2, params2, batch[:, :-1],
+                                      attn_impl=attn_impl,
+                                      return_aux_loss=True)
+        return llama.cross_entropy_loss(logits, batch[:, 1:]) + aux
+
+    flash = Routing()
+    counts, got = grads_against_reference(
+        torch, params2, loss, llama,
+        {"flash_fwd": 2 * depth, "flash_bwd": depth},
+        ctx=fixed_routing(flash), config="mixtral_8x7b", n_layers=depth,
+        tokens=[2, 2049], routing="fixed")
+    # the reference gradient with its own routing, for the record
+    names, leaves = zip(*named_leaves(params2))
+    for t in leaves:
+        t.requires_grad_(True)
+    with Routing() as natural:
+        want = torch.autograd.grad(loss("reference"), leaves,
+                                   allow_unused=True, materialize_grads=True)
+    for t in leaves:
+        t.requires_grad_(False)
+    emit("grad_natural_routing", config="mixtral_8x7b", n_layers=depth,
+         rel_rms_err={n: rel_rms(got[n], w) for n, w in zip(names, want)},
+         routing_flip_share=flash.flips(natural))
+    return counts
+
+
+def mixtral_train(torch, cfg, params, batch):
+    """Three steps of the trainer's AdamW recipe over loss_fn on
+    ``params`` (the depth-4 copy), the loss falling."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.train.optim import tree_leaves
+    from ray_tpu_torch.train.trainer import TrainConfig, make_optimizer
+
+    allocated = torch.cuda.memory_allocated()   # the depth-4 weights only
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_optimizer(TrainConfig(warmup_steps=0))
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt_state = opt.init(params)
+    losses, times = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = mixtral.loss_fn(cfg, params, batch[:, :-1], batch[:, 1:])
+        grads = torch.autograd.grad(loss, leaves)
+        opt.update(leaves, list(grads), opt_state)
+        losses.append(float(loss.detach()))
+        times.append(time.perf_counter() - t0)
+        del grads, loss
+    emit("train", config="mixtral_8x7b", n_layers=cfg.n_layers,
+         tokens=list(batch.shape), remat=cfg.remat,
+         optimizer="AdamW (the trainer's recipe)",
+         params=mixtral.num_params(params), steps=3, losses=losses,
+         step_s=times,
+         state_bytes=4 * sum(t.numel() * t.element_size() for t in leaves),
+         allocated_before_bytes=allocated,
+         peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"mixtral training losses {losses}")
+
+
+def check_mixtral(torch, peaks) -> dict:
+    """mixtral_8x7b() at full width (46.7 B parameters do not fit the
+    card's 80 GB at 32 layers): the forwards at depth 16 and 2, the
+    gradient at depth 2 on [2, 2049] (``mixtral_forwards``,
+    ``mixtral_grad``), then three AdamW steps at depth 4 on a copy of the
+    first four layers, once the depth-16 weights are gone."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+
+    cfg = dataclasses.replace(mixtral.mixtral_8x7b(), n_layers=16)
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", config="mixtral_8x7b", n_layers=cfg.n_layers,
+         params=mixtral.num_params(params), seconds=time.perf_counter() - t0)
+    forward_counts = mixtral_forwards(torch, cfg, params)
+    batch = train_batch(cfg, 2, 2048, SEED + 10)
+    grad_counts = mixtral_grad(torch, cfg, params, batch)
+    depth = 4
+    params4 = {k: ({n: w[:depth].clone() for n, w in v.items()}
+                   if k == "blocks" else v.clone())
+               for k, v in params.items()}
+    del params
+    free_card(torch)
+    mixtral_train(torch, dataclasses.replace(cfg, n_layers=depth), params4,
+                  batch)
+    del params4
+    free_card(torch)
+    return {"forward": forward_counts, "grad": grad_counts}
 
 
 def build_facts(kernels_mod, name, path, kernel) -> dict:
@@ -959,8 +1560,8 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
 
-    main_case, train_case = check_flash(torch, peaks)
-    bwd_case = check_flash_bwd(torch, peaks)
+    main_case, train_case, gpt2_case = check_flash(torch, peaks)
+    bwd_case, bwd_gpt2_case = check_flash_bwd(torch, peaks)
 
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -974,14 +1575,29 @@ def main() -> int:
     launches = check_model(torch, cfg, params)
     check_lm_head(torch, cfg, params)
     check_serve(torch, cfg, params)
-    gc.collect()   # the engine and its KV pool
-    torch.cuda.empty_cache()
+    free_card(torch)   # the engine and its KV pool
     check_grad(torch, cfg, params)
     full_counts, attn_counts = check_train(torch, cfg, params, peaks)
+    del params
+    free_card(torch)
+    # the other families, each at full width, one after another on the
+    # card's memory (Mixtral at reduced depth)
+    gpt_counts = check_gpt(torch, peaks)
+    free_card(torch)
+    bert_counts = check_bert(torch, peaks)
+    vit_counts = check_vit(torch)
+    mixtral_counts = check_mixtral(torch, peaks)
 
     by_path = {k: {"forward": launches if k == "flash_fwd" else 0,
                    "train_step_full": full_counts[k],
-                   "train_step_attn": attn_counts[k]}
+                   "train_step_attn": attn_counts[k],
+                   "gpt2_xl_forward": gpt_counts["forward"][k],
+                   "gpt2_xl_train_step_full":
+                       gpt_counts["train_step_full"][k],
+                   "bert_large_train_step": bert_counts["train_step"][k],
+                   "vit_l16_step": vit_counts["steps"][k],
+                   "mixtral_forward": mixtral_counts["forward"][k],
+                   "mixtral_grad": mixtral_counts["grad"][k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -999,6 +1615,10 @@ def main() -> int:
         "tflops": main_case["tflops"],
         # b 2, s 2048, with lse: the shape of the training step's launches
         "train_shape": {k: train_case[k] for k in (
+            "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops", "max_err", "row_rel_err", "lse_err")},
+        # b 8, s 1024, 25 heads, no GQA, d 64, with lse: GPT-2 XL's step
+        "gpt2_xl_shape": {k: gpt2_case[k] for k in (
             "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
             "tflops", "max_err", "row_rel_err", "lse_err")},
         "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
@@ -1024,6 +1644,13 @@ def main() -> int:
             # SDPA's whole backward (dQ, dK and dV) in one call
             "library_ms": bwd_case["library_ms"],
             "tflops": bwd_case["tflops"],
+            "gpt2_xl_shape": {
+                "shape": bwd_gpt2_case["shape"],
+                "row_rel_err": max(bwd_gpt2_case["row_rel_err"][o]
+                                   for o in outs),
+                **{k: bwd_gpt2_case[k] for k in (
+                    "kernel_ms", "library_ms", "bound_ms", "bound_by",
+                    "tflops")}},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)

@@ -3,16 +3,31 @@
 The one bridge between the two packages' weights: the caller converts the
 JAX pytree with ``np.asarray`` (``jax.tree.map(np.asarray, params)``) and
 hands the numpy tree here. Names and layouts are the same on both sides
-(stacked ``[L, ...]`` blocks, ``x @ W`` orientation), so the mapping is
-name for name.
+(stacked ``[L, ...]`` blocks, ``x @ W`` orientation) for every model
+family, so the mapping is name for name.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+
+
+def _family_of(cfg):
+    """The model module of a config: llama, mixtral, gpt, bert or vit."""
+    from ray_tpu_torch.models import bert, gpt, llama, mixtral, vit
+
+    for family, config in ((llama, llama.LlamaConfig),
+                           (mixtral, mixtral.MixtralConfig),
+                           (gpt, gpt.GPTConfig), (bert, bert.BertConfig),
+                           (vit, vit.ViTConfig)):
+        if isinstance(cfg, config):
+            return family
+    raise TypeError(f"no model family for config {type(cfg).__name__}")
 
 
 def _to_tensor(a, device, dtype):
@@ -28,21 +43,39 @@ def _to_tensor(a, device, dtype):
     return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
+def _in_dtype(cfg, dtype: torch.dtype):
+    """``cfg`` with its parameter dtype set to ``dtype`` (a dtype name in
+    ``dtype`` for the language models, a torch dtype in ViT's
+    ``param_dtype``)."""
+    if isinstance(getattr(cfg, "dtype", None), str):
+        return dataclasses.replace(cfg, dtype=str(dtype).split(".")[-1])
+    return dataclasses.replace(cfg, param_dtype=dtype)
+
+
 def params_from_numpy(cfg, tree: dict, *, device="cuda",
                       dtype: torch.dtype | None = None) -> dict:
-    """The port's parameter dictionary from a numpy parameter tree.
-    ``dtype`` casts every weight (default: keep each array's own dtype)."""
+    """The port's parameter dictionary from a numpy parameter tree of the
+    family of ``cfg``. The tree must have the family's structure: the keys
+    and shapes of its ``init_params`` (taken on the meta device, so nothing
+    is allocated). Each leaf keeps its own dtype unless ``dtype`` is given;
+    then each leaf takes the dtype that ``init_params`` gives it in a
+    ``dtype`` model, so the leaves a family holds in float32 whatever its
+    dtype (the Mixtral router, BERT's ``mlm_bias``) stay float32."""
     dev = resolve_device(device)
-    expected = {"embedding", "blocks", "final_norm"}
-    if not cfg.tie_embeddings:
-        expected.add("lm_head")
-    if set(tree) != expected:
-        raise ValueError(f"parameter tree has keys {sorted(tree)}, "
-                         f"expected {sorted(expected)}")
+    expected = _family_of(cfg).init_params(
+        cfg if dtype is None else _in_dtype(cfg, dtype), device="meta")
 
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(v) for k, v in node.items()}
-        return _to_tensor(node, dev, dtype)
+    def convert(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, dict) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"parameter tree{path} has keys {got}, "
+                                 f"expected {sorted(want)}")
+            return {k: convert(node[k], want[k], f"{path}.{k}")
+                    for k in want}
+        if isinstance(node, dict) or np.shape(node) != tuple(want.shape):
+            raise ValueError(f"parameter {path[1:]} has shape "
+                             f"{np.shape(node)}, expected {tuple(want.shape)}")
+        return _to_tensor(node, dev, None if dtype is None else want.dtype)
 
-    return convert(tree)
+    return convert(tree, expected, "")

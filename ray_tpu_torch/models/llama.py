@@ -5,10 +5,7 @@ with JAX's stacked ``[L, ...]`` block layout, its names (``embedding``,
 ``blocks.wq``, ..., ``final_norm``, ``lm_head``) and its ``x @ W``
 orientation, so weights carry across name for name
 (``ray_tpu_torch.convert``). The ``lax.scan`` over layers is a Python loop
-over the layers of ``torch.unbind``: each stacked weight is split once a
-forward, so the backward stacks the per-layer gradients in one
-allocation (indexing ``w[i]`` in the loop would make a zero-filled
-gradient the size of the whole stack for every layer). Attention goes
+over ``unstack_layers``, which every family shares. Attention goes
 through ``ops.attention.attention``, which sends a CUDA tensor of a
 supported shape to the flash kernels.
 
@@ -42,6 +39,7 @@ from torch.utils.checkpoint import (checkpoint,
 from ray_tpu_torch._device import dtype_of, resolve_device
 from ray_tpu_torch.ops.attention import ATTN_OUT_OP, attention
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
+from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_sin_cos
 
@@ -89,49 +87,78 @@ def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
 # Parameters
 # ---------------------------------------------------------------------------
 
+class ParamInit:
+    """The draws of one ``init_params`` call, shared by the model families:
+    normal draws in float32 times a scale (fan-in scaled for ``dense``),
+    cast to the parameter's dtype, and constant leaves. A weight of more
+    than two dimensions is drawn one trailing matrix at a time, so no
+    float32 copy of a whole stack exists. ``generator`` (on ``device``)
+    overrides ``seed``. On the meta device the leaves are empty: the
+    parameter tree's structure, shapes and dtypes, with no memory (what
+    ``convert.params_from_numpy`` checks a tree against)."""
+
+    def __init__(self, dtype: torch.dtype, *, seed: int = 0,
+                 generator: torch.Generator | None = None, device="cuda"):
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        if generator is None and self.device.type != "meta":
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = generator
+
+    def normal(self, shape, std: float, dtype=None) -> torch.Tensor:
+        out = torch.empty(shape, dtype=dtype or self.dtype,
+                          device=self.device)
+        if out.is_meta:
+            return out
+        rows = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+        for i in range(rows.shape[0]):
+            rows[i] = torch.randn(rows.shape[1:], generator=self.generator,
+                                  device=self.device,
+                                  dtype=torch.float32) * std
+        return out
+
+    def dense(self, shape, fan_in: int, dtype=None) -> torch.Tensor:
+        return self.normal(shape, fan_in ** -0.5, dtype)
+
+    def ones(self, shape) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def zeros(self, shape, dtype=None) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype or self.dtype,
+                           device=self.device)
+
+
 def init_params(cfg: LlamaConfig, *, seed: int = 0,
                 generator: torch.Generator | None = None,
                 device="cuda") -> dict:
     """Random parameters in the stacked-block layout: fan-in-scaled normal
-    draws in float32, cast to the config's dtype. Stacked weights are drawn
-    one layer at a time, so the float32 draw never holds a whole stack.
-    ``generator`` (on ``device``) overrides ``seed``. The draws are not
-    JAX's: carry JAX weights across with ``convert.params_from_numpy``."""
-    dev = resolve_device(device)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(seed)
-    dt = cfg.param_dtype
+    draws in float32, cast to the config's dtype (``ParamInit``). The draws
+    are not JAX's: carry JAX weights across with
+    ``convert.params_from_numpy``."""
+    init = ParamInit(cfg.param_dtype, seed=seed, generator=generator,
+                     device=device)
     d, n_layers = cfg.d_model, cfg.n_layers
     qdim = cfg.n_heads * cfg.head_dim
     kvdim = cfg.n_kv_heads * cfg.head_dim
 
-    def dense(shape, fan_in, stacked=True):
-        out = torch.empty(((n_layers,) if stacked else ()) + shape,
-                          dtype=dt, device=dev)
-        rows = out if stacked else out[None]
-        for i in range(rows.shape[0]):
-            rows[i] = (torch.randn(shape, generator=generator, device=dev,
-                                   dtype=torch.float32) * fan_in ** -0.5)
-        return out
+    def dense(shape, fan_in):
+        return init.dense((n_layers,) + shape, fan_in)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dt, device=dev)
-
-    params = {"embedding": dense((cfg.vocab_size, d), d, stacked=False)}
+    params = {"embedding": init.dense((cfg.vocab_size, d), d)}
     params["blocks"] = {
-        "attn_norm": ones((n_layers, d)),
+        "attn_norm": init.ones((n_layers, d)),
         "wq": dense((d, qdim), d),
         "wk": dense((d, kvdim), d),
         "wv": dense((d, kvdim), d),
         "wo": dense((qdim, d), qdim),
-        "mlp_norm": ones((n_layers, d)),
+        "mlp_norm": init.ones((n_layers, d)),
         "w_gate": dense((d, cfg.d_ff), d),
         "w_up": dense((d, cfg.d_ff), d),
         "w_down": dense((cfg.d_ff, d), cfg.d_ff),
     }
-    params["final_norm"] = ones((d,))
+    params["final_norm"] = init.ones((d,))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, cfg.vocab_size), d, stacked=False)
+        params["lm_head"] = init.dense((d, cfg.vocab_size), d)
     return params
 
 
@@ -143,6 +170,17 @@ def num_params(params: dict) -> int:
     return count(params)
 
 
+def unstack_layers(blocks: dict):
+    """The stacked blocks as one dictionary of weights per layer, each
+    stack split once by ``torch.unbind`` (the backward then stacks the
+    per-layer gradients in one allocation; indexing ``w[i]`` in the loop
+    would make a zero-filled gradient the size of the whole stack for
+    every layer)."""
+    names = list(blocks)
+    for ws in zip(*(torch.unbind(blocks[n]) for n in names)):
+        yield dict(zip(names, ws))
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Layer ``i``'s slice of the stacked blocks (views, no copies)."""
     return {name: w[i] for name, w in params["blocks"].items()}
@@ -151,35 +189,6 @@ def layer_params(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
-
-class _MatmulF32(torch.autograd.Function):
-    """``torch.mm`` with a float32 output type, which has no derivative of
-    its own: the backward rounds the float32 cotangent to the operands'
-    dtype and runs the two transposed products in that dtype."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        return g @ w.T, x.T @ g
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with a float32 result, for the LM head: the float32
-    accumulator is written out as it is, never rounded to the operands'
-    dtype (JAX's ``preferred_element_type=float32``). On CUDA, low-precision
-    operands go to one GEMM with a float32 output type, with no float32
-    copy of the head (2 GB at Llama-3-8B); elsewhere both widen first."""
-    if x.is_cuda and x.dtype != torch.float32 and w.dtype == x.dtype:
-        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
-
 
 def mlp_sublayer(cfg, x, p):
     """Pre-norm SwiGLU MLP sublayer; returns the residual-added stream."""
@@ -219,20 +228,24 @@ def _block(cfg, x, p, sin, cos, segment_ids, attn_impl):
 
 
 # operators whose outputs each selective remat policy saves
+# (aten.mm.dtype: matmul_f32's product on the card, which the MoE experts'
+# dispatch and combine run; the experts' batched products are aten.bmm)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
 _SAVED_OPS = {
-    "dots": (torch.ops.aten.mm.default,),
+    "dots": _DOTS,
     "attn": (FLASH_FWD_OP, ATTN_OUT_OP),
-    "dots_attn": (torch.ops.aten.mm.default, FLASH_FWD_OP, ATTN_OUT_OP),
+    "dots_attn": (*_DOTS, FLASH_FWD_OP, ATTN_OUT_OP),
 }
 REMAT_POLICIES = ("none", "full", *_SAVED_OPS)
 
 
-def remat_block(cfg, block):
-    """``block`` wrapped in the config's remat policy (a no-op when autograd
-    is off: nothing is saved then)."""
-    if cfg.remat not in REMAT_POLICIES:
+def remat_block(cfg, block, policies=REMAT_POLICIES):
+    """``block`` wrapped in the config's remat policy, one of ``policies``
+    (the family's own; a no-op when autograd is off: nothing is saved
+    then)."""
+    if cfg.remat not in policies:
         raise ValueError(f"unknown remat policy {cfg.remat!r}; expected one "
-                         f"of {REMAT_POLICIES}")
+                         f"of {policies}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return block
     if cfg.remat == "full":
@@ -255,9 +268,8 @@ def forward_hidden(cfg, params, tokens, *, positions=None, segment_ids=None,
     body = remat_block(cfg, partial(_block, cfg, sin=sin, cos=cos,
                                     segment_ids=segment_ids,
                                     attn_impl=attn_impl))
-    names = list(params["blocks"])
-    for ws in zip(*(torch.unbind(params["blocks"][n]) for n in names)):
-        x = body(x, dict(zip(names, ws)))
+    for p in unstack_layers(params["blocks"]):
+        x = body(x, p)
     return rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
 
 

@@ -1,4 +1,4 @@
-"""Trainer: the training step of the Llama family on one card.
+"""Trainer: the training step of a model family on one card.
 
 Port of ``ray_tpu/train/trainer.py`` (``JaxTrainer``) for one device:
 ``TrainConfig`` keeps the same fields and defaults, and ``Trainer`` keeps
@@ -10,6 +10,12 @@ card and updates the state's tensors in place: the gradients come from
 same recipe as JAX's optax chain) updates one tensor at a time. A mesh,
 strategy or microbatch count that needs more than one card raises
 ``NotImplementedError``: the multi-card harness is not ported yet.
+
+The model family comes from the config's type, as in JAX: llama, gpt or
+bert (``_resolve_family``); any other config raises ``TypeError``. A
+family other than llama trains on ``family.forward`` and the next-token
+cross-entropy, or on the ``loss_fn`` hook, which bert needs (it has no
+causal-LM forward); ``fused_loss`` is llama's alone.
 """
 
 from __future__ import annotations
@@ -88,7 +94,7 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 
 class Trainer:
-    """Single-card trainer of a Llama-family model.
+    """Single-card trainer of a llama, gpt or bert model.
 
     Usage::
 
@@ -101,23 +107,41 @@ class Trainer:
                  loss_fn: Callable | None = None, device="cuda"):
         """``loss_fn(model_cfg, params, batch) -> scalar`` overrides the
         default next-token cross-entropy."""
-        if not isinstance(model_cfg, llama.LlamaConfig):
-            raise TypeError(f"unsupported model config "
-                            f"{type(model_cfg).__name__}; the port has the "
-                            "llama family only")
+        self.family = self._resolve_family(model_cfg)
         _check_one_card(cfg)
+        if self.family is not llama and cfg.fused_loss:
+            raise ValueError("fused_loss is a llama-only path")
         if loss_fn is not None and cfg.fused_loss:
             raise ValueError("custom loss_fn cannot combine with fused_loss "
                              "(both own the loss computation)")
+        # families without a causal-LM `forward` need the loss hook
+        if loss_fn is None and not hasattr(self.family, "forward"):
+            raise ValueError(
+                f"{self.family.__name__} has no causal-LM default; pass "
+                "loss_fn= (e.g. wrapping bert.mlm_loss)")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
         self.optimizer = make_optimizer(cfg)
 
+    @staticmethod
+    def _resolve_family(model_cfg):
+        if isinstance(model_cfg, llama.LlamaConfig):
+            return llama
+        from ray_tpu_torch.models import bert, gpt
+
+        if isinstance(model_cfg, gpt.GPTConfig):
+            return gpt
+        if isinstance(model_cfg, bert.BertConfig):
+            return bert
+        raise TypeError(
+            f"unsupported model config {type(model_cfg).__name__}; "
+            "expected LlamaConfig, GPTConfig, or BertConfig")
+
     def init_state(self, seed: int = 0) -> TrainState:
-        params = llama.init_params(self.model_cfg, seed=seed,
-                                   device=self.device)
+        params = self.family.init_params(self.model_cfg, seed=seed,
+                                         device=self.device)
         return TrainState.create(params, self.optimizer)
 
     def _loss_fn(self, params, batch):
@@ -125,6 +149,10 @@ class Trainer:
             return self.loss_fn(self.model_cfg, params, batch)
         inputs, targets = batch[:, :-1], batch[:, 1:]
         mask = (targets != -1).float()
+        if self.family is not llama:
+            logits = self.family.forward(self.model_cfg, params, inputs)
+            return llama.cross_entropy_loss(logits, targets.clamp(min=0),
+                                            mask=mask)
         if self.cfg.fused_loss:
             hidden = llama.forward_hidden(self.model_cfg, params, inputs)
             return llama.fused_cross_entropy(

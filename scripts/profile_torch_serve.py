@@ -37,11 +37,17 @@ def _device_us(evt) -> float:
 
 def _kernels(prof):
     """Events that ran on the card (kernels, copies), not the host
-    operators that launched them (those carry the same device time)."""
+    operators that launched them (those carry the same device time), nor
+    the device-side spans of ``record_function`` ranges (named as their
+    host range, they cover kernels already counted)."""
     import torch
 
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host]
 
 
 def summarize(prof, wall_s: float, top: int = 12):

@@ -55,7 +55,8 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
     assert expected <= set(out["modules"])
     assert "ray_tpu_torch.serve.paged_llm" in out["modules"]
     for name in ("train.trainer", "train.state", "train.checkpoint",
-                 "train.optim"):
+                 "train.optim", "ops.moe", "ops.matmul", "models.mixtral",
+                 "models.gpt", "models.bert", "models.vit"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
