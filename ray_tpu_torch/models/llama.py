@@ -23,7 +23,12 @@ The selective policies go through
 ``fused_cross_entropy`` is JAX's chunked loss: the LM-head product and
 the log-sum-exp run one sequence chunk at a time and the backward
 recomputes each chunk's logits, so the ``[b, s, vocab]`` float32 logits
-never exist. ``param_logical_axes`` is not ported: there is no mesh.
+never exist.
+
+``attn_impl="ring"`` runs sequence-parallel ring attention over the
+``sp_axis`` of ``mesh`` (``parallel.ring_attention``), the path the
+trainer takes when its sharding rules cut the sequence. Placing
+parameters over a mesh (``param_logical_axes``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_sin_cos
+from ray_tpu_torch.parallel.ring_attention import ring_attention
 
 
 @dataclass(frozen=True)
@@ -197,8 +203,10 @@ def mlp_sublayer(cfg, x, p):
     return x + gated @ p["w_down"]
 
 
-def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl):
-    """Pre-norm attention sublayer; returns the residual-added stream."""
+def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
+                       mesh=None, sp_axis="sp"):
+    """Pre-norm attention sublayer; returns the residual-added stream.
+    ``attn_impl="ring"`` needs ``mesh`` (with an ``sp_axis`` axis)."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
     q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -206,24 +214,37 @@ def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl):
     v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    attn_out = attention(q, k, v, causal=True, segment_ids=segment_ids,
-                         impl=attn_impl)
+    if attn_impl == "ring":
+        if mesh is None:
+            raise ValueError(
+                "attn_impl='ring' requires mesh= (and an sp mesh axis)")
+        if segment_ids is not None:
+            raise ValueError("ring attention does not support segment_ids yet")
+        attn_out = ring_attention(q, k, v, mesh=mesh, axis=sp_axis,
+                                  causal=True)
+    else:
+        attn_out = attention(q, k, v, causal=True, segment_ids=segment_ids,
+                             impl=attn_impl)
     attn_out = attn_out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return x + attn_out @ p["wo"]
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, *,
-            positions=None, segment_ids=None,
-            attn_impl: str = "auto") -> torch.Tensor:
-    """Token ids [batch, seq] -> logits [batch, seq, vocab] (float32)."""
+            positions=None, segment_ids=None, attn_impl: str = "auto",
+            mesh=None, sp_axis: str = "sp") -> torch.Tensor:
+    """Token ids [batch, seq] -> logits [batch, seq, vocab] (float32).
+    ``mesh`` is required for ``attn_impl="ring"`` (sequence parallel)."""
     x = forward_hidden(cfg, params, tokens, positions=positions,
-                       segment_ids=segment_ids, attn_impl=attn_impl)
+                       segment_ids=segment_ids, attn_impl=attn_impl,
+                       mesh=mesh, sp_axis=sp_axis)
     return matmul_f32(x, lm_head_weights(cfg, params))
 
 
-def _block(cfg, x, p, sin, cos, segment_ids, attn_impl):
+def _block(cfg, x, p, sin, cos, segment_ids, attn_impl, mesh=None,
+           sp_axis="sp"):
     """One transformer block: pre-norm attention + SwiGLU MLP."""
-    x = attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl)
+    x = attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
+                           mesh=mesh, sp_axis=sp_axis)
     return mlp_sublayer(cfg, x, p)
 
 
@@ -256,7 +277,8 @@ def remat_block(cfg, block, policies=REMAT_POLICIES):
 
 
 def forward_hidden(cfg, params, tokens, *, positions=None, segment_ids=None,
-                   attn_impl="auto") -> torch.Tensor:
+                   attn_impl="auto", mesh=None,
+                   sp_axis="sp") -> torch.Tensor:
     """Token ids -> final normalized hidden states [b, s, d] (the input to
     the LM head; split out so losses can fuse the head product)."""
     s = tokens.shape[1]
@@ -267,7 +289,8 @@ def forward_hidden(cfg, params, tokens, *, positions=None, segment_ids=None,
     sin, cos = rope_sin_cos(positions, cfg.head_dim, theta=cfg.rope_theta)
     body = remat_block(cfg, partial(_block, cfg, sin=sin, cos=cos,
                                     segment_ids=segment_ids,
-                                    attn_impl=attn_impl))
+                                    attn_impl=attn_impl, mesh=mesh,
+                                    sp_axis=sp_axis))
     for p in unstack_layers(params["blocks"]):
         x = body(x, p)
     return rms_norm(x, params["final_norm"], eps=cfg.rms_eps)
