@@ -1,25 +1,33 @@
-"""Trainer: the training step of a model family on one card.
+"""Trainer: the training step of a model family, on one card.
 
-Port of ``ray_tpu/train/trainer.py`` (``JaxTrainer``) for one device:
-``TrainConfig`` keeps the same fields and defaults, and ``Trainer`` keeps
-its surface (``init_state``, ``train_step``, ``fit``, the ``loss_fn``
-hook, ``fused_loss`` and ``loss_chunk``). Where JAX jit-compiles one SPMD
-step over a mesh and donates the state, the port runs eagerly on one
-card and updates the state's tensors in place: the gradients come from
+Port of ``ray_tpu/train/trainer.py`` (``JaxTrainer``): ``TrainConfig``
+keeps the same fields and defaults, and ``Trainer`` keeps its surface
+(``init_state``, ``train_step``, ``fit``, the ``loss_fn`` hook,
+``fused_loss`` and ``loss_chunk``, ``mesh=``). Where JAX jit-compiles one
+SPMD step over a mesh and donates the state, the port runs eagerly and
+updates the state's tensors in place: the gradients come from
 ``torch.autograd.grad``, and the optimizer (``train.optim.AdamW``, the
-same recipe as JAX's optax chain) updates one tensor at a time. A mesh,
-strategy or microbatch count that needs more than one card raises
-``NotImplementedError``: the multi-card harness is not ported yet.
+same recipe as JAX's optax chain) updates one tensor at a time.
+
+The mesh (``parallel.mesh``, single-controller as in JAX) is the one
+given, or one built from ``mesh_axes`` with every place on the trainer's
+device. The sharding rules (a preset name or ``ShardingRules``) become
+``self.rules``; when ``rules.seq`` names a mesh axis wider than one,
+llama's attention runs as ring attention over it (``attn_impl="ring"``),
+as in JAX. Every other axis wider than one, a pipeline (``pp``) and
+``n_microbatches > 1`` need the state placed across ranks, which comes
+with slice 7 of the port; they raise ``NotImplementedError``.
 
 The model family comes from the config's type, as in JAX: llama, gpt or
 bert (``_resolve_family``); any other config raises ``TypeError``. A
 family other than llama trains on ``family.forward`` and the next-token
 cross-entropy, or on the ``loss_fn`` hook, which bert needs (it has no
-causal-LM forward); ``fused_loss`` is llama's alone.
+causal-LM forward); ``fused_loss`` and ring attention are llama's alone.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable
@@ -29,22 +37,20 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
+from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
+from ray_tpu_torch.parallel.sharding import PRESETS, ShardingRules
 from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
                                        warmup_cosine_decay_schedule)
 from ray_tpu_torch.train.state import TrainState
-
-# the JAX package's sharding presets (ray_tpu/parallel/sharding.py); on one
-# card every one of them places the whole state on that card
-STRATEGIES = ("dp", "fsdp", "tp", "fsdp_tp", "fsdp_tp_sp", "moe", "pp_fsdp")
 
 
 @dataclass
 class TrainConfig:
     """Scaling and optimization config (the fields of the JAX package's
-    ``TrainConfig``; the scaling fields must describe one card)."""
+    ``TrainConfig``)."""
 
     mesh_axes: dict = field(default_factory=lambda: {"dp": -1})
-    strategy: str = "fsdp"
+    strategy: str = "fsdp"          # sharding preset name or ShardingRules
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
     warmup_steps: int = 100
@@ -58,27 +64,39 @@ class TrainConfig:
     # logits (llama.fused_cross_entropy)
     fused_loss: bool = False
     loss_chunk: int = 1024
-    # pipeline microbatches: more than one needs a pipeline over cards
+    # pipeline microbatches: more than one needs the pipeline of slice 7
     n_microbatches: int | None = None
 
 
-def _check_one_card(cfg: TrainConfig) -> None:
-    if not isinstance(cfg.strategy, str):
-        raise NotImplementedError(
-            "sharding rules need a mesh of cards; the port trains on one "
-            "card (pass a preset name)")
-    if cfg.strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy {cfg.strategy!r}; expected one "
-                         f"of {STRATEGIES}")
-    wide = {ax: n for ax, n in cfg.mesh_axes.items() if n not in (1, -1)}
+def _rules(strategy) -> ShardingRules:
+    if isinstance(strategy, ShardingRules):
+        return strategy
+    if strategy not in PRESETS:
+        raise ValueError(f"unknown strategy {strategy!r}; expected one of "
+                         f"{tuple(PRESETS)} or ShardingRules")
+    return PRESETS[strategy]
+
+
+def _mesh_on(device, mesh_axes: dict) -> Mesh:
+    """A mesh of ``mesh_axes`` with every place on ``device`` (a -1 axis
+    takes size 1)."""
+    n = math.prod(n for n in mesh_axes.values() if n != -1)
+    return create_mesh(mesh_axes, devices=[device] * n)
+
+
+def _check_one_card(mesh: Mesh, seq_axis, cfg: TrainConfig) -> None:
+    """Raise on what needs the state placed across ranks: a mesh axis
+    wider than one other than the ring's ``seq_axis``, or microbatches."""
+    wide = {ax: n for ax, n in mesh.shape.items() if n > 1 and ax != seq_axis}
     if wide:
         raise NotImplementedError(
-            f"mesh axes {wide} need more than one card; the port trains on "
-            "one card (the multi-card harness is not ported yet)")
+            f"mesh axes {wide} need the state placed across ranks (FSDP, "
+            "TP, pipeline), which comes with slice 7 of the port; only the "
+            "sharding rules' seq axis may be wider than one")
     if cfg.n_microbatches not in (None, 1):
         raise NotImplementedError(
-            f"n_microbatches={cfg.n_microbatches} needs a pipeline over "
-            "cards; the port trains on one card")
+            f"n_microbatches={cfg.n_microbatches} needs the 1F1B pipeline, "
+            "which comes with slice 7 of the port")
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:
@@ -94,7 +112,8 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 
 class Trainer:
-    """Single-card trainer of a llama, gpt or bert model.
+    """Trainer of a llama, gpt or bert model on one card, sequence
+    parallel over a mesh when the rules cut the sequence.
 
     Usage::
 
@@ -104,13 +123,28 @@ class Trainer:
     """
 
     def __init__(self, model_cfg, cfg: TrainConfig, *,
-                 loss_fn: Callable | None = None, device="cuda"):
+                 mesh: Mesh | None = None, loss_fn: Callable | None = None,
+                 device="cuda"):
         """``loss_fn(model_cfg, params, batch) -> scalar`` overrides the
         default next-token cross-entropy."""
         self.family = self._resolve_family(model_cfg)
-        _check_one_card(cfg)
-        if self.family is not llama and cfg.fused_loss:
-            raise ValueError("fused_loss is a llama-only path")
+        self.device = resolve_device(device)
+        self.rules = _rules(cfg.strategy)
+        self.mesh = mesh if mesh is not None else _mesh_on(self.device,
+                                                           cfg.mesh_axes)
+        # sequence parallelism: ring attention when the rules cut seq over
+        # a mesh axis that exists on this mesh and is wider than one
+        sp = self.rules.seq
+        self.attn_impl = (
+            "ring" if sp is not None and sp in self.mesh.axis_names
+            and self.mesh.shape[sp] > 1 else "auto")
+        self.sp_axis = sp if self.attn_impl == "ring" else "sp"
+        _check_one_card(self.mesh, sp if self.attn_impl == "ring" else None,
+                        cfg)
+        if self.family is not llama and (cfg.fused_loss
+                                         or self.attn_impl == "ring"):
+            raise ValueError(
+                "fused_loss / ring attention are llama-only paths")
         if loss_fn is not None and cfg.fused_loss:
             raise ValueError("custom loss_fn cannot combine with fused_loss "
                              "(both own the loss computation)")
@@ -122,7 +156,6 @@ class Trainer:
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.loss_fn = loss_fn
-        self.device = resolve_device(device)
         self.optimizer = make_optimizer(cfg)
 
     @staticmethod
@@ -153,12 +186,15 @@ class Trainer:
             logits = self.family.forward(self.model_cfg, params, inputs)
             return llama.cross_entropy_loss(logits, targets.clamp(min=0),
                                             mask=mask)
+        ring = dict(attn_impl=self.attn_impl, mesh=self.mesh,
+                    sp_axis=self.sp_axis)
         if self.cfg.fused_loss:
-            hidden = llama.forward_hidden(self.model_cfg, params, inputs)
+            hidden = llama.forward_hidden(self.model_cfg, params, inputs,
+                                          **ring)
             return llama.fused_cross_entropy(
                 self.model_cfg, params, hidden, targets, mask=mask,
                 chunk=self.cfg.loss_chunk)
-        logits = llama.forward(self.model_cfg, params, inputs)
+        logits = llama.forward(self.model_cfg, params, inputs, **ring)
         return llama.cross_entropy_loss(logits, targets.clamp(min=0),
                                         mask=mask)
 
