@@ -36,13 +36,18 @@ from ray_tpu_torch.parallel.mesh import Mesh
 
 
 class PartitionSpec(tuple):
-    """Mesh axes per dimension (``jax.sharding.PartitionSpec``'s
-    entries)."""
+    """Mesh axes per dimension, normalized as
+    ``jax.sharding.PartitionSpec`` normalizes them: a list becomes a
+    tuple, and a tuple of one axis that axis."""
 
     __slots__ = ()
 
     def __new__(cls, *entries):
-        return super().__new__(cls, entries)
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                return e[0] if len(e) == 1 else tuple(e)
+            return e
+        return super().__new__(cls, (norm(e) for e in entries))
 
     def __repr__(self) -> str:
         return f"PartitionSpec{tuple.__repr__(self)}"
