@@ -73,3 +73,37 @@ def test_chip_smoke_refuses_without_a_card():
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+SEQUENCE_PARALLEL_PROBE = r"""
+import importlib, json, sys
+names = ["ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.collectives",
+         "ray_tpu_torch.parallel.sharding",
+         "ray_tpu_torch.parallel.ring_attention",
+         "ray_tpu_torch.parallel.ulysses",
+         "ray_tpu_torch.models.speculative"]
+for name in names:
+    importlib.import_module(name)
+import torch
+print(json.dumps({
+    "loaded": [n for n in names if n in sys.modules],
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_sequence_parallel_and_speculative_modules_load_alone():
+    """A fresh import of the parallel modules and of speculative decoding,
+    with nothing else imported first, loads no jax, no ray_tpu module and
+    no CUDA."""
+    proc = subprocess.run([sys.executable, "-c", SEQUENCE_PARALLEL_PROBE],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["loaded"]) == 6
+    assert out["jax"] == [] and out["ray_tpu"] == []
+    assert out["cuda_initialized"] is False

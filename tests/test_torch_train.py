@@ -273,6 +273,77 @@ def test_moments_keep_the_parameter_dtype():
     assert params["w"].dtype == torch.bfloat16
 
 
+def _bf16_ulp(x):
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 1e-30))) - 7)
+
+
+def _adamw_bf16_against_optax(optax_b2):
+    """Five steps of the trainer's recipe on one 256x256 bf16 parameter,
+    the same bf16 gradients to the port's AdamW (b2 0.95) and to optax's
+    chain (``optax_b2``). Returns the worst ratio of each difference to
+    its bound (a ratio above 1 breaks the bound)."""
+    rng = np.random.default_rng(7)
+    lr, steps = 3e-4, 5
+    p0 = (rng.standard_normal((256, 256)) * 256 ** -0.5).astype(np.float32)
+    grads = [torch.from_numpy(rng.standard_normal((256, 256))
+                              .astype(np.float32) * 0.01).to(torch.bfloat16)
+             for _ in range(steps)]
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(
+        optax.warmup_cosine_decay_schedule(0.0, lr, 1, 100, lr * 0.1),
+        b1=0.9, b2=optax_b2, weight_decay=0.1))
+    jp = {"w": jnp.asarray(p0, jnp.bfloat16)}
+    jstate = tx.init(jp)
+    tparams = {"w": torch.from_numpy(p0).to(torch.bfloat16)}
+    opt = AdamW(warmup_cosine_decay_schedule(0.0, lr, 1, 100, lr * 0.1),
+                max_grad_norm=1.0, b1=0.9, b2=0.95, weight_decay=0.1)
+    tstate = opt.init(tparams)
+    for g in grads:
+        jg = {"w": jnp.asarray(g.float().numpy(), jnp.bfloat16)}
+        upd, jstate = tx.update(jg, jstate, jp)
+        jp = optax.apply_updates(jp, upd)
+        opt.update([tparams["w"]], [g], tstate)
+
+    def f32(x):
+        return np.asarray(jnp.asarray(x, jnp.float32))
+    adam = jstate[1][0]
+    want = {"param": f32(jp["w"]), "mu": f32(adam.mu["w"]),
+            "nu": f32(adam.nu["w"])}
+    got = {"param": tparams["w"].float().numpy(),
+           "mu": tstate["mu"]["w"].float().numpy(),
+           "nu": tstate["nu"]["w"].float().numpy()}
+    g_max = np.abs(np.stack([g.float().numpy() for g in grads])).max(0)
+    diff = {k: np.abs(got[k] - want[k]) for k in got}
+    return {
+        # an update near half an ulp rounds either way: a few ulps of the
+        # parameter over five steps, plus a tenth of the learning rate
+        # where the parameter is near 0
+        "param": float((diff["param"] / (4 * _bf16_ulp(want["param"])
+                                         + 0.1 * lr)).max()),
+        "param_share_differing": float((diff["param"] > 0).mean()) / 0.1,
+        # mu sums signed terms: an ulp of mu, plus the rounding of the
+        # (1 - b1) g terms where it cancels to near 0
+        "mu": float((diff["mu"] / (_bf16_ulp(want["mu"])
+                                   + 2.0 ** -8 * g_max)).max()),
+        # nu sums squares: relative, 4e-2 (about 10 ulps)
+        "nu": float((diff["nu"] / (4e-2 * want["nu"])).max()),
+    }
+
+
+def test_adamw_bf16_within_roundings_of_optax():
+    """In bf16 the port keeps float32 arithmetic and rounds only the
+    stored moments and parameter; optax rounds every operation in bf16
+    (and XLA may drop some of those roundings). The two stay within a few
+    roundings: parameters within 4 ulps (plus 0.1 lr near 0), at most 10%
+    of them differing; mu within an ulp plus the rounding of its
+    gradient terms; nu within 4e-2 relative. The control, optax with the
+    wrong b2 (0.999), must break a bound."""
+    ratios = _adamw_bf16_against_optax(0.95)
+    assert max(ratios.values()) <= 1.0, ratios
+    control = _adamw_bf16_against_optax(0.999)
+    assert max(control.values()) > 1.0, control
+
+
 # ---------------------------------------------------------------------------
 # trainer against JaxTrainer
 # ---------------------------------------------------------------------------
