@@ -233,11 +233,12 @@ def check_flash_controls(torch, case, qt, kt, vt, want, tol):
 
 
 def check_flash(torch, peaks):
-    """Hold the flash kernel against its plain version. Returns the main
-    path's case (the Llama-3-8B attention shape, no lse), the training
-    step's (b 2, with lse) and GPT-2 XL's training step's (b 8, 25 heads,
-    no GQA, d 64, with lse). The tolerance's controls run at the main shape
-    and at GPT-2 XL's."""
+    """Hold the flash kernel against its plain version. Returns the rows
+    of every case by name: among them the main path's (the Llama-3-8B
+    attention shape, no lse), the training step's (b 2, with lse), a ring
+    step's (non-causal, with lse) and GPT-2 XL's training step's (b 8, 25
+    heads, no GQA, d 64, with lse). The tolerance's controls run at the
+    main shape and at GPT-2 XL's."""
     from ray_tpu_torch.ops.flash_attention import (flash_attention,
                                                    flash_fwd,
                                                    flash_fwd_plain)
@@ -258,6 +259,10 @@ def check_flash(torch, peaks):
          True),
         ("llama3_8b_noncausal", 1, 32, 8, 2048, 2048, 128, torch.bfloat16,
          False, False),
+        # a ring step off the diagonal: an sp-4 chunk of Llama-3-8B's 8K
+        # context, non-causal, with the lse the merge needs
+        ("ring_chunk_noncausal_lse", 1, 32, 8, 2048, 2048, 128,
+         torch.bfloat16, False, True),
         # the training step's shape: b 2, with lse
         ("llama3_8b_train", 2, 32, 8, 2048, 2048, 128, torch.bfloat16, True,
          True),
@@ -278,7 +283,7 @@ def check_flash(torch, peaks):
          True),
     ]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    main = None
+    rows = {}
     for name, b, h, hk, sq, skv, d, dt, causal, with_lse in cases:
         def randn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -307,7 +312,7 @@ def check_flash(torch, peaks):
                 f"flash kernel {name}: max err {err} (tol {abs_tol[dt]}), "
                 f"row rel err {rel} (tol {row_tol[dt]}), lse err {lse_err} "
                 f"(tol {lse_tol})")
-        if main is None or name == "gpt2_xl_train":
+        if not rows or name == "gpt2_xl_train":
             check_flash_controls(torch, name, qt, kt, vt, want, row_tol[dt])
         if with_lse:
             def kernel():
@@ -346,14 +351,9 @@ def check_flash(torch, peaks):
                    mbytes=nbytes / 1e6,
                    tflops=flops / (kernel_ms * 1e-3) / 1e12)
         emit("kernel_check", **row)
-        if main is None:
-            main = row
-        if name == "llama3_8b_train":
-            train = row
-        if name == "gpt2_xl_train":
-            gpt2 = row
+        rows[name] = row
         del q, k, v, qt, kt, vt, kr, vr, want, want_lse, got
-    return main, train, gpt2
+    return rows
 
 
 def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
@@ -394,13 +394,14 @@ def dense_attention_grads(qt, kt, vt, dot, lse, delta, *, scale,
     return dq, dk.to(kt.dtype), dv.to(vt.dtype)
 
 
-def backward_bound(b, h, hk, s, d, itemsize, peaks):
-    """The least time for the fused backward (K2 and K3) over the causal
-    pairs on this card: its 5 products (S, dP, dV, dK, dQ) at the dtype's
-    peak, or its compulsory bytes at the memory rate: q, k, v, out, dO and
-    lse read once (delta = rowsum(dO * O) is computed inside from out and
-    dO), dq, dk and dv written once."""
-    pairs = float(np.minimum(np.arange(s) + 1, s).sum())
+def backward_bound(b, h, hk, s, d, itemsize, peaks, causal=True):
+    """The least time for the fused backward (K2 and K3) over the (q, k)
+    pairs the mask keeps on this card: its 5 products (S, dP, dV, dK, dQ)
+    at the dtype's peak, or its compulsory bytes at the memory rate: q, k,
+    v, out, dO and lse read once (delta = rowsum(dO * O) is computed inside
+    from out and dO), dq, dk and dv written once."""
+    pairs = float(np.minimum(np.arange(s) + 1, s).sum() if causal
+                  else s * s)
     flops = 5 * 2.0 * b * h * d * pairs
     # q, out, dO in and dq out; k, v in and dk, dv out; lse in
     nbytes = itemsize * (4 * b * h * s * d + 4 * b * hk * s * d) \
@@ -451,9 +452,11 @@ def check_flash_bwd(torch, peaks):
     second time: dK and dV, summed in registers, must come out bitwise
     equal, and dQ, summed across CTAs in a float32 buffer in an order that
     changes from run to run, within the limit of the first run; then it is
-    timed. Returns those two rows: the main shape (b 2, s 2048, h 32, hk 8,
-    d 128, bf16, causal: the shape Llama-3-8B's training step gives it) and
-    GPT-2 XL's (b 8, s 1024, h 25, hk 25, d 64)."""
+    timed, as is the non-causal case (b 1, s 2048, h 32, hk 8, d 128: a
+    ring step off the diagonal). Returns the timed rows by name: the main
+    shape (b 2, s 2048, h 32, hk 8, d 128, bf16, causal: the shape
+    Llama-3-8B's training step gives it), GPT-2 XL's (b 8, s 1024, h 25,
+    hk 25, d 64) and the ring step's."""
     from ray_tpu_torch.ops.flash_attention import (
         flash_bwd, flash_bwd_delta, flash_bwd_dkv_plain, flash_bwd_dq_plain,
         flash_fwd)
@@ -503,14 +506,15 @@ def check_flash_bwd(torch, peaks):
         if max(errs.values()) > row_tol[dt]:
             raise AssertionError(
                 f"flash_bwd {name}: row rel err {errs} (tol {row_tol[dt]})")
-        is_timed = name in ("llama3_8b_train", "gpt2_xl_train")
-        if is_timed:
+        with_controls = name in ("llama3_8b_train", "gpt2_xl_train")
+        is_timed = with_controls or name == "llama3_8b_noncausal"
+        if with_controls:
             check_flash_bwd_controls(torch, name, qt, kt, vt, dot, lse,
                                      delta, want, row_tol[dt])
         row = dict(case=name, shape=[b, h, hk, s, s, d], dtype=str(dt),
                    causal=causal, row_rel_err=errs, row_rel_tol=row_tol[dt],
                    max_abs_err=abs_errs)
-        if is_timed:
+        if with_controls:
             again = flash_bwd(qt, kt, vt, out, lse, dot, **kw)
             torch.cuda.synchronize()
             row["dkv_bitwise_equal_across_runs"] = bool(
@@ -525,8 +529,8 @@ def check_flash_bwd(torch, peaks):
                     f"difference {row['dq_run_to_run_row_err']} (tol "
                     f"{row_tol[dt]})")
             del again
-
-            # timed at the training shapes only (the others are checks): by
+        if is_timed:
+            # timed at the training shapes and a ring step's only (the others are checks): by
             # graph replay, and the loop of wrapper calls beside it
             def kernel():
                 flash_bwd(qt, kt, vt, out, lse, dot, **kw)
@@ -554,7 +558,7 @@ def check_flash_bwd(torch, peaks):
             row["library_ms"] = cuda_graph_ms(sdpa_fwd_bwd, 10) - fwd_ms
             row["library_fwd_ms"] = fwd_ms
             bound_ms, bound_by, flops, nbytes = backward_bound(
-                b, h, hk, s, d, qt.element_size(), peaks)
+                b, h, hk, s, d, qt.element_size(), peaks, causal)
             row.update(bound_ms=bound_ms, bound_by=bound_by,
                        gflop=flops / 1e9, mbytes=nbytes / 1e6,
                        tflops=flops / (row["kernel_ms"] * 1e-3) / 1e12)
@@ -562,7 +566,7 @@ def check_flash_bwd(torch, peaks):
             del q, k, v
         emit("flash_bwd_check", **row)
         del qt, kt, vt, dot, out, lse, delta, args, got, want
-    return timed["llama3_8b_train"], timed["gpt2_xl_train"]
+    return timed
 
 
 def fp8_rounded_attention(q, k, v, **kwargs):
@@ -817,12 +821,12 @@ def first_layers(params, depth: int) -> dict:
 
 
 def grads_against_reference(torch, params, loss, module, want_counts,
-                            ctx=None, **fields):
+                            ctx=None, attr="attention", **fields):
     """The gradient of ``loss(attn_impl)`` in every leaf of ``params``
     through the flash kernels (K1 with lse, the fused backward) against
     the same gradient through reference attention. The control: the same
-    loss with q detached before attention (``module.attention`` patched:
-    the fault of a forward with no gradient) must fail the tolerance.
+    loss with q detached before attention (``module.<attr>`` patched: the
+    fault of a forward with no gradient) must fail the tolerance.
     ``ctx(role)`` (role: "flash", "reference" or "control") gives a
     context each loss and its backward go in. Emits the "grad" line with
     ``fields``; returns the launch counts and the flash path's gradients
@@ -852,12 +856,13 @@ def grads_against_reference(torch, params, loss, module, want_counts,
     # and that reaches every gradient through the residual stream
     tol = 5e-2
     errs = {n: rel_rms(g, w) for n, g, w in zip(names, got, want)}
-    orig = module.attention
-    module.attention = lambda q, k, v, **kw: orig(q.detach(), k, v, **kw)
+    orig = getattr(module, attr)
+    setattr(module, attr,
+            lambda q, k, v, **kw: orig(q.detach(), k, v, **kw))
     try:
         _, bad = grads("auto", "control")
     finally:
-        module.attention = orig
+        setattr(module, attr, orig)
     bad_errs = {n: rel_rms(g, w) for n, g, w in zip(names, bad, want)}
     del bad, want
     emit("grad", **fields, loss=float(value.detach()),
@@ -986,6 +991,491 @@ def check_train(torch, cfg, params, peaks):
             f"launches in one step: full {full_counts} (want {want_full}), "
             f"attn {attn_counts} (want {want_attn})")
     return full_counts, attn_counts
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism (ring and Ulysses attention) and speculative
+# decoding at Llama-3-8B's widths: every rank of the sp axis on this card
+# ---------------------------------------------------------------------------
+
+RING_SP = 4
+# (b, s, h, hk, d): Llama-3-8B's heads over its published 8K context, and
+# the Ulysses check's half of it
+RING_SHAPE = (1, 8192, 32, 8, 128)
+ULYSSES_SHAPE = (1, 4096, 32, 8, 128)
+# speculative decoding: right-padded prompt lengths, new tokens, k
+SPEC_PROMPT_LENS = (17, 83, 149, 200)
+SPEC_NEW_TOKENS = 64
+SPEC_K = 4
+
+
+def sp_mesh(torch):
+    """An sp mesh of RING_SP ranks, every one on this card."""
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    return create_mesh({"sp": RING_SP}, devices=[card] * RING_SP)
+
+
+def ring_walk(torch, qt, kt, vt, dot, *, causal, fault=None,
+              backward=False):
+    """The flash ring spelled out step by step for the controls, on
+    kernel-layout global tensors [b, h|hk, s, d] over RING_SP ranks: K1
+    with lse on each live step, the log-sum-exp merge, then (with
+    ``backward``) flash_bwd on each live step with the final output and the
+    merged lse. ``fault`` makes it subtly wrong: "merge_without_lse_rescale"
+    (the partial outputs averaged), "off_diagonal_causal" (the steps off
+    the diagonal masked causal), "own_step_lse" (the backward fed each
+    step's own lse). Unfaulted it runs the kernels of
+    ``parallel.ring_attention``'s flash ring on the same inputs in the same
+    order. Returns (out, (dq, dk, dv) or None)."""
+    from ray_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
+    from ray_tpu_torch.parallel.ring_attention import _merge
+
+    n = RING_SP
+    qs, ks, vs, dos = (x.chunk(n, dim=2) for x in (qt, kt, vt, dot))
+    scale = qt.shape[-1] ** -0.5
+    live = [(r, idx) for r in range(n) for idx in range(n)
+            if not (causal and r > 0 and idx < r)]
+
+    def step_causal(r):
+        return (causal and r == 0) or (fault == "off_diagonal_causal"
+                                       and r > 0)
+    outs, lses, own = [None] * n, [None] * n, {}
+    for r, idx in live:
+        src = (idx - r) % n
+        o, lse = flash_fwd(qs[idx], ks[src], vs[src], scale=scale,
+                           causal=step_causal(r), with_lse=True)
+        own[r, idx] = lse
+        if r == 0:
+            outs[idx], lses[idx] = o.float(), lse
+        elif fault == "merge_without_lse_rescale":
+            outs[idx] = (outs[idx] + o.float()) / 2
+            lses[idx] = torch.logaddexp(lses[idx], lse)
+        else:
+            outs[idx], lses[idx] = _merge(outs[idx], lses[idx], o.float(),
+                                          lse)
+    out = torch.cat([o.to(qt.dtype) for o in outs], dim=2)
+    if not backward:
+        return out, None
+    outc = out.chunk(n, dim=2)
+    dq, dk, dv = [0.0] * n, [0.0] * n, [0.0] * n
+    for r, idx in live:
+        src = (idx - r) % n
+        lse = own[r, idx] if fault == "own_step_lse" else lses[idx]
+        g = flash_bwd(qs[idx], ks[src], vs[src], outc[idx], lse, dos[idx],
+                      scale=scale, causal=step_causal(r))
+        dq[idx] = dq[idx] + g[0].float()
+        dk[src] = dk[src] + g[1].float()
+        dv[src] = dv[src] + g[2].float()
+    return out, tuple(torch.cat(x, dim=2).to(qt.dtype) for x in (dq, dk, dv))
+
+
+def check_ring_kernels(torch, peaks) -> dict:
+    """``ring_attention(impl="flash")`` at Llama-3-8B's heads (h 32, hk 8,
+    d 128) over s 8192 on an sp-4 mesh of this card (chunks of 2048), bf16,
+    causal and not: its launches, exact per call (K1 and the fused backward
+    10 times each causal, 16 not); its output and the gradients of a
+    random cotangent against the whole-sequence flash kernels; the limits'
+    controls; times by CUDA-graph replay beside the whole-sequence kernels
+    and SDPA. Returns the launch counts of one forward and backward by
+    mode."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = sp_mesh(torch)
+    b, s, h, hk, d = RING_SHAPE
+    # The ring rounds each step's output to bf16 before its float32 merge
+    # and sums the steps' bf16 dq, dk and dv in float32, where the whole-
+    # sequence kernels keep one float32 accumulator: a few more bf16
+    # roundings a row. The limits are K1's row limit for the output and
+    # twice it for the gradients; each fault below must fail them.
+    out_tol, grad_tol = 1e-2, 2e-2
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    counts_by_mode = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for causal in (True, False):
+        mode = "causal" if causal else "noncausal"
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for shape in (
+                           (b, s, h, d), (b, s, hk, d), (b, s, hk, d),
+                           (b, s, h, d)))
+        leaves = tuple(x.requires_grad_() for x in (q, k, v))
+
+        def ring():
+            return ring_attention(q, k, v, mesh=mesh, causal=causal,
+                                  impl="flash")
+
+        def whole():
+            return flash_attention(q, k, v, causal=causal)
+
+        zero_counts()
+        out = ring()
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        out = out.detach()
+        live = RING_SP * (RING_SP + 1) // 2 if causal else RING_SP ** 2
+        want_counts = {"flash_fwd": live, "flash_bwd": live}
+        want = whole()
+        want_grads = torch.autograd.grad(want, leaves, do)
+        want = want.detach()
+        out_err = row_rel_err(out, want)
+        grad_errs = {f"d{n}": grad_row_err(g, w)
+                     for n, g, w in zip("qkv", grads, want_grads)}
+        finite = bool(torch.isfinite(out).all()) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+
+        # the controls, on the kernel layout
+        qt, kt, vt, dot = (x.detach().transpose(1, 2) for x in (q, k, v, do))
+        walk, _ = ring_walk(torch, qt, kt, vt, dot, causal=causal)
+        walk_equal = bool(torch.equal(walk, out.transpose(1, 2)))
+        walk_err = row_rel_err(walk, out.transpose(1, 2))
+        want_t = want.transpose(1, 2)
+        controls = {}
+        for fault in ("merge_without_lse_rescale", "off_diagonal_causal"):
+            bad, _ = ring_walk(torch, qt, kt, vt, dot, causal=causal,
+                               fault=fault)
+            controls[fault] = row_rel_err(bad, want_t)
+        _, bad = ring_walk(torch, qt, kt, vt, dot, causal=causal,
+                           fault="own_step_lse", backward=True)
+        controls["own_step_lse"] = max(
+            grad_row_err(g, w.transpose(1, 2))
+            for g, w in zip(bad, want_grads))
+        del walk, bad
+
+        # timed on fresh leaves: the autograd graphs above hold the
+        # leaves' gradient accumulators on the default stream, which a
+        # capture on a side stream may not touch
+        tq, tk, tv = (x.detach().requires_grad_() for x in (q, k, v))
+        fresh = (tq, tk, tv)
+
+        def ring_t():
+            return ring_attention(tq, tk, tv, mesh=mesh, causal=causal,
+                                  impl="flash")
+
+        def whole_t():
+            return flash_attention(tq, tk, tv, causal=causal)
+
+        def sdpa_t():
+            return sdpa(tq.transpose(1, 2), tk.transpose(1, 2),
+                        tv.transpose(1, 2), is_causal=causal,
+                        enable_gqa=True)
+
+        def ring_fwd_bwd():
+            torch.autograd.grad(ring_t(), fresh, do)
+
+        def whole_fwd_bwd():
+            torch.autograd.grad(whole_t(), fresh, do)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa_t(), fresh, do.transpose(1, 2))
+        with torch.no_grad():
+            ring_fwd_ms = cuda_graph_ms(ring_t, 5)
+            whole_fwd_ms = cuda_graph_ms(whole_t, 5)
+            sdpa_fwd_ms = cuda_graph_ms(sdpa_t, 5)
+        ring_ms = cuda_graph_ms(ring_fwd_bwd, 5)
+        whole_ms = cuda_graph_ms(whole_fwd_bwd, 5)
+        sdpa_ms = cuda_graph_ms(sdpa_fwd_bwd, 5)
+        fwd_bound = attention_bound(b, h, hk, s, s, d, causal, 2, True,
+                                    peaks)
+        bwd_bound = backward_bound(b, h, hk, s, d, 2, peaks, causal)
+        emit("ring_kernels", mode=mode, shape=[b, h, hk, s, d], sp=RING_SP,
+             chunk=s // RING_SP, dtype="torch.bfloat16", launches=counts,
+             want_launches=want_counts, out_row_rel_err=out_err,
+             out_tol=out_tol, grad_row_rel_err=grad_errs, grad_tol=grad_tol,
+             controls=controls, walk_equals_ring_bitwise=walk_equal,
+             walk_row_rel_err=walk_err,
+             ring_fwd_ms=ring_fwd_ms, whole_fwd_ms=whole_fwd_ms,
+             library_fwd_ms=sdpa_fwd_ms, ring_fwd_bwd_ms=ring_ms,
+             whole_fwd_bwd_ms=whole_ms, library_fwd_bwd_ms=sdpa_ms,
+             bound_fwd_ms=fwd_bound[0], bound_fwd_bwd_ms=fwd_bound[0]
+             + bwd_bound[0], bound_by=[fwd_bound[1], bwd_bound[1]])
+        fwd_faults = ("merge_without_lse_rescale", "off_diagonal_causal")
+        # the unfaulted walk is the ring itself (K1 is deterministic, so
+        # on the card the two agree bit for bit)
+        if counts != want_counts or not finite or walk_err > out_tol / 10 \
+                or out_err > out_tol \
+                or max(grad_errs.values()) > grad_tol \
+                or min(controls[f] for f in fwd_faults) <= out_tol \
+                or controls["own_step_lse"] <= grad_tol:
+            raise AssertionError(
+                f"ring attention {mode}: launches {counts} (want "
+                f"{want_counts}), finite {finite}, the walk's row err from "
+                f"the ring {walk_err}, out err {out_err} (tol {out_tol}), grad "
+                f"errs {grad_errs} (tol {grad_tol}); every control must "
+                f"fail its limit: {controls}")
+        counts_by_mode[mode] = counts
+        del q, k, v, do, out, grads, want, want_grads, qt, kt, vt, dot
+        del tq, tk, tv, fresh
+    return counts_by_mode
+
+
+def check_ulysses(torch):
+    """``ulysses_attention_sharded`` at Llama-3-8B's heads (h 32, hk 8, d
+    128) over s 4096 on an sp-4 mesh of this card, bf16, causal, against
+    ``reference_attention`` over the whole sequence. Both run the same
+    float32 attention on the same heads; the all-to-alls only move
+    data. The control: the output with its sequence chunks in a rotated
+    rank order (an all-to-all that joins ranks in the wrong order) must
+    fail the limit."""
+    from ray_tpu_torch.ops.attention import reference_attention
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention_sharded
+
+    mesh = sp_mesh(torch)
+    b, s, h, hk, d = ULYSSES_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, d)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = ulysses_attention_sharded(mesh, q, k, v, causal=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = reference_attention(q, k, v, causal=True)
+    tol = 1e-2
+    err = row_rel_err(got, want)
+    control = row_rel_err(got.roll(s // RING_SP, dims=1), want)
+    emit("ulysses", shape=[b, h, hk, s, d], sp=RING_SP, dtype=str(q.dtype),
+         row_rel_err=err, max_abs_err=float((got.float()
+                                             - want.float()).abs().max()),
+         tol=tol, rotated_ranks_row_rel_err=control, seconds=seconds)
+    if not (bool(torch.isfinite(got).all()) and err <= tol < control):
+        raise AssertionError(f"Ulysses row err {err} vs tol {tol} (the "
+                             f"rotated-rank control gives {control})")
+
+
+def check_ring_grad(torch, cfg, params, mesh):
+    """The gradient of the training loss through the ring (sp 4 on this
+    card) against the whole-sequence flash path, at full width and depth
+    2, on [1, 8193] tokens, with the detached-q control
+    (``grads_against_reference`` on ``llama.ring_attention``)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+    s = RING_SHAPE[1]
+    batch = train_batch(cfg, 1, s, SEED + 7)
+
+    def loss(attn_impl):
+        # "auto" is the path under test here: the ring; "reference" its
+        # yardstick: the whole-sequence flash kernels
+        impl = "ring" if attn_impl == "auto" else "auto"
+        hidden = llama.forward_hidden(cfg2, params2, batch[:, :-1],
+                                      attn_impl=impl, mesh=mesh)
+        return llama.fused_cross_entropy(cfg2, params2, hidden, batch[:, 1:],
+                                         chunk=1024)
+
+    # remat "full": the ring's forward reruns in the backward
+    live = RING_SP * (RING_SP + 1) // 2
+    counts, _ = grads_against_reference(
+        torch, params2, loss, llama,
+        {"flash_fwd": 2 * depth * live, "flash_bwd": depth * live},
+        attr="ring_attention", config="llama3_8b", n_layers=depth,
+        tokens=[1, s + 1], path="ring_sp4", against="whole_sequence_flash")
+    return counts
+
+
+def check_ring_train(torch, cfg, params, peaks, mesh):
+    """The trainer's ring path on llama3_8b() at full width and depth:
+    ``Trainer(..., TrainConfig(mesh_axes={"sp": 4},
+    strategy="fsdp_tp_sp", fused_loss=True), mesh=mesh)`` on one [1, 8193]
+    batch (Llama 3's 8K context) under remat "full", three steps. Returns
+    the launch counts of the last step."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    b, s, steps = 1, RING_SHAPE[1], 3
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(mesh_axes={"sp": RING_SP},
+                                       strategy="fsdp_tp_sp", fused_loss=True,
+                                       loss_chunk=1024, warmup_steps=1),
+                      mesh=mesh)
+    if trainer.attn_impl != "ring":
+        raise AssertionError(f"sp trainer took attn_impl "
+                             f"{trainer.attn_impl!r}, not the ring")
+    state = TrainState.create(params, trainer.optimizer)
+    batch = train_batch(cfg, b, s, SEED + 8)
+    losses, times, norms, counts = [], [], [], []
+    for _ in range(steps):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))   # synchronizes
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        counts.append(launch_counts())
+    peak_bytes = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    live = RING_SP * (RING_SP + 1) // 2
+    want = {"flash_fwd": 2 * L * live, "flash_bwd": L * live}
+    step_s = float(np.median(times[1:]))
+    n_matmul = sum(params["blocks"][k].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + llama.lm_head_weights(cfg, params).numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    emit("ring_train", config="llama3_8b", n_layers=L, depth_cut=None,
+         tokens=[b, s + 1], mesh={"sp": RING_SP}, strategy="fsdp_tp_sp",
+         attn_impl=trainer.attn_impl, remat=cfg.remat, fused_loss=True,
+         steps=steps, losses=losses, grad_norms=norms, step_s=times,
+         median_step_s=step_s, tokens_per_s=b * s / step_s,
+         flops_per_step=flops, mfu=flops / step_s / peaks[0],
+         peak_memory_bytes=peak_bytes, launches=counts, want_launches=want)
+    check_losses("llama3_8b ring", losses, cfg.vocab_size)
+    if any(c != want for c in counts):
+        raise AssertionError(f"ring trainer launches per step {counts}, "
+                             f"want {want}")
+    return counts[-1]
+
+
+def check_speculative(torch, cfg, params) -> dict:
+    """``speculative_generate`` with llama3_8b() at full depth as the
+    target, against its greedy ``decoding.generate``: 4 right-padded
+    prompts of 17-200 tokens, k_spec 4, 64 new tokens, with two drafts:
+    the target itself (which accepts every token) and a depth-2 model at
+    the same widths from another seed.
+
+    On the card the verify forward multiplies b (k+1) rows where the
+    decode step multiplies b, and cuBLAS may sum those products in other
+    orders, so a bf16 greedy token at a near-tie can differ through no
+    fault of the drafting. So tokens are held equal up to each row's first
+    divergence, and at that position (or, for a row with none, at
+    position 32) the verify's logit row is held within a bf16 bound of
+    the decode's, with a control that must fail it: the verify's row one
+    position off. At a divergence the decode's top-two gap must lie under
+    the two rows' difference at the two tokens. Returns the launch counts
+    of the speculative runs (the serve path runs no kernel)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import decoding, llama, speculative
+
+    lens = list(SPEC_PROMPT_LENS)
+    b, k_spec, n_new = len(lens), SPEC_K, SPEC_NEW_TOKENS
+    rng = np.random.default_rng(SEED + 9)
+    prompts = np.zeros((b, max(lens)), np.int32)
+    for i, n in enumerate(lens):
+        prompts[i, :n] = rng.integers(1, cfg.vocab_size, n)
+    prompts = torch.from_numpy(prompts).cuda()
+    draft_cfg = dataclasses.replace(cfg, n_layers=2)
+    draft_params = llama.init_params(draft_cfg, seed=SEED + 10,
+                                     device="cuda")
+    greedy = decoding.SamplingParams(temperature=0.0, max_new_tokens=n_new)
+    # Both forwards are bf16 models that differ only in GEMM summation
+    # order; the limit is the full forward's against reference attention
+    tol = 5e-2
+
+    # warm-up of both paths (cuBLAS heuristics, first launches)
+    decoding.generate(cfg, params, prompts[:, :32],
+                      sampling=decoding.SamplingParams(temperature=0.0,
+                                                       max_new_tokens=2))
+    speculative.speculative_generate(cfg, params, draft_cfg, draft_params,
+                                     prompts[:, :32], k_spec=k_spec,
+                                     max_new_tokens=2)
+
+    decode_logits = []
+    orig_decode = decoding.cached_forward
+
+    def record_decode(*args, **kw):
+        logits, cache = orig_decode(*args, **kw)
+        decode_logits.append(logits)
+        return logits, cache
+    decoding.cached_forward = record_decode
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = decoding.generate(cfg, params, prompts, sampling=greedy)
+        torch.cuda.synchronize()
+        greedy_s = time.perf_counter() - t0
+    finally:
+        decoding.cached_forward = orig_decode
+
+    counts = {}
+    for name, d_cfg, d_params in (("self", cfg, params),
+                                  ("depth2", draft_cfg, draft_params)):
+        verify = []
+        orig_verify = speculative.cached_forward
+
+        def record_verify(*args, **kw):
+            logits, cache = orig_verify(*args, **kw)
+            if kw.get("logits_mode") == "all":   # the target's verify
+                verify.append((kw["start"], logits))
+            return logits, cache
+        speculative.cached_forward = record_verify
+        zero_counts()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, stats = speculative.speculative_generate(
+                cfg, params, d_cfg, d_params, prompts, k_spec=k_spec,
+                max_new_tokens=n_new, return_stats=True)
+            torch.cuda.synchronize()
+            spec_s = time.perf_counter() - t0
+        finally:
+            speculative.cached_forward = orig_verify
+        counts[name] = launch_counts()
+        starts = torch.stack([st for st, _ in verify]).cpu()   # [rounds, B]
+        rows = []
+        for r in range(b):
+            diff = (got[r] != want[r]).nonzero()
+            first = int(diff[0]) if len(diff) else None
+            j = first if first is not None else n_new // 2
+            if j == 0:
+                raise AssertionError(f"speculative {name}: row {r} differs "
+                                     "at the prefill token")
+            pos = lens[r] + j - 1    # the position whose logits give out[j]
+            c = int((starts[:, r] <= pos).nonzero().max())
+            i = pos - int(starts[c, r])
+            logits = verify[c][1][r]
+            dec, ver = decode_logits[j][r], logits[i]
+            shifted = logits[i + 1 if i < k_spec else i - 1]
+            row = {"row": r, "prompt_len": lens[r], "first_divergence": first,
+                   "held_at": j, "logits_rel_rms_err": rel_rms(ver, dec),
+                   "shifted_position_rel_rms_err": rel_rms(shifted, dec),
+                   "max_abs_diff": float((ver - dec).abs().max())}
+            if first is not None:
+                a, z = int(want[r, j]), int(got[r, j])
+                top2 = dec.topk(2).values
+                row.update(top2_gap=float(top2[0] - top2[1]),
+                           pair_diff=float((dec[a] - ver[a]).abs()
+                                           + (dec[z] - ver[z]).abs()))
+            rows.append(row)
+        accepted = stats["accepted"].tolist()
+        emit("speculative", draft=name, target="llama3_8b",
+             draft_layers=d_cfg.n_layers, prompts=lens, k_spec=k_spec,
+             max_new_tokens=n_new, rounds=stats["rounds"],
+             accepted=accepted,
+             mean_accepted_per_round=sum(accepted) / (b * stats["rounds"]),
+             seconds=spec_s, tokens_per_s=b * n_new / spec_s,
+             greedy_seconds=greedy_s,
+             greedy_tokens_per_s=b * n_new / greedy_s, tol=tol,
+             rows_diverging=sum(x["first_divergence"] is not None
+                                for x in rows),
+             held=rows, launches=counts[name])
+        for x in rows:
+            bad_gap = x["first_divergence"] is not None and \
+                not x["top2_gap"] <= x["pair_diff"]
+            if not x["logits_rel_rms_err"] <= tol < \
+                    x["shifted_position_rel_rms_err"] or bad_gap:
+                raise AssertionError(
+                    f"speculative {name} row {x['row']}: verify logits "
+                    f"{x['logits_rel_rms_err']} from the decode's (tol "
+                    f"{tol}; one position off gives "
+                    f"{x['shifted_position_rel_rms_err']}); {x}")
+        # the target as its own draft: every proposal but those a near-tie
+        # flips is accepted, so the rounds stay near 63 / (k + 1)
+        if name == "self" and stats["rounds"] > -(-(n_new - 1)
+                                                 // (k_spec + 1)) + 2:
+            raise AssertionError(f"self draft took {stats['rounds']} "
+                                 f"rounds, accepted {accepted}")
+        del verify, got
+    del draft_params, decode_logits
+    return counts
 
 
 def check_gpt(torch, peaks) -> dict:
@@ -1560,8 +2050,17 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
 
-    main_case, train_case, gpt2_case = check_flash(torch, peaks)
-    bwd_case, bwd_gpt2_case = check_flash_bwd(torch, peaks)
+    fwd_rows = check_flash(torch, peaks)
+    main_case, train_case, gpt2_case = (fwd_rows[k] for k in (
+        "llama3_8b", "llama3_8b_train", "gpt2_xl_train"))
+    bwd_rows = check_flash_bwd(torch, peaks)
+    bwd_case, bwd_gpt2_case = (bwd_rows[k] for k in (
+        "llama3_8b_train", "gpt2_xl_train"))
+    # the ring over an sp-4 mesh of this card at Llama-3-8B's heads, then
+    # Ulysses: each with its counts zeroed right before it
+    ring_counts = check_ring_kernels(torch, peaks)
+    check_ulysses(torch)
+    free_card(torch)
 
     cfg = llama.llama3_8b()
     t0 = time.perf_counter()
@@ -1578,6 +2077,23 @@ def main() -> int:
     free_card(torch)   # the engine and its KV pool
     check_grad(torch, cfg, params)
     full_counts, attn_counts = check_train(torch, cfg, params, peaks)
+    del params
+    free_card(torch)
+    # sequence parallelism and speculative decoding on fresh weights (the
+    # trainer above moved these): speculative decoding (inference), the
+    # gradient through the ring at depth 2, then the trainer's ring path
+    # at full depth, each with its counts zeroed right before it
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", config="llama3_8b", params=llama.num_params(params),
+         seconds=time.perf_counter() - t0)
+    spec_counts = check_speculative(torch, cfg, params)
+    free_card(torch)
+    mesh = sp_mesh(torch)
+    ring_grad_counts = check_ring_grad(torch, cfg, params, mesh)
+    free_card(torch)
+    ring_train_counts = check_ring_train(torch, cfg, params, peaks, mesh)
     del params
     free_card(torch)
     # the other families, each at full width, one after another on the
@@ -1597,7 +2113,13 @@ def main() -> int:
                    "bert_large_train_step": bert_counts["train_step"][k],
                    "vit_l16_step": vit_counts["steps"][k],
                    "mixtral_forward": mixtral_counts["forward"][k],
-                   "mixtral_grad": mixtral_counts["grad"][k]}
+                   "mixtral_grad": mixtral_counts["grad"][k],
+                   "ring_fwd_bwd_causal_sp4": ring_counts["causal"][k],
+                   "ring_fwd_bwd_noncausal_sp4": ring_counts["noncausal"][k],
+                   "ring_grad_depth2": ring_grad_counts[k],
+                   "ring_train_step_full_sp4": ring_train_counts[k],
+                   "speculative_self_draft": spec_counts["self"][k],
+                   "speculative_depth2_draft": spec_counts["depth2"][k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -1621,6 +2143,12 @@ def main() -> int:
         "gpt2_xl_shape": {k: gpt2_case[k] for k in (
             "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
             "tflops", "max_err", "row_rel_err", "lse_err")},
+        # non-causal with lse at an sp-4 chunk of 8K: a ring step off the
+        # diagonal; and d 256
+        **{f"{case}_shape": {k: fwd_rows[case][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "tflops", "max_err", "row_rel_err", "lse_err")}
+           for case in ("ring_chunk_noncausal_lse", "d256_gqa2")},
         "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
     }]
     # K2 and K3 are one fused kernel: each TPU kernel keeps its entry,
@@ -1644,13 +2172,15 @@ def main() -> int:
             # SDPA's whole backward (dQ, dK and dV) in one call
             "library_ms": bwd_case["library_ms"],
             "tflops": bwd_case["tflops"],
-            "gpt2_xl_shape": {
-                "shape": bwd_gpt2_case["shape"],
-                "row_rel_err": max(bwd_gpt2_case["row_rel_err"][o]
-                                   for o in outs),
-                **{k: bwd_gpt2_case[k] for k in (
-                    "kernel_ms", "library_ms", "bound_ms", "bound_by",
-                    "tflops")}},
+            **{f"{label}_shape": {
+                "shape": row["shape"],
+                "row_rel_err": max(row["row_rel_err"][o] for o in outs),
+                **{k: row[k] for k in (
+                    "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "tflops")}}
+               for label, row in (("gpt2_xl", bwd_gpt2_case),
+                                  ("ring_step_noncausal",
+                                   bwd_rows["llama3_8b_noncausal"]))},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)

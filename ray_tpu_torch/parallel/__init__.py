@@ -1,23 +1,4 @@
 """Port of ``ray_tpu.parallel``: meshes, sharding rules, collectives, ring
-and Ulysses sequence parallelism, single-controller (``parallel.mesh``)."""
-
-from ray_tpu_torch.parallel.mesh import (MeshSpec, create_hybrid_mesh,
-                                         create_mesh, mesh_registry,
-                                         slice_topology)
-from ray_tpu_torch.parallel.ring_attention import ring_attention
-from ray_tpu_torch.parallel.sharding import Axes, ShardingRules
-from ray_tpu_torch.parallel.ulysses import (ulysses_attention,
-                                            ulysses_attention_sharded)
-
-__all__ = [
-    "Axes",
-    "MeshSpec",
-    "ShardingRules",
-    "create_hybrid_mesh",
-    "create_mesh",
-    "mesh_registry",
-    "ring_attention",
-    "slice_topology",
-    "ulysses_attention",
-    "ulysses_attention_sharded",
-]
+and Ulysses sequence parallelism, single-controller (``parallel.mesh``).
+Import from the modules (``ray_tpu_torch.parallel.ring_attention`` is the
+module, not a function re-exported over it)."""
