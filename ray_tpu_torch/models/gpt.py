@@ -9,7 +9,8 @@ defaults to the tanh approximation, so the port uses
 ``F.gelu(..., approximate="tanh")``. Attention goes through
 ``ops.attention.attention``: on the card, causal with no segment ids, the
 flash kernels. Remat: ``none`` or ``full`` per layer.
-``param_logical_axes`` is not ported: there is no mesh.
+``param_logical_axes`` (the placement of parameters over a mesh) is not
+ported yet.
 """
 
 from __future__ import annotations

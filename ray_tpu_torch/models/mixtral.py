@@ -12,7 +12,8 @@ Remat (``MixtralConfig.remat``): ``none``, ``full`` or ``dots``, on
 batch dimension (the projections, and the dispatch and combine products
 of ``moe_ffn``) and reruns the experts' per-expert (batched) products.
 The port's ``dots`` saves ``aten.mm`` and not ``aten.bmm``, which is the
-same split. ``param_logical_axes`` is not ported: there is no mesh.
+same split. ``param_logical_axes`` (the placement of parameters over a
+mesh) is not ported yet.
 """
 
 from __future__ import annotations

@@ -109,10 +109,10 @@ def ppermute(xs: list, perm) -> list:
     """``perm``: (source, destination) pairs. Rank ``d`` receives rank
     ``s``'s chunk; a rank that receives nothing gets zeros, as in
     ``lax.ppermute``."""
-    out = [torch.zeros_like(x) for x in xs]
+    out = [None] * len(xs)
     for src, dst in perm:
         out[dst] = xs[src].to(xs[dst].device)
-    return out
+    return [torch.zeros_like(x) if o is None else o for o, x in zip(out, xs)]
 
 
 def ring_shift(xs: list, *, shift: int = 1) -> list:

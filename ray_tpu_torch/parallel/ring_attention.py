@@ -202,10 +202,6 @@ class _RingFlash(torch.autograd.Function):
                 _global(dvs, v.device), None, None, None)
 
 
-def _ring_flash(q, k, v, devices, scale, causal):
-    return _RingFlash.apply(q, k, v, devices, scale, causal)
-
-
 def _check_flash_chunk(sc: int, d: int) -> None:
     """The gate of ``ops.attention._flash_supported``, on one ring chunk."""
     if not (sc >= 256 and sc % 128 == 0 and d in (64, 128, 256)):
@@ -263,7 +259,7 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
     use_flash = impl == "flash" or (impl == "auto" and q.is_cuda)
     if use_flash:
         _check_flash_chunk(s // n, d)
-    body = _ring_flash if use_flash else _ring_reference
+    body = _RingFlash.apply if use_flash else _ring_reference
 
     b_sizes = [mesh.shape[a] for a in b_ax]
     nb = math.prod(b_sizes)

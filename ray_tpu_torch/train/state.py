@@ -1,7 +1,7 @@
 """Train state: parameters, optimizer state and step.
 
-Port of ``ray_tpu/train/state.py``. There is no mesh, so no sharding
-helpers (``state_logical_axes`` is not ported). The state's tensors are
+Port of ``ray_tpu/train/state.py``. Placing the state over a mesh
+(``state_logical_axes``) is not ported yet. The state's tensors are
 updated in place by ``Trainer.train_step``.
 """
 
