@@ -58,7 +58,7 @@ def ulysses_attention(qs: list, ks: list, vs: list, *, causal: bool = True,
 def ulysses_attention_sharded(mesh, q, k, v, *, axis: str = "sp",
                               causal: bool = True,
                               scale: float | None = None):
-    """Driver-level entry: cuts [B, S, H, D] inputs along the sequence
+    """Top-level entry: cuts [B, S, H, D] inputs along the sequence
     over ``axis`` of ``mesh`` (the devices along it, at index 0 of any
     other axis), runs ``ulysses_attention`` and joins the output on q's
     device."""
