@@ -20,17 +20,36 @@ Logical axes used by the model library:
     stage    - pipeline stage dim           -> pp
     (None)   - replicated
 
-``logical_sharding`` returns a ``PartitionSpec``: one entry per dimension,
-each a mesh axis, a tuple of mesh axes or None (replicated), as JAX's
-``PartitionSpec`` holds them. Placing tensors by these specs
-(``tree_shardings``, ``shard_tree``, ``replicated``, ``batch_sharding``)
-is not ported yet.
+``logical_sharding`` returns a ``NamedSharding``: the mesh and a
+``PartitionSpec`` (``.spec``), one entry per dimension, each a mesh axis,
+a tuple of mesh axes or None (replicated), as JAX's ``PartitionSpec``
+holds them.
+
+**Placement** (``device_put``, ``shard_tree``). The mesh is
+single-controller (``parallel.mesh``): one process holds every place. A
+placed tensor, ``ShardedTensor``, keeps the global shape, the sharding
+and one chunk per place of the mesh, in the order of
+``mesh.devices.ravel()`` (row-major, ``AXIS_ORDER`` outer to inner). Chunk
+``i`` is the index range JAX's ``NamedSharding`` gives the device at flat
+position ``i`` of a mesh of the same shape: a dimension cut over axes
+``(a, b)`` is cut into ``|a|·|b|`` equal pieces, ``a`` major. Places that
+hold the same index range on the same device share one tensor object,
+and a chunk on the device of the tensor it was cut from is a view of it:
+nothing is copied on one card. A dp-4 state on one card therefore costs
+its 64 GB once, not four times; only a place on another device gets a
+copy. Chunks are leaves that share storage, so updating one in place
+updates the tensor it was cut from and every place that shares it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from dataclasses import dataclass, replace
 from typing import Any
+
+import numpy as np
+import torch
 
 from ray_tpu_torch.parallel.mesh import Mesh
 
@@ -170,8 +189,220 @@ def _filter_spec_for_mesh(spec: PartitionSpec, mesh: Mesh) -> PartitionSpec:
     return P(*(keep(e) for e in spec))
 
 
+def _axes_of(entry) -> tuple:
+    """The mesh axes of one spec entry, major first."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """True when ``a`` and ``b`` name one device ("cuda" is the current
+    card, "cpu" is "cpu:0")."""
+    def norm(d):
+        d = torch.device(d)
+        if d.index is not None:
+            return d
+        return torch.device(d.type, torch.cuda.current_device()
+                            if d.type == "cuda" else 0)
+    return norm(a) == norm(b)
+
+
+class NamedSharding:
+    """A mesh and a partition spec (``jax.sharding.NamedSharding``)."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = spec if isinstance(spec, PartitionSpec) else P(*spec)
+        for entry in self.spec:
+            for ax in _axes_of(entry):
+                if ax not in mesh.axis_names:
+                    raise ValueError(f"spec {self.spec} names axis {ax!r}, "
+                                     f"not on the mesh {mesh.shape}")
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
+                and other.spec == self.spec)
+
+    def __hash__(self) -> int:
+        return hash((id(self.mesh), self.spec))
+
+    def __repr__(self) -> str:
+        return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec})"
+
+    def shard_shape(self, shape) -> tuple:
+        """The shape of every chunk of a ``shape`` tensor."""
+        shape = tuple(shape)
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than the "
+                             f"{len(shape)}-d shape {shape}")
+        out = list(shape)
+        for d, entry in enumerate(self.spec):
+            n = math.prod(self.mesh.shape[a] for a in _axes_of(entry))
+            if shape[d] % n:
+                raise ValueError(f"dim {d} of {shape} is not divisible by "
+                                 f"the {n} places of {entry!r}")
+            out[d] = shape[d] // n
+        return tuple(out)
+
+    def indices(self, shape) -> list:
+        """The index range of each place, in the order of
+        ``mesh.devices.ravel()``: a tuple of slices per place (JAX's
+        ``devices_indices_map``, keyed by position, as one device may
+        fill several places)."""
+        chunk = self.shard_shape(shape)
+        grid = self.mesh.devices.shape
+        names = self.mesh.axis_names
+        out = []
+        for flat in range(self.mesh.size):
+            coords = dict(zip(names, np.unravel_index(flat, grid)))
+            idx = []
+            for d in range(len(shape)):
+                entry = self.spec[d] if d < len(self.spec) else None
+                piece = 0
+                for ax in _axes_of(entry):
+                    piece = piece * self.mesh.shape[ax] + int(coords[ax])
+                idx.append(slice(piece * chunk[d], (piece + 1) * chunk[d]))
+            out.append(tuple(idx))
+        return out
+
+
+class ShardedTensor:
+    """A tensor placed over a mesh: its global ``shape`` and ``dtype``, its
+    ``sharding`` and ``chunks``, one per place in the order of
+    ``mesh.devices.ravel()`` (see the module docstring: places holding
+    one index range on one device share one tensor object)."""
+
+    def __init__(self, shape, dtype, sharding: NamedSharding, chunks: list):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self.chunks = list(chunks)
+
+    @property
+    def mesh(self) -> Mesh:
+        return self.sharding.mesh
+
+    @property
+    def spec(self) -> PartitionSpec:
+        return self.sharding.spec
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __repr__(self) -> str:
+        return (f"ShardedTensor(shape={tuple(self.shape)}, "
+                f"dtype={self.dtype}, {self.sharding})")
+
+    def distinct(self) -> list:
+        """(place, chunk) for the first place of each distinct chunk
+        object, in place order."""
+        seen, out = set(), []
+        for place, chunk in enumerate(self.chunks):
+            if id(chunk) not in seen:
+                seen.add(id(chunk))
+                out.append((place, chunk))
+        return out
+
+    def unshard(self, device=None) -> torch.Tensor:
+        """The global tensor, assembled on ``device`` (default: the first
+        chunk's) from one chunk of each index range."""
+        device = device if device is not None else self.chunks[0].device
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        done = set()
+        for idx, chunk in zip(self.sharding.indices(self.shape),
+                              self.chunks):
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in done:
+                done.add(key)
+                out[idx] = chunk.detach().to(device)
+        return out
+
+
+def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """``x`` placed by ``sharding``: each place gets its index range, a
+    view of ``x`` (``x`` itself when the range is all of it) on ``x``'s
+    device, a copy elsewhere; places with one range on one device share
+    one chunk."""
+    chunks, made = [], {}
+    whole = tuple((0, n) for n in x.shape)
+    for idx, dev in zip(sharding.indices(x.shape),
+                        sharding.mesh.devices.ravel()):
+        key = (tuple((s.start, s.stop) for s in idx), str(dev))
+        if key not in made:
+            if same_device(x.device, dev):
+                made[key] = x if key[0] == whole else x.detach()[idx]
+            else:
+                made[key] = x.detach()[idx].to(dev, copy=True)
+        chunks.append(made[key])
+    return ShardedTensor(x.shape, x.dtype, sharding, chunks)
+
+
 def logical_sharding(logical: tuple, mesh: Mesh,
-                     rules: ShardingRules) -> PartitionSpec:
-    """The partition spec of one array annotated with logical axis names,
-    on ``mesh`` (JAX returns it inside a ``NamedSharding``)."""
-    return _filter_spec_for_mesh(rules.mesh_axes(logical), mesh)
+                     rules: ShardingRules) -> NamedSharding:
+    """The ``NamedSharding`` of one array annotated with logical axis
+    names, on ``mesh``."""
+    return NamedSharding(mesh,
+                         _filter_spec_for_mesh(rules.mesh_axes(logical), mesh))
+
+
+def _map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of ``tree`` and the matching nodes of
+    ``rest``. Nodes: dicts, lists, tuples that are not leaves and
+    dataclasses (``TrainState``); everything else is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, Axes):
+        return type(tree)(_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name),
+                         *(getattr(r, f.name) for r in rest),
+                         is_leaf=is_leaf)
+            for f in dataclasses.fields(tree)})
+    return fn(tree, *rest)
+
+
+def tree_shardings(logical_tree, mesh: Mesh, rules: ShardingRules):
+    """Map a tree of logical-axis tuples (or ``Axes``) to a tree of
+    ``NamedSharding``s."""
+    return _map(lambda logical: logical_sharding(tuple(logical), mesh, rules),
+                logical_tree, is_leaf=is_axes_leaf)
+
+
+def place_tree(tree, shardings):
+    """Place every tensor of ``tree`` by the matching ``NamedSharding`` of
+    ``shardings`` (a tree of the same structure); other leaves (step
+    counts) stay as they are."""
+    def put(x, sharding):
+        return device_put(x, sharding) if isinstance(x, torch.Tensor) else x
+    return _map(put, tree, shardings,
+                is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def shard_tree(tree, logical_tree, mesh: Mesh, rules: ShardingRules):
+    """Place a tree according to its logical annotations (JAX:
+    ``jax.device_put(tree, tree_shardings(...))``)."""
+    return place_tree(tree, tree_shardings(logical_tree, mesh, rules))
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, P())
+
+
+def batch_sharding(mesh: Mesh, rules: ShardingRules, ndim: int = 2,
+                   *, shard_seq: bool = True) -> NamedSharding:
+    """Sharding for an input batch [batch, seq, ...]: batch axis split per
+    rules, sequence split if sp is active, rest replicated.
+
+    ``shard_seq=False`` keeps the seq dim replicated: used for raw token
+    batches of length S+1 (the shifted-target column makes S+1 typically
+    indivisible by sp; ring attention cuts the sequence inside the step
+    instead)."""
+    logical = ("batch", "seq" if shard_seq else None) + (None,) * (ndim - 2)
+    return logical_sharding(logical[:max(ndim, 0)], mesh, rules)
