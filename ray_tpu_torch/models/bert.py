@@ -8,8 +8,8 @@ bf16 model. The padding mask goes to attention as ``segment_ids``: pad
 tokens are segment 0 and still attend to each other, as in JAX.
 Attention is non-causal with segment ids, so ``attention(impl="auto")``
 takes the reference path on the card as on the TPU: no kernel runs here.
-Remat: ``none`` or ``full`` per layer. ``param_logical_axes`` (the
-placement of parameters over a mesh) is not ported yet.
+Remat: ``none`` or ``full`` per layer. ``param_logical_axes`` names each
+parameter's logical axes, as JAX's.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from ray_tpu_torch.ops.norms import layer_norm
 
 __all__ = ["BertConfig", "bert_base", "bert_large", "bert_tiny",
            "init_params", "encode", "mlm_logits", "mlm_loss", "num_params",
-           "REMAT_POLICIES"]
+           "param_logical_axes", "REMAT_POLICIES"]
 
 REMAT_POLICIES = ("none", "full")
 
@@ -68,6 +68,37 @@ def bert_large() -> BertConfig:
 def bert_tiny(vocab_size: int = 512) -> BertConfig:
     return BertConfig(vocab_size=vocab_size, max_seq_len=128, d_model=128,
                       n_layers=2, n_heads=4, d_ff=256)
+
+
+def param_logical_axes(cfg: BertConfig) -> dict:
+    """Logical axis annotation tree, mirroring init_params' structure."""
+    block = {
+        "wqkv": ("layers", "embed", "heads"),
+        "bqkv": ("layers", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "bo": ("layers", "embed"),
+        "ln1_w": ("layers", "embed"),
+        "ln1_b": ("layers", "embed"),
+        "w_up": ("layers", "embed", "mlp"),
+        "b_up": ("layers", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "b_down": ("layers", "embed"),
+        "ln2_w": ("layers", "embed"),
+        "ln2_b": ("layers", "embed"),
+    }
+    return {
+        "embedding": ("vocab", "embed"),
+        "pos_embedding": (None, "embed"),
+        "type_embedding": (None, "embed"),
+        "emb_ln_w": ("embed",),
+        "emb_ln_b": ("embed",),
+        "blocks": block,
+        "mlm_dense_w": ("embed", "embed"),
+        "mlm_dense_b": ("embed",),
+        "mlm_ln_w": ("embed",),
+        "mlm_ln_b": ("embed",),
+        "mlm_bias": ("vocab",),
+    }
 
 
 def init_params(cfg: BertConfig, *, seed: int = 0,

@@ -9,8 +9,8 @@ defaults to the tanh approximation, so the port uses
 ``F.gelu(..., approximate="tanh")``. Attention goes through
 ``ops.attention.attention``: on the card, causal with no segment ids, the
 flash kernels. Remat: ``none`` or ``full`` per layer.
-``param_logical_axes`` (the placement of parameters over a mesh) is not
-ported yet.
+``param_logical_axes`` names each parameter's logical axes, as JAX's
+(same names as Llama's).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.norms import layer_norm
 
 __all__ = ["GPTConfig", "gpt2_small", "gpt2_xl", "gpt_tiny", "init_params",
-           "forward", "cross_entropy_loss", "num_params", "REMAT_POLICIES"]
+           "forward", "cross_entropy_loss", "num_params",
+           "param_logical_axes", "REMAT_POLICIES"]
 
 REMAT_POLICIES = ("none", "full")
 
@@ -69,6 +70,31 @@ def gpt_tiny(vocab_size: int = 512) -> GPTConfig:
     """Test-size config."""
     return GPTConfig(vocab_size=vocab_size, max_seq_len=128, d_model=128,
                      n_layers=2, n_heads=4, d_ff=256)
+
+
+def param_logical_axes(cfg: GPTConfig) -> dict:
+    """Logical axis annotation tree, mirroring init_params' structure."""
+    block = {
+        "ln1_w": ("layers", "embed"),
+        "ln1_b": ("layers", "embed"),
+        "wqkv": ("layers", "embed", "heads"),
+        "bqkv": ("layers", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "bo": ("layers", "embed"),
+        "ln2_w": ("layers", "embed"),
+        "ln2_b": ("layers", "embed"),
+        "w_up": ("layers", "embed", "mlp"),
+        "b_up": ("layers", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "b_down": ("layers", "embed"),
+    }
+    return {
+        "embedding": ("vocab", "embed"),
+        "pos_embedding": (None, "embed"),
+        "blocks": block,
+        "final_ln_w": ("embed",),
+        "final_ln_b": ("embed",),
+    }
 
 
 def init_params(cfg: GPTConfig, *, seed: int = 0,

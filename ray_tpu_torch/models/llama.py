@@ -27,8 +27,9 @@ never exist.
 
 ``attn_impl="ring"`` runs sequence-parallel ring attention over the
 ``sp_axis`` of ``mesh`` (``parallel.ring_attention``), the path the
-trainer takes when its sharding rules cut the sequence. Placing
-parameters over a mesh (``param_logical_axes``) is not ported yet.
+trainer takes when its sharding rules cut the sequence.
+``param_logical_axes`` names each parameter's logical axes, which the
+sharding rules map onto a mesh (``parallel.sharding``).
 """
 
 from __future__ import annotations
@@ -92,6 +93,33 @@ def llama_tiny(vocab_size: int = 512) -> LlamaConfig:
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
+
+def param_logical_axes(cfg: LlamaConfig) -> dict:
+    """Logical axis annotation tree, mirroring init_params' structure.
+    The leading axis of stacked blocks carries the ``layers`` logical
+    axis: replicated under the dp/fsdp/tp presets (rules.layers=None) and
+    cut over ``pp`` under the pipeline preset, which puts the contiguous
+    per-stage layer groups on their stage's places."""
+    block = {
+        "attn_norm": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),       # [L, D, H*hd]
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+        "mlp_norm": ("layers", "embed"),
+        "w_gate": ("layers", "embed", "mlp"),
+        "w_up": ("layers", "embed", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+    }
+    axes = {
+        "embedding": ("vocab", "embed"),
+        "blocks": block,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
 
 class ParamInit:
     """The draws of one ``init_params`` call, shared by the model families:

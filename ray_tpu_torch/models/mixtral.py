@@ -12,8 +12,9 @@ Remat (``MixtralConfig.remat``): ``none``, ``full`` or ``dots``, on
 batch dimension (the projections, and the dispatch and combine products
 of ``moe_ffn``) and reruns the experts' per-expert (batched) products.
 The port's ``dots`` saves ``aten.mm`` and not ``aten.bmm``, which is the
-same split. ``param_logical_axes`` (the placement of parameters over a
-mesh) is not ported yet.
+same split. ``param_logical_axes`` names each parameter's logical axes
+(the experts' dimension is ``expert``, cut over ``ep`` by the ``moe``
+preset).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import rope_sin_cos
 
 __all__ = ["MixtralConfig", "mixtral_8x7b", "mixtral_tiny", "init_params",
-           "forward", "loss_fn", "num_params", "REMAT_POLICIES"]
+           "forward", "loss_fn", "num_params", "param_logical_axes",
+           "REMAT_POLICIES"]
 
 REMAT_POLICIES = ("none", "full", "dots")
 
@@ -71,6 +73,28 @@ def mixtral_tiny(vocab_size: int = 512) -> MixtralConfig:
         n_kv_heads=2, d_ff=256, head_dim=32, n_experts=4, top_k=2,
         remat="none",
     )
+
+
+def param_logical_axes(cfg: MixtralConfig) -> dict:
+    """Logical axis annotation tree, mirroring init_params' structure."""
+    block = {
+        "attn_norm": (None, "embed"),
+        "wq": (None, "embed", "heads"),
+        "wk": (None, "embed", "kv_heads"),
+        "wv": (None, "embed", "kv_heads"),
+        "wo": (None, "heads", "embed"),
+        "mlp_norm": (None, "embed"),
+        "router": (None, "embed", None),          # router stays replicated
+        "wi_gate": (None, "expert", "embed", "mlp"),
+        "wi_up": (None, "expert", "embed", "mlp"),
+        "wo_e": (None, "expert", "mlp", "embed"),
+    }
+    return {
+        "embedding": ("vocab", "embed"),
+        "blocks": block,
+        "final_norm": ("embed",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_params(cfg: MixtralConfig, *, seed: int = 0,

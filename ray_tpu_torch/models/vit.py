@@ -6,7 +6,8 @@ learned positions, pre-LN encoder blocks, and CLS or mean pooling into a
 float32 classification head. Parameters are float32 by default
 (``param_dtype``) and keep JAX's names and stacked ``[L, ...]`` layout.
 Attention is ``impl="reference"``, as in JAX: non-causal over 197 tokens,
-which no kernel of the port takes.
+which no kernel of the port takes. ``param_logical_axes`` names each
+parameter's logical axes, as JAX's.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.norms import layer_norm
 
 __all__ = ["ViTConfig", "vit_tiny", "vit_l16", "init_params", "patchify",
-           "forward", "num_params"]
+           "forward", "num_params", "param_logical_axes"]
 
 
 @dataclass(frozen=True)
@@ -64,6 +65,35 @@ def vit_tiny(image_size: int = 32, patch_size: int = 8,
 def vit_l16() -> ViTConfig:
     """ViT-L/16 (the BASELINE's ViT-L)."""
     return ViTConfig(d_model=1024, n_layers=24, n_heads=16, d_ff=4096)
+
+
+def param_logical_axes(cfg: ViTConfig) -> dict:
+    """Logical axis annotation tree, mirroring init_params' structure."""
+    block = {
+        "ln1_w": ("layers", "embed"),
+        "ln1_b": ("layers", "embed"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "heads"),
+        "wv": ("layers", "embed", "heads"),
+        "wo": ("layers", "heads", "embed"),
+        "ln2_w": ("layers", "embed"),
+        "ln2_b": ("layers", "embed"),
+        "w_up": ("layers", "embed", "mlp"),
+        "b_up": ("layers", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "b_down": ("layers", "embed"),
+    }
+    return {
+        "patch_embed": (None, "embed"),
+        "patch_bias": ("embed",),
+        "pos_embed": (None, "embed"),
+        "cls_token": ("embed",),
+        "blocks": block,
+        "final_ln_w": ("embed",),
+        "final_ln_b": ("embed",),
+        "head": ("embed", "vocab"),
+        "head_bias": ("vocab",),
+    }
 
 
 def init_params(cfg: ViTConfig, *, seed: int = 0,
