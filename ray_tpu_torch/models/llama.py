@@ -226,15 +226,31 @@ def layer_params(params: dict, i: int) -> dict:
 
 def mlp_sublayer(cfg, x, p):
     """Pre-norm SwiGLU MLP sublayer; returns the residual-added stream."""
+    return x + mlp_out(cfg, x, p)
+
+
+def mlp_out(cfg, x, p):
+    """The MLP sublayer's output before the residual add (with a
+    tensor-parallel rank's cut of the weights, its partial sum)."""
     h = rms_norm(x, p["mlp_norm"], eps=cfg.rms_eps)
     gated = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
-    return x + gated @ p["w_down"]
+    return gated @ p["w_down"]
 
 
 def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
                        mesh=None, sp_axis="sp"):
     """Pre-norm attention sublayer; returns the residual-added stream.
     ``attn_impl="ring"`` needs ``mesh`` (with an ``sp_axis`` axis)."""
+    return x + attention_out(cfg, x, p, sin, cos, segment_ids, attn_impl,
+                             mesh=mesh, sp_axis=sp_axis)
+
+
+def attention_out(cfg, x, p, sin, cos, segment_ids, attn_impl, mesh=None,
+                  sp_axis="sp"):
+    """The attention sublayer's output before the residual add, over
+    ``cfg.n_heads`` q and ``cfg.n_kv_heads`` kv heads (with a
+    tensor-parallel rank's cut of the weights and head counts, its
+    partial sum)."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
     q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
@@ -254,7 +270,7 @@ def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
         attn_out = attention(q, k, v, causal=True, segment_ids=segment_ids,
                              impl=attn_impl)
     attn_out = attn_out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return x + attn_out @ p["wo"]
+    return attn_out @ p["wo"]
 
 
 def forward(cfg: LlamaConfig, params: dict, tokens: torch.Tensor, *,

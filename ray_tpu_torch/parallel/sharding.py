@@ -305,6 +305,30 @@ class ShardedTensor:
                 out.append((place, chunk))
         return out
 
+    def take(self, axis: str, index: int) -> "ShardedTensor":
+        """The places at ``index`` of mesh axis ``axis`` (a pipeline
+        stage): a tensor on the mesh without that axis, holding the piece
+        of the dimension cut over ``axis`` (which must lead its entry),
+        with the same chunk objects."""
+        mesh = self.mesh
+        i = mesh.axis_names.index(axis)
+        sub = Mesh(mesh.devices.take(index, axis=i),
+                   mesh.axis_names[:i] + mesh.axis_names[i + 1:])
+        shape, spec = list(self.shape), []
+        for d, entry in enumerate(self.spec):
+            axes = _axes_of(entry)
+            if axis in axes:
+                if axes[0] != axis:
+                    raise ValueError(f"{axis!r} must lead the entry {entry} "
+                                     "to take one of its pieces")
+                shape[d] //= mesh.shape[axis]
+                axes = axes[1:]
+            spec.append(axes or None)
+        grid = np.arange(mesh.size).reshape(mesh.devices.shape)
+        places = grid.take(index, axis=i).ravel()
+        return ShardedTensor(shape, self.dtype, NamedSharding(sub, P(*spec)),
+                             [self.chunks[p] for p in places])
+
     def unshard(self, device=None) -> torch.Tensor:
         """The global tensor, assembled on ``device`` (default: the first
         chunk's) from one chunk of each index range."""

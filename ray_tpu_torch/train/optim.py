@@ -98,7 +98,7 @@ def global_norm(tensors) -> torch.Tensor:
     for x in tensors:
         for sl in _slices(x):
             sq = sl.float().square().sum()
-            total = sq if total is None else total + sq
+            total = sq if total is None else total + sq.to(total.device)
     return total.sqrt()
 
 
@@ -121,19 +121,26 @@ class AdamW:
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def update(self, params: list, grads: list, state: dict) -> torch.Tensor:
+    def update(self, params: list, grads: list, state: dict, *,
+               moments: tuple | None = None,
+               norm_of: list | None = None) -> torch.Tensor:
         """Update ``params`` (the leaves of the state's parameter tree, in
         ``tree_leaves`` order) in place from ``grads``; advance ``state``.
-        Returns the global norm of ``grads`` before clipping."""
-        norm = global_norm(grads)
+        ``moments``: the (mu, nu) tensors of ``params``, in order (default:
+        the leaves of the state's trees); ``norm_of``: the gradients whose
+        global norm clips (default: ``grads``; a placed state passes one
+        chunk per index range, so replicas count once). Returns that norm,
+        before clipping."""
+        norm = global_norm(grads if norm_of is None else norm_of)
         norm_f = float(norm)
         clip = not norm_f < self.max_grad_norm
         count = state["count"] + 1
         lr = self.schedule(state["count"])
         bc1 = 1.0 - self.b1 ** count
         bc2 = 1.0 - self.b2 ** count
-        for p, g, m, v in zip(params, grads, tree_leaves(state["mu"]),
-                              tree_leaves(state["nu"]), strict=True):
+        mus, nus = moments if moments is not None else (
+            tree_leaves(state["mu"]), tree_leaves(state["nu"]))
+        for p, g, m, v in zip(params, grads, mus, nus, strict=True):
             for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                       _slices(v)):
                 gf = gs.float()
