@@ -1,28 +1,39 @@
-"""Trainer: the training step of a model family, on one card.
+"""Trainer: the training step of a model family over a mesh.
 
 Port of ``ray_tpu/train/trainer.py`` (``JaxTrainer``): ``TrainConfig``
 keeps the same fields and defaults, and ``Trainer`` keeps its surface
-(``init_state``, ``train_step``, ``fit``, the ``loss_fn`` hook,
-``fused_loss`` and ``loss_chunk``, ``mesh=``). Where JAX jit-compiles one
-SPMD step over a mesh and donates the state, the port runs eagerly and
-updates the state's tensors in place: the gradients come from
-``torch.autograd.grad``, and the optimizer (``train.optim.AdamW``, the
-same recipe as JAX's optax chain) updates one tensor at a time.
+(``init_state``, ``train_step``, ``fit``, ``abstract_state``,
+``state_shardings``, the ``loss_fn`` hook, ``fused_loss`` and
+``loss_chunk``, ``n_microbatches``, ``mesh=``). Where JAX jit-compiles
+one SPMD step over a mesh and donates the state, the port runs eagerly,
+one rank at a time (``train.spmd``), and updates the state's tensors in
+place: the gradients come from ``torch.autograd``, and the optimizer
+(``train.optim.AdamW``, the same recipe as JAX's optax chain) updates one
+chunk at a time.
 
 The mesh (``parallel.mesh``, single-controller as in JAX) is the one
 given, or one built from ``mesh_axes`` with every place on the trainer's
 device. The sharding rules (a preset name or ``ShardingRules``) become
-``self.rules``; when ``rules.seq`` names a mesh axis wider than one,
-llama's attention runs as ring attention over it (``attn_impl="ring"``),
-as in JAX. Every other axis wider than one, a pipeline (``pp``) and
-``n_microbatches > 1`` need the state placed across ranks, which comes
-with slice 7 of the port; they raise ``NotImplementedError``.
+``self.rules``, and the state is placed by them (``state_shardings``):
+``init_state`` places each leaf, and a state of plain tensors given to
+``train_step`` is placed as views of its tensors (all places on their
+device), so it is updated in place. On a mesh of one place a placed leaf
+is the tensor itself. As in JAX:
+
+- the batch is cut over the data axes (``batch_sharding``), fsdp leaves
+  are gathered before use, tp cuts Llama's heads and MLP (``train.spmd``);
+- when ``rules.seq`` names a mesh axis wider than one, Llama's attention
+  runs as ring attention over it (``attn_impl="ring"``);
+- when ``rules.layers`` names one (``pp_fsdp``), Llama's layers run as
+  the 1F1B pipeline (``parallel.pipeline.pipeline_value_and_grad``) over
+  ``n_microbatches`` microbatches (default: the number of stages).
 
 The model family comes from the config's type, as in JAX: llama, gpt or
 bert (``_resolve_family``); any other config raises ``TypeError``. A
 family other than llama trains on ``family.forward`` and the next-token
 cross-entropy, or on the ``loss_fn`` hook, which bert needs (it has no
-causal-LM forward); ``fused_loss`` and ring attention are llama's alone.
+causal-LM forward); ``fused_loss``, ring attention, the pipeline and the
+tensor-parallel block are llama's alone.
 """
 
 from __future__ import annotations
@@ -38,10 +49,16 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
 from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
-from ray_tpu_torch.parallel.sharding import PRESETS, ShardingRules
+from ray_tpu_torch.parallel.pipeline import pipeline_value_and_grad
+from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
+                                             ShardingRules, batch_sharding,
+                                             device_put, place_tree,
+                                             replicated, same_device,
+                                             tree_shardings)
+from ray_tpu_torch.train import spmd
 from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
                                        warmup_cosine_decay_schedule)
-from ray_tpu_torch.train.state import TrainState
+from ray_tpu_torch.train.state import TrainState, state_logical_axes
 
 
 @dataclass
@@ -64,7 +81,9 @@ class TrainConfig:
     # logits (llama.fused_cross_entropy)
     fused_loss: bool = False
     loss_chunk: int = 1024
-    # pipeline microbatches: more than one needs the pipeline of slice 7
+    # pipeline parallelism (strategy="pp_fsdp"): microbatch count
+    # (default: the number of stages, the least that fills the pipeline);
+    # the schedule is 1F1B (parallel.pipeline)
     n_microbatches: int | None = None
 
 
@@ -84,19 +103,17 @@ def _mesh_on(device, mesh_axes: dict) -> Mesh:
     return create_mesh(mesh_axes, devices=[device] * n)
 
 
-def _check_one_card(mesh: Mesh, seq_axis, cfg: TrainConfig) -> None:
-    """Raise on what needs the state placed across ranks: a mesh axis
-    wider than one other than the ring's ``seq_axis``, or microbatches."""
-    wide = {ax: n for ax, n in mesh.shape.items() if n > 1 and ax != seq_axis}
-    if wide:
-        raise NotImplementedError(
-            f"mesh axes {wide} need the state placed across ranks (FSDP, "
-            "TP, pipeline), which comes with slice 7 of the port; only the "
-            "sharding rules' seq axis may be wider than one")
-    if cfg.n_microbatches not in (None, 1):
-        raise NotImplementedError(
-            f"n_microbatches={cfg.n_microbatches} needs the 1F1B pipeline, "
-            "which comes with slice 7 of the port")
+def _map_placed(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over a tree of tensors or placed tensors
+    and the matching leaves of ``other`` (dicts and ``TrainState``s)."""
+    if isinstance(tree, dict):
+        return {k: _map_placed(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, TrainState):
+        return TrainState(params=_map_placed(fn, tree.params, other.params),
+                          opt_state=_map_placed(fn, tree.opt_state,
+                                                other.opt_state),
+                          step=tree.step)
+    return fn(tree, other)
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:
@@ -112,12 +129,13 @@ def make_optimizer(cfg: TrainConfig) -> AdamW:
 
 
 class Trainer:
-    """Trainer of a llama, gpt or bert model on one card, sequence
-    parallel over a mesh when the rules cut the sequence.
+    """Trainer of a llama, gpt or bert model over a mesh (one card holds
+    every place of it unless the mesh names other devices).
 
     Usage::
 
-        trainer = Trainer(llama.llama3_8b(), TrainConfig())
+        trainer = Trainer(llama.llama3_8b(), TrainConfig(
+            mesh_axes={"fsdp": 2, "tp": 2}, strategy="fsdp_tp"))
         state = trainer.init_state(seed=0)
         state, metrics = trainer.train_step(state, batch)  # [B, S+1] tokens
     """
@@ -139,24 +157,46 @@ class Trainer:
             "ring" if sp is not None and sp in self.mesh.axis_names
             and self.mesh.shape[sp] > 1 else "auto")
         self.sp_axis = sp if self.attn_impl == "ring" else "sp"
-        _check_one_card(self.mesh, sp if self.attn_impl == "ring" else None,
-                        cfg)
+        # pipeline parallelism: when the rules cut the stacked-layer dim
+        # over a mesh axis that exists with size > 1
+        ppax = self.rules.layers
+        self.pp_axis = (
+            ppax if isinstance(ppax, str) and ppax in self.mesh.axis_names
+            and self.mesh.shape[ppax] > 1 else None)
         if self.family is not llama and (cfg.fused_loss
                                          or self.attn_impl == "ring"):
             raise ValueError(
                 "fused_loss / ring attention are llama-only paths")
-        if loss_fn is not None and cfg.fused_loss:
-            raise ValueError("custom loss_fn cannot combine with fused_loss "
-                             "(both own the loss computation)")
+        if loss_fn is not None and (cfg.fused_loss or self.pp_axis):
+            raise ValueError(
+                "custom loss_fn cannot combine with fused_loss or "
+                "pipeline parallelism (both own the loss computation)")
         # families without a causal-LM `forward` need the loss hook
         if loss_fn is None and not hasattr(self.family, "forward"):
             raise ValueError(
                 f"{self.family.__name__} has no causal-LM default; pass "
                 "loss_fn= (e.g. wrapping bert.mlm_loss)")
+        if self.pp_axis:
+            if self.family is not llama:
+                raise ValueError(
+                    "pipeline parallelism is wired for the llama family "
+                    "only (make_llama_stage_fn)")
+            n_pp = self.mesh.shape[self.pp_axis]
+            if model_cfg.n_layers % n_pp:
+                raise ValueError(f"n_layers={model_cfg.n_layers} not "
+                                 f"divisible by pp={n_pp}")
+            if cfg.fused_loss:
+                raise ValueError(
+                    "fused_loss is redundant under pipeline parallelism: "
+                    "the 1F1B loss slot already computes the head "
+                    "per-microbatch")
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.optimizer = make_optimizer(cfg)
+        # the per-rank step's checks (a tp block for the family, heads
+        # dividing over tp) run now, as JAX's placement would refuse
+        self._rank_step()
 
     @staticmethod
     def _resolve_family(model_cfg):
@@ -172,38 +212,138 @@ class Trainer:
             f"unsupported model config {type(model_cfg).__name__}; "
             "expected LlamaConfig, GPTConfig, or BertConfig")
 
-    def init_state(self, seed: int = 0) -> TrainState:
-        params = self.family.init_params(self.model_cfg, seed=seed,
-                                         device=self.device)
+    def _rank_step(self) -> spmd.RankStep:
+        # built per step: the step reads model_cfg (its remat) as it is now
+        return spmd.RankStep(
+            self.family, self.model_cfg, self.mesh, self.rules,
+            attn_impl=self.attn_impl, sp_axis=self.sp_axis,
+            fused_loss=self.cfg.fused_loss, loss_chunk=self.cfg.loss_chunk,
+            loss_fn=self.loss_fn)
+
+    # --- state ---
+
+    def abstract_state(self) -> TrainState:
+        """The state's structure, shapes and dtypes, on the meta device
+        (no memory): what state shardings and checkpoint restores read."""
+        params = self.family.init_params(self.model_cfg, device="meta")
         return TrainState.create(params, self.optimizer)
 
-    def _loss_fn(self, params, batch):
-        if self.loss_fn is not None:
-            return self.loss_fn(self.model_cfg, params, batch)
-        inputs, targets = batch[:, :-1], batch[:, 1:]
-        mask = (targets != -1).float()
-        if self.family is not llama:
-            logits = self.family.forward(self.model_cfg, params, inputs)
-            return llama.cross_entropy_loss(logits, targets.clamp(min=0),
-                                            mask=mask)
-        ring = dict(attn_impl=self.attn_impl, mesh=self.mesh,
-                    sp_axis=self.sp_axis)
-        if self.cfg.fused_loss:
-            hidden = llama.forward_hidden(self.model_cfg, params, inputs,
-                                          **ring)
-            return llama.fused_cross_entropy(
-                self.model_cfg, params, hidden, targets, mask=mask,
-                chunk=self.cfg.loss_chunk)
-        logits = llama.forward(self.model_cfg, params, inputs, **ring)
-        return llama.cross_entropy_loss(logits, targets.clamp(min=0),
-                                        mask=mask)
+    def state_shardings(self) -> TrainState:
+        """The ``NamedSharding`` of every leaf of the state: the moments
+        inherit their parameters' (``state_logical_axes``), the step
+        count and step are replicated."""
+        axes = state_logical_axes(
+            self.abstract_state(),
+            self.family.param_logical_axes(self.model_cfg))
+        return tree_shardings(axes, self.mesh, self.rules)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Random parameters (``family.init_params`` with ``seed``) and a
+        fresh optimizer state, each leaf placed by its sharding (on one
+        card, as views: nothing is copied)."""
+        params = self.family.init_params(self.model_cfg, seed=seed,
+                                         device=self.device)
+        state = TrainState.create(params, self.optimizer)
+        if self.mesh.size == 1:
+            return state
+        return place_tree(state, self.state_shardings())
+
+    def _placed(self, tree, shardings):
+        """``tree`` with its plain tensors placed by ``shardings`` as views
+        (each place on the tensor's device); placed leaves stay."""
+        def put(x, sharding):
+            if isinstance(x, ShardedTensor) or not isinstance(
+                    x, torch.Tensor):
+                return x
+            if not all(same_device(x.device, d)
+                       for d in self.mesh.devices.ravel()):
+                raise ValueError(
+                    f"a state of plain tensors on {x.device} cannot be "
+                    f"placed as views over {self.mesh}: place it first "
+                    "(init_state, or place_tree(state, "
+                    "trainer.state_shardings()))")
+            return device_put(x, sharding)
+        return _map_placed(put, tree, shardings)
+
+    # --- train step ---
 
     def _to_device(self, batch):
         if isinstance(batch, dict):
             return {k: self._to_device(v) for k, v in batch.items()}
         return torch.as_tensor(np.asarray(batch) if not
                                isinstance(batch, torch.Tensor) else batch,
-                               device=self.device)
+                               device=self.mesh.devices.ravel()[0])
+
+    def _loss_fn(self, params, batch):
+        """The loss of ``params`` (plain or placed) on ``batch``."""
+        placed = self._placed(params, self.state_shardings().params)
+        return self._rank_step().loss(placed, self._to_device(batch))
+
+    def _pp_loss_and_grad(self, params: dict, batch):
+        """1F1B pipelined loss and gradients by chunk
+        (``pipeline_value_and_grad`` implements the backward itself: it is
+        not differentiated through)."""
+        step = self._rank_step()
+        n_pp = self.mesh.shape[self.pp_axis]
+        m = self.cfg.n_microbatches or n_pp
+        inputs, targets = batch[:, :-1], batch[:, 1:]
+        mask = (targets != -1).float()
+        b, s = inputs.shape
+        if b % m:
+            raise ValueError(f"batch {b} not divisible by {m} microbatches")
+        # the stages' blocks: each the pp index's layer group, placed over
+        # the rest of the mesh; the io params (embedding, final norm and
+        # head) are replicated over pp
+        stages = [{n: st.take(self.pp_axis, i)
+                   for n, st in params["blocks"].items()}
+                  for i in range(n_pp)]
+        io = {k: v for k, v in params.items() if k != "blocks"}
+        mb = b // m
+        (loss_sum, weight_sum), (d_sp, d_io, _) = pipeline_value_and_grad(
+            step.stage_fn, step.head_fn(self.pp_axis), stages, io,
+            inputs.reshape(m, mb, s), targets.reshape(m, mb, s),
+            mask.reshape(m, mb, s), mesh=self.mesh, axis=self.pp_axis,
+            embed_fn=step.embed_fn(self.pp_axis))
+        weight = weight_sum.clamp(min=1.0)
+        grads = {}
+        for got, want in [*zip(stages, d_sp), (io, d_io)]:
+            for name, st in got.items():
+                for c, g in zip(st.chunks, want[name].chunks):
+                    grads[id(c)] = g
+        # grads are of loss_sum; mean-loss grads = grads / sum(mask), in
+        # each parameter's dtype (shared chunks share a gradient: once)
+        for g in {id(g): g for g in grads.values()}.values():
+            g.div_(weight)
+        return loss_sum / weight, grads
+
+    def _chunk_grads(self, params: dict, batch):
+        """The loss and the gradient of every distinct chunk of a placed
+        parameter tree, by ``id(chunk)``."""
+        chunks = spmd.distinct_chunks(params)
+        for c in chunks:
+            c.requires_grad_(True)
+        if self.pp_axis:
+            return self._pp_loss_and_grad(params, batch)
+        loss = self._rank_step().loss(params, batch)
+        # a parameter the loss does not use gets a zero gradient, as jax.grad
+        grads = torch.autograd.grad(loss, chunks, allow_unused=True,
+                                    materialize_grads=True)
+        return loss, {id(c): g for c, g in zip(chunks, grads)}
+
+    def loss_and_grads(self, params, batch):
+        """The loss of ``params`` on ``batch`` and its gradient, in the
+        form of ``params``: placed tensors for a placed tree, global
+        tensors for plain ones. No update."""
+        placed = self._placed(params, self.state_shardings().params)
+        loss, grads = self._chunk_grads(placed, self._to_device(batch))
+
+        def grad_of(x, st):
+            if not isinstance(st, ShardedTensor):
+                return x
+            g = ShardedTensor(st.shape, st.dtype, st.sharding,
+                              [grads[id(c)] for c in st.chunks])
+            return g if isinstance(x, ShardedTensor) else g.unshard()
+        return loss.detach(), _map_placed(grad_of, params, placed)
 
     def train_step(self, state: TrainState, batch):
         """One optimization step, in place on ``state``. ``batch``: int
@@ -211,19 +351,30 @@ class Trainer:
         padding), or, with a custom ``loss_fn``, any dictionary of arrays.
         Returns ``(state, {"loss", "grad_norm", "step"})``; loss and
         grad_norm (before clipping) are float32 scalars on the card."""
-        batch = self._to_device(batch)
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss = self._loss_fn(state.params, batch)
-        # a parameter the loss does not use gets a zero gradient, as jax.grad
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
-        gnorm = self.optimizer.update(leaves, list(grads), state.opt_state)
+        placed = self._placed(state, self.state_shardings())
+        loss, grads = self._chunk_grads(placed.params,
+                                        self._to_device(batch))
+        gnorm = spmd.apply_update(
+            self.optimizer, placed.params, grads, state.opt_state,
+            (placed.opt_state["mu"], placed.opt_state["nu"]))
         del grads
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
                        "step": state.step}
+
+    def _batch_shardings(self, batch):
+        """Per-leaf data sharding: dim 0 is the batch axis, the rest
+        replicated, so dict batches may mix ranks (e.g. [B, S] tokens
+        with [B] labels)."""
+        def leaf(x):
+            nd = int(getattr(x, "ndim", 0))
+            if nd == 0:   # python scalars and 0-d arrays: replicated
+                return replicated(self.mesh)
+            return batch_sharding(self.mesh, self.rules, ndim=nd,
+                                  shard_seq=False)
+        if isinstance(batch, dict):
+            return {k: self._batch_shardings(v) for k, v in batch.items()}
+        return leaf(batch)
 
     def fit(self, state: TrainState, data_iter, *, steps: int,
             log_every: int = 10, callback: Callable | None = None):
