@@ -348,11 +348,15 @@ def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     """``x`` placed by ``sharding``: each place gets its index range, a
     view of ``x`` (``x`` itself when the range is all of it) on ``x``'s
     device, a copy elsewhere; places with one range on one device share
-    one chunk."""
+    one chunk. When every place is on one other device, ``x`` moves there
+    once and the chunks are views of that copy."""
+    devices = sharding.mesh.devices.ravel()
+    if not same_device(x.device, devices[0]) and all(
+            same_device(devices[0], d) for d in devices):
+        x = x.to(devices[0])
     chunks, made = [], {}
     whole = tuple((0, n) for n in x.shape)
-    for idx, dev in zip(sharding.indices(x.shape),
-                        sharding.mesh.devices.ravel()):
+    for idx, dev in zip(sharding.indices(x.shape), devices):
         key = (tuple((s.start, s.stop) for s in idx), str(dev))
         if key not in made:
             if same_device(x.device, dev):

@@ -1,12 +1,17 @@
-"""Checkpointing: asynchronous saves with top-k retention.
+"""Checkpointing: asynchronous saves with top-k retention, placed
+restores.
 
 Port of ``ray_tpu/train/checkpoint.py`` (Orbax there) with ``torch.save``.
 One file per step, ``<step>.pt``, written under a temporary name and
-renamed, so a partly written file is never listed. An asynchronous save
-copies the state to the host before ``save`` returns (the trainer
-updates its tensors in place, so a later step would otherwise tear the
-write) and writes it on one background thread. Retention keeps the
-newest ``max_to_keep`` steps, as Orbax does without a metric.
+renamed, so a partly written file is never listed. A save writes global
+arrays, as Orbax does: a placed leaf (``ShardedTensor``) is assembled
+from one chunk of each index range. An asynchronous save copies the
+state to the host before ``save`` returns (the trainer updates its
+tensors in place, so a later step would otherwise tear the write) and
+writes it on one background thread. Retention keeps the newest
+``max_to_keep`` steps, as Orbax does without a metric. ``restore(...,
+shardings=)`` places every restored leaf by a tree of ``NamedSharding``s
+(``Trainer.state_shardings()``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Any
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.parallel.sharding import ShardedTensor, place_tree
 from ray_tpu_torch.train.optim import tree_map
 from ray_tpu_torch.train.state import TrainState
 
@@ -33,11 +39,24 @@ def _as_tree(state: Any):
     return state
 
 
+def _global_host(x):
+    """A host copy of a tensor or of a placed tensor's global value."""
+    if isinstance(x, ShardedTensor):
+        return x.unshard(device="cpu")
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    return x
+
+
 def _to_host(state: Any) -> dict:
-    """A host copy of ``state`` that later in-place updates cannot touch."""
-    tree = _as_tree(state)
+    """A host copy of ``state`` that later in-place updates cannot touch,
+    every leaf global."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _global_host(node)
     return {"train_state": isinstance(state, TrainState),
-            "tree": tree_map(lambda t: t.detach().to("cpu", copy=True), tree)}
+            "tree": walk(_as_tree(state))}
 
 
 def _check_like(got, want, path="state"):
@@ -47,7 +66,7 @@ def _check_like(got, want, path="state"):
             raise ValueError(f"{path}: checkpoint keys do not match target")
         for k in want:
             _check_like(got[k], want[k], f"{path}.{k}")
-    elif isinstance(want, torch.Tensor):
+    elif isinstance(want, (torch.Tensor, ShardedTensor)):
         if not isinstance(got, torch.Tensor) or got.shape != want.shape \
                 or got.dtype != want.dtype:
             raise ValueError(f"{path}: checkpoint holds "
@@ -95,10 +114,13 @@ class CheckpointManager:
         return True
 
     def restore(self, step: int | None = None, *, target: Any = None,
-                device="cuda") -> Any:
-        """Restore ``step`` (default: the latest) onto ``device``.
-        ``target`` (a state of the same structure) is checked against the
-        checkpoint's structure, shapes and dtypes."""
+                shardings: Any = None, device="cuda") -> Any:
+        """Restore ``step`` (default: the latest) onto ``device``, or, with
+        ``shardings`` (a tree of ``NamedSharding``s of the state's
+        structure), each leaf placed by its sharding on the devices of its
+        mesh (``parallel.sharding.device_put``). ``target`` (a state
+        of the same structure, plain, placed or on the meta device) is
+        checked against the checkpoint's structure, shapes and dtypes."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -107,10 +129,14 @@ class CheckpointManager:
                     f"No checkpoints under {self.directory}")
         payload = torch.load(self._path(step), map_location="cpu",
                              weights_only=True)
-        dev = resolve_device(device)
-        tree = tree_map(lambda t: t.to(dev), payload["tree"])
+        tree = payload["tree"]
         if target is not None:
             _check_like(tree, _as_tree(target))
+        if shardings is None:
+            dev = resolve_device(device)
+            tree = tree_map(lambda t: t.to(dev), tree)
+        else:
+            tree = place_tree(tree, _as_tree(shardings))
         return TrainState(**tree) if payload["train_state"] else tree
 
     def latest_step(self) -> int | None:
