@@ -312,7 +312,7 @@ class ShardedTensor:
         with the same chunk objects."""
         mesh = self.mesh
         i = mesh.axis_names.index(axis)
-        sub = Mesh(mesh.devices.take(index, axis=i),
+        sub = Mesh(np.squeeze(mesh.devices.take([index], axis=i), axis=i),
                    mesh.axis_names[:i] + mesh.axis_names[i + 1:])
         shape, spec = list(self.shape), []
         for d, entry in enumerate(self.spec):

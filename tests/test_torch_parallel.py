@@ -29,8 +29,9 @@ from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, Mesh, MeshRegistry,
                                          create_mesh, mesh_registry,
                                          slice_topology)
 from ray_tpu_torch.parallel.sharding import (FSDP_TP_RULES, PRESETS, Axes,
-                                             PartitionSpec, ShardingRules,
-                                             is_axes_leaf, logical_sharding)
+                                             NamedSharding, PartitionSpec,
+                                             ShardingRules, is_axes_leaf,
+                                             logical_sharding)
 
 CPU = torch.device("cpu")
 
@@ -386,18 +387,20 @@ def test_preset_specs_equal_jax(preset):
             want = jax_logical_sharding(logical, jmesh,
                                         JAX_PRESETS[preset]).spec
             got = logical_sharding(logical, mesh, PRESETS[preset])
-            assert isinstance(got, PartitionSpec)
-            assert _entries(got) == _entries(want), (preset, axes, logical)
+            assert isinstance(got, NamedSharding) and got.mesh is mesh
+            assert isinstance(got.spec, PartitionSpec)
+            assert _entries(got.spec) == _entries(want), (preset, axes,
+                                                          logical)
 
 
 def test_rules_filtered_for_small_mesh():
     mesh = create_mesh({"dp": 8}, devices=[CPU] * 8)
-    assert logical_sharding(("embed", "mlp"), mesh, FSDP_TP_RULES) == \
+    assert logical_sharding(("embed", "mlp"), mesh, FSDP_TP_RULES).spec == \
         PartitionSpec(None, None)
     mesh = create_mesh({"dp": 2, "fsdp": 2, "tp": 2}, devices=[CPU] * 8)
-    assert logical_sharding(("embed", "mlp"), mesh, FSDP_TP_RULES) == \
+    assert logical_sharding(("embed", "mlp"), mesh, FSDP_TP_RULES).spec == \
         PartitionSpec("fsdp", "tp")
-    assert logical_sharding(("batch", None), mesh, FSDP_TP_RULES) == \
+    assert logical_sharding(("batch", None), mesh, FSDP_TP_RULES).spec == \
         PartitionSpec(("dp", "fsdp"), None)
 
 

@@ -336,14 +336,29 @@ def test_trainer_builds_the_ring_from_mesh_axes(tiny):
     (dict(strategy="fsdp_tp_sp", n_microbatches=2), {"sp": 2}),
 ])
 def test_other_wide_axes_still_raise(tiny, kw, mesh_axes):
-    """Placing state across ranks (FSDP, TP, the pipeline) is slice 7's."""
-    _, tcfg, _ = tiny
+    """The axes beside the ring that slice 6 refused (tp, dp and fsdp
+    beside sp, an sp axis no rule cuts, a pipeline, microbatches) now
+    train over the placed state: one step, from mesh_axes or from a
+    given mesh, gives the loss and gradient norm of the one-place
+    trainer on the same weights."""
+    _, tcfg, jparams = tiny
     n = int(np.prod(list(mesh_axes.values())))
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Trainer(tcfg, TrainConfig(mesh_axes=mesh_axes, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        Trainer(tcfg, TrainConfig(**kw), device="cpu",
-                mesh=create_mesh(mesh_axes, devices=["cpu"] * n))
+    batch = _tokens(2, 17, seed=11)
+    one = Trainer(tcfg, TrainConfig(**kw), device="cpu", mesh=create_mesh(
+        {"dp": 1}, devices=["cpu"]))
+    _, want = one.train_step(TrainState.create(
+        _port_params(tcfg, jparams), one.optimizer), batch)
+    for trainer in (
+            Trainer(tcfg, TrainConfig(mesh_axes=mesh_axes, **kw),
+                    device="cpu"),
+            Trainer(tcfg, TrainConfig(**kw), device="cpu",
+                    mesh=create_mesh(mesh_axes, devices=["cpu"] * n))):
+        state = TrainState.create(_port_params(tcfg, jparams),
+                                  trainer.optimizer)
+        _, got = trainer.train_step(state, batch)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=1e-5, err_msg=k)
 
 
 def test_ring_is_llama_only():

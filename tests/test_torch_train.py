@@ -488,15 +488,29 @@ def test_checkpoint_topk_retention(tiny, tmp_path):
     mgr.close()
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh_axes": {"dp": 2}},
-    {"n_microbatches": 4},
-    {"mesh_axes": {"fsdp": -1, "tp": 4}},
+@pytest.mark.parametrize("kw,error", [
+    ({"mesh_axes": {"dp": 2}}, None),
+    ({"n_microbatches": 4}, None),     # no pp axis: ignored, as in JAX
+    ({"mesh_axes": {"fsdp": -1, "tp": 4}}, None),  # no tp rule: replicas
+    ({"mesh_axes": {"fsdp": -1, "tp": 4}, "strategy": "fsdp_tp"},
+     ValueError),
 ])
-def test_multi_card_configs_are_refused(tiny, kw):
-    _, tcfg, _ = tiny
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg, TrainConfig(**kw), device="cpu")
+def test_multi_card_configs_are_refused(tiny, kw, error):
+    """Meshes of several places train, every place on the trainer's
+    device, to the loss of the one-place trainer; refused is a tp axis
+    the heads do not divide over (each tp rank runs whole heads:
+    llama_tiny's 2 kv heads over tp 4 under fsdp_tp)."""
+    _, tcfg, jparams = tiny
+    if error is not None:
+        with pytest.raises(error, match="do not divide"):
+            Trainer(tcfg, TrainConfig(**kw), device="cpu")
+        return
+    batch = _batch(4, 16)
+    want = _toy_trainer(tcfg)._loss_fn(_port_params(tcfg, jparams), batch)
+    trainer = _toy_trainer(tcfg, **kw)
+    state = TrainState.create(_port_params(tcfg, jparams), trainer.optimizer)
+    state, m = trainer.train_step(state, batch)
+    _close(float(m["loss"]), float(want))
 
 
 def test_custom_loss_fn_hook(tiny):
