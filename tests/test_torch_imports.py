@@ -55,8 +55,9 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
     assert expected <= set(out["modules"])
     assert "ray_tpu_torch.serve.paged_llm" in out["modules"]
     for name in ("train.trainer", "train.state", "train.checkpoint",
-                 "train.optim", "ops.moe", "ops.matmul", "models.mixtral",
-                 "models.gpt", "models.bert", "models.vit"):
+                 "train.optim", "train.spmd", "ops.moe", "ops.matmul",
+                 "models.mixtral", "models.gpt", "models.bert", "models.vit",
+                 "parallel.pipeline", "parallel.sharding"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -100,6 +101,38 @@ def test_sequence_parallel_and_speculative_modules_load_alone():
     with nothing else imported first, loads no jax, no ray_tpu module and
     no CUDA."""
     proc = subprocess.run([sys.executable, "-c", SEQUENCE_PARALLEL_PROBE],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["loaded"]) == 6
+    assert out["jax"] == [] and out["ray_tpu"] == []
+    assert out["cuda_initialized"] is False
+
+
+PLACEMENT_PROBE = r"""
+import importlib, json, sys
+names = ["ray_tpu_torch.parallel.sharding", "ray_tpu_torch.parallel.pipeline",
+         "ray_tpu_torch.train.spmd", "ray_tpu_torch.train.state",
+         "ray_tpu_torch.train.checkpoint", "ray_tpu_torch.train.trainer"]
+for name in names:
+    importlib.import_module(name)
+import torch
+print(json.dumps({
+    "loaded": [n for n in names if n in sys.modules],
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_placement_and_pipeline_modules_load_alone():
+    """A fresh import of the placement, the pipeline, the per-rank step
+    and the trainer, with nothing else imported first, loads no jax, no
+    ray_tpu module and no CUDA."""
+    proc = subprocess.run([sys.executable, "-c", PLACEMENT_PROBE],
                           cwd=REPO, env=_clean_env(), capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
