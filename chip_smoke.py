@@ -263,8 +263,12 @@ def check_flash(torch, peaks):
         # context, non-causal, with the lse the merge needs
         ("ring_chunk_noncausal_lse", 1, 32, 8, 2048, 2048, 128,
          torch.bfloat16, False, True),
-        # the training step's shape: b 2, with lse
+        # the training step's shape: b 2, with lse (also the 1F1B
+        # pipeline's microbatch of 2 rows)
         ("llama3_8b_train", 2, 32, 8, 2048, 2048, 128, torch.bfloat16, True,
+         True),
+        # a tp-2 rank's attention at fsdp 2: one row, 16 q and 4 kv heads
+        ("llama3_8b_tp2", 1, 16, 4, 2048, 2048, 128, torch.bfloat16, True,
          True),
         ("d64_gqa1", 2, 8, 8, 1024, 1024, 64, torch.bfloat16, True, True),
         # GPT-2 XL's training step: an odd head count, a group of one
@@ -472,6 +476,7 @@ def check_flash_bwd(torch, peaks):
         # (name, b, h, hk, s, d, dtype, causal)
         ("llama3_8b_train", 2, 32, 8, 2048, 128, torch.bfloat16, True),
         ("llama3_8b_noncausal", 1, 32, 8, 2048, 128, torch.bfloat16, False),
+        ("llama3_8b_tp2", 1, 16, 4, 2048, 128, torch.bfloat16, True),
         ("d64_gqa1", 2, 8, 8, 1024, 64, torch.bfloat16, True),
         ("gpt2_xl_train", 8, 25, 25, 1024, 64, torch.bfloat16, True),
         ("d256_gqa2", 1, 4, 2, 1024, 256, torch.bfloat16, True),
@@ -507,7 +512,8 @@ def check_flash_bwd(torch, peaks):
             raise AssertionError(
                 f"flash_bwd {name}: row rel err {errs} (tol {row_tol[dt]})")
         with_controls = name in ("llama3_8b_train", "gpt2_xl_train")
-        is_timed = with_controls or name == "llama3_8b_noncausal"
+        is_timed = with_controls or name in ("llama3_8b_noncausal",
+                                             "llama3_8b_tp2")
         if with_controls:
             check_flash_bwd_controls(torch, name, qt, kt, vt, dot, lse,
                                      delta, want, row_tol[dt])
@@ -1479,6 +1485,342 @@ def check_speculative(torch, cfg, params) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# State placed across ranks (slice 7) at Llama-3-8B's full width: every
+# place of each mesh on this card
+# ---------------------------------------------------------------------------
+
+PLACED_AXES = {"fsdp": 2, "tp": 2}
+PP_STAGES = 4
+# the limit of the gradient checks (check_grad): bf16 models whose
+# products round at other points
+GRAD_TOL = 5e-2
+
+
+def expected_chunk(x, spec, mesh, place: int):
+    """``x`` cut by ``spec`` for the place at flat position ``place`` of
+    ``mesh``, written apart from ``parallel.sharding``: each dimension
+    ``torch.chunk``ed into the product of its axes' sizes, the first axis
+    major, and the place's piece taken."""
+    coords = dict(zip(mesh.axis_names,
+                      np.unravel_index(place, mesh.devices.shape)))
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        k, n = 0, 1
+        for ax in ((entry,) if isinstance(entry, str) else entry):
+            k, n = k * mesh.shape[ax] + int(coords[ax]), n * mesh.shape[ax]
+        x = x.chunk(n, dim=d)[k]
+    return x
+
+
+def storage_bytes(tensors) -> int:
+    """The bytes of the distinct storages ``tensors`` use."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def check_placement(torch, cfg, params):
+    """``shard_tree`` of the full-depth parameters and their AdamW state
+    under fsdp_tp on {fsdp 2, tp 2}, every place on this card: each chunk
+    is its slice of the unplaced tensor (equal, and the same memory),
+    places holding one index range share one tensor (one data_ptr), and
+    the placed state's bytes are the unplaced state's. Control: a
+    placement that copies its replicas must fail the bytes check."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.sharding import ShardedTensor, shard_tree
+    from ray_tpu_torch.train.state import TrainState, state_logical_axes
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    trainer = Trainer(cfg, TrainConfig(mesh_axes=PLACED_AXES,
+                                       strategy="fsdp_tp"))
+    state = TrainState.create(params, trainer.optimizer)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    placed = shard_tree(state, state_logical_axes(
+        state, llama.param_logical_axes(cfg)), trainer.mesh, trainer.rules)
+    place_s = time.perf_counter() - t0
+    pairs = [pair for key in ("mu", "nu") for pair in zip(
+        named_leaves(state.opt_state[key]),
+        named_leaves(placed.opt_state[key]))]
+    pairs += list(zip(named_leaves(state.params),
+                      named_leaves(placed.params)))
+    mesh = trainer.mesh
+    bad_slices, bad_shares, n_chunks, distinct = [], [], 0, []
+    for (name, x), (_, st) in pairs:
+        assert isinstance(st, ShardedTensor)
+        by_range = {}
+        for place, chunk in enumerate(st.chunks):
+            want = expected_chunk(x, st.spec, mesh, place)
+            n_chunks += 1
+            if not (chunk.data_ptr() == want.data_ptr()
+                    and chunk.shape == want.shape
+                    and chunk.stride() == want.stride()
+                    and torch.equal(chunk, want)):
+                bad_slices.append(f"{name}@{place}")
+            key = (want.data_ptr(), tuple(want.shape), want.stride())
+            if by_range.setdefault(key, chunk) is not chunk:
+                bad_shares.append(f"{name}@{place}")
+        distinct += [c for _, c in st.distinct()]
+    plain_bytes = storage_bytes([x for (_, x), _ in pairs])
+    placed_bytes = storage_bytes(distinct)
+    # control: the same placement with every replica a copy of its own
+    copies = []
+    for _, (_, st) in pairs:
+        seen = set()
+        for c in st.chunks:
+            copies.append(c if id(c) not in seen else c.clone())
+            seen.add(id(c))
+    control_bytes = storage_bytes(copies)
+    replicas = sum(len(st.chunks) - len(st.distinct())
+                   for _, (_, st) in pairs)
+    del copies
+    emit("placement", config="llama3_8b", n_layers=cfg.n_layers,
+         mesh=PLACED_AXES, strategy="fsdp_tp", leaves=len(pairs),
+         chunks=n_chunks, distinct_chunks=len(distinct),
+         shared_replicas=replicas, seconds=place_s,
+         unplaced_bytes=plain_bytes, placed_bytes=placed_bytes,
+         copied_replicas_bytes=control_bytes,
+         chunks_not_their_slice=bad_slices[:8],
+         replicas_not_shared=bad_shares[:8])
+    if bad_slices or bad_shares or placed_bytes != plain_bytes or \
+            control_bytes == plain_bytes or replicas == 0:
+        raise AssertionError(
+            f"placement: {len(bad_slices)} chunks not their slice, "
+            f"{len(bad_shares)} replicas not shared, placed bytes "
+            f"{placed_bytes} vs unplaced {plain_bytes}; the copying "
+            f"control must differ: {control_bytes}")
+    del placed, state, pairs, distinct
+
+
+def grads_against(torch, name, got, want, controls, **fields):
+    """Every leaf's gradient in ``got`` within GRAD_TOL relative RMS of
+    ``want``; each control (name -> gradients) must exceed it somewhere.
+    Emits the "grad" line with ``fields``."""
+    errs = {n: rel_rms(g, want[n]) for n, g in got.items()}
+    bad = {c: max(rel_rms(g, want[n]) for n, g in grads.items())
+           for c, grads in controls.items()}
+    emit("grad", path=name, rel_rms_err=errs, tol=GRAD_TOL,
+         controls_max_rel_rms_err=bad, **fields)
+    if max(errs.values()) > GRAD_TOL or min(bad.values()) <= GRAD_TOL:
+        raise AssertionError(f"{name}: gradient rel err {errs} vs tol "
+                             f"{GRAD_TOL}; every control must exceed it: "
+                             f"{bad}")
+
+
+def counted_grads(torch, trainer, params, batch, want_counts):
+    """``trainer.loss_and_grads`` with the kernels' launches counted and
+    held to ``want_counts``; the gradients by leaf name."""
+    zero_counts()
+    loss, grads = trainer.loss_and_grads(params, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts != want_counts:
+        raise AssertionError(f"launches in one gradient {counts}, "
+                             f"expected {want_counts}")
+    return float(loss), dict(named_leaves(grads)), counts
+
+
+def check_placed_grad(torch, cfg, params):
+    """The fsdp_tp gradient on {fsdp 2, tp 2} (four ranks of this card:
+    each data rank one row, each tp rank 16 q and 4 kv heads) against the
+    one-card gradient, at full width and depth 2 on [2, 2049], remat
+    ``full``, the fused loss. Controls: a tp block without the psum
+    after wo, and an fsdp gather with two chunks swapped."""
+    import dataclasses
+
+    from ray_tpu_torch.parallel import collectives
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    depth = 2
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+    batch = train_batch(cfg, 2, 2048, SEED + 9)
+    kw = dict(fused_loss=True, loss_chunk=1024)
+    one = Trainer(cfg2, TrainConfig(**kw))
+    placed = Trainer(cfg2, TrainConfig(mesh_axes=PLACED_AXES,
+                                       strategy="fsdp_tp", **kw))
+    ranks = 4
+    ref_loss, want, ref_counts = counted_grads(
+        torch, one, params2, batch, {"flash_fwd": 2 * depth,
+                                     "flash_bwd": depth})
+    loss, got, counts = counted_grads(
+        torch, placed, params2, batch,
+        {"flash_fwd": 2 * depth * ranks, "flash_bwd": depth * ranks})
+    controls = {}
+    orig = spmd.reduce_attention
+    spmd.reduce_attention = lambda parts: parts
+    try:
+        controls["no_psum_after_wo"] = dict(named_leaves(
+            placed.loss_and_grads(params2, batch)[1]))
+    finally:
+        spmd.reduce_attention = orig
+
+    def swapped(xs, **kwargs):
+        xs = list(xs)
+        xs[0], xs[1] = xs[1], xs[0]
+        return collectives.all_gather(xs, **kwargs)
+    orig = spmd.all_gather
+    spmd.all_gather = swapped
+    try:
+        controls["fsdp_gather_chunks_swapped"] = dict(named_leaves(
+            placed.loss_and_grads(params2, batch)[1]))
+    finally:
+        spmd.all_gather = orig
+    grads_against(torch, "fsdp_tp", got, want, controls,
+                  config="llama3_8b", n_layers=depth, tokens=[2, 2049],
+                  mesh=PLACED_AXES, against="one_card", loss=loss,
+                  reference_loss=ref_loss, launches=counts,
+                  reference_launches=ref_counts)
+    for t in tree_leaves_of(params2):
+        t.requires_grad_(False)
+    return counts
+
+
+def tree_leaves_of(tree):
+    return [t for _, t in named_leaves(tree)]
+
+
+def check_pp_grad(torch, cfg, params):
+    """The 1F1B gradient of pp_fsdp on {pp 4} (one layer a stage, 4
+    microbatches of one row) against the unpipelined one-card gradient,
+    at full width and depth 4 on [4, 2049], remat ``full``. Control: a
+    backward slot that reads the previous microbatch's stash slot."""
+    import dataclasses
+
+    from ray_tpu_torch.parallel import pipeline
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    depth, m = 4, 4
+    cfg4 = dataclasses.replace(cfg, n_layers=depth)
+    params4 = first_layers(params, depth)
+    batch = train_batch(cfg, 4, 2048, SEED + 11)
+    one = Trainer(cfg4, TrainConfig(fused_loss=True, loss_chunk=1024))
+    pp = Trainer(cfg4, TrainConfig(mesh_axes={"pp": PP_STAGES},
+                                   strategy="pp_fsdp", n_microbatches=m))
+    ref_loss, want, ref_counts = counted_grads(
+        torch, one, params4, batch, {"flash_fwd": 2 * depth,
+                                     "flash_bwd": depth})
+    # per layer and microbatch: K1 in the forward slot, in the backward
+    # slot's re-run and in remat's recompute inside it; one backward
+    loss, got, counts = counted_grads(
+        torch, pp, params4, batch,
+        {"flash_fwd": 3 * depth * m, "flash_bwd": depth * m})
+    orig = pipeline._read_slot
+    pipeline._read_slot = lambda b, window: max(b - 1, 0) % window
+    try:
+        bad = dict(named_leaves(pp.loss_and_grads(params4, batch)[1]))
+    finally:
+        pipeline._read_slot = orig
+    grads_against(torch, "pp_fsdp_1f1b", got, want,
+                  {"backward_reads_previous_stash_slot": bad},
+                  config="llama3_8b", n_layers=depth, tokens=[4, 2049],
+                  mesh={"pp": PP_STAGES}, n_microbatches=m,
+                  against="one_card_unpipelined", loss=loss,
+                  reference_loss=ref_loss, launches=counts,
+                  reference_launches=ref_counts)
+    for t in tree_leaves_of(params4):
+        t.requires_grad_(False)
+    return counts
+
+
+def check_gpipe(torch, cfg, params):
+    """``llama_forward_pipelined`` at full depth on [4, 2048] over {pp 4}
+    (8 layers a stage, 4 microbatches of one row) against
+    ``llama.forward``, within the Llama forward's 5e-2 relative RMS.
+    Control: the pipeline with stages 0 and 1 swapped."""
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel import pipeline
+    from ray_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh({"pp": PP_STAGES},
+                       devices=[torch.device("cuda")] * PP_STAGES)
+    tokens = train_batch(cfg, 4, 2047, SEED + 12)
+    tol = 5e-2
+    with torch.no_grad():
+        zero_counts()
+        t0 = time.perf_counter()
+        got = pipeline.llama_forward_pipelined(cfg, params, tokens,
+                                               mesh=mesh)
+        torch.cuda.synchronize()
+        pipelined_s = time.perf_counter() - t0
+        counts = launch_counts()
+        want = llama.forward(cfg, params, tokens)
+        err = rel_rms(got, want)
+        orig = pipeline.split_stages
+
+        def swapped(stacked, n):
+            return {k: v[[1, 0, 2, 3]] for k, v in orig(stacked, n).items()}
+        pipeline.split_stages = swapped
+        try:
+            bad = rel_rms(pipeline.llama_forward_pipelined(
+                cfg, params, tokens, mesh=mesh), want)
+        finally:
+            pipeline.split_stages = orig
+    want_counts = {"flash_fwd": cfg.n_layers * 4, "flash_bwd": 0}
+    emit("gpipe_forward", config="llama3_8b", n_layers=cfg.n_layers,
+         tokens=[4, 2048], mesh={"pp": PP_STAGES}, n_microbatches=4,
+         logits_rel_rms_err=err, tol=tol, stages_swapped_rel_rms_err=bad,
+         seconds=pipelined_s, launches=counts, want_launches=want_counts)
+    if not err <= tol < bad or counts != want_counts:
+        raise AssertionError(f"GPipe forward rel err {err} vs tol {tol} "
+                             f"(stages swapped: {bad}); launches {counts}")
+    del got, want
+    return counts
+
+
+def check_placed_train(torch, cfg, peaks, *, name, axes, strategy, b,
+                       steps, want, **kw):
+    """The trainer on llama3_8b() at full depth over ``axes`` (every
+    place on this card), from ``Trainer.init_state`` (the state placed by
+    its shardings), ``steps`` steps on one repeated [b, 2049] batch; the
+    kernels' launches held to ``want`` every step. Returns the last
+    step's counts."""
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    s = 2048
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(mesh_axes=axes, strategy=strategy,
+                                       warmup_steps=1, **kw))
+    state = trainer.init_state(seed=SEED)
+    batch = train_batch(cfg, b, s, SEED + 13)
+    losses, times, norms, counts = [], [], [], []
+    for _ in range(steps):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))   # synchronizes
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        counts.append(launch_counts())
+    peak_bytes = torch.cuda.max_memory_allocated()
+    abstract = trainer.abstract_state().params
+    n_matmul = sum(abstract["blocks"][k].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + abstract["lm_head"].numel()
+    L = cfg.n_layers
+    step_s = float(np.median(times[1:]))
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    emit("placed_train", name=name, config="llama3_8b", n_layers=L,
+         depth_cut=None, tokens=[b, s + 1], mesh=axes, strategy=strategy,
+         remat=cfg.remat, **kw, steps=steps, losses=losses,
+         grad_norms=norms, step_s=times, median_step_s=step_s,
+         tokens_per_s=b * s / step_s, flops_per_step=flops,
+         mfu=flops / step_s / peaks[0], peak_memory_bytes=peak_bytes,
+         launches=counts, want_launches=want)
+    check_losses(f"llama3_8b {name}", losses, cfg.vocab_size)
+    if any(c != want for c in counts):
+        raise AssertionError(f"{name} launches per step {counts}, want "
+                             f"{want}")
+    del state
+    return counts[-1]
+
+
 def check_gpt(torch, peaks) -> dict:
     """gpt2_xl() at full width and depth (48 layers, 25 heads of 64, tied
     head), bf16, seeded random weights: the forward over [8, 1024] through
@@ -2097,6 +2439,39 @@ def main() -> int:
     ring_train_counts = check_ring_train(torch, cfg, params, peaks, mesh)
     del params
     free_card(torch)
+    # the state placed across ranks (slice 7), every place on this card:
+    # the placement of the full-depth state, the fsdp_tp gradient at
+    # depth 2, the 1F1B gradient at depth 4 and the GPipe forward at full
+    # depth on fresh weights; then the fsdp_tp and pp_fsdp trainers at
+    # full depth, each from its own init_state, each with its counts
+    # zeroed right before each step
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    emit("init", config="llama3_8b", params=llama.num_params(params),
+         seconds=time.perf_counter() - t0)
+    check_placement(torch, cfg, params)
+    free_card(torch)
+    placed_grad_counts = check_placed_grad(torch, cfg, params)
+    free_card(torch)
+    pp_grad_counts = check_pp_grad(torch, cfg, params)
+    free_card(torch)
+    gpipe_counts = check_gpipe(torch, cfg, params)
+    del params
+    free_card(torch)
+    L = cfg.n_layers
+    fsdp_tp_counts = check_placed_train(
+        torch, cfg, peaks, name="fsdp_tp", axes=PLACED_AXES,
+        strategy="fsdp_tp", b=2, steps=3,
+        want={"flash_fwd": 2 * L * 4, "flash_bwd": L * 4},
+        fused_loss=True, loss_chunk=1024)
+    free_card(torch)
+    pp_counts = check_placed_train(
+        torch, cfg, peaks, name="pp_fsdp", axes={"pp": PP_STAGES},
+        strategy="pp_fsdp", b=8, steps=3,
+        want={"flash_fwd": 3 * L * 4, "flash_bwd": L * 4},
+        n_microbatches=4)
+    free_card(torch)
     # the other families, each at full width, one after another on the
     # card's memory (Mixtral at reduced depth)
     gpt_counts = check_gpt(torch, peaks)
@@ -2120,7 +2495,12 @@ def main() -> int:
                    "ring_grad_depth2": ring_grad_counts[k],
                    "ring_train_step_full_sp4": ring_train_counts[k],
                    "speculative_self_draft": spec_counts["self"][k],
-                   "speculative_depth2_draft": spec_counts["depth2"][k]}
+                   "speculative_depth2_draft": spec_counts["depth2"][k],
+                   "fsdp_tp_grad_depth2": placed_grad_counts[k],
+                   "pp_fsdp_1f1b_grad_depth4": pp_grad_counts[k],
+                   "gpipe_forward_pp4": gpipe_counts[k],
+                   "fsdp_tp_train_step_full": fsdp_tp_counts[k],
+                   "pp_fsdp_train_step_full": pp_counts[k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",
@@ -2145,11 +2525,12 @@ def main() -> int:
             "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
             "tflops", "max_err", "row_rel_err", "lse_err")},
         # non-causal with lse at an sp-4 chunk of 8K: a ring step off the
-        # diagonal; and d 256
+        # diagonal; d 256; a tp-2 rank of the fsdp_tp trainer
         **{f"{case}_shape": {k: fwd_rows[case][k] for k in (
             "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "tflops", "max_err", "row_rel_err", "lse_err")}
-           for case in ("ring_chunk_noncausal_lse", "d256_gqa2")},
+           for case in ("ring_chunk_noncausal_lse", "d256_gqa2",
+                        "llama3_8b_tp2")},
         "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
     }]
     # K2 and K3 are one fused kernel: each TPU kernel keeps its entry,
@@ -2181,7 +2562,8 @@ def main() -> int:
                     "bound_by", "tflops")}}
                for label, row in (("gpt2_xl", bwd_gpt2_case),
                                   ("ring_step_noncausal",
-                                   bwd_rows["llama3_8b_noncausal"]))},
+                                   bwd_rows["llama3_8b_noncausal"]),
+                                  ("tp2_rank", bwd_rows["llama3_8b_tp2"]))},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)
