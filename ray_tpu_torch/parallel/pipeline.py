@@ -272,6 +272,9 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
                                 grads[:len(io_leaves)])
                     dy = _input_grads(y_in, y_leaves,
                                       grads[len(io_leaves):])
+                    # a slot's gradients go now, not when the next slot's
+                    # have been made beside them
+                    del grads
                     loss = l_mb.detach() if loss is None else \
                         loss + l_mb.detach().to(loss.device)
                     w_mb = w_mb.detach()
@@ -291,6 +294,7 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
                 _accumulate(d_stage[s], stage_leaves[s],
                             grads[len(x_leaves):])
                 dx = _input_grads(x_in, x_leaves, grads[:len(x_leaves)])
+                del grads, out
                 if s > 0:
                     nb[s - 1] = dx
                 elif embed_fn is None:

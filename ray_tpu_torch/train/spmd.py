@@ -262,14 +262,16 @@ class RankStep:
 
     def run_layers(self, blocks: dict, xs_units: list, units: list,
                    mesh: Mesh) -> list:
-        """Every layer of the placed stacked ``blocks`` over the ranks,
-        each through the config's remat policy."""
+        """Every layer of ``blocks`` (placed stacked tensors, or lists of
+        one placed tensor per layer) over the ranks, each through the
+        config's remat policy."""
         rope = self._rope(xs_units[0][0].shape[1],
                           [x.device for xs in xs_units for x in xs])
-        per_layer = {n: unbind_layers(st) for n, st in blocks.items()}
+        per_layer = {n: st if isinstance(st, list) else unbind_layers(st)
+                     for n, st in blocks.items()}
         body = llama.remat_block(self.cfg, partial(
             self._layer, mesh=mesh, units=units, rope=rope))
-        n_layers = next(iter(blocks.values())).shape[0]
+        n_layers = len(next(iter(per_layer.values())))
         for i in range(n_layers):
             xs_units = body(xs_units, {n: ls[i] for n, ls in
                                        per_layer.items()})
@@ -357,9 +359,10 @@ class RankStep:
     # --- the 1F1B pipeline's functions (Llama) ---
 
     def stage_fn(self, blocks: dict, xs_units: list) -> list:
-        """One pipeline stage: its layers (``blocks`` placed on the
-        stage's mesh) over the stage's ranks, the inputs moved there."""
-        mesh = next(iter(blocks.values())).mesh
+        """One pipeline stage: its layers (``blocks``: one placed tensor
+        per layer and leaf, on the stage's mesh) over the stage's ranks,
+        the inputs moved there."""
+        mesh = next(iter(blocks.values()))[0].mesh
         units = self.units(mesh)
         xs_units = [[x.to(_device(mesh, c)) for x, c in zip(xs, places)]
                     for xs, places in zip(xs_units, units)]
@@ -378,7 +381,11 @@ class RankStep:
     def head_fn(self, pp_axis: str):
         """(io params, the last stage's activations, targets, mask) ->
         (loss sum, weight sum) over the data ranks: final norm, LM head
-        and masked cross-entropy sums (JAX's ``make_llama_head_fn``)."""
+        and masked cross-entropy sums (JAX's ``make_llama_head_fn``),
+        through the chunked loss (``llama.fused_cross_entropy``, chunks of
+        ``loss_chunk`` rows) so that no microbatch's [mb, s, vocab]
+        float32 logits exist at once (2 GB for 2 x 2048 tokens at
+        Llama-3's vocab, beside a 64 GB state)."""
         cfg = self.cfg
 
         def head_fn(io, ys, tgt, msk):
@@ -393,12 +400,14 @@ class RankStep:
                 h = rms_norm(y[0].to(dev), g.local(io["final_norm"],
                                                    places[0]),
                              eps=cfg.rms_eps)
-                logits = matmul_f32(h, self._head(g, io, places))
-                lse = torch.logsumexp(logits, dim=-1)
-                tl = logits.gather(-1, t.to(dev).clamp(min=0).long()[
-                    ..., None])[..., 0]
+                head = self._head(g, io, places)
                 mk = mk.to(dev).float()
-                ls, ws = ((lse - tl) * mk).sum(), mk.sum()
+                ws = mk.sum()
+                mean = llama.fused_cross_entropy(
+                    cfg, {"embedding": head.T} if cfg.tie_embeddings
+                    else {"lm_head": head}, h, t.to(dev), mask=mk,
+                    chunk=self.loss_chunk)
+                ls = mean * ws.clamp(min=1.0)
                 loss = ls if loss is None else loss + ls.to(loss.device)
                 weight = ws if weight is None else \
                     weight + ws.to(weight.device)

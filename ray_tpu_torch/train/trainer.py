@@ -292,11 +292,16 @@ class Trainer:
         if b % m:
             raise ValueError(f"batch {b} not divisible by {m} microbatches")
         # the stages' blocks: each the pp index's layer group, placed over
-        # the rest of the mesh; the io params (embedding, final norm and
-        # head) are replicated over pp
-        stages = [{n: st.take(self.pp_axis, i)
-                   for n, st in params["blocks"].items()}
-                  for i in range(n_pp)]
+        # the rest of the mesh, one placed tensor per layer (differentiated
+        # layer by layer: unbind's backward would stack a stage's layer
+        # gradients while they are still held, twice a stage's gradient);
+        # the io params (embedding, final norm and head) are replicated
+        # over pp
+        stacked = [{n: st.take(self.pp_axis, i)
+                    for n, st in params["blocks"].items()}
+                   for i in range(n_pp)]
+        stages = [{n: spmd.unbind_layers(st) for n, st in stage.items()}
+                  for stage in stacked]
         io = {k: v for k, v in params.items() if k != "blocks"}
         mb = b // m
         (loss_sum, weight_sum), (d_sp, d_io, _) = pipeline_value_and_grad(
@@ -306,10 +311,16 @@ class Trainer:
             embed_fn=step.embed_fn(self.pp_axis))
         weight = weight_sum.clamp(min=1.0)
         grads = {}
-        for got, want in [*zip(stages, d_sp), (io, d_io)]:
-            for name, st in got.items():
-                for c, g in zip(st.chunks, want[name].chunks):
-                    grads[id(c)] = g
+        for name, st in io.items():
+            for c, g in zip(st.chunks, d_io[name].chunks):
+                grads[id(c)] = g
+        for i, stage in enumerate(stacked):
+            per_layer, d_sp[i] = d_sp[i], None
+            for name, st in stage.items():
+                layers = per_layer.pop(name)
+                for place, c in st.distinct():
+                    grads[id(c)] = torch.stack(
+                        [g.chunks[place] for g in layers])
         # grads are of loss_sum; mean-loss grads = grads / sum(mask), in
         # each parameter's dtype (shared chunks share a gradient: once)
         for g in {id(g): g for g in grads.values()}.values():
