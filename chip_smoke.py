@@ -1676,13 +1676,9 @@ def check_placed_grad(torch, cfg, params):
                   mesh=PLACED_AXES, against="one_card", loss=loss,
                   reference_loss=ref_loss, launches=counts,
                   reference_launches=ref_counts)
-    for t in tree_leaves_of(params2):
+    for _, t in named_leaves(params2):
         t.requires_grad_(False)
     return counts
-
-
-def tree_leaves_of(tree):
-    return [t for _, t in named_leaves(tree)]
 
 
 def check_pp_grad(torch, cfg, params):
@@ -1723,7 +1719,7 @@ def check_pp_grad(torch, cfg, params):
                   against="one_card_unpipelined", loss=loss,
                   reference_loss=ref_loss, launches=counts,
                   reference_launches=ref_counts)
-    for t in tree_leaves_of(params4):
+    for _, t in named_leaves(params4):
         t.requires_grad_(False)
     return counts
 

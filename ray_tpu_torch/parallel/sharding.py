@@ -220,13 +220,6 @@ class NamedSharding:
                     raise ValueError(f"spec {self.spec} names axis {ax!r}, "
                                      f"not on the mesh {mesh.shape}")
 
-    def __eq__(self, other) -> bool:
-        return (isinstance(other, NamedSharding) and other.mesh is self.mesh
-                and other.spec == self.spec)
-
-    def __hash__(self) -> int:
-        return hash((id(self.mesh), self.spec))
-
     def __repr__(self) -> str:
         return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec})"
 
@@ -375,21 +368,22 @@ def logical_sharding(logical: tuple, mesh: Mesh,
                          _filter_spec_for_mesh(rules.mesh_axes(logical), mesh))
 
 
-def _map(fn, tree, *rest, is_leaf=None):
+def map_trees(fn, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and the matching nodes of
     ``rest``. Nodes: dicts, lists, tuples that are not leaves and
     dataclasses (``TrainState``); everything else is a leaf."""
     if is_leaf is not None and is_leaf(tree):
         return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: _map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+        return {k: map_trees(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)) and not isinstance(tree, Axes):
-        return type(tree)(_map(fn, v, *(r[i] for r in rest), is_leaf=is_leaf)
+        return type(tree)(map_trees(fn, v, *(r[i] for r in rest),
+                                    is_leaf=is_leaf)
                           for i, v in enumerate(tree))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map(fn, getattr(tree, f.name),
+            f.name: map_trees(fn, getattr(tree, f.name),
                          *(getattr(r, f.name) for r in rest),
                          is_leaf=is_leaf)
             for f in dataclasses.fields(tree)})
@@ -399,8 +393,9 @@ def _map(fn, tree, *rest, is_leaf=None):
 def tree_shardings(logical_tree, mesh: Mesh, rules: ShardingRules):
     """Map a tree of logical-axis tuples (or ``Axes``) to a tree of
     ``NamedSharding``s."""
-    return _map(lambda logical: logical_sharding(tuple(logical), mesh, rules),
-                logical_tree, is_leaf=is_axes_leaf)
+    return map_trees(
+        lambda logical: logical_sharding(tuple(logical), mesh, rules),
+        logical_tree, is_leaf=is_axes_leaf)
 
 
 def place_tree(tree, shardings):
@@ -409,8 +404,8 @@ def place_tree(tree, shardings):
     counts) stay as they are."""
     def put(x, sharding):
         return device_put(x, sharding) if isinstance(x, torch.Tensor) else x
-    return _map(put, tree, shardings,
-                is_leaf=lambda x: isinstance(x, torch.Tensor))
+    return map_trees(put, tree, shardings,
+                     is_leaf=lambda x: isinstance(x, torch.Tensor))
 
 
 def shard_tree(tree, logical_tree, mesh: Mesh, rules: ShardingRules):

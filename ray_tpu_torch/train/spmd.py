@@ -202,16 +202,16 @@ class RankStep:
             out.append(places)
         return out
 
-    def batch_chunks(self, batch: torch.Tensor, units: list) -> list:
-        """``batch`` cut over the data ranks as ``batch_sharding`` cuts it:
-        the chunk of each unit's first place."""
-        n = math.prod(self.mesh.shape[a] for a in self.data_axes)
-        if batch.shape[0] % n:
-            raise ValueError(f"batch of {batch.shape[0]} rows not divisible "
-                             f"by the {n} data ranks of {self.data_axes}")
-        placed = device_put(batch, batch_sharding(
-            self.mesh, self.rules, batch.dim(), shard_seq=False))
+    def chunks_of(self, placed: ShardedTensor, units: list) -> list:
+        """A batch placed by ``batch_sharding``: the chunk at each data
+        rank's first place."""
         return [placed.chunks[_flat(self.mesh, p[0])] for p in units]
+
+    def cut(self, x: torch.Tensor, units: list) -> list:
+        """``x`` (a pipeline microbatch) cut over the data ranks as
+        ``batch_sharding`` cuts a batch."""
+        return self.chunks_of(device_put(x, batch_sharding(
+            self.mesh, self.rules, x.dim(), shard_seq=False)), units)
 
     def _ring_mesh(self, mesh: Mesh, coords: tuple) -> Mesh | None:
         if self.attn_impl != "ring":
@@ -292,10 +292,10 @@ class RankStep:
         w = g.local(params[name], places[0])
         return w.T if self.cfg.tie_embeddings else w
 
-    def llama_loss(self, params: dict, batch: torch.Tensor):
+    def llama_loss(self, params: dict, batch: ShardedTensor):
         cfg, mesh = self.cfg, self.mesh
         units = self.units(mesh)
-        chunks = self.batch_chunks(batch, units)
+        chunks = self.chunks_of(batch, units)
         g = _Gathers()
         xs = self._embed(g, params["embedding"], [c[:, :-1] for c in chunks],
                          units, mesh)
@@ -327,13 +327,13 @@ class RankStep:
                     for k, v in params.items()}
         return g.local(params, coords)
 
-    def family_loss(self, params: dict, batch: torch.Tensor):
+    def family_loss(self, params: dict, batch: ShardedTensor):
         """A causal LM other than Llama: each data rank runs the family's
         forward on its chunk with the parameters gathered."""
         units = self.units(self.mesh)
         g = _Gathers()
         parts = []
-        for places, c in zip(units, self.batch_chunks(batch, units)):
+        for places, c in zip(units, self.chunks_of(batch, units)):
             inputs, targets = c[:, :-1], c[:, 1:]
             mask = (targets != -1).float()
             logits = self.family.forward(
@@ -346,10 +346,14 @@ class RankStep:
         """The ``loss_fn`` hook on the whole batch, the parameters
         gathered at the first place."""
         home = tuple(0 for _ in self.mesh.axis_names)
+        batch = {k: v.unshard() for k, v in batch.items()} \
+            if isinstance(batch, dict) else batch.unshard()
         return self.loss_fn(self.cfg, self._gathered(_Gathers(), params,
                                                      home), batch)
 
     def loss(self, params: dict, batch):
+        """The loss of placed ``params`` on a batch placed by
+        ``batch_sharding`` (a dictionary of them for the hook)."""
         if self.loss_fn is not None:
             return self.hook_loss(params, batch)
         if self.family is llama:
@@ -374,7 +378,7 @@ class RankStep:
         def embed(io, tokens):
             units = self.units(self.mesh, {pp_axis: 0})
             return self._embed(_Gathers(), io["embedding"],
-                               self.batch_chunks(tokens, units), units,
+                               self.cut(tokens, units), units,
                                self.mesh)
         return embed
 
@@ -393,9 +397,8 @@ class RankStep:
                                {pp_axis: self.mesh.shape[pp_axis] - 1})
             g = _Gathers()
             loss = weight = None
-            for places, y, t, mk in zip(units, ys,
-                                        self.batch_chunks(tgt, units),
-                                        self.batch_chunks(msk, units)):
+            for places, y, t, mk in zip(units, ys, self.cut(tgt, units),
+                                        self.cut(msk, units)):
                 dev = _device(self.mesh, places[0])
                 h = rms_norm(y[0].to(dev), g.local(io["final_norm"],
                                                    places[0]),

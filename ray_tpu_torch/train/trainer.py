@@ -52,9 +52,9 @@ from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
 from ray_tpu_torch.parallel.pipeline import pipeline_value_and_grad
 from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
                                              ShardingRules, batch_sharding,
-                                             device_put, place_tree,
-                                             replicated, same_device,
-                                             tree_shardings)
+                                             device_put, map_trees,
+                                             place_tree, replicated,
+                                             same_device, tree_shardings)
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
                                        warmup_cosine_decay_schedule)
@@ -103,17 +103,8 @@ def _mesh_on(device, mesh_axes: dict) -> Mesh:
     return create_mesh(mesh_axes, devices=[device] * n)
 
 
-def _map_placed(fn, tree, other):
-    """``fn(leaf, other_leaf)`` over a tree of tensors or placed tensors
-    and the matching leaves of ``other`` (dicts and ``TrainState``s)."""
-    if isinstance(tree, dict):
-        return {k: _map_placed(fn, v, other[k]) for k, v in tree.items()}
-    if isinstance(tree, TrainState):
-        return TrainState(params=_map_placed(fn, tree.params, other.params),
-                          opt_state=_map_placed(fn, tree.opt_state,
-                                                other.opt_state),
-                          step=tree.step)
-    return fn(tree, other)
+def _is_leaf(x) -> bool:
+    return isinstance(x, (torch.Tensor, ShardedTensor))
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:
@@ -263,7 +254,7 @@ class Trainer:
                     "(init_state, or place_tree(state, "
                     "trainer.state_shardings()))")
             return device_put(x, sharding)
-        return _map_placed(put, tree, shardings)
+        return map_trees(put, tree, shardings, is_leaf=_is_leaf)
 
     # --- train step ---
 
@@ -274,10 +265,16 @@ class Trainer:
                                isinstance(batch, torch.Tensor) else batch,
                                device=self.mesh.devices.ravel()[0])
 
+    def _place_batch(self, batch):
+        """``batch`` on the mesh's first device, placed by
+        ``_batch_shardings`` (as JAX's ``train_step`` puts it)."""
+        batch = self._to_device(batch)
+        return place_tree(batch, self._batch_shardings(batch))
+
     def _loss_fn(self, params, batch):
         """The loss of ``params`` (plain or placed) on ``batch``."""
         placed = self._placed(params, self.state_shardings().params)
-        return self._rank_step().loss(placed, self._to_device(batch))
+        return self._rank_step().loss(placed, self._place_batch(batch))
 
     def _pp_loss_and_grad(self, params: dict, batch):
         """1F1B pipelined loss and gradients by chunk
@@ -286,6 +283,7 @@ class Trainer:
         step = self._rank_step()
         n_pp = self.mesh.shape[self.pp_axis]
         m = self.cfg.n_microbatches or n_pp
+        batch = batch.unshard()
         inputs, targets = batch[:, :-1], batch[:, 1:]
         mask = (targets != -1).float()
         b, s = inputs.shape
@@ -346,7 +344,7 @@ class Trainer:
         form of ``params``: placed tensors for a placed tree, global
         tensors for plain ones. No update."""
         placed = self._placed(params, self.state_shardings().params)
-        loss, grads = self._chunk_grads(placed, self._to_device(batch))
+        loss, grads = self._chunk_grads(placed, self._place_batch(batch))
 
         def grad_of(x, st):
             if not isinstance(st, ShardedTensor):
@@ -354,7 +352,8 @@ class Trainer:
             g = ShardedTensor(st.shape, st.dtype, st.sharding,
                               [grads[id(c)] for c in st.chunks])
             return g if isinstance(x, ShardedTensor) else g.unshard()
-        return loss.detach(), _map_placed(grad_of, params, placed)
+        return loss.detach(), map_trees(grad_of, params, placed,
+                                        is_leaf=_is_leaf)
 
     def train_step(self, state: TrainState, batch):
         """One optimization step, in place on ``state``. ``batch``: int
@@ -364,7 +363,7 @@ class Trainer:
         grad_norm (before clipping) are float32 scalars on the card."""
         placed = self._placed(state, self.state_shardings())
         loss, grads = self._chunk_grads(placed.params,
-                                        self._to_device(batch))
+                                        self._place_batch(batch))
         gnorm = spmd.apply_update(
             self.optimizer, placed.params, grads, state.opt_state,
             (placed.opt_state["mu"], placed.opt_state["nu"]))

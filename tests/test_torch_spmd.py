@@ -264,5 +264,5 @@ def test_batch_must_divide_over_the_data_ranks():
     _, tcfg = _configs("llama")
     _, mesh = _meshes({"fsdp": 4})
     tr = Trainer(tcfg, TrainConfig(strategy="fsdp"), mesh=mesh, device="cpu")
-    with pytest.raises(ValueError, match="data ranks"):
+    with pytest.raises(ValueError, match="not divisible"):
         tr.train_step(tr.init_state(), _batch("llama", 6))
