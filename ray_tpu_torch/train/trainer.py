@@ -56,8 +56,7 @@ from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
                                              place_tree, replicated,
                                              same_device, tree_shardings)
 from ray_tpu_torch.train import spmd
-from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
-                                       warmup_cosine_decay_schedule)
+from ray_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from ray_tpu_torch.train.state import TrainState, state_logical_axes
 
 
