@@ -91,14 +91,15 @@ def _distinct(tree) -> list:
     return out
 
 
-def _aliases(tree, requires_grad: bool = True):
+def _aliases(tree):
     """``tree`` with each distinct tensor replaced by a detached alias
-    (the same storage, a leaf of its own), shared positions sharing one
-    alias; and the aliases, in ``_distinct`` order."""
+    (the same storage, a leaf of its own, requiring a gradient when it
+    is a float), shared positions sharing one alias; and the aliases, in
+    ``_distinct`` order."""
     alias = {}
     for t in _distinct(tree):
         a = t.detach()
-        if requires_grad and a.is_floating_point():
+        if a.is_floating_point():
             a.requires_grad_(True)
         alias[id(t)] = a
     return _map_tensors(lambda t: alias[id(t)], tree), list(alias.values())

@@ -280,10 +280,6 @@ class ShardedTensor:
     def spec(self) -> PartitionSpec:
         return self.sharding.spec
 
-    @property
-    def ndim(self) -> int:
-        return len(self.shape)
-
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
                 f"dtype={self.dtype}, {self.sharding})")
