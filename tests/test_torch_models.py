@@ -350,11 +350,11 @@ def _mlm(module):
     return loss_fn
 
 
-def _trainers(family, **port_kw):
+def _trainers(family):
     """JaxTrainer on a one-axis mesh of JAX's 8 CPU devices (batch 8) and
-    the port's Trainer from the same weights, same TrainConfig (the port
-    also with ``port_kw``): gpt through the default next-token loss, bert
-    through an mlm_loss hook over a padded batch."""
+    a function making the port's Trainer (``b2`` settable) with a state
+    from the same weights, same TrainConfig: gpt through the default
+    next-token loss, bert through an mlm_loss hook over a padded batch."""
     jcfg, tcfg = _tiny(family)
     kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=50)
     if family == "gpt":
@@ -367,10 +367,14 @@ def _trainers(family, **port_kw):
     jt = JaxTrainer(jcfg, JaxTrainConfig(strategy="dp", **kw),
                     mesh=create_mesh({"dp": 8}), loss_fn=jloss_fn)
     jstate = jt.init_state(jax.random.key(0))
-    trainer = Trainer(tcfg, TrainConfig(**kw, **port_kw), device="cpu",
-                      loss_fn=tloss_fn)
-    state = TrainState.create(_port(tcfg, jstate.params), trainer.optimizer)
-    return jt, jstate, jbatch, trainer, state, batch
+    start = jax.tree.map(lambda a: np.array(a, copy=True), jstate.params)
+
+    def port(**port_kw):
+        trainer = Trainer(tcfg, TrainConfig(**kw, **port_kw), device="cpu",
+                          loss_fn=tloss_fn)
+        return trainer, TrainState.create(_port(tcfg, start),
+                                          trainer.optimizer)
+    return jt, jstate, jbatch, port, batch, start
 
 
 def _thirds(a):
@@ -379,16 +383,14 @@ def _thirds(a):
     return a[..., :d], a[..., d:2 * d], a[..., 2 * d:]
 
 
-def _five_steps(jt, jstate, jbatch, trainer, state, batch):
-    jl, tl, jn, tn = [], [], [], []
+def _five_steps(step, state, batch):
+    """5 steps of ``step``; the state and the losses and grad norms."""
+    losses, norms = [], []
     for _ in range(5):
-        jstate, jm = jt.train_step(jstate, jbatch)
-        state, tm = trainer.train_step(state, batch)
-        jl.append(float(jm["loss"]))
-        tl.append(float(tm["loss"]))
-        jn.append(float(jm["grad_norm"]))
-        tn.append(float(tm["grad_norm"]))
-    return jstate, state, (jl, tl, jn, tn)
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return state, losses, norms
 
 
 def _param_errors(jstate, state) -> dict:
@@ -425,16 +427,16 @@ def test_trainer_matches_jax_trainer(family):
     travel to Adam's largest step, lr * steps; the q and v thirds and
     every other leaf stay at 2e-4 absolute. An optimizer with the wrong
     b2 (0.999, optax's default) must break that bound."""
-    jt, jstate, jbatch, trainer, state, batch = _trainers(family)
-    start = np.asarray(jstate.params["blocks"]["bqkv"]).copy()
-    jgrad = np.asarray(jax.grad(jt._loss_fn)(jstate.params, jbatch)
-                       ["blocks"]["bqkv"])
+    jt, jstate, jbatch, port, batch, start = _trainers(family)
+    trainer, state = port()
+    jgrad = np.asarray(jax.jit(jax.grad(jt._loss_fn))(
+        jstate.params, jbatch)["blocks"]["bqkv"])
     _, tgrads = trainer.loss_and_grads(state.params, batch)
     for g in (jgrad, tgrads["blocks"]["bqkv"].numpy()):
         q, k, _ = _thirds(g)
         assert np.linalg.norm(k) < 1e-6 * np.linalg.norm(q)
-    jstate, state, (jl, tl, jn, tn) = _five_steps(
-        jt, jstate, jbatch, trainer, state, batch)
+    jstate, jl, jn = _five_steps(jt.train_step, jstate, jbatch)
+    state, tl, tn = _five_steps(trainer.train_step, state, batch)
     assert state.step == int(jstate.step) == 5
     _close(tl, jl, rtol=1e-4, atol=0, msg="losses")
     _close(tn, jn, rtol=1e-4, atol=0, msg="grad norms")
@@ -443,13 +445,14 @@ def test_trainer_matches_jax_trainer(family):
     held = {n: e for n, e in errs.items() if n != "blocks.bqkv.k"}
     assert max(held.values()) <= 2e-4, held
     lr_steps = trainer.cfg.learning_rate * 5
+    k0 = _thirds(start["blocks"]["bqkv"])[1]
     for p in (state.params["blocks"]["bqkv"].detach().numpy(),
               np.asarray(jstate.params["blocks"]["bqkv"])):
-        assert np.abs(_thirds(p)[1] - _thirds(start)[1]).max() <= lr_steps
-    # control: the wrong b2 breaks the bound on the other leaves
-    jt, jstate, jbatch, trainer, state, batch = _trainers(family, b2=0.999)
-    jstate, state, _ = _five_steps(jt, jstate, jbatch, trainer, state,
-                                   batch)
+        assert np.abs(_thirds(p)[1] - k0).max() <= lr_steps
+    # control: the port with the wrong b2 breaks the bound on the other
+    # leaves against the same JAX run
+    trainer, state = port(b2=0.999)
+    state, _, _ = _five_steps(trainer.train_step, state, batch)
     errs = _param_errors(jstate, state)
     assert max(e for n, e in errs.items() if n != "blocks.bqkv.k") > 2e-4
 
