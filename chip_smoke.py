@@ -25,8 +25,14 @@ trained through the trainer's loss hook (no kernel runs there), ViT-L/16
 in float32 (forward and Adam steps), the last two also held against the
 CPU at depth 2, and Mixtral 8x7B at depths 16, 2 and 4 (the forward and
 gradient against reference attention with the routing held fixed, AdamW
-steps). Every phase prints one JSON line; the last line is the contract
-line
+steps). Then the multi-process train harness, each phase spawning rank
+processes over torch.distributed: Llama-3-8B at full depth through
+TorchMeshTrainer on one NCCL rank fed by the device feed (its losses
+against the one-process trainer's), two ranks on this card over gloo at
+depth 4 (their parameters against the single-controller trainer on
+{dp 2}, with a control that skips the gradient all-reduce), and
+ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Every
+phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
 without the rest of the repository beside this file, it exits non-zero
@@ -53,11 +59,13 @@ SEED = 0
 # 3.4e-2 there), so these limits sit at half of it, below every float8
 # control (PERF.md section 2).
 FAMILY_FORWARD_TOL = 2.5e-2
-# Datasheet peaks by card name: (dense bf16 FLOP/s, float32 FLOP/s outside
-# the tensor cores, device memory bytes/s). H100 SXM and PCIe data sheets.
-PEAKS = {
-    "H100 80GB HBM3": (989e12, 67e12, 3.35e12),
-    "H100 PCIe": (756e12, 51e12, 2.0e12),
+# Datasheet rates by card name, besides the dense bf16 peak (which comes
+# from ray_tpu_torch/train/telemetry.py's PEAK_BF16_FLOPS, the repo's one
+# table of card peaks): (float32 FLOP/s outside the tensor cores, device
+# memory bytes/s). H100 SXM and PCIe data sheets.
+CARD_RATES = {
+    "H100 80GB HBM3": (67e12, 3.35e12),
+    "H100 PCIe": (51e12, 2.0e12),
 }
 
 
@@ -66,11 +74,17 @@ def emit(phase: str, **fields):
 
 
 def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
+    """(table key, (bf16 FLOP/s, float32 FLOP/s, memory bytes/s)) of the
+    card called ``name``."""
+    from ray_tpu_torch.train.telemetry import peak_flops_of
+
+    bf16 = peak_flops_of(name)
+    for key, (f32, mem) in CARD_RATES.items():
+        if key in name and bf16 is not None:
+            return key, (bf16, f32, mem)
     raise ValueError(f"no datasheet peaks for {name!r}: add the card to "
-                     "PEAKS to work out bound_ms")
+                     "CARD_RATES and telemetry.PEAK_BF16_FLOPS to work out "
+                     "bound_ms")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -941,7 +955,7 @@ def check_train(torch, cfg, params, peaks):
     """The trainer on llama3_8b() at full width and depth, bf16, with the
     fused loss: 6 steps on one repeated [2, 2049] batch, then one step
     under remat "attn". Returns the launch counts of one step under each
-    policy."""
+    policy and the 6 losses."""
     import dataclasses
 
     from ray_tpu_torch.models import llama
@@ -996,7 +1010,7 @@ def check_train(torch, cfg, params, peaks):
         raise AssertionError(
             f"launches in one step: full {full_counts} (want {want_full}), "
             f"attn {attn_counts} (want {want_attn})")
-    return full_counts, attn_counts
+    return full_counts, attn_counts, losses
 
 
 # ---------------------------------------------------------------------------
@@ -1817,6 +1831,390 @@ def check_placed_train(torch, cfg, peaks, *, name, axes, strategy, b,
     return counts[-1]
 
 
+# ---------------------------------------------------------------------------
+# The multi-process harness (slice 8): rank processes over torch.distributed,
+# each spawned by the port's WorkerGroup; the launch counters are per
+# process, so each rank sends its counts back with its stats
+# ---------------------------------------------------------------------------
+
+# The rank's first loss equals check_train's bit for bit (the same weights,
+# batch and kernels; the step-1 update is at a learning rate of 0, so the
+# second is equal too). The third parts run to run: the fused backward's
+# float32 dQ sums and the embedding gradient's atomic adds change order,
+# and Adam's first step, about lr times the gradient's sign, turns that
+# into whole steps where a gradient is near 0. Two card runs read 4.5e-5
+# and 5.5e-4 there, and check_train's own third loss moved by 1.1e-4
+# between them; another batch seed (the control) moves it by 0.16
+# (PERF.md section 6).
+HARNESS_LOSS_TOL = 1e-2
+# The dp-2 ranks' parameters after 2 steps against the single-controller
+# trainer's on {dp 2}: the RMS of their difference over the RMS of the
+# reference's update (the ranks sum the two halves' bf16 gradients over
+# gloo, the single controller in autograd: Adam's first step turns a
+# rounding only where a gradient is near 0 into another step).
+HARNESS_PARAM_TOL = 0.1
+GLOO_DEPTH = 4
+ELASTIC_DEPTH = 2
+
+
+def harness_steps(stats: dict) -> dict:
+    """A rank's step walls, MFU and stages from its telemetry."""
+    tel = stats["telemetry"]
+    walls = [h["wall_s"] for h in tel["history"]]
+    return {"step_s": walls, "median_step_s": float(np.median(walls[1:])),
+            "telemetry_mfu": [h["mfu"] for h in tel["history"]],
+            "stages": [h["stages"] for h in tel["history"]],
+            "goodput": tel["goodput"], "flops_per_step": tel["flops_per_step"],
+            "peak_flops": tel["peak_flops"]}
+
+
+def check_harness_nccl(torch, cfg, peaks, want_losses, step_counts):
+    """``TorchMeshTrainer`` over one NCCL rank on llama3_8b() at full
+    width and depth: 3 steps on check_train's batch fed through the
+    device feed from a numpy dataset. Held: the losses against
+    check_train's; the control (the single-controller trainer from the
+    same seed on another batch seed) must break that bound. Returns the
+    rank's launch counts (3 steps)."""
+    import tempfile
+
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.data_parallel_trainer import TorchMeshTrainer
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    b, s, steps = 2, 2048, 3
+    train_cfg = TrainConfig(fused_loss=True, loss_chunk=1024, warmup_steps=1)
+    tokens = train_batch(cfg, b, s, SEED + 4).cpu().numpy()
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        result = TorchMeshTrainer(
+            cfg, train_cfg,
+            train_loop_config={"seed": SEED, "steps": steps,
+                               "batch_size": b},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         backend="nccl"),
+            run_config=RunConfig(storage_path=d),
+            datasets={"train": {"tokens": np.concatenate([tokens] * steps)}}
+        ).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise AssertionError(f"harness_nccl failed:\n{result.error}")
+    stats, = result.rank_stats
+    losses = [m["loss"] for m in result.metrics_history]
+    # the control, after the rank has finished: the parent trains here
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_cfg)
+    abstract = trainer.abstract_state().params
+    state = trainer.init_state(seed=SEED)
+    other = train_batch(cfg, b, s, SEED + 5)
+    control = []
+    for _ in range(steps):
+        state, m = trainer.train_step(state, other)
+        control.append(float(m["loss"]))
+    del state, trainer, other
+    free_card(torch)
+    control_s = time.perf_counter() - t0
+    want = want_losses[:steps]
+
+    def errs(ls):
+        return ls[0] == want[0], max(abs(a - w) for a, w in
+                                     zip(ls[1:], want[1:]))
+
+    def breaks(ls):
+        equal, later = errs(ls)
+        return len(ls) != steps or not equal or later > HARNESS_LOSS_TOL
+
+    n_matmul = sum(abstract["blocks"][k].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + abstract["lm_head"].numel()
+    timing = harness_steps(stats)
+    want_counts = {k: steps * v for k, v in step_counts.items()}
+    emit("harness_nccl", config="llama3_8b", n_layers=cfg.n_layers,
+         tokens=[b, s + 1], steps=steps, backend="nccl", world_size=1,
+         device=stats["device_name"], losses=losses,
+         check_train_losses=want, first_loss_bit_equal=errs(losses)[0],
+         later_max_abs_err=errs(losses)[1], tol=HARNESS_LOSS_TOL,
+         control_batch_seed=SEED + 5, control_losses=control,
+         control_first_loss_bit_equal=errs(control)[0],
+         control_later_max_abs_err=errs(control)[1], **timing,
+         tokens_per_s=b * s / timing["median_step_s"],
+         step_flops_mfu=step_flops(n_matmul, b, s, cfg.n_layers, cfg.n_heads,
+                                   cfg.head_dim)
+         / timing["median_step_s"] / peaks[0],
+         spawn_to_first_report_s=result.first_report_s, fit_s=fit_s,
+         control_s=control_s, peak_memory_bytes=stats["peak_memory_bytes"],
+         launches=stats["launches"], want_launches=want_counts,
+         process_group=stats["process_group"])
+    if breaks(losses) or not breaks(control):
+        raise AssertionError(
+            f"harness losses {losses} against check_train's {want} (first "
+            f"bit-equal, later within {HARNESS_LOSS_TOL}); the control "
+            f"{control} must break that")
+    if stats["launches"] != want_counts:
+        raise AssertionError(f"harness_nccl launches {stats['launches']}, "
+                             f"want {want_counts}")
+    return stats["launches"]
+
+
+def gloo_rank_loop(config):
+    """A rank of harness_gloo_dp2: ``Trainer`` over the rank's process
+    group from ``init_state(seed)``, ``steps`` steps on the global batch,
+    then the same with the gradient all-reduce made a no-op (the
+    control). Reports each step; rank 0 saves each case's parameters to
+    ``<out>/<case>.pt``; after the real case both ranks must hold equal
+    parameters (``check_same``)."""
+    import torch
+
+    from ray_tpu_torch.parallel.process_group import ProcessGroup
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.trainer import Trainer
+
+    ctx = session.get_context()
+    pg = ctx.process_group
+    batch = torch.from_numpy(config["batch"]).to(ctx.device)
+    real = ProcessGroup.all_reduce_grads
+    # this rank's work: 6 FLOPs a parameter a token of its rows
+    session.set_flops_per_step(6.0 * config["n_params"] * batch.numel()
+                               / ctx.world_size)
+    for case in ("all_reduce", "skip_all_reduce"):
+        trainer = Trainer(config["model_config"], config["train_config"],
+                          device=ctx.device, process_group=pg)
+        state = trainer.init_state(seed=SEED)
+        if case == "skip_all_reduce":
+            ProcessGroup.all_reduce_grads = \
+                lambda self, grads, scale=1.0: None
+        try:
+            for _ in range(config["steps"]):
+                before = dict(pg.stats)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = trainer.train_step(state, batch)
+                loss = float(m["loss"])
+                session.report({
+                    "case": case, "loss": loss,
+                    "grad_norm": float(m["grad_norm"]),
+                    "step_s": time.perf_counter() - t0,
+                    **{k: pg.stats[k] - before[k] for k in (
+                        "grad_all_reduce_s", "staging_s", "staged_bytes")}})
+        finally:
+            ProcessGroup.all_reduce_grads = real
+        named = named_leaves(state.params)
+        if case == "all_reduce":
+            pg.check_same(named)
+        if ctx.rank == 0:
+            torch.save({n: t.detach().cpu() for n, t in named},
+                       os.path.join(config["out"], f"{case}.pt"))
+        del state, trainer, named
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def update_err(torch, got: dict, ref: dict, init: dict) -> tuple:
+    """The RMS of ``got - ref`` over the RMS of ``ref - init``, every
+    leaf, and the count of elements of ``got`` not equal to ``ref``: host
+    tensors, each leaf's arithmetic on the card (one leaf there at a
+    time)."""
+    num = den = 0.0
+    differing = 0
+    for n, r in ref.items():
+        r = r.cuda()
+        g = got[n].cuda()
+        differing += int((g != r).sum())
+        r = r.float()
+        num += float((g.float() - r).square().sum(dtype=torch.float64))
+        den += float((r - init[n].cuda().float()).square().sum(
+            dtype=torch.float64))
+    return (num / den) ** 0.5, differing
+
+
+def check_harness_gloo(torch, cfg, peaks):
+    """Two ranks on this one card over gloo (CUDA tensors staged through
+    pinned host memory), llama3_8b() at full width and depth 4 on a
+    {"dp": 2} global mesh, global batch [2, 2049], 2 steps. Held: rank 0's
+    parameters against the single-controller trainer on a {"dp": 2} mesh
+    of the card, run before the ranks start; the ranks' parameters equal
+    each other (check_same in the ranks). The control, ranks that skip
+    the gradient all-reduce, must break the bound. Returns rank 0's
+    launch counts (both cases, 4 steps)."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+    from ray_tpu_torch.train.data_parallel_trainer import \
+        DataParallelTrainer
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    b, s, steps, world = 2, 2048, 2, 2
+    cfg4 = dataclasses.replace(cfg, n_layers=GLOO_DEPTH)
+    train_cfg = TrainConfig(mesh_axes={"dp": world}, fused_loss=True,
+                            loss_chunk=1024, warmup_steps=1)
+    batch = train_batch(cfg, b, s, SEED + 17)
+
+    def host(params):
+        return {n: (t.unshard() if isinstance(t, ShardedTensor) else t)
+                .detach().cpu() for n, t in named_leaves(params)}
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg4, train_cfg)
+    state = trainer.init_state(seed=SEED)
+    init = host(state.params)
+    ref_losses = []
+    for _ in range(steps):
+        state, m = trainer.train_step(state, batch)
+        ref_losses.append(float(m["loss"]))
+    ref = host(state.params)
+    del state, trainer
+    free_card(torch)
+    reference_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        result = DataParallelTrainer(
+            gloo_rank_loop,
+            train_loop_config={"model_config": cfg4,
+                               "train_config": train_cfg,
+                               "batch": batch.cpu().numpy(), "steps": steps,
+                               "n_params": sum(t.numel()
+                                               for t in init.values()),
+                               "out": d},
+            scaling_config=ScalingConfig(num_workers=world, use_gpu=True,
+                                         backend="gloo"),
+            run_config=RunConfig(storage_path=d)).fit()
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise AssertionError(f"harness_gloo_dp2 failed:\n{result.error}")
+        t0 = time.perf_counter()
+        errs, differing = {}, {}
+        for case in ("all_reduce", "skip_all_reduce"):
+            got = torch.load(os.path.join(d, f"{case}.pt"),
+                             weights_only=True, mmap=True)
+            errs[case], differing[case] = update_err(torch, got, ref, init)
+            del got
+        compare_s = time.perf_counter() - t0
+    del init, ref
+    per_rank = []
+    for stats in result.rank_stats:
+        per_rank.append({"rank": stats["rank"],
+                         "peak_memory_bytes": stats["peak_memory_bytes"],
+                         "launches": stats["launches"],
+                         "process_group": stats["process_group"],
+                         **harness_steps(stats)})
+    reports = result.metrics_history
+    real = [r for r in reports if r["case"] == "all_reduce"]
+    L = cfg4.n_layers
+    want_counts = {"flash_fwd": 2 * steps * 2 * L,
+                   "flash_bwd": 2 * steps * L}
+    emit("harness_gloo_dp2", config="llama3_8b", n_layers=L,
+         depth_cut=f"{GLOO_DEPTH} of {cfg.n_layers} layers (two states on "
+                   "one card)", tokens=[b, s + 1], steps=steps,
+         backend="gloo", world_size=world, mesh={"dp": world},
+         reference_losses=ref_losses,
+         losses=[r["loss"] for r in real],
+         update_rel_err=errs["all_reduce"], tol=HARNESS_PARAM_TOL,
+         elements_differing=differing["all_reduce"],
+         control_elements_differing=differing["skip_all_reduce"],
+         control_update_rel_err=errs["skip_all_reduce"],
+         control_losses=[r["loss"] for r in reports
+                         if r["case"] == "skip_all_reduce"],
+         rank0_step_s=[r["step_s"] for r in real],
+         rank0_all_reduce_s=[r["grad_all_reduce_s"] for r in real],
+         rank0_staging_s=[r["staging_s"] for r in real],
+         rank0_staged_bytes=[r["staged_bytes"] for r in real],
+         ranks=per_rank, want_launches=want_counts,
+         reference_s=reference_s, fit_s=fit_s, compare_s=compare_s,
+         spawn_to_first_report_s=result.first_report_s)
+    if not errs["all_reduce"] <= HARNESS_PARAM_TOL < \
+            errs["skip_all_reduce"]:
+        raise AssertionError(
+            f"dp-2 ranks' update error {errs['all_reduce']} (tol "
+            f"{HARNESS_PARAM_TOL}); the no-all-reduce control "
+            f"{errs['skip_all_reduce']} must exceed it")
+    if any(r["launches"] != want_counts for r in per_rank):
+        raise AssertionError(f"harness_gloo_dp2 launches "
+                             f"{[r['launches'] for r in per_rank]}, want "
+                             f"{want_counts}")
+    return per_rank[0]["launches"]
+
+
+def elastic_axes(n: int) -> dict:
+    return {"dp": 2, "fsdp": n // 2} if n > 2 else {"dp": n}
+
+
+def check_elastic(torch, cfg):
+    """``ElasticTrainer`` on llama3_8b() at full width and depth 2: 2
+    steps on {"dp": 2, "fsdp": 2} places of this card with a checkpoint at
+    step 2 (into a temporary directory), ``reform`` onto {"dp": 2}, one
+    more step. Held: the restored state (parameters, moments, step)
+    bit-equal to the saved one; the step after the reform finite, its
+    launches those of {"dp": 2}. Returns that step's counts."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+    from ray_tpu_torch.train.elastic import ElasticTrainer
+    from ray_tpu_torch.train.telemetry import run_goodput
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    b, s = 4, 2048
+    cfg2 = dataclasses.replace(cfg, n_layers=ELASTIC_DEPTH)
+    card = torch.device("cuda", torch.cuda.current_device())
+    batch = train_batch(cfg, b, s, SEED + 19)
+
+    def flat(state):
+        return {n: t.unshard() if isinstance(t, ShardedTensor) else t
+                for n, t in named_leaves({"params": state.params,
+                                          "mu": state.opt_state["mu"],
+                                          "nu": state.opt_state["nu"]})}
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        et = ElasticTrainer(
+            cfg2, TrainConfig(fused_loss=True, loss_chunk=1024,
+                              warmup_steps=1),
+            checkpoint_dir=d, mesh_axes_fn=elastic_axes,
+            devices=[card] * 4, checkpoint_every=2,
+            run_name="chip-smoke-elastic")
+        mesh_before = et.trainer.mesh.shape
+        state = et.init_state(seed=SEED)
+        losses = []
+        state = et.fit(state, iter([batch] * 2), steps=2,
+                       on_metrics=lambda m: losses.append(m["loss"]))
+        saved = {n: t.clone() for n, t in flat(state).items()}
+        saved_step = state.step
+        del state
+        free_card(torch)
+        state = et.reform(devices=[card] * 2)
+        mismatched = [n for n, t in flat(state).items()
+                      if not torch.equal(t, saved[n])]
+        del saved
+        zero_counts()
+        state, m = et.trainer.train_step(state, batch)
+        after = float(m["loss"])
+        counts = launch_counts()
+        event, = et.reform_events
+        et.close()
+        del state, et
+    free_card(torch)
+    want = {"flash_fwd": 2 * 2 * ELASTIC_DEPTH, "flash_bwd": 2 * ELASTIC_DEPTH}
+    emit("elastic", config="llama3_8b", n_layers=ELASTIC_DEPTH,
+         depth_cut=f"{ELASTIC_DEPTH} of {cfg.n_layers} layers",
+         tokens=[b, s + 1], mesh_before=mesh_before,
+         mesh_after={"dp": 2}, losses=losses, saved_step=saved_step,
+         restored_step=event.step, restored_leaves_not_bit_equal=mismatched,
+         loss_after_reform=after, reform_s=event.seconds,
+         restart_bucket_s=run_goodput("chip-smoke-elastic")["restart"],
+         launches_after_reform=counts, want_launches=want,
+         seconds=time.perf_counter() - t_start)
+    if mismatched or event.step != saved_step or not np.isfinite(after):
+        raise AssertionError(f"elastic reform: leaves {mismatched} differ, "
+                             f"step {event.step} vs {saved_step}, loss "
+                             f"{after}")
+    if counts != want:
+        raise AssertionError(f"elastic launches {counts}, want {want}")
+    return counts
+
+
 def check_gpt(torch, peaks) -> dict:
     """gpt2_xl() at full width and depth (48 layers, 25 heads of 64, tied
     head), bf16, seeded random weights: the forward over [8, 1024] through
@@ -2415,7 +2813,8 @@ def main() -> int:
     check_serve(torch, cfg, params)
     free_card(torch)   # the engine and its KV pool
     check_grad(torch, cfg, params)
-    full_counts, attn_counts = check_train(torch, cfg, params, peaks)
+    full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
+                                                         peaks)
     del params
     free_card(torch)
     # sequence parallelism and speculative decoding on fresh weights (the
@@ -2468,6 +2867,18 @@ def main() -> int:
         want={"flash_fwd": 3 * L * 4, "flash_bwd": L * 4},
         n_microbatches=4)
     free_card(torch)
+    # the multi-process harness (slice 8), the card freed before each
+    # phase; the parent holds no model while ranks run: Llama-3-8B through
+    # TorchMeshTrainer on one NCCL rank, two gloo ranks on this card at
+    # depth 4, then ElasticTrainer's reform at depth 2
+    t0 = time.perf_counter()
+    harness_nccl_counts = check_harness_nccl(torch, cfg, peaks, train_losses,
+                                             full_counts)
+    free_card(torch)
+    harness_gloo_counts = check_harness_gloo(torch, cfg, peaks)
+    free_card(torch)
+    elastic_counts = check_elastic(torch, cfg)
+    emit("harness_phases", seconds=time.perf_counter() - t0)
     # the other families, each at full width, one after another on the
     # card's memory (Mixtral at reduced depth)
     gpt_counts = check_gpt(torch, peaks)
@@ -2496,7 +2907,10 @@ def main() -> int:
                    "pp_fsdp_1f1b_grad_depth4": pp_grad_counts[k],
                    "gpipe_forward_pp4": gpipe_counts[k],
                    "fsdp_tp_train_step_full": fsdp_tp_counts[k],
-                   "pp_fsdp_train_step_full": pp_counts[k]}
+                   "pp_fsdp_train_step_full": pp_counts[k],
+                   "harness_nccl_rank_3_steps": harness_nccl_counts[k],
+                   "harness_gloo_dp2_rank0_4_steps": harness_gloo_counts[k],
+                   "elastic_step_after_reform": elastic_counts[k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",

@@ -28,6 +28,18 @@ is the tensor itself. As in JAX:
   the 1F1B pipeline (``parallel.pipeline.pipeline_value_and_grad``) over
   ``n_microbatches`` microbatches (default: the number of stages).
 
+Across processes (``process_group=``, a ``parallel.process_group``
+``ProcessGroup``), as JAX across the processes of ``jax.distributed``:
+the global mesh's ``dp`` axis spans the processes, one process a ``dp``
+index (the group's rank), and each process drives the other axes on its
+own mesh, as above. ``train_step`` takes the global batch and keeps this
+rank's rows; the loss is the global masked mean (each rank's token count
+is all-reduced first, and its gradients weighted by its share of the
+tokens), and the gradients are summed over the ranks before the update,
+so every rank takes the same step. Before the first step the ranks' states
+are checked equal by checksum. fsdp, tp, sp or pp across processes raise
+``NotImplementedError``.
+
 The model family comes from the config's type, as in JAX: llama, gpt or
 bert (``_resolve_family``); any other config raises ``TypeError``. A
 family other than llama trains on ``family.forward`` and the next-token
@@ -55,7 +67,7 @@ from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
                                              device_put, map_trees,
                                              place_tree, replicated,
                                              same_device, tree_shardings)
-from ray_tpu_torch.train import spmd
+from ray_tpu_torch.train import session, spmd
 from ray_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from ray_tpu_torch.train.state import TrainState, state_logical_axes
 
@@ -102,6 +114,35 @@ def _mesh_on(device, mesh_axes: dict) -> Mesh:
     return create_mesh(mesh_axes, devices=[device] * n)
 
 
+def _local_axes(mesh_axes: dict, world: int) -> dict:
+    """The axes of one process's mesh when ``world`` processes span the
+    global mesh's dp axis (one process a dp index, or an equal share of
+    them)."""
+    dp = mesh_axes.get("dp", 1)
+    if dp == -1:
+        return {**mesh_axes, "dp": 1}
+    if dp % world:
+        raise NotImplementedError(
+            f"{world} processes span only the global mesh's dp axis "
+            f"(dp={dp} in {mesh_axes}): fsdp, tp, sp or pp across processes "
+            "come with a later slice of the port (ROADMAP Queue A)")
+    return {**mesh_axes, "dp": dp // world}
+
+
+def _named_chunks(tree, prefix="") -> list:
+    """(name, tensor) of every distinct chunk of a tree of tensors and
+    placed tensors, in tree order."""
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in _named_chunks(v, f"{prefix}{k}.")]
+    if isinstance(tree, ShardedTensor):
+        return [(f"{prefix[:-1]}[{place}]", c) for place, c in
+                tree.distinct()]
+    if isinstance(tree, torch.Tensor):
+        return [(prefix[:-1], tree)]
+    return []
+
+
 def _is_leaf(x) -> bool:
     return isinstance(x, (torch.Tensor, ShardedTensor))
 
@@ -132,14 +173,19 @@ class Trainer:
 
     def __init__(self, model_cfg, cfg: TrainConfig, *,
                  mesh: Mesh | None = None, loss_fn: Callable | None = None,
-                 device="cuda"):
+                 device="cuda", process_group=None):
         """``loss_fn(model_cfg, params, batch) -> scalar`` overrides the
-        default next-token cross-entropy."""
+        default next-token cross-entropy. ``process_group``: this
+        process's ``ProcessGroup`` when the global mesh's dp axis spans
+        processes (``mesh``, if given, is then this process's mesh)."""
         self.family = self._resolve_family(model_cfg)
         self.device = resolve_device(device)
         self.rules = _rules(cfg.strategy)
-        self.mesh = mesh if mesh is not None else _mesh_on(self.device,
-                                                           cfg.mesh_axes)
+        self.process_group = process_group
+        axes = cfg.mesh_axes if process_group is None else _local_axes(
+            cfg.mesh_axes, process_group.world_size)
+        self.mesh = mesh if mesh is not None else _mesh_on(self.device, axes)
+        self._states_checked = False
         # sequence parallelism: ring attention when the rules cut seq over
         # a mesh axis that exists on this mesh and is wider than one
         sp = self.rules.seq
@@ -361,8 +407,31 @@ class Trainer:
         Returns ``(state, {"loss", "grad_norm", "step"})``; loss and
         grad_norm (before clipping) are float32 scalars on the card."""
         placed = self._placed(state, self.state_shardings())
+        pg = self.process_group
+        if pg is not None:
+            if not self._states_checked:
+                pg.check_same(_named_chunks(
+                    {"params": placed.params, "mu": placed.opt_state["mu"],
+                     "nu": placed.opt_state["nu"]}) + [(
+                        "step", torch.tensor(
+                            [float(state.step),
+                             float(state.opt_state["count"])],
+                            device=self.device))])
+                self._states_checked = True
+            batch = self._to_device(self._rank_rows(batch))
+            scale = self._token_share(batch)
         loss, grads = self._chunk_grads(placed.params,
                                         self._place_batch(batch))
+        if pg is not None:
+            loss = pg.all_reduce(loss.detach() * scale)
+            # each distinct gradient once (pipeline stages share some)
+            distinct = {id(g): g for g in (
+                grads[id(c)] for c in spmd.distinct_chunks(placed.params))}
+            if self.device.type == "cuda":
+                # the backward's kernels are compute, not the collective's
+                torch.cuda.synchronize(self.device)
+            with session.timeit("collective_sync"):
+                pg.all_reduce_grads(list(distinct.values()), scale)
         gnorm = spmd.apply_update(
             self.optimizer, placed.params, grads, state.opt_state,
             (placed.opt_state["mu"], placed.opt_state["nu"]))
@@ -370,6 +439,34 @@ class Trainer:
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
                        "step": state.step}
+
+    def _rank_rows(self, batch):
+        """This process's rows of a global batch: rows [rank·B/world,
+        (rank+1)·B/world) of every leaf with a batch axis."""
+        pg = self.process_group
+        if isinstance(batch, dict):
+            return {k: self._rank_rows(v) for k, v in batch.items()}
+        if int(getattr(batch, "ndim", 0)) == 0:
+            return batch
+        n = batch.shape[0]
+        if n % pg.world_size:
+            raise ValueError(f"global batch of {n} rows does not divide over "
+                             f"{pg.world_size} processes")
+        per = n // pg.world_size
+        return batch[pg.rank * per:(pg.rank + 1) * per]
+
+    def _token_share(self, batch) -> float:
+        """This rank's share of the global batch's loss weight: its
+        unpadded target tokens over every rank's (the token counts
+        all-reduced), so that the ranks' weighted means sum to the global
+        masked mean. With the ``loss_fn`` hook, whose weights the trainer
+        cannot see, each rank weighs 1/world."""
+        pg = self.process_group
+        if self.loss_fn is not None:
+            return 1.0 / pg.world_size
+        n = (batch[:, 1:] != -1).sum().reshape(1)
+        total = pg.all_reduce(n.clone())
+        return float(n) / max(float(total), 1.0)
 
     def _batch_shardings(self, batch):
         """Per-leaf data sharding: dim 0 is the batch axis, the rest

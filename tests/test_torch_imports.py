@@ -57,7 +57,10 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
     for name in ("train.trainer", "train.state", "train.checkpoint",
                  "train.optim", "train.spmd", "ops.moe", "ops.matmul",
                  "models.mixtral", "models.gpt", "models.bert", "models.vit",
-                 "parallel.pipeline", "parallel.sharding"):
+                 "parallel.pipeline", "parallel.sharding",
+                 "parallel.process_group", "air.config", "data.iterator",
+                 "train.telemetry", "train.session", "train.worker_group",
+                 "train.data_parallel_trainer", "train.elastic"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -140,3 +143,50 @@ def test_placement_and_pipeline_modules_load_alone():
     assert len(out["loaded"]) == 6
     assert out["jax"] == [] and out["ray_tpu"] == []
     assert out["cuda_initialized"] is False
+
+
+HARNESS_PROBE = r"""
+import importlib, json, sys, tempfile
+names = ["ray_tpu_torch.air.config", "ray_tpu_torch.train.telemetry",
+         "ray_tpu_torch.train.session",
+         "ray_tpu_torch.parallel.process_group",
+         "ray_tpu_torch.train.worker_group",
+         "ray_tpu_torch.train.data_parallel_trainer",
+         "ray_tpu_torch.data.iterator", "ray_tpu_torch.train.elastic"]
+for name in names:
+    importlib.import_module(name)
+import torch
+here = {
+    "loaded": [n for n in names if n in sys.modules],
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}
+sys.path.insert(0, "tests")
+from torch_harness_loops import modules_loop
+from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+from ray_tpu_torch.train.data_parallel_trainer import DataParallelTrainer
+with tempfile.TemporaryDirectory() as d:
+    result = DataParallelTrainer(
+        modules_loop, scaling_config=ScalingConfig(num_workers=2),
+        run_config=RunConfig(storage_path=d)).fit()
+print(json.dumps({**here, "rank": result.metrics, "error": result.error}))
+"""
+
+
+def test_harness_modules_and_a_spawned_rank_load_no_jax():
+    """A fresh import of the harness modules loads no jax, no ray_tpu
+    module and no CUDA; neither does a rank process that they spawn and
+    that builds the trainer."""
+    proc = subprocess.run([sys.executable, "-c", HARNESS_PROBE], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["loaded"]) == 8
+    assert out["jax"] == [] and out["ray_tpu"] == []
+    assert out["cuda_initialized"] is False
+    assert out["error"] is None
+    assert out["rank"] == {"jax": [], "ray_tpu": [],
+                           "cuda_initialized": False}
