@@ -29,8 +29,9 @@ steps). Then the multi-process train harness, each phase spawning rank
 processes over torch.distributed: Llama-3-8B at full depth through
 TorchMeshTrainer on one NCCL rank fed by the device feed (its losses
 against the one-process trainer's), two ranks on this card over gloo at
-depth 4 (their parameters against the single-controller trainer on
-{dp 2}, with a control that skips the gradient all-reduce), and
+depth 4 (their parameters and gradient norms against the
+single-controller trainer on {dp 2}, with controls that skip the
+gradient all-reduce and that average in place of the sum), and
 ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -1853,6 +1854,13 @@ HARNESS_LOSS_TOL = 1e-2
 # gloo, the single controller in autograd: Adam's first step turns a
 # rounding only where a gradient is near 0 into another step).
 HARNESS_PARAM_TOL = 0.1
+# Rank 0's gradient norm a step against the single controller's, relative:
+# the clip and Adam barely see a uniform scale of the gradients, so a mean
+# in place of the sum (the control) shows only here.
+HARNESS_NORM_TOL = 1e-2
+# the cases of a gloo rank: the real one, then the controls (the gradient
+# all-reduce made a no-op; the summed gradients divided by the world size)
+GLOO_CASES = ("all_reduce", "skip_all_reduce", "mean_all_reduce")
 GLOO_DEPTH = 4
 ELASTIC_DEPTH = 2
 
@@ -1958,9 +1966,9 @@ def check_harness_nccl(torch, cfg, peaks, want_losses, step_counts):
 
 def gloo_rank_loop(config):
     """A rank of harness_gloo_dp2: ``Trainer`` over the rank's process
-    group from ``init_state(seed)``, ``steps`` steps on the global batch,
-    then the same with the gradient all-reduce made a no-op (the
-    control). Reports each step; rank 0 saves each case's parameters to
+    group from ``init_state(seed)``, ``steps`` steps on the global batch
+    for each case of ``GLOO_CASES`` (the real one, then the controls).
+    Reports each step; rank 0 saves each case's parameters to
     ``<out>/<case>.pt``; after the real case both ranks must hold equal
     parameters (``check_same``)."""
     import torch
@@ -1973,16 +1981,22 @@ def gloo_rank_loop(config):
     pg = ctx.process_group
     batch = torch.from_numpy(config["batch"]).to(ctx.device)
     real = ProcessGroup.all_reduce_grads
+
+    def mean(self, grads):
+        real(self, grads)
+        for g in grads:
+            g.div_(self.world_size)
     # this rank's work: 6 FLOPs a parameter a token of its rows
     session.set_flops_per_step(6.0 * config["n_params"] * batch.numel()
                                / ctx.world_size)
-    for case in ("all_reduce", "skip_all_reduce"):
+    for case in GLOO_CASES:
         trainer = Trainer(config["model_config"], config["train_config"],
                           device=ctx.device, process_group=pg)
         state = trainer.init_state(seed=SEED)
         if case == "skip_all_reduce":
-            ProcessGroup.all_reduce_grads = \
-                lambda self, grads, scale=1.0: None
+            ProcessGroup.all_reduce_grads = lambda self, grads: None
+        elif case == "mean_all_reduce":
+            ProcessGroup.all_reduce_grads = mean
         try:
             for _ in range(config["steps"]):
                 before = dict(pg.stats)
@@ -2031,11 +2045,12 @@ def check_harness_gloo(torch, cfg, peaks):
     """Two ranks on this one card over gloo (CUDA tensors staged through
     pinned host memory), llama3_8b() at full width and depth 4 on a
     {"dp": 2} global mesh, global batch [2, 2049], 2 steps. Held: rank 0's
-    parameters against the single-controller trainer on a {"dp": 2} mesh
-    of the card, run before the ranks start; the ranks' parameters equal
-    each other (check_same in the ranks). The control, ranks that skip
-    the gradient all-reduce, must break the bound. Returns rank 0's
-    launch counts (both cases, 4 steps)."""
+    parameters and gradient norms against the single-controller trainer
+    on a {"dp": 2} mesh of the card, run before the ranks start; the
+    ranks' parameters equal each other (check_same in the ranks). The
+    controls, ranks that skip the gradient all-reduce and ranks that
+    average in place of the sum, must each break a bound. Returns rank
+    0's launch counts (three cases, 6 steps)."""
     import dataclasses
     import tempfile
 
@@ -2059,10 +2074,11 @@ def check_harness_gloo(torch, cfg, peaks):
     trainer = Trainer(cfg4, train_cfg)
     state = trainer.init_state(seed=SEED)
     init = host(state.params)
-    ref_losses = []
+    ref_losses, ref_norms = [], []
     for _ in range(steps):
         state, m = trainer.train_step(state, batch)
         ref_losses.append(float(m["loss"]))
+        ref_norms.append(float(m["grad_norm"]))
     ref = host(state.params)
     del state, trainer
     free_card(torch)
@@ -2086,7 +2102,7 @@ def check_harness_gloo(torch, cfg, peaks):
             raise AssertionError(f"harness_gloo_dp2 failed:\n{result.error}")
         t0 = time.perf_counter()
         errs, differing = {}, {}
-        for case in ("all_reduce", "skip_all_reduce"):
+        for case in GLOO_CASES:
             got = torch.load(os.path.join(d, f"{case}.pt"),
                              weights_only=True, mmap=True)
             errs[case], differing[case] = update_err(torch, got, ref, init)
@@ -2102,9 +2118,13 @@ def check_harness_gloo(torch, cfg, peaks):
                          **harness_steps(stats)})
     reports = result.metrics_history
     real = [r for r in reports if r["case"] == "all_reduce"]
+    norms = {case: [r["grad_norm"] for r in reports if r["case"] == case]
+             for case in GLOO_CASES}
+    norm_errs = {case: max(abs(a / w - 1.0) for a, w in zip(ns, ref_norms))
+                 for case, ns in norms.items()}
     L = cfg4.n_layers
-    want_counts = {"flash_fwd": 2 * steps * 2 * L,
-                   "flash_bwd": 2 * steps * L}
+    want_counts = {"flash_fwd": len(GLOO_CASES) * steps * 2 * L,
+                   "flash_bwd": len(GLOO_CASES) * steps * L}
     emit("harness_gloo_dp2", config="llama3_8b", n_layers=L,
          depth_cut=f"{GLOO_DEPTH} of {cfg.n_layers} layers (two states on "
                    "one card)", tokens=[b, s + 1], steps=steps,
@@ -2112,11 +2132,17 @@ def check_harness_gloo(torch, cfg, peaks):
          reference_losses=ref_losses,
          losses=[r["loss"] for r in real],
          update_rel_err=errs["all_reduce"], tol=HARNESS_PARAM_TOL,
+         reference_grad_norms=ref_norms, grad_norms=norms["all_reduce"],
+         grad_norm_rel_err=norm_errs["all_reduce"],
+         norm_tol=HARNESS_NORM_TOL,
          elements_differing=differing["all_reduce"],
-         control_elements_differing=differing["skip_all_reduce"],
-         control_update_rel_err=errs["skip_all_reduce"],
-         control_losses=[r["loss"] for r in reports
-                         if r["case"] == "skip_all_reduce"],
+         controls={case: {"update_rel_err": errs[case],
+                          "elements_differing": differing[case],
+                          "grad_norms": norms[case],
+                          "grad_norm_rel_err": norm_errs[case],
+                          "losses": [r["loss"] for r in reports
+                                     if r["case"] == case]}
+                   for case in GLOO_CASES[1:]},
          rank0_step_s=[r["step_s"] for r in real],
          rank0_all_reduce_s=[r["grad_all_reduce_s"] for r in real],
          rank0_staging_s=[r["staging_s"] for r in real],
@@ -2124,12 +2150,14 @@ def check_harness_gloo(torch, cfg, peaks):
          ranks=per_rank, want_launches=want_counts,
          reference_s=reference_s, fit_s=fit_s, compare_s=compare_s,
          spawn_to_first_report_s=result.first_report_s)
-    if not errs["all_reduce"] <= HARNESS_PARAM_TOL < \
-            errs["skip_all_reduce"]:
+    def breaks(case):
+        return errs[case] > HARNESS_PARAM_TOL or \
+            norm_errs[case] > HARNESS_NORM_TOL
+    if breaks("all_reduce") or not all(map(breaks, GLOO_CASES[1:])):
         raise AssertionError(
-            f"dp-2 ranks' update error {errs['all_reduce']} (tol "
-            f"{HARNESS_PARAM_TOL}); the no-all-reduce control "
-            f"{errs['skip_all_reduce']} must exceed it")
+            f"dp-2 ranks' update error {errs} (tol {HARNESS_PARAM_TOL}), "
+            f"gradient norm error {norm_errs} (tol {HARNESS_NORM_TOL}): "
+            "the real case within both, each control outside one")
     if any(r["launches"] != want_counts for r in per_rank):
         raise AssertionError(f"harness_gloo_dp2 launches "
                              f"{[r['launches'] for r in per_rank]}, want "
@@ -2909,7 +2937,7 @@ def main() -> int:
                    "fsdp_tp_train_step_full": fsdp_tp_counts[k],
                    "pp_fsdp_train_step_full": pp_counts[k],
                    "harness_nccl_rank_3_steps": harness_nccl_counts[k],
-                   "harness_gloo_dp2_rank0_4_steps": harness_gloo_counts[k],
+                   "harness_gloo_dp2_rank0_6_steps": harness_gloo_counts[k],
                    "elastic_step_after_reform": elastic_counts[k]}
                for k in full_counts}
     kernels = [{

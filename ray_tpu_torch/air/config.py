@@ -18,11 +18,13 @@ from dataclasses import dataclass, field
 @dataclass
 class ScalingConfig:
     """How many rank processes, and what each drives: rank ``r`` takes
-    card ``r % device_count`` when ``use_gpu``, else the CPU. ``backend``
-    defaults to nccl with ``use_gpu`` and gloo without."""
+    card ``r % device_count`` (the default, as every entry point of the
+    port runs on the card; a host without one raises before any rank
+    starts), or the CPU with ``use_gpu=False``. ``backend`` defaults to
+    nccl with ``use_gpu`` and gloo without."""
 
     num_workers: int = 1
-    use_gpu: bool = False
+    use_gpu: bool = True
     backend: str | None = None
 
     def resolved_backend(self) -> str:

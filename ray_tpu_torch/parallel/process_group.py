@@ -12,7 +12,8 @@ axis:
   build), ``broadcast`` and ``all_gather_object``;
 - ``all_reduce_grads``: the gradients in flat buckets, one collective per
   bucket rather than one per leaf (a leaf at least a bucket's size is
-  reduced in place, by itself);
+  reduced in place, by itself), timed on the device by CUDA events, so
+  that the host need not wait for the card;
 - ``check_same``: a gathered per-leaf checksum, so that ranks that would
   train from different states raise before the first step.
 
@@ -20,10 +21,10 @@ Backends. NCCL carries CUDA tensors between cards; it refuses two ranks on
 one GPU, so ``init_process_group`` raises before it starts when the world
 is larger than the cards this host has (it never falls back to gloo).
 gloo carries CPU tensors, and here CUDA tensors too: each is staged
-explicitly through pinned host memory (copied to the host, reduced there,
-copied back), and the staging's seconds and bytes are counted in
-``stats``. The NCCL path across several cards is written but has only
-run with one rank: the machine it was checked on has one card.
+explicitly through one pinned host buffer (copied to the host, reduced or
+broadcast there, copied back), and the staging's seconds and bytes are
+counted in ``stats``. The NCCL path across several cards is written but
+has only run with one rank: the machine it was checked on has one card.
 """
 
 from __future__ import annotations
@@ -49,21 +50,27 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _check_card(use_gpu: bool) -> None:
+    if use_gpu and not torch.cuda.is_available():
+        raise RuntimeError(
+            "use_gpu=True but torch.cuda.is_available() is False; pass "
+            "ScalingConfig(use_gpu=False) to run the ranks on the CPU")
+
+
 def rank_device(rank: int, use_gpu: bool) -> torch.device:
     """The device of rank ``rank``: card ``rank % device_count`` with
     ``use_gpu`` (raising without a card: a rank never falls back to the
     CPU), else the CPU."""
     if not use_gpu:
         return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("use_gpu=True but torch.cuda.is_available() is "
-                           "False")
+    _check_card(use_gpu)
     return torch.device("cuda", rank % torch.cuda.device_count())
 
 
 def check_backend(backend: str, world_size: int, use_gpu: bool) -> None:
     """Raise for a world this host cannot run over ``backend``: NCCL needs
-    a card per rank (it refuses two ranks on one GPU; use gloo there)."""
+    a card per rank (it refuses two ranks on one GPU; use gloo there), and
+    ``use_gpu`` needs a card."""
     if backend == "nccl":
         if not use_gpu:
             raise ValueError("backend 'nccl' needs use_gpu=True")
@@ -71,10 +78,12 @@ def check_backend(backend: str, world_size: int, use_gpu: bool) -> None:
         if world_size > cards:
             raise RuntimeError(
                 f"NCCL cannot run {world_size} ranks on {cards} card(s): it "
-                "refuses two ranks on one GPU; pass backend='gloo' to put "
-                "several ranks on one card")
+                "needs a card per rank and refuses two ranks on one GPU; "
+                "pass backend='gloo' to put several ranks on one card, or "
+                "ScalingConfig(use_gpu=False) to run them on the CPU")
     elif backend != "gloo":
         raise ValueError(f"unknown backend {backend!r}")
+    _check_card(use_gpu)
 
 
 class ProcessGroup:
@@ -87,9 +96,22 @@ class ProcessGroup:
                  device: torch.device):
         self.backend, self.rank, self.world_size = backend, rank, world_size
         self.device = torch.device(device)
-        self.stats = {"grad_all_reduces": 0, "grad_all_reduce_s": 0.0,
-                      "grad_bytes": 0, "staging_s": 0.0, "staged_bytes": 0}
+        self._stats = {"grad_all_reduces": 0, "grad_all_reduce_s": 0.0,
+                       "grad_bytes": 0, "staging_s": 0.0, "staged_bytes": 0}
         self._pinned: dict[torch.dtype, torch.Tensor] = {}
+        # (start, end) CUDA events of gradient all-reduces not yet read
+        self._pending: list = []
+
+    @property
+    def stats(self) -> dict:
+        """The counts, the all-reduces still running on the card waited
+        for first (read it after the step, whose results the caller reads
+        anyway)."""
+        for start, end in self._pending:
+            end.synchronize()
+            self._stats["grad_all_reduce_s"] += start.elapsed_time(end) / 1e3
+        self._pending.clear()
+        return self._stats
 
     def _staged(self, t: torch.Tensor) -> bool:
         return self.backend == "gloo" and t.device.type == "cuda"
@@ -103,16 +125,12 @@ class ProcessGroup:
             self._pinned[dtype] = buf
         return buf[:numel]
 
-    def _count_staging(self, seconds: float, nbytes: int) -> None:
-        self.stats["staging_s"] += seconds
-        self.stats["staged_bytes"] += nbytes
-
-    def _reduce_flat(self, flat: torch.Tensor) -> None:
-        """Sum a contiguous 1-d tensor over the ranks, in place; a CUDA
+    def _on_flat(self, collective, flat: torch.Tensor) -> None:
+        """``collective(t)`` (in place) on a contiguous 1-d tensor; a CUDA
         tensor under gloo goes through the pinned buffer a bucket at a
-        time."""
+        time, the staging timed."""
         if not self._staged(flat):
-            dist.all_reduce(flat)
+            collective(flat)
             return
         step = BUCKET_BYTES // flat.element_size()
         for piece in flat.split(step):
@@ -120,12 +138,16 @@ class ProcessGroup:
             host = self._pinned_buffer(piece.dtype, piece.numel())
             host.copy_(piece)
             t1 = time.perf_counter()
-            dist.all_reduce(host)
+            collective(host)
             t2 = time.perf_counter()
             piece.copy_(host)
             torch.cuda.current_stream(piece.device).synchronize()
-            self._count_staging(t1 - t0 + time.perf_counter() - t2,
-                                2 * piece.numel() * piece.element_size())
+            self._stats["staging_s"] += t1 - t0 + time.perf_counter() - t2
+            self._stats["staged_bytes"] += 2 * piece.numel() * \
+                piece.element_size()
+
+    def _reduce_flat(self, flat: torch.Tensor) -> None:
+        self._on_flat(dist.all_reduce, flat)
 
     # --- collectives ---
 
@@ -135,9 +157,8 @@ class ProcessGroup:
         it."""
         if op not in ("sum", "mean"):
             raise ValueError(f"unknown op {op!r}")
-        flat = tensor.view(-1) if tensor.is_contiguous() else None
-        if flat is None:
-            flat = tensor.contiguous().view(-1)
+        flat = tensor.view(-1) if tensor.is_contiguous() else \
+            tensor.contiguous().view(-1)
         self._reduce_flat(flat)
         if flat.data_ptr() != tensor.data_ptr():
             tensor.copy_(flat.view_as(tensor))
@@ -147,18 +168,11 @@ class ProcessGroup:
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0):
         """``tensor`` of rank ``src`` copied to every rank, in place."""
-        if self._staged(tensor):
-            t0 = time.perf_counter()
-            host = self._pinned_buffer(tensor.dtype, tensor.numel())
-            host.copy_(tensor.reshape(-1))
-            t1 = time.perf_counter()
-            dist.broadcast(host, src=src)
-            t2 = time.perf_counter()
-            tensor.copy_(host.view_as(tensor))
-            self._count_staging(t1 - t0 + time.perf_counter() - t2,
-                                2 * tensor.numel() * tensor.element_size())
-        else:
-            dist.broadcast(tensor, src=src)
+        flat = tensor.view(-1) if tensor.is_contiguous() else \
+            tensor.contiguous().view(-1)
+        self._on_flat(lambda t: dist.broadcast(t, src=src), flat)
+        if flat.data_ptr() != tensor.data_ptr():
+            tensor.copy_(flat.view_as(tensor))
         return tensor
 
     def all_gather_object(self, obj) -> list:
@@ -167,19 +181,20 @@ class ProcessGroup:
         dist.all_gather_object(out, obj)
         return out
 
-    def barrier(self) -> None:
-        dist.barrier()
-
-    def all_reduce_grads(self, grads: list, scale: float = 1.0) -> None:
+    def all_reduce_grads(self, grads: list) -> None:
         """Sum ``grads`` (distinct tensors, in the same order on every
-        rank) over the ranks in place, each first multiplied by ``scale``.
-        Leaves are packed by dtype into flat buckets of ``BUCKET_BYTES``
-        (one copy in, one collective and one copy out per bucket); a leaf
-        of at least a bucket's size is reduced in place by itself. Waits
-        for the card at the end, so its seconds (``stats``) are the
-        collective's when the caller has waited for the kernels that made
-        the gradients."""
-        t_start = time.perf_counter()
+        rank) over the ranks in place. Leaves are packed by dtype into flat
+        buckets of ``BUCKET_BYTES`` (one copy in, one collective and one
+        copy out per bucket); a leaf of at least a bucket's size is reduced
+        in place by itself. On the card its seconds (``stats``) run from
+        the end of the kernels queued before it (the backward) to the end
+        of its own, by CUDA events: the host does not wait here."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            t_start = time.perf_counter()
         big, small = [], {}
         for g in grads:
             if g.numel() * g.element_size() >= BUCKET_BYTES and \
@@ -188,8 +203,6 @@ class ProcessGroup:
             else:
                 small.setdefault(g.dtype, []).append(g)
         for g in big:
-            if scale != 1.0:
-                g.mul_(scale)
             self._reduce_flat(g.view(-1))
         for leaves in small.values():
             bucket, nbytes = [], 0
@@ -200,20 +213,21 @@ class ProcessGroup:
                     nbytes += g.numel() * g.element_size()
                     continue
                 flat = torch.cat([x.reshape(-1) for x in bucket])
-                if scale != 1.0:
-                    flat.mul_(scale)
                 self._reduce_flat(flat)
                 for x, piece in zip(bucket, flat.split(
                         [x.numel() for x in bucket])):
                     x.copy_(piece.view_as(x))
                 bucket, nbytes = ([g], g.numel() * g.element_size()) \
                     if g is not None else ([], 0)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stats["grad_all_reduces"] += 1
-        self.stats["grad_all_reduce_s"] += time.perf_counter() - t_start
-        self.stats["grad_bytes"] += sum(g.numel() * g.element_size()
-                                        for g in grads)
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self._pending.append((start, end))
+        else:
+            self._stats["grad_all_reduce_s"] += time.perf_counter() - t_start
+        self._stats["grad_all_reduces"] += 1
+        self._stats["grad_bytes"] += sum(g.numel() * g.element_size()
+                                         for g in grads)
 
     def check_same(self, named: list) -> None:
         """Raise unless every rank holds the same tensors ``named`` ((name,
@@ -242,13 +256,14 @@ class ProcessGroup:
 
 
 def init_process_group(backend: str, rank: int, world_size: int, port: int,
-                       *, use_gpu: bool = False,
+                       *, use_gpu: bool = True,
                        timeout_s: float = DEFAULT_TIMEOUT_S) -> ProcessGroup:
     """Join the group of ``world_size`` ranks as ``rank`` over
     ``tcp://localhost:<port>`` (rank 0 serves the rendezvous there), with
     ``backend`` "nccl" or "gloo", and return this rank's
-    ``ProcessGroup``. With ``use_gpu`` the rank's card
-    (``rank_device``) becomes the current device first."""
+    ``ProcessGroup``. With ``use_gpu`` (the default; ``False`` for a rank
+    on the CPU) the rank's card (``rank_device``) becomes the current
+    device first."""
     check_backend(backend, world_size, use_gpu)
     device = rank_device(rank, use_gpu)
     if device.type == "cuda":

@@ -184,8 +184,9 @@ def mesh_train_loop(config: dict) -> None:
     steps on global batches of ``batch_size`` rows, from the rank's
     dataset shard through the device feed (``iter_torch_batches``), else
     random tokens [batch_size, seq_len] seeded by the step. Declares the
-    step's FLOPs as JAX does (6 · parameters · batch elements) and
-    reports ``loss``, ``grad_norm`` and ``step`` each step."""
+    rank's FLOPs a step as JAX does (6 · parameters · batch elements), of
+    the rank's rows of the global batch, and reports ``loss``,
+    ``grad_norm`` and ``step`` each step."""
     import torch
 
     from ray_tpu_torch.train import session
@@ -219,7 +220,9 @@ def mesh_train_loop(config: dict) -> None:
         if step == 0:
             n_params = sum(math.prod(x.shape)
                            for x in tree_leaves(state.params))
-            session.set_flops_per_step(6.0 * n_params * batch.numel())
+            # the rank's work: its rows (Trainer keeps them) of the batch
+            session.set_flops_per_step(6.0 * n_params * batch.numel()
+                                       / ctx.world_size)
         state, metrics = trainer.train_step(state, batch)
         session.report({k: float(v) for k, v in metrics.items()})
 
@@ -231,7 +234,8 @@ class TorchMeshTrainer(DataParallelTrainer):
     ``train_loop_config`` (``model_config``, ``train_config``, and
     ``seed``, ``steps``, ``batch_size``, ``seq_len``). With a dataset every
     rank reads the whole of it as global batches, and its ``Trainer``
-    keeps the rank's rows of each."""
+    keeps the rank's rows of each (the trainer's contract is the global
+    batch; the rows it drops are token ids, a few kB a step)."""
 
     def __init__(self, model_config, train_config, **kw):
         config = dict(kw.pop("train_loop_config", None) or {})

@@ -27,9 +27,10 @@ class TrainContext:
     trial_dir: str = ""
     experiment_name: str = ""
     restore_checkpoint: str | None = None
-    # the rank's device ("cuda:<i>" or "cpu") and its process group (None
-    # outside a harness rank)
-    device: str = "cpu"
+    # the rank's device ("cuda:<i>", or "cpu" for a rank asked to run on
+    # the CPU; outside a rank the card, as every entry point's default) and
+    # its process group (None outside a harness rank)
+    device: str = "cuda"
     process_group: Any = None
 
     def get_world_size(self) -> int:
@@ -55,6 +56,7 @@ def _init_session(context: TrainContext, queue=None):
     _session.context = context
     _session.queue = queue
     _session.iteration = 0
+    _session.collective_s = 0.0
     _session.telemetry = StepTelemetry(
         run=context.experiment_name, rank=context.rank,
         world_size=context.world_size, peak_flops=detect_peak_flops())
@@ -78,7 +80,8 @@ def set_flops_per_step(flops: float, peak_flops: float | None = None):
 def timeit(bucket: str):
     """Context manager attributing the block's wall clock to one step
     stage (``data_wait`` / ``compute`` / ``collective_sync`` /
-    ``checkpoint``). No-op outside a session."""
+    ``checkpoint``; ``report`` books the process group's all-reduces into
+    ``collective_sync`` itself). No-op outside a session."""
     t = telemetry()
     if t is None:
         return contextlib.nullcontext()
@@ -95,7 +98,8 @@ def get_context() -> TrainContext:
 def report(metrics: dict, *, checkpoint_dir: str | None = None):
     """Send metrics (and optionally a checkpoint directory) to the
     driver. Rank 0's checkpoint is the one retained (reference: rank-0
-    upload via StorageContext)."""
+    upload via StorageContext). The process group's gradient all-reduce
+    seconds since the last report go to the step's ``collective_sync``."""
     ctx = get_context()
     _session.iteration = getattr(_session, "iteration", 0) + 1
     # close the telemetry step before the put: the put is reporting
@@ -103,6 +107,11 @@ def report(metrics: dict, *, checkpoint_dir: str | None = None):
     # being stamped
     t = telemetry()
     if t is not None:
+        if ctx.process_group is not None:
+            spent = ctx.process_group.stats["grad_all_reduce_s"]
+            if spent > _session.collective_s:
+                t.add("collective_sync", spent - _session.collective_s)
+            _session.collective_s = spent
         t.on_report(metrics)
     queue = getattr(_session, "queue", None)
     if queue is not None:

@@ -13,7 +13,10 @@ One :class:`StepTelemetry` lives per rank session (created by
 
 - ``session.timeit("data_wait")`` / ``"collective_sync"`` /
   ``"checkpoint"`` / ``"compute"`` context managers accumulate measured
-  wall clock into the CURRENT step's buckets.
+  wall clock into the CURRENT step's buckets; ``StepTelemetry.add``
+  books seconds timed elsewhere (``session.report`` books the process
+  group's gradient all-reduces, timed on the card, into
+  ``collective_sync``).
 - ``session.report(...)`` closes the step: step wall = time since the
   previous report (or since the first instrumented activity, for step
   1). Whatever the explicit buckets did not cover is the residual,
@@ -113,9 +116,15 @@ class StepTelemetry:
         try:
             yield
         finally:
-            dt = time.monotonic() - t0
-            with self._lock:
-                self._buckets[bucket] = self._buckets.get(bucket, 0.0) + dt
+            self.add(bucket, time.monotonic() - t0)
+
+    def add(self, bucket: str, seconds: float) -> None:
+        """Accumulate ``seconds`` timed elsewhere (a device timer's) into
+        ``bucket`` for the current step: a block that ended now, so a
+        first step starts no later than it began."""
+        self._ensure_step_start(time.monotonic() - seconds)
+        with self._lock:
+            self._buckets[bucket] = self._buckets.get(bucket, 0.0) + seconds
 
     def mark_gap(self) -> None:
         """Restart the step clock at 'now', discarding the wall clock
@@ -126,9 +135,9 @@ class StepTelemetry:
         if self._step_start is not None:
             self._step_start = time.monotonic()
 
-    def _ensure_step_start(self) -> float:
+    def _ensure_step_start(self, now: float | None = None) -> float:
         if self._step_start is None:
-            now = time.monotonic()
+            now = time.monotonic() if now is None else now
             self._step_start = now
             self.goodput["init"] += now - self._created
         return self._step_start

@@ -34,9 +34,10 @@ the global mesh's ``dp`` axis spans the processes, one process a ``dp``
 index (the group's rank), and each process drives the other axes on its
 own mesh, as above. ``train_step`` takes the global batch and keeps this
 rank's rows; the loss is the global masked mean (each rank's token count
-is all-reduced first, and its gradients weighted by its share of the
-tokens), and the gradients are summed over the ranks before the update,
-so every rank takes the same step. Before the first step the ranks' states
+is all-reduced first, and its loss, before the backward, weighted by its
+share of the tokens, a float32 scalar on the device), and the gradients
+are summed over the ranks before the update, so every rank takes the same
+step. Before the first step the ranks' states
 are checked equal by checksum. fsdp, tp, sp or pp across processes raise
 ``NotImplementedError``.
 
@@ -67,7 +68,7 @@ from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
                                              device_put, map_trees,
                                              place_tree, replicated,
                                              same_device, tree_shardings)
-from ray_tpu_torch.train import session, spmd
+from ray_tpu_torch.train import spmd
 from ray_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
 from ray_tpu_torch.train.state import TrainState, state_logical_axes
 
@@ -321,7 +322,7 @@ class Trainer:
         placed = self._placed(params, self.state_shardings().params)
         return self._rank_step().loss(placed, self._place_batch(batch))
 
-    def _pp_loss_and_grad(self, params: dict, batch):
+    def _pp_loss_and_grad(self, params: dict, batch, weight=None):
         """1F1B pipelined loss and gradients by chunk
         (``pipeline_value_and_grad`` implements the backward itself: it is
         not differentiated through)."""
@@ -352,7 +353,7 @@ class Trainer:
             inputs.reshape(m, mb, s), targets.reshape(m, mb, s),
             mask.reshape(m, mb, s), mesh=self.mesh, axis=self.pp_axis,
             embed_fn=step.embed_fn(self.pp_axis))
-        weight = weight_sum.clamp(min=1.0)
+        count = weight_sum.clamp(min=1.0)
         grads = {}
         for name, st in io.items():
             for c, g in zip(st.chunks, d_io[name].chunks):
@@ -364,24 +365,28 @@ class Trainer:
                 for place, c in st.distinct():
                     grads[id(c)] = torch.stack(
                         [g.chunks[place] for g in layers])
-        # grads are of loss_sum; mean-loss grads = grads / sum(mask), in
-        # each parameter's dtype (shared chunks share a gradient: once)
+        # grads are of loss_sum; mean-loss grads = grads / sum(mask)
+        # (times ``weight``), in each parameter's dtype (shared chunks
+        # share a gradient: once)
+        divisor = count if weight is None else count / weight
         for g in {id(g): g for g in grads.values()}.values():
-            g.div_(weight)
-        return loss_sum / weight, grads
+            g.div_(divisor)
+        return loss_sum / count, grads
 
-    def _chunk_grads(self, params: dict, batch):
+    def _chunk_grads(self, params: dict, batch, weight=None):
         """The loss and the gradient of every distinct chunk of a placed
-        parameter tree, by ``id(chunk)``."""
+        parameter tree, by ``id(chunk)``; with ``weight`` (a scalar), the
+        gradient of ``weight`` times the loss."""
         chunks = spmd.distinct_chunks(params)
         for c in chunks:
             c.requires_grad_(True)
         if self.pp_axis:
-            return self._pp_loss_and_grad(params, batch)
+            return self._pp_loss_and_grad(params, batch, weight)
         loss = self._rank_step().loss(params, batch)
         # a parameter the loss does not use gets a zero gradient, as jax.grad
-        grads = torch.autograd.grad(loss, chunks, allow_unused=True,
-                                    materialize_grads=True)
+        grads = torch.autograd.grad(
+            loss if weight is None else loss * weight, chunks,
+            allow_unused=True, materialize_grads=True)
         return loss, {id(c): g for c, g in zip(chunks, grads)}
 
     def loss_and_grads(self, params, batch):
@@ -419,19 +424,17 @@ class Trainer:
                             device=self.device))])
                 self._states_checked = True
             batch = self._to_device(self._rank_rows(batch))
-            scale = self._token_share(batch)
+            share = self._token_share(batch)
+        else:
+            share = None
         loss, grads = self._chunk_grads(placed.params,
-                                        self._place_batch(batch))
+                                        self._place_batch(batch), share)
         if pg is not None:
-            loss = pg.all_reduce(loss.detach() * scale)
+            loss = pg.all_reduce(loss.detach() * share)
             # each distinct gradient once (pipeline stages share some)
             distinct = {id(g): g for g in (
                 grads[id(c)] for c in spmd.distinct_chunks(placed.params))}
-            if self.device.type == "cuda":
-                # the backward's kernels are compute, not the collective's
-                torch.cuda.synchronize(self.device)
-            with session.timeit("collective_sync"):
-                pg.all_reduce_grads(list(distinct.values()), scale)
+            pg.all_reduce_grads(list(distinct.values()))
         gnorm = spmd.apply_update(
             self.optimizer, placed.params, grads, state.opt_state,
             (placed.opt_state["mu"], placed.opt_state["nu"]))
@@ -455,18 +458,19 @@ class Trainer:
         per = n // pg.world_size
         return batch[pg.rank * per:(pg.rank + 1) * per]
 
-    def _token_share(self, batch) -> float:
+    def _token_share(self, batch):
         """This rank's share of the global batch's loss weight: its
         unpadded target tokens over every rank's (the token counts
         all-reduced), so that the ranks' weighted means sum to the global
-        masked mean. With the ``loss_fn`` hook, whose weights the trainer
-        cannot see, each rank weighs 1/world."""
+        masked mean; a float32 scalar on the device (no wait for the
+        card). With the ``loss_fn`` hook, whose weights the trainer cannot
+        see, each rank weighs 1/world."""
         pg = self.process_group
         if self.loss_fn is not None:
             return 1.0 / pg.world_size
-        n = (batch[:, 1:] != -1).sum().reshape(1)
+        n = (batch[:, 1:] != -1).sum(dtype=torch.float32)
         total = pg.all_reduce(n.clone())
-        return float(n) / max(float(total), 1.0)
+        return n / total.clamp(min=1.0)
 
     def _batch_shardings(self, batch):
         """Per-leaf data sharding: dim 0 is the batch axis, the rest

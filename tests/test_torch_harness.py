@@ -79,6 +79,11 @@ def _fit(trainer):
     return box["result"]
 
 
+def _cpu(n: int) -> ScalingConfig:
+    """``n`` ranks on the CPU over gloo."""
+    return ScalingConfig(num_workers=n, use_gpu=False)
+
+
 def _run_config(tmp_path, **kw):
     return RunConfig(storage_path=str(tmp_path), **kw)
 
@@ -99,7 +104,7 @@ def test_reports_distinct_ranks_and_dataset_shards(tmp_path):
     once."""
     ids = np.arange(64, dtype=np.int64)
     result = _fit(dpt.DataParallelTrainer(
-        loops.report_loop, scaling_config=ScalingConfig(num_workers=3),
+        loops.report_loop, scaling_config=_cpu(3),
         run_config=_run_config(tmp_path), datasets={"train": {"id": ids}}))
     assert result.error is None
     assert result.metrics["rank"] == 0 and result.metrics["world"] == 3
@@ -119,7 +124,7 @@ def test_reports_distinct_ranks_and_dataset_shards(tmp_path):
 
 def test_failure_config_retries_resume_from_the_last_checkpoint(tmp_path):
     result = _fit(dpt.DataParallelTrainer(
-        loops.flaky_loop, scaling_config=ScalingConfig(num_workers=1),
+        loops.flaky_loop, scaling_config=_cpu(1),
         run_config=_run_config(
             tmp_path, failure_config=FailureConfig(max_failures=1))))
     assert result.error is None
@@ -128,7 +133,7 @@ def test_failure_config_retries_resume_from_the_last_checkpoint(tmp_path):
 
 def test_failure_without_retries_keeps_the_error(tmp_path):
     result = _fit(dpt.DataParallelTrainer(
-        loops.flaky_loop, scaling_config=ScalingConfig(num_workers=1),
+        loops.flaky_loop, scaling_config=_cpu(1),
         run_config=_run_config(tmp_path)))
     assert "transient-failure" in result.error
     assert result.checkpoint_dir.endswith("ckpt_2")
@@ -139,7 +144,7 @@ def test_error_in_one_rank_surfaces_and_no_rank_is_left(tmp_path):
     back with its traceback, and rank 0 is killed (``_fit`` asserts no
     child process is left)."""
     result = _fit(dpt.DataParallelTrainer(
-        loops.error_loop, scaling_config=ScalingConfig(num_workers=2),
+        loops.error_loop, scaling_config=_cpu(2),
         run_config=_run_config(tmp_path)))
     assert result.error is not None
     assert "ValueError: broken loop" in result.error
@@ -161,12 +166,12 @@ def test_a_taken_rendezvous_port_is_retried_once(tmp_path, monkeypatch):
                         if ports else process_group.free_port())
     try:
         result = _fit(dpt.DataParallelTrainer(
-            loops.report_loop, scaling_config=ScalingConfig(num_workers=2),
+            loops.report_loop, scaling_config=_cpu(2),
             run_config=_run_config(tmp_path)))
         assert result.error is None and len(result.metrics_history) == 3
         ports[:] = [taken.getsockname()[1]] * 2
         result = _fit(dpt.DataParallelTrainer(
-            loops.report_loop, scaling_config=ScalingConfig(num_workers=1),
+            loops.report_loop, scaling_config=_cpu(1),
             run_config=_run_config(tmp_path)))
         assert "EADDRINUSE" in result.error
     finally:
@@ -183,11 +188,37 @@ def test_nccl_refuses_two_ranks_per_card_before_any_rank_starts(tmp_path):
         trainer.fit()
     assert multiprocessing.active_children() == []
     with pytest.raises(ValueError, match="needs use_gpu"):
-        WorkerGroup(ScalingConfig(backend="nccl"))
+        WorkerGroup(ScalingConfig(backend="nccl", use_gpu=False))
     with pytest.raises(ValueError, match="unknown backend"):
         WorkerGroup(ScalingConfig(backend="mpi"))
     assert ScalingConfig(use_gpu=True).resolved_backend() == "nccl"
-    assert ScalingConfig().resolved_backend() == "gloo"
+    assert ScalingConfig(use_gpu=False).resolved_backend() == "gloo"
+
+
+def test_the_harness_runs_on_the_card_unless_asked_for_the_cpu(
+        tmp_path, monkeypatch):
+    """As every entry point of the port: a default ScalingConfig asks for
+    the card (nccl), and on a host without one the harness raises before
+    any rank starts, over either backend; no rank falls back to the CPU.
+    Outside a rank the session's context names the card too."""
+    from ray_tpu_torch.parallel.process_group import rank_device
+    from ray_tpu_torch.train import session
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert ScalingConfig().use_gpu
+    assert ScalingConfig().resolved_backend() == "nccl"
+    for scaling in (None, ScalingConfig(num_workers=2, backend="gloo")):
+        trainer = dpt.DataParallelTrainer(
+            loops.report_loop, scaling_config=scaling,
+            run_config=_run_config(tmp_path))
+        with pytest.raises(RuntimeError, match="use_gpu=False"):
+            trainer.fit()
+        assert multiprocessing.active_children() == []
+    with pytest.raises(RuntimeError, match="use_gpu=False"):
+        rank_device(0, True)
+    assert rank_device(1, False) == torch.device("cpu")
+    assert session.TrainContext().device == "cuda"
 
 
 @pytest.mark.parametrize("seq", [
@@ -223,13 +254,13 @@ def test_process_group_collectives(tmp_path):
     bucket, two dtypes), and check_same raising for differing states."""
     shapes = [(3,), (2, 2), (5,), (20,)]
     result = _fit(dpt.DataParallelTrainer(
-        loops.collectives_loop, scaling_config=ScalingConfig(num_workers=2),
+        loops.collectives_loop, scaling_config=_cpu(2),
         train_loop_config={"bucket_bytes": 64, "shapes": shapes},
         run_config=_run_config(tmp_path)))
     assert result.error is None
     outs = _rank_files(tmp_path, "collectives")
     assert len(outs) == 2
-    want_grads = [0.5 * (np.array(a) + np.array(b))
+    want_grads = [np.array(a) + np.array(b)
                   for a, b in zip(outs[0]["mine"], outs[1]["mine"])]
     for r, out in enumerate(outs):
         assert out["sum"] == [3.0, 6.0]
@@ -289,22 +320,25 @@ def _max_err(got: dict, want: dict) -> float:
 
 
 def test_process_group_trainer_matches_single_controller_and_jax(tmp_path):
-    """World 2 over gloo, 2 steps, three cases from one spawn: even rows,
-    padding on rank 1's rows only, and the skipped-all-reduce control.
-    Both ranks end equal; each case's losses and parameters match the
+    """World 2 over gloo, 2 steps, four cases from one spawn: even rows,
+    padding on rank 1's rows only, and two controls on the padded rows:
+    the skipped all-reduce and a mean in place of the sum. Both ranks end
+    equal; each case's losses, gradient norms and parameters match the
     single-controller Trainer on {"dp": 2} and JaxTrainer on {"dp": 2}
-    within 1e-5; the control's parameters are off by more than that."""
+    within 1e-5; each control is off by more than that (the mean only in
+    the gradient norms: the clip and Adam do not see a uniform scale)."""
     jcfg, tcfg = _configs()
     jt = JaxTrainer(jcfg, JaxTrainConfig(**TRAIN_KW), mesh=jax_create_mesh(
         {"dp": 2}, devices=jax.devices()[:2]))
     jstate0 = jt.init_state(jax.random.key(0))
     params_np = jax.tree.map(np.asarray, jstate0.params)
     cases = {"even": _batches(False), "padded": _batches(True),
-             "padded_skip_all_reduce": _batches(True)}
+             "padded_skip_all_reduce": _batches(True),
+             "padded_mean_all_reduce": _batches(True)}
     out = tmp_path / "params"
     out.mkdir()
     result = _fit(dpt.DataParallelTrainer(
-        loops.train_loop, scaling_config=ScalingConfig(num_workers=2),
+        loops.train_loop, scaling_config=_cpu(2),
         train_loop_config={"model_config": tcfg,
                            "train_config": TrainConfig(**TRAIN_KW),
                            "params": params_np, "cases": cases,
@@ -322,26 +356,72 @@ def test_process_group_trainer_matches_single_controller_and_jax(tmp_path):
             tcfg, params_np, device="cpu"), tr.optimizer)
         # JaxTrainer on {"dp": 2}, from the same weights
         jstate = jt.init_state(jax.random.key(0))
-        losses, jlosses = [], []
+        losses, jlosses, norms, jnorms = [], [], [], []
         for batch in batches:
             state, m = tr.train_step(state, batch)
             jstate, jm = jt.train_step(jstate, jnp.asarray(batch))
             losses.append(float(m["loss"]))
             jlosses.append(float(jm["loss"]))
+            norms.append(float(m["grad_norm"]))
+            jnorms.append(float(jm["grad_norm"]))
         single = _flat(state.params)
         jax_params = _flat(jax.tree.map(np.asarray, jstate.params))
-        if "skip" in case:
-            errs[case] = min(_max_err(r, single) for r in ranks)
+        # every rank: its parameters and gradient norms against both
+        # references (the losses are all-reduced, the same for a control)
+        errs[case] = min(max(
+            _max_err(r, single), _max_err(r, jax_params),
+            float(np.abs(r["grad_norms"] - norms).max()),
+            float(np.abs(r["grad_norms"] - jnorms).max())) for r in ranks)
+        if "all_reduce" in case:
             continue
         assert _max_err(ranks[1], ranks[0]) == 0.0, case
+        np.testing.assert_array_equal(ranks[1]["grad_norms"],
+                                      ranks[0]["grad_norms"], err_msg=case)
         np.testing.assert_allclose(ranks[0]["losses"], losses, rtol=0,
                                    atol=1e-5, err_msg=case)
         np.testing.assert_allclose(ranks[0]["losses"], jlosses, rtol=0,
                                    atol=1e-5, err_msg=case)
-        errs[case] = max(_max_err(ranks[0], single),
-                         _max_err(ranks[0], jax_params))
     assert errs["even"] <= 1e-5 and errs["padded"] <= 1e-5, errs
     assert errs["padded_skip_all_reduce"] > 1e-5, errs
+    assert errs["padded_mean_all_reduce"] > 1e-5, errs
+
+
+def test_mesh_trainer_world_2_declares_each_rank_its_rows(tmp_path):
+    """``TorchMeshTrainer`` on two gloo ranks, {"dp": 2}, 2 steps of [4,
+    17] global batches through the device feed (on the CPU): rank 0's
+    losses and gradient norms match the single-controller Trainer on
+    {"dp": 2} from the same seed within 1e-5; each rank declares the
+    FLOPs of its own rows (6 · parameters · 2 · 17, half the global
+    batch's), so a rank's MFU is its own; its telemetry books the
+    gradient all-reduce of every step into ``collective_sync``."""
+    from ray_tpu_torch.train.optim import tree_leaves
+
+    _, tcfg = _configs()
+    tokens = np.random.default_rng(3).integers(0, VOCAB, (8, 17))
+    result = _fit(dpt.TorchMeshTrainer(
+        tcfg, TrainConfig(**TRAIN_KW),
+        train_loop_config={"seed": 0, "steps": 2, "batch_size": 4},
+        scaling_config=_cpu(2), run_config=_run_config(tmp_path),
+        datasets={"train": {"tokens": tokens}}))
+    assert result.error is None, result.error
+    tr = Trainer(tcfg, TrainConfig(**TRAIN_KW), device="cpu",
+                 mesh=create_mesh({"dp": 2}, devices=["cpu"] * 2))
+    state = tr.init_state(seed=0)
+    want = []
+    for batch in (tokens[:4], tokens[4:]):
+        state, m = tr.train_step(state, batch)
+        want.append((float(m["loss"]), float(m["grad_norm"])))
+    got = [(m["loss"], m["grad_norm"]) for m in result.metrics_history]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    n_params = sum(x.numel() for x in tree_leaves(
+        tllama.init_params(tcfg, seed=0, device="cpu")))
+    assert len(result.rank_stats) == 2
+    for stats in result.rank_stats:
+        tel = stats["telemetry"]
+        assert tel["flops_per_step"] == 6.0 * n_params * 2 * 17
+        assert stats["process_group"]["grad_all_reduces"] == 2
+        assert [h["stages"]["collective_sync"] > 0
+                for h in tel["history"]] == [True, True]
 
 
 def test_local_axes_span_dp_only():

@@ -169,7 +169,8 @@ from ray_tpu_torch.air.config import RunConfig, ScalingConfig
 from ray_tpu_torch.train.data_parallel_trainer import DataParallelTrainer
 with tempfile.TemporaryDirectory() as d:
     result = DataParallelTrainer(
-        modules_loop, scaling_config=ScalingConfig(num_workers=2),
+        modules_loop,
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
         run_config=RunConfig(storage_path=d)).fit()
 print(json.dumps({**here, "rank": result.metrics, "error": result.error}))
 """

@@ -55,6 +55,30 @@ def _drive(tel, clock, flops):
     return stamps
 
 
+def test_add_books_seconds_timed_elsewhere(monkeypatch):
+    """``add`` (the process group's all-reduce, timed on the card) books
+    into the step like ``timeit``; as the first activity it starts the
+    step where its block began, so the stages still sum to the wall."""
+    clock = _Clock()
+    monkeypatch.setattr(time, "monotonic", clock)
+    tel = ttel.StepTelemetry(run="r", rank=0, world_size=2)
+    clock.advance(3.0)
+    tel.add("collective_sync", 2.0)
+    clock.advance(1.0)
+    stamp = tel.on_report()
+    assert stamp["wall_s"] == 3.0
+    assert stamp["stages"] == {"collective_sync": 2.0, "compile": 1.0}
+    assert tel.goodput["init"] == 1.0 and tel.goodput["stall"] == 2.0
+    with tel.timeit("data_wait"):
+        clock.advance(0.5)
+    tel.add("collective_sync", 0.25)
+    clock.advance(1.0)
+    stamp = tel.on_report()
+    assert stamp["wall_s"] == 1.5
+    assert stamp["stages"] == {"data_wait": 0.5, "collective_sync": 0.25,
+                               "compute": 0.75}
+
+
 @pytest.mark.parametrize("flops", [2e12, 7.5e11])
 def test_step_telemetry_matches_jax(monkeypatch, flops):
     clock = _Clock()

@@ -69,8 +69,8 @@ def error_loop(config):
     ctx = session.get_context()
     if ctx.rank == 1:
         raise ValueError("broken loop")
-    ctx.process_group.barrier()
-    ctx.process_group.barrier()
+    ctx.process_group.all_reduce(torch.zeros(1))
+    ctx.process_group.all_reduce(torch.zeros(1))
 
 
 def modules_loop(config):
@@ -112,7 +112,7 @@ def collectives_loop(config):
              for s in config["shapes"]]
     grads.append(torch.from_numpy(rng.standard_normal(7)).double())
     want = [g.clone() for g in grads]
-    pg.all_reduce_grads(grads, scale=0.5)
+    pg.all_reduce_grads(grads)
     out["grads"] = [g.tolist() for g in grads]
     out["mine"] = [g.tolist() for g in want]
     out["stats"] = pg.stats
@@ -132,8 +132,10 @@ def train_loop(config):
     """``Trainer`` over this rank's process group from the shared numpy
     weights, ``len(batches)`` steps for each case of ``config["cases"]``
     (name -> global batches); each case's losses and final parameters go
-    to ``<out>/<case>_rank<r>.npz``. A case named ``*skip_all_reduce*``
-    runs with the gradient all-reduce made a no-op: the control."""
+    to ``<out>/<case>_rank<r>.npz``. The controls: a case named
+    ``*skip_all_reduce*`` runs with the gradient all-reduce made a no-op,
+    one named ``*mean_all_reduce*`` with the summed gradients divided by
+    the world size (a mean in place of the sum)."""
     torch.set_num_threads(1)
     from ray_tpu_torch import convert
     from ray_tpu_torch.parallel.process_group import ProcessGroup
@@ -148,11 +150,16 @@ def train_loop(config):
         params = convert.params_from_numpy(
             config["model_config"], config["params"], device="cpu")
         state = TrainState.create(params, tr.optimizer)
-        skip = "skip_all_reduce" in case
         real = ProcessGroup.all_reduce_grads
-        if skip:
-            ProcessGroup.all_reduce_grads = lambda self, grads, scale=1.0: \
-                None
+
+        def mean(self, grads):
+            real(self, grads)
+            for g in grads:
+                g.div_(self.world_size)
+        if "skip_all_reduce" in case:
+            ProcessGroup.all_reduce_grads = lambda self, grads: None
+        elif "mean_all_reduce" in case:
+            ProcessGroup.all_reduce_grads = mean
         try:
             losses, norms = [], []
             for batch in batches:
