@@ -25,7 +25,13 @@ trained through the trainer's loss hook (no kernel runs there), ViT-L/16
 in float32 (forward and Adam steps), the last two also held against the
 CPU at depth 2, and Mixtral 8x7B at depths 16, 2 and 4 (the forward and
 gradient against reference attention with the routing held fixed, AdamW
-steps). Then the multi-process train harness, each phase spawning rank
+steps). The tensor-parallel paths run on {fsdp 2, tp 2} of this card:
+Llama-3-8B's gradient and steps with the vocabulary cut over tp through
+the loss, GPT-2 XL at full depth (its gradient at depth 2 against the
+one-card trainer's, then steps) and BERT-large's steps through the hook;
+Mixtral's depth-16 forward over a tree placed by ``moe`` on {fsdp 2,
+ep 2, tp 2} against the one-place forward. Then the multi-process train
+harness, each phase spawning rank
 processes over torch.distributed: Llama-3-8B at full depth through
 TorchMeshTrainer on one NCCL rank fed by the device feed (its losses
 against the one-process trainer's), two ranks on this card over gloo at
@@ -289,6 +295,12 @@ def check_flash(torch, peaks):
         # GPT-2 XL's training step: an odd head count, a group of one
         ("gpt2_xl_train", 8, 25, 25, 1024, 1024, 64, torch.bfloat16, True,
          True),
+        # GPT-2 XL's tp-2 ranks at fsdp 2 (tp_gpt): four rows a data rank,
+        # its 25 heads as 13 and 12
+        ("gpt2_xl_tp2_13", 4, 13, 13, 1024, 1024, 64, torch.bfloat16, True,
+         True),
+        ("gpt2_xl_tp2_12", 4, 12, 12, 1024, 1024, 64, torch.bfloat16, True,
+         True),
         ("d256_gqa2", 1, 4, 2, 1024, 1024, 256, torch.bfloat16, True, True),
         # edge cases: ragged tails, sq != skv, a short d 256
         ("ragged_d128", 1, 2, 2, 200, 200, 128, torch.bfloat16, True, True),
@@ -471,8 +483,9 @@ def check_flash_bwd(torch, peaks):
     second time: dK and dV, summed in registers, must come out bitwise
     equal, and dQ, summed across CTAs in a float32 buffer in an order that
     changes from run to run, within the limit of the first run; then it is
-    timed, as is the non-causal case (b 1, s 2048, h 32, hk 8, d 128: a
-    ring step off the diagonal). Returns the timed rows by name: the main
+    timed, as are the non-causal case (b 1, s 2048, h 32, hk 8, d 128: a
+    ring step off the diagonal) and the tp-2 ranks' shapes of Llama-3-8B
+    and GPT-2 XL. Returns the timed rows by name: the main
     shape (b 2, s 2048, h 32, hk 8, d 128, bf16, causal: the shape
     Llama-3-8B's training step gives it), GPT-2 XL's (b 8, s 1024, h 25,
     hk 25, d 64) and the ring step's."""
@@ -494,6 +507,8 @@ def check_flash_bwd(torch, peaks):
         ("llama3_8b_tp2", 1, 16, 4, 2048, 128, torch.bfloat16, True),
         ("d64_gqa1", 2, 8, 8, 1024, 64, torch.bfloat16, True),
         ("gpt2_xl_train", 8, 25, 25, 1024, 64, torch.bfloat16, True),
+        ("gpt2_xl_tp2_13", 4, 13, 13, 1024, 64, torch.bfloat16, True),
+        ("gpt2_xl_tp2_12", 4, 12, 12, 1024, 64, torch.bfloat16, True),
         ("d256_gqa2", 1, 4, 2, 1024, 256, torch.bfloat16, True),
         ("f32_small", 1, 4, 2, 384, 128, torch.float32, True),
         ("f32_ragged_d256", 1, 2, 1, 200, 256, torch.float32, True),
@@ -527,8 +542,9 @@ def check_flash_bwd(torch, peaks):
             raise AssertionError(
                 f"flash_bwd {name}: row rel err {errs} (tol {row_tol[dt]})")
         with_controls = name in ("llama3_8b_train", "gpt2_xl_train")
-        is_timed = with_controls or name in ("llama3_8b_noncausal",
-                                             "llama3_8b_tp2")
+        is_timed = with_controls or name in (
+            "llama3_8b_noncausal", "llama3_8b_tp2", "gpt2_xl_tp2_13",
+            "gpt2_xl_tp2_12")
         if with_controls:
             check_flash_bwd_controls(torch, name, qt, kt, vt, dot, lse,
                                      delta, want, row_tol[dt])
@@ -1641,10 +1657,14 @@ def counted_grads(torch, trainer, params, batch, want_counts):
 
 def check_placed_grad(torch, cfg, params):
     """The fsdp_tp gradient on {fsdp 2, tp 2} (four ranks of this card:
-    each data rank one row, each tp rank 16 q and 4 kv heads) against the
-    one-card gradient, at full width and depth 2 on [2, 2049], remat
-    ``full``, the fused loss. Controls: a tp block without the psum
-    after wo, and an fsdp gather with two chunks swapped."""
+    each data rank one row, each tp rank 16 q and 4 kv heads and half the
+    vocabulary, the head never gathered over tp) against the one-card
+    gradient, at full width and depth 2 on [2, 2049], remat ``full``, the
+    fused loss. Controls: a tp block without the psum after wo, fsdp
+    gathers along a weight's rows with two chunks swapped (a swap in every
+    gather permutes the model dimension alike in every weight, which the
+    function cannot see), and the vocab-parallel loss without the exp-sum
+    over the tp ranks."""
     import dataclasses
 
     from ray_tpu_torch.parallel import collectives
@@ -1666,26 +1686,24 @@ def check_placed_grad(torch, cfg, params):
     loss, got, counts = counted_grads(
         torch, placed, params2, batch,
         {"flash_fwd": 2 * depth * ranks, "flash_bwd": depth * ranks})
-    controls = {}
-    orig = spmd.reduce_attention
-    spmd.reduce_attention = lambda parts: parts
-    try:
-        controls["no_psum_after_wo"] = dict(named_leaves(
-            placed.loss_and_grads(params2, batch)[1]))
-    finally:
-        spmd.reduce_attention = orig
-
-    def swapped(xs, **kwargs):
+    def swapped(xs, gather_axis=0, **kwargs):
         xs = list(xs)
-        xs[0], xs[1] = xs[1], xs[0]
-        return collectives.all_gather(xs, **kwargs)
-    orig = spmd.all_gather
-    spmd.all_gather = swapped
-    try:
-        controls["fsdp_gather_chunks_swapped"] = dict(named_leaves(
-            placed.loss_and_grads(params2, batch)[1]))
-    finally:
-        spmd.all_gather = orig
+        if gather_axis == 0:
+            xs[0], xs[1] = xs[1], xs[0]
+        return collectives.all_gather(xs, gather_axis=gather_axis, **kwargs)
+    controls = {}
+    for name, attr, fault in (
+            ("no_psum_after_wo", "reduce_attention", lambda parts: parts),
+            ("fsdp_row_gather_chunks_swapped", "all_gather", swapped),
+            ("exp_sum_not_psummed_over_tp", "reduce_vocab",
+             lambda parts: parts)):
+        orig = getattr(spmd, attr)
+        setattr(spmd, attr, fault)
+        try:
+            controls[name] = dict(named_leaves(
+                placed.loss_and_grads(params2, batch)[1]))
+        finally:
+            setattr(spmd, attr, orig)
     grads_against(torch, "fsdp_tp", got, want, controls,
                   config="llama3_8b", n_layers=depth, tokens=[2, 2049],
                   mesh=PLACED_AXES, against="one_card", loss=loss,
@@ -2328,7 +2346,121 @@ def check_gpt(torch, peaks) -> dict:
         raise AssertionError(f"gpt2_xl launches in one step {step_counts}, "
                              f"expected {want}")
     check_losses("gpt2_xl", losses, cfg.vocab_size)
-    return {"forward": fwd_counts, "train_step_full": step_counts}
+    return {"forward": fwd_counts, "train_step_full": step_counts,
+            "median_step_s": step_s}
+
+
+def gpt_tp_rules():
+    """``fsdp_tp`` with the vocabulary whole, the rules of GPT-2 XL's tp
+    phase: JAX itself cannot cut GPT-2's 50257 entries over tp 2 (its
+    ``device_put`` refuses a dimension that does not divide, jax 0.9.0),
+    so the tied embedding is cut over fsdp only and the tp blocks cut
+    the heads and the MLP."""
+    from ray_tpu_torch.parallel.sharding import FSDP_TP_RULES
+
+    return FSDP_TP_RULES.with_overrides(vocab=None)
+
+
+def head_aligned_qkv(d, head_dim, heads):
+    """The fault of reading GPT's fused qkv as Megatron's head-aligned
+    layout, ``[q_h | k_h | v_h]`` head by head (``spmd.qkv_columns``'s
+    signature): JAX's is ``[q | k | v]``, cut into contiguous chunks."""
+    return [[[(3 * h * head_dim + t * head_dim,
+               3 * h * head_dim + (t + 1) * head_dim) for h in range(a, z)]
+             for a, z in heads] for t in range(3)]
+
+
+def check_tp_gpt(torch, peaks, one_card_step_s) -> dict:
+    """gpt2_xl() at full width under fsdp_tp on {fsdp 2, tp 2}, every
+    place on this card (``gpt_tp_rules``: each data rank four rows, its tp
+    ranks 13 and 12 of the 25 heads): the gradient at depth 2 on [8, 1025]
+    against the one-card trainer's (controls: the fused qkv read as
+    head-aligned, no psum after wo), then 3 trainer steps at full depth
+    and remat "full" beside ``check_gpt``'s one-card step. Returns the
+    launch counts of the gradient and of a step."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import spmd
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg, rules = gpt.gpt2_xl(), gpt_tp_rules()
+    params = gpt.init_params(cfg, seed=SEED, device="cuda")
+    b, s, depth, ranks = 8, 1024, 2, 4
+    batch = train_batch(cfg, b, s, SEED + 5)
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    params2 = first_layers(params, depth)
+    one = Trainer(cfg2, TrainConfig())
+    placed = Trainer(cfg2, TrainConfig(mesh_axes=PLACED_AXES,
+                                       strategy=rules))
+    ref_loss, want, ref_counts = counted_grads(
+        torch, one, params2, batch, {"flash_fwd": 2 * depth,
+                                     "flash_bwd": depth})
+    loss, got, grad_counts = counted_grads(
+        torch, placed, params2, batch,
+        {"flash_fwd": 2 * depth * ranks, "flash_bwd": depth * ranks})
+    controls = {}
+    for name, attr, fault in (
+            ("qkv_chunk_read_as_head_aligned", "qkv_columns",
+             head_aligned_qkv),
+            ("no_psum_after_wo", "reduce_attention", lambda parts: parts)):
+        orig = getattr(spmd, attr)
+        setattr(spmd, attr, fault)
+        try:
+            controls[name] = dict(named_leaves(
+                placed.loss_and_grads(params2, batch)[1]))
+        finally:
+            setattr(spmd, attr, orig)
+    grads_against(torch, "gpt2_xl_fsdp_tp", got, want, controls,
+                  config="gpt2_xl", n_layers=depth, tokens=[b, s + 1],
+                  mesh=PLACED_AXES, rules="fsdp_tp, vocab=None",
+                  heads_per_tp_rank=[13, 12], against="one_card",
+                  loss=loss, reference_loss=ref_loss, launches=grad_counts,
+                  reference_launches=ref_counts)
+    for _, t in named_leaves(params2):
+        t.requires_grad_(False)
+    del params2, got, want, controls
+    free_card(torch)
+
+    steps, L = 3, cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, TrainConfig(mesh_axes=PLACED_AXES, strategy=rules,
+                                       warmup_steps=1))
+    # the plain state, placed as views by train_step
+    state = TrainState.create(params, trainer.optimizer)
+    losses, times, norms, counts = [], [], [], []
+    for _ in range(steps):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))   # synchronizes
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        counts.append(launch_counts())
+    step_s = float(np.median(times[1:]))
+    n_matmul = sum(params["blocks"][k].numel() for k in
+                   ("wqkv", "wo", "w_up", "w_down")) + \
+        params["embedding"].numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    want_counts = {"flash_fwd": 2 * L * ranks, "flash_bwd": L * ranks}
+    emit("placed_train", name="gpt2_xl_fsdp_tp", config="gpt2_xl",
+         n_layers=L, tokens=[b, s + 1], mesh=PLACED_AXES,
+         strategy="fsdp_tp, vocab=None", remat=cfg.remat, steps=steps,
+         losses=losses, grad_norms=norms, step_s=times,
+         median_step_s=step_s, one_card_median_step_s=one_card_step_s,
+         tokens_per_s=b * s / step_s, flops_per_step=flops,
+         mfu=flops / step_s / peaks[0],
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         launches=counts, want_launches=want_counts)
+    check_losses("gpt2_xl fsdp_tp", losses, cfg.vocab_size)
+    if any(c != want_counts for c in counts):
+        raise AssertionError(f"gpt2_xl fsdp_tp launches per step {counts}, "
+                             f"want {want_counts}")
+    del state, trainer, params
+    free_card(torch)
+    return {"grad": grad_counts, "train_step": counts[-1]}
 
 
 def to_cpu(tree):
@@ -2389,18 +2521,44 @@ def check_bert(torch, peaks) -> dict:
     import dataclasses
 
     from ray_tpu_torch.models import bert
-    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+    from ray_tpu_torch.train.trainer import TrainConfig
 
     cfg = bert.bert_large()
-    b, s, steps = 8, 512, 4
+    losses, counts = bert_steps(torch, cfg, TrainConfig(warmup_steps=1),
+                                name="bert_large")
 
-    def mlm(model_cfg, params, batch):
-        return bert.mlm_loss(model_cfg, params, batch["tokens"],
-                             batch["targets"],
-                             attention_mask=batch["attention_mask"],
-                             loss_mask=batch["loss_mask"])
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    small = mlm_batch(cfg2, 2, 512, SEED + 7)
+    card_against_cpu(
+        torch, "bert_large_depth2_f32",
+        lambda p, t, mask, types: bert.encode(
+            cfg2, p, t, attention_mask=mask, token_type_ids=types),
+        bert.init_params(cfg2, seed=SEED + 1, device="cuda"),
+        (small["tokens"], small["attention_mask"], small["token_type_ids"]))
+    return {"train_step": counts, "losses": losses}
 
-    trainer = Trainer(cfg, TrainConfig(warmup_steps=1), loss_fn=mlm)
+
+def mlm_hook(model_cfg, params, batch):
+    """The trainer's ``loss_fn`` for BERT: ``bert.mlm_loss`` on an
+    ``mlm_batch``."""
+    from ray_tpu_torch.models import bert
+
+    return bert.mlm_loss(model_cfg, params, batch["tokens"],
+                         batch["targets"],
+                         attention_mask=batch["attention_mask"],
+                         loss_mask=batch["loss_mask"])
+
+
+def bert_steps(torch, cfg, train_cfg, *, name, steps=4):
+    """4 trainer steps of ``cfg`` through ``mlm_hook`` from
+    ``init_state(seed=SEED)`` on the [8, 512] ``mlm_batch`` of seed
+    SEED + 6: attention is non-causal with segment ids, so no kernel may
+    launch; the losses finite and falling. Returns the losses and the
+    launch counts of the steps."""
+    from ray_tpu_torch.train.trainer import Trainer
+
+    b, s = 8, 512
+    trainer = Trainer(cfg, train_cfg, loss_fn=mlm_hook)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(seed=SEED)
     batch = mlm_batch(cfg, b, s, SEED + 6)
@@ -2414,27 +2572,42 @@ def check_bert(torch, peaks) -> dict:
         times.append(time.perf_counter() - t0)
     counts = launch_counts()
     step_s = float(np.median(times[1:]))
-    emit("train", config="bert_large", n_layers=cfg.n_layers, tokens=[b, s],
-         remat=cfg.remat, loss="mlm_loss through loss_fn", steps=steps,
-         losses=losses, step_s=times, median_step_s=step_s,
-         tokens_per_s=b * s / step_s,
+    emit("train", config="bert_large", name=name, n_layers=cfg.n_layers,
+         tokens=[b, s], mesh=train_cfg.mesh_axes,
+         strategy=str(train_cfg.strategy), remat=cfg.remat,
+         loss="mlm_loss through loss_fn", steps=steps, losses=losses,
+         step_s=times, median_step_s=step_s, tokens_per_s=b * s / step_s,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
          launches=counts)
     if counts != {"flash_fwd": 0, "flash_bwd": 0}:
-        raise AssertionError(f"bert_large launched kernels {counts}")
+        raise AssertionError(f"{name} launched kernels {counts}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
-        raise AssertionError(f"bert_large losses {losses}")
+        raise AssertionError(f"{name} losses {losses}")
     del state, trainer
     free_card(torch)
+    return losses, counts
 
-    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
-    small = mlm_batch(cfg2, 2, s, SEED + 7)
-    card_against_cpu(
-        torch, "bert_large_depth2_f32",
-        lambda p, t, mask, types: bert.encode(
-            cfg2, p, t, attention_mask=mask, token_type_ids=types),
-        bert.init_params(cfg2, seed=SEED + 1, device="cuda"),
-        (small["tokens"], small["attention_mask"], small["token_type_ids"]))
+
+def check_tp_bert(torch, one_place_losses) -> dict:
+    """bert_large() at full width and depth under fsdp_tp on {fsdp 2,
+    tp 2} through the mlm_loss hook (which sees the gathered parameters),
+    from the same init and batch as ``check_bert``'s one-place trainer:
+    its 4 losses within 1e-2 relative of those, and falling."""
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    tol = 1e-2
+    losses, counts = bert_steps(
+        torch, bert.bert_large(), TrainConfig(
+            mesh_axes=PLACED_AXES, strategy="fsdp_tp", warmup_steps=1),
+        name="bert_large_fsdp_tp")
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, one_place_losses)]
+    emit("tp_bert", config="bert_large", mesh=PLACED_AXES,
+         strategy="fsdp_tp", losses=losses,
+         one_place_losses=one_place_losses, loss_rel_errs=errs, tol=tol)
+    if max(errs) > tol:
+        raise AssertionError(f"bert_large fsdp_tp losses {losses} against "
+                             f"the one-place trainer's {one_place_losses}")
     return {"train_step": counts}
 
 
@@ -2568,6 +2741,108 @@ class Routing:
             n = idx.flatten().bincount(minlength=cfg.n_experts)
             out.append(float((n - cap).clamp(min=0).sum()) / (t * cfg.top_k))
         return out
+
+
+class CallRouting(Routing):
+    """``Routing`` keyed by the order of the router's calls (it wraps
+    ``ops.moe._top_k`` alone): the forward over a placed tree gathers
+    each layer's router (no ``moe_ffn``, no router tensor to key by) and
+    routes it once over the global tokens, as the one-place forward does,
+    so without autograd the n-th call of both is layer n."""
+
+    def __enter__(self):
+        from ray_tpu_torch.ops import moe
+
+        orig_top_k = moe._top_k
+
+        def top_k(probs, k):
+            n = len(self.choice)
+            if self.replay is not None:
+                idx = self.replay.choice[n]
+                self.choice[n] = idx
+                return probs.gather(-1, idx), idx
+            vals, idx = orig_top_k(probs, k)
+            self.choice[n] = idx
+            return vals, idx
+
+        moe._top_k = top_k
+        self._restore = lambda: setattr(moe, "_top_k", orig_top_k)
+        return self
+
+
+EP_AXES = {"fsdp": 2, "ep": 2, "tp": 2}
+
+
+def mixtral_placed(torch, cfg, params) -> dict:
+    """The forward over a tree placed by ``moe`` (experts over ep) on
+    {fsdp 2, ep 2, tp 2}, every place on this card
+    (``spmd.placed_forward``), on [2, 2048], against the one-place
+    forward with the routing fixed to the one-place run's: logits and aux
+    loss within the family bound. Each data rank one row, its tp ranks 16
+    q and 4 kv heads (K1 at [1, 16, 4, 2048, 128]), each ep place 4
+    experts with half their mlp. Control: the experts' outputs returned
+    from the wrong ep place. The natural routing's error and flips are
+    reported. Returns the placed forward's launch counts."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.parallel.sharding import MOE_RULES, shard_tree
+    from ray_tpu_torch.train import spmd
+
+    mesh = create_mesh(EP_AXES, devices=[torch.device("cuda")] * 8)
+    placed = shard_tree(params, mixtral.param_logical_axes(cfg), mesh,
+                        MOE_RULES)
+    tokens = train_batch(cfg, 2, 2047, SEED + 14)    # [2, 2048]
+    tol = FAMILY_FORWARD_TOL
+
+    def run():
+        return spmd.placed_forward(mixtral, cfg, placed, tokens, mesh=mesh,
+                                   rules=MOE_RULES, return_aux_loss=True)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CallRouting() as one:
+            want, want_aux = mixtral.forward(cfg, params, tokens,
+                                             return_aux_loss=True)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        zero_counts()
+        t0 = time.perf_counter()
+        with CallRouting(one):
+            got, aux = run()
+        torch.cuda.synchronize()
+        placed_s = time.perf_counter() - t0
+        counts = launch_counts()
+        err = rel_rms(got, want)
+        aux_err = abs(float(aux) - float(want_aux)) / abs(float(want_aux))
+        shape_ok = got.shape == want.shape and bool(torch.isfinite(got).all())
+        del got
+        orig = spmd.gather_experts
+        spmd.gather_experts = lambda xs, **kw: orig(xs[::-1], **kw)
+        try:
+            with CallRouting(one):
+                bad = rel_rms(run()[0], want)
+        finally:
+            spmd.gather_experts = orig
+        with CallRouting() as natural:
+            natural_err = rel_rms(run()[0], want)
+    want_counts = {"flash_fwd": 4 * cfg.n_layers, "flash_bwd": 0}
+    emit("ep_placed_forward", config="mixtral_8x7b", n_layers=cfg.n_layers,
+         tokens=[2, 2048], mesh=EP_AXES, strategy="moe", routing="fixed",
+         logits_rel_rms_err=err, aux_loss=float(aux),
+         one_place_aux_loss=float(want_aux), aux_rel_err=aux_err, tol=tol,
+         experts_from_wrong_ep_place_rel_rms_err=bad,
+         natural_routing_logits_rel_rms_err=natural_err,
+         routing_flip_share=one.flips(natural), placed_forward_s=placed_s,
+         one_place_forward_s=one_s, launches=counts,
+         want_launches=want_counts)
+    if not (shape_ok and err <= tol < bad and aux_err <= tol) or \
+            counts != want_counts:
+        raise AssertionError(
+            f"mixtral placed forward under moe: rel err {err}, aux rel err "
+            f"{aux_err} (tol {tol}; the wrong-ep-place control must exceed "
+            f"it: {bad}); launches {counts}, want {want_counts}")
+    del want, placed
+    return counts
 
 
 def fixed_routing(recorded):
@@ -2705,7 +2980,8 @@ def mixtral_train(torch, cfg, params, batch):
 def check_mixtral(torch, peaks) -> dict:
     """mixtral_8x7b() at full width (46.7 B parameters do not fit the
     card's 80 GB at 32 layers): the forwards at depth 16 and 2, the
-    gradient at depth 2 on [2, 2049] (``mixtral_forwards``,
+    depth-16 forward over the tree placed by ``moe``, the gradient at
+    depth 2 on [2, 2049] (``mixtral_forwards``, ``mixtral_placed``,
     ``mixtral_grad``), then three AdamW steps at depth 4 on a copy of the
     first four layers, once the depth-16 weights are gone."""
     import dataclasses
@@ -2719,6 +2995,9 @@ def check_mixtral(torch, peaks) -> dict:
     emit("init", config="mixtral_8x7b", n_layers=cfg.n_layers,
          params=mixtral.num_params(params), seconds=time.perf_counter() - t0)
     forward_counts = mixtral_forwards(torch, cfg, params)
+    free_card(torch)
+    placed_counts = mixtral_placed(torch, cfg, params)
+    free_card(torch)
     batch = train_batch(cfg, 2, 2048, SEED + 10)
     grad_counts = mixtral_grad(torch, cfg, params, batch)
     depth = 4
@@ -2731,7 +3010,8 @@ def check_mixtral(torch, peaks) -> dict:
                   batch)
     del params4
     free_card(torch)
-    return {"forward": forward_counts, "grad": grad_counts}
+    return {"forward": forward_counts, "grad": grad_counts,
+            "placed_forward": placed_counts}
 
 
 def build_facts(kernels_mod, name, path, kernel) -> dict:
@@ -2911,7 +3191,12 @@ def main() -> int:
     # card's memory (Mixtral at reduced depth)
     gpt_counts = check_gpt(torch, peaks)
     free_card(torch)
+    # the tensor-parallel blocks of GPT-2 XL and BERT-large on {fsdp 2,
+    # tp 2} of this card, each beside its one-card run above (Mixtral's
+    # expert-parallel forward runs inside check_mixtral)
+    tp_gpt_counts = check_tp_gpt(torch, peaks, gpt_counts["median_step_s"])
     bert_counts = check_bert(torch, peaks)
+    tp_bert_counts = check_tp_bert(torch, bert_counts["losses"])
     vit_counts = check_vit(torch)
     mixtral_counts = check_mixtral(torch, peaks)
 
@@ -2921,10 +3206,17 @@ def main() -> int:
                    "gpt2_xl_forward": gpt_counts["forward"][k],
                    "gpt2_xl_train_step_full":
                        gpt_counts["train_step_full"][k],
+                   "gpt2_xl_fsdp_tp_grad_depth2": tp_gpt_counts["grad"][k],
+                   "gpt2_xl_fsdp_tp_train_step_full":
+                       tp_gpt_counts["train_step"][k],
                    "bert_large_train_step": bert_counts["train_step"][k],
+                   "bert_large_fsdp_tp_train_step":
+                       tp_bert_counts["train_step"][k],
                    "vit_l16_step": vit_counts["steps"][k],
                    "mixtral_forward": mixtral_counts["forward"][k],
                    "mixtral_grad": mixtral_counts["grad"][k],
+                   "mixtral_ep_placed_forward_depth16":
+                       mixtral_counts["placed_forward"][k],
                    "ring_fwd_bwd_causal_sp4": ring_counts["causal"][k],
                    "ring_fwd_bwd_noncausal_sp4": ring_counts["noncausal"][k],
                    "ring_grad_depth2": ring_grad_counts[k],
@@ -2963,12 +3255,14 @@ def main() -> int:
             "shape", "kernel_ms", "library_ms", "bound_ms", "bound_by",
             "tflops", "max_err", "row_rel_err", "lse_err")},
         # non-causal with lse at an sp-4 chunk of 8K: a ring step off the
-        # diagonal; d 256; a tp-2 rank of the fsdp_tp trainer
+        # diagonal; d 256; a tp-2 rank of the fsdp_tp trainer (and of
+        # Mixtral's placed forward); GPT-2 XL's tp-2 ranks
         **{f"{case}_shape": {k: fwd_rows[case][k] for k in (
             "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "tflops", "max_err", "row_rel_err", "lse_err")}
            for case in ("ring_chunk_noncausal_lse", "d256_gqa2",
-                        "llama3_8b_tp2")},
+                        "llama3_8b_tp2", "gpt2_xl_tp2_13",
+                        "gpt2_xl_tp2_12")},
         "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
     }]
     # K2 and K3 are one fused kernel: each TPU kernel keeps its entry,
@@ -3001,7 +3295,11 @@ def main() -> int:
                for label, row in (("gpt2_xl", bwd_gpt2_case),
                                   ("ring_step_noncausal",
                                    bwd_rows["llama3_8b_noncausal"]),
-                                  ("tp2_rank", bwd_rows["llama3_8b_tp2"]))},
+                                  ("tp2_rank", bwd_rows["llama3_8b_tp2"]),
+                                  ("gpt2_xl_tp2_13",
+                                   bwd_rows["gpt2_xl_tp2_13"]),
+                                  ("gpt2_xl_tp2_12",
+                                   bwd_rows["gpt2_xl_tp2_12"]))},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)

@@ -48,6 +48,7 @@ from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.norms import rms_norm
 from ray_tpu_torch.ops.rope import apply_rope, rope_sin_cos
+from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.ring_attention import ring_attention
 
 
@@ -346,51 +347,91 @@ def lm_head_weights(cfg, params) -> torch.Tensor:
             else params["lm_head"])
 
 
+def _target_logits(logits: list, targets, offsets) -> list:
+    """Each row's logit at its target, from logits cut along the vocab
+    (piece ``i`` holds columns from ``offsets[i]``): each piece's own
+    where it holds the target, zero elsewhere, summed over the pieces."""
+    out = []
+    for x, off in zip(logits, offsets):
+        local = targets.to(x.device) - off
+        own = (local >= 0) & (local < x.shape[-1])
+        out.append(torch.where(
+            own, x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])
+            [..., 0], 0.0))
+    return collectives.psum(out)
+
+
+def _offsets(heads) -> list:
+    widths = [h.shape[-1] for h in heads]
+    return [sum(widths[:i]) for i in range(len(widths))]
+
+
 class _FusedCrossEntropy(torch.autograd.Function):
     """Mean cross-entropy over rows x [n, d] against the head [d, vocab],
-    one chunk of rows at a time. The forward keeps each row's log-sum-exp
-    (n floats) and no logits; the backward recomputes a chunk's logits,
-    turns them into their gradient in place and runs the two transposed
-    products, summing the head's gradient over chunks in its own dtype."""
+    one chunk of rows at a time. The head may come cut along the vocab:
+    ``pieces`` is (x, head piece) pairs, piece ``i`` on its own device
+    holding the next columns, and the log-sum-exp combines the pieces'
+    with ``reduce`` (``collectives.logsumexp``), so no piece is gathered.
+    The forward keeps each row's log-sum-exp (n floats a piece) and no
+    logits; the backward recomputes a chunk's logits, turns them into
+    their gradient in place and runs the two transposed products, summing
+    each head piece's gradient over chunks in its own dtype."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, mask, chunk, z_loss):
-        n = x.shape[0]
-        lse = torch.empty(n, dtype=torch.float32, device=x.device)
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
+    def forward(ctx, targets, mask, chunk, z_loss, reduce, *pieces):
+        xs, heads = pieces[0::2], pieces[1::2]
+        offsets = _offsets(heads)
+        n = xs[0].shape[0]
+        lses = [torch.empty(n, dtype=torch.float32, device=x.device)
+                for x in xs]
+        total = torch.zeros((), dtype=torch.float32, device=xs[0].device)
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
-            logits = matmul_f32(x[c0:c1], head)
-            lse[c0:c1] = torch.logsumexp(logits, dim=-1)
-            nll = lse[c0:c1] - logits.gather(1, targets[c0:c1, None])[:, 0]
+            logits = [matmul_f32(x[c0:c1], h) for x, h in zip(xs, heads)]
+            for out, lse in zip(lses, collectives.logsumexp(logits,
+                                                            reduce=reduce)):
+                out[c0:c1] = lse
+            lse = lses[0][c0:c1]
+            nll = lse - _target_logits(logits, targets[c0:c1], offsets)[0]
             if z_loss > 0.0:
-                nll = nll + z_loss * lse[c0:c1].square()
+                nll = nll + z_loss * lse.square()
             total += (nll * mask[c0:c1]).sum()
         count = mask.sum().clamp(min=1.0)
-        ctx.save_for_backward(x, head, targets, mask, lse, count)
-        ctx.chunk, ctx.z_loss = chunk, z_loss
+        ctx.save_for_backward(targets, mask, count, *pieces, *lses)
+        ctx.chunk, ctx.z_loss, ctx.n_pieces = chunk, z_loss, len(xs)
         return total / count
 
     @staticmethod
     def backward(ctx, g):
-        x, head, targets, mask, lse, count = ctx.saved_tensors
-        n = x.shape[0]
+        targets, mask, count, *rest = ctx.saved_tensors
+        k = ctx.n_pieces
+        pieces, lses = rest[:2 * k], rest[2 * k:]
+        xs, heads = pieces[0::2], pieces[1::2]
+        n = xs[0].shape[0]
         # d loss / d logits of row i = w_i ((1 + 2 z lse_i) softmax_i - onehot_i)
         w = mask * (g / count)
-        dx = torch.empty_like(x)
-        dhead = torch.zeros_like(head)
-        for c0 in range(0, n, ctx.chunk):
-            c1 = min(c0 + ctx.chunk, n)
-            grad = matmul_f32(x[c0:c1], head)
-            grad.sub_(lse[c0:c1, None]).exp_()
-            coef = w[c0:c1] * (1.0 + 2.0 * ctx.z_loss * lse[c0:c1])
-            grad.mul_(coef[:, None])
-            rows = torch.arange(c1 - c0, device=x.device)
-            grad[rows, targets[c0:c1]] -= w[c0:c1]
-            grad = grad.to(x.dtype)
-            dx[c0:c1] = grad @ head.T
-            dhead.addmm_(x[c0:c1].T, grad)
-        return dx, dhead, None, None, None, None
+        grads = []
+        for x, head, lse, off in zip(xs, heads, lses, _offsets(heads)):
+            dev = x.device
+            wk, tk = w.to(dev), targets.to(dev) - off
+            own = (tk >= 0) & (tk < head.shape[-1])
+            tk = tk.clamp(0, head.shape[-1] - 1)
+            dx = torch.empty_like(x)
+            dhead = torch.zeros_like(head)
+            for c0 in range(0, n, ctx.chunk):
+                c1 = min(c0 + ctx.chunk, n)
+                grad = matmul_f32(x[c0:c1], head)
+                grad.sub_(lse[c0:c1, None]).exp_()
+                coef = wk[c0:c1] * (1.0 + 2.0 * ctx.z_loss * lse[c0:c1])
+                grad.mul_(coef[:, None])
+                rows = torch.arange(c1 - c0, device=dev)
+                # the target's one-hot, on the piece that holds it
+                grad[rows, tk[c0:c1]] -= wk[c0:c1] * own[c0:c1]
+                grad = grad.to(x.dtype)
+                dx[c0:c1] = grad @ head.T
+                dhead.addmm_(x[c0:c1].T, grad)
+            grads += [dx, dhead]
+        return (None,) * 5 + tuple(grads)
 
 
 def fused_cross_entropy(cfg, params, hidden, targets, *, mask=None,
@@ -401,13 +442,40 @@ def fused_cross_entropy(cfg, params, hidden, targets, *, mask=None,
     vocab / chunk times less logits memory). hidden [b, s, d] from
     ``forward_hidden``; targets [b, s] int (-1 = padding); mask [b, s] in
     {0, 1}, by default ``targets >= 0``."""
-    head = lm_head_weights(cfg, params)
-    n = hidden.shape[0] * hidden.shape[1]
+    return vocab_parallel_cross_entropy(
+        [hidden], [lm_head_weights(cfg, params)], targets, mask=mask,
+        chunk=chunk, z_loss=z_loss)
+
+
+def vocab_parallel_cross_entropy(hiddens: list, heads: list, targets, *,
+                                 mask=None, chunk: int | None = 1024,
+                                 z_loss: float = 0.0,
+                                 reduce=collectives.psum):
+    """The mean cross-entropy against an LM head cut along the vocab over
+    ranks, none of it gathered: rank ``i`` holds ``hiddens[i]`` [b, s, d]
+    (one tensor, on each rank's device) and ``heads[i]`` [d, V_i], the
+    next V_i columns of the head. Each rank computes its float32 logits;
+    the log-sum-exp sums the ranks' exponentials with ``reduce``, and the
+    target's logit comes from the rank that holds it. ``chunk`` rows at a
+    time as ``fused_cross_entropy`` (the same function for one rank), or
+    the whole logits under autograd with ``chunk=None``. targets [b, s]
+    int (-1 = padding); mask as ``fused_cross_entropy``'s. The loss is on
+    the first rank's device."""
+    n = targets.numel()
     flat = targets.reshape(n)
     mk = ((flat >= 0) if mask is None else mask.reshape(n)).float()
-    return _FusedCrossEntropy.apply(hidden.reshape(n, -1), head,
-                                    flat.clamp(min=0).long(), mk, chunk,
-                                    float(z_loss))
+    flat = flat.clamp(min=0).long()
+    xs = [h.reshape(n, -1) for h in hiddens]
+    if chunk is not None:
+        return _FusedCrossEntropy.apply(
+            flat, mk, chunk, float(z_loss), reduce,
+            *(t for pair in zip(xs, heads) for t in pair))
+    logits = [matmul_f32(x, h) for x, h in zip(xs, heads)]
+    lse = collectives.logsumexp(logits, reduce=reduce)[0]
+    nll = lse - _target_logits(logits, flat, _offsets(heads))[0]
+    if z_loss > 0.0:
+        nll = nll + z_loss * lse.square()
+    return (nll * mk).sum() / mk.sum().clamp(min=1.0)
 
 
 def cross_entropy_loss(logits, targets, *, mask=None,

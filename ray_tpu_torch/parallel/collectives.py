@@ -139,6 +139,42 @@ def all_to_all(xs: list, *, split_axis: int, concat_axis: int,
                       dim=concat_axis) for j in range(n)]
 
 
+def regroup(xs: list, have: list, want: list, *, dim: int = -1) -> list:
+    """Ranges of one index space moved between ranks: chunk ``i`` holds
+    indices ``have[i]`` (a ``(start, stop)`` range) along ``dim``; rank
+    ``j`` gets the ranges ``want[j]`` (a list of them, joined in order),
+    assembled from the pieces of the chunks that overlap them, on rank
+    ``j``'s device. The uneven counterpart of a tiled ``all_to_all``
+    (GSPMD's reshard between two cuts of one dimension)."""
+    out = []
+    for j, ranges in enumerate(want):
+        pieces = []
+        for lo, hi in ranges:
+            got = [x.narrow(dim, max(lo, a) - a, min(hi, b) - max(lo, a))
+                   .to(xs[j].device)
+                   for x, (a, b) in zip(xs, have) if max(lo, a) < min(hi, b)]
+            if sum(p.shape[dim] for p in got) != hi - lo:
+                raise ValueError(f"the ranges {have} do not cover "
+                                 f"{(lo, hi)}")
+            pieces += got
+        out.append(pieces[0] if len(pieces) == 1
+                   else torch.cat(pieces, dim=dim))
+    return out
+
+
+def logsumexp(xs: list, *, reduce=psum) -> list:
+    """The log-sum-exp over the last axis of a tensor cut along it, chunk
+    ``i`` on rank ``i``: each rank's own, combined with ``reduce`` (the
+    sum over the ranks) of their exponentials about the ranks' detached
+    maximum. The result does not depend on the shift, so its gradient,
+    ``exp(x - lse)`` on each chunk, needs none through the maximum. One
+    chunk gives ``torch.logsumexp`` exactly."""
+    local = [torch.logsumexp(x, dim=-1) for x in xs]
+    top = pmax([v.detach() for v in local])
+    sums = reduce([torch.exp(v - m) for v, m in zip(local, top)])
+    return [m + torch.log(s) for m, s in zip(top, sums)]
+
+
 def axis_index(xs: list) -> list:
     """Each rank's index along the axis."""
     return list(range(len(xs)))

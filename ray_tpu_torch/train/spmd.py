@@ -1,5 +1,7 @@
 """The per-rank training step on a placed state: by hand, what GSPMD does
-in ``JaxTrainer._step`` (``ray_tpu/train/trainer.py:308``).
+in ``JaxTrainer._step`` (``ray_tpu/train/trainer.py:308``), and the
+forward over a placed tree (``placed_forward``: what
+``jax.jit(family.forward)`` runs on a tree placed by ``shard_tree``).
 
 In JAX the state lives placed on the mesh and ``jit`` with GSPMD inserts
 the collectives. The port is single-controller (``parallel.mesh``): this
@@ -15,22 +17,51 @@ move back.
   is all-gathered before use (``_Gathers``), and its gradient comes back
   cut. Ranks of one gather group share its result (one tensor on one
   card).
-- **The per-layer gathers of Llama run inside the remat'd block**
+- **The per-layer gathers run inside the remat'd block**
   (``llama.remat_block``), so the backward gathers again, as FSDP does:
   under ``full`` remat no gathered layer outlives its layer (at
   Llama-3-8B, keeping the gathered weights of all 32 layers until the
   backward would not fit beside the 64 GB state).
-- **tp (Llama).** Megatron, as ``TP_RULES`` place the weights: ``wq``,
-  ``wk`` and ``wv`` are cut by q heads and kv heads, ``w_gate`` and
-  ``w_up`` by ``mlp``, so each tp rank runs attention on its own
-  ``n_heads/tp`` q heads and ``n_kv_heads/tp`` kv heads (the flash
-  kernels at those head counts); ``wo`` and ``w_down`` are cut on their
-  input dimension and their outputs are ``psum``med over tp. The
-  vocab-cut embedding and LM head are all-gathered before use, as fsdp
-  leaves are (a vocab-parallel loss is later work). GPT and BERT have no
-  tp block yet.
+- **tp, Llama and Mixtral.** Megatron, as ``TP_RULES`` place the
+  weights: ``wq``, ``wk`` and ``wv`` are cut by q heads and kv heads,
+  ``w_gate`` and ``w_up`` by ``mlp``, so each tp rank runs attention on
+  its own ``n_heads/tp`` q heads and ``n_kv_heads/tp`` kv heads (the
+  flash kernels at those head counts; the heads must divide over tp);
+  ``wo`` and ``w_down`` are cut on their input dimension and their
+  outputs are ``psum``med over tp.
+- **tp, GPT and BERT.** The fused ``wqkv`` [d, 3d] is cut into
+  contiguous column chunks of ``[q | k | v]``, which need not hold whole
+  heads (at ``gpt_tiny`` on tp 2, chunk 0 is all of q and half of k), and
+  ``wo``'s rows into chunks that may split a head. So each rank runs the
+  column-parallel qkv product on its chunk, the columns move to whole
+  heads per rank (``collectives.regroup``; the first ``n_heads % tp``
+  ranks take one head more: GPT-2 XL's 25 run as 13 and 12 on tp 2),
+  attention runs on those heads, the output moves to the column range of
+  the rank's rows of ``wo``, and the row-parallel product is ``psum``med
+  with ``bo`` added after the sum. The MLP is column-parallel ``w_up``
+  and ``b_up``, GELU, row-parallel ``w_down``, the ``psum``, ``b_down``.
+  One helper serves GPT's pre-LN and BERT's post-LN order.
+- **The vocabulary stays cut over tp** where the rules cut it there: the
+  embedding lookup runs on each tp rank's vocab range (zero outside it)
+  and the rows are ``psum``med (``reduce_embed``); the loss computes
+  each rank's float32 logits against its piece of the head (or of the
+  tied embedding) and combines them in the log-sum-exp
+  (``collectives.logsumexp``, its exp-sums ``reduce_vocab``), the
+  target's logit from its owner rank, in the dense loss, the chunked one
+  (``llama.vocab_parallel_cross_entropy``) and the 1F1B ``head_fn``. The
+  head and the embedding are gathered over fsdp, never over tp.
+- **Mixtral's experts over ep** (``MOE_RULES``). The router's float32
+  logits of every data rank are gathered and routed once, so capacity
+  (``capacity_factor·T·k/E``), queue positions and the aux loss are over
+  the global tokens, as ``moe_ffn`` on ``h.reshape(b*s, d)`` is under
+  GSPMD. Each data rank sums its tokens into every expert's capacity
+  slots in float32; each ep place adds those partials for its own
+  ``E/ep`` experts, rounds them once to the model's dtype and runs only
+  its experts' products, their ``mlp`` cut over tp and ``psum``med in
+  float32 (``_expert_ffn``, ``reduce_mlp``); the experts' outputs come
+  back to the data ranks (``gather_experts``) for the combine.
 - **Replicated work is done once.** What every rank of an axis computes
-  alike in JAX (the embedding lookup and the loss over the tp ranks, all
+  alike in JAX (the embedding's positions, the loss's final norm, all
   work over an axis that cuts neither the batch nor a weight) runs once,
   at the axis' first rank. Under ring attention the ranks of the
   sequence axis run the attention (``parallel.ring_attention`` on the
@@ -54,21 +85,33 @@ from functools import partial
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from ray_tpu_torch.models import llama
+from ray_tpu_torch.models import bert, gpt, llama, mixtral
+from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.matmul import matmul_f32
-from ray_tpu_torch.ops.norms import rms_norm
+from ray_tpu_torch.ops.moe import router_topk
+from ray_tpu_torch.ops.norms import layer_norm, rms_norm
 from ray_tpu_torch.ops.rope import rope_sin_cos
-from ray_tpu_torch.parallel.collectives import all_gather, psum
+from ray_tpu_torch.parallel.collectives import (all_gather, psum,
+                                                regroup)
 from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import (ShardedTensor, _axes_of,
                                              batch_sharding, device_put)
 from ray_tpu_torch.train.optim import tree_leaves
 
-# the two sums of a tensor-parallel block, after wo and after w_down
-# (module attributes, so a fault check can replace one)
+# the sums and exchanges of the per-rank blocks (module attributes, so a
+# fault check can replace one): after wo, after w_down (and the experts'
+# down products), the vocab-parallel log-sum-exp's exp-sums, the
+# vocab-parallel embedding's rows, and the experts' outputs from the ep
+# places back to the data ranks
 reduce_attention = psum
 reduce_mlp = psum
+reduce_vocab = psum
+reduce_embed = psum
+gather_experts = all_gather
+
+_EXPERT_LEAVES = ("wi_gate", "wi_up", "wo_e")
 
 
 def _flat(mesh: Mesh, coords: tuple) -> int:
@@ -147,10 +190,53 @@ def unbind_layers(st: ShardedTensor) -> list:
             for i in range(st.shape[0])]
 
 
+def head_ranges(n_heads: int, n: int) -> list:
+    """The heads of each of ``n`` tp ranks, as (first, stop): whole heads,
+    the first ``n_heads % n`` ranks one more (GSPMD cuts the fused qkv's
+    columns without regard to heads, so the count need not divide)."""
+    sizes = [n_heads // n + (r < n_heads % n) for r in range(n)]
+    return [(sum(sizes[:r]), sum(sizes[:r + 1])) for r in range(n)]
+
+
+def _even(width: int, n: int) -> list:
+    return [(r * width // n, (r + 1) * width // n) for r in range(n)]
+
+
+def qkv_columns(d: int, head_dim: int, heads: list) -> list:
+    """Each tp rank's columns of q, k and v in the fused ``[q | k | v]``
+    space of ``wqkv`` (GPT's and BERT's layout): its heads' columns in
+    each third, as ``regroup`` ranges (a fault check may replace it)."""
+    return [[[(off + a * head_dim, off + z * head_dim)] for a, z in heads]
+            for off in (0, d, 2 * d)]
+
+
+def _lookup(pieces: list, tokens) -> list:
+    """Each rank's rows of an embedding cut along the vocab (piece ``i``
+    the next rows): the token's row where the rank holds it, zero
+    elsewhere."""
+    out, off = [], 0
+    for e in pieces:
+        local = tokens.to(e.device) - off
+        own = (local >= 0) & (local < e.shape[0])
+        out.append(torch.where(own[..., None],
+                               e[local.clamp(0, e.shape[0] - 1)], 0.0))
+        off += e.shape[0]
+    return out
+
+
+def _expert_ffn(x, w_gate, w_up, w_down):
+    """One ep place's experts on their capacity slots x [e, C, d], with
+    its columns of ``mlp``: SwiGLU rounded to x's dtype, then the float32
+    partial of the down product (``moe_ffn``'s arithmetic)."""
+    h = (F.silu(matmul_f32(x, w_gate)) * matmul_f32(x, w_up)).to(x.dtype)
+    return matmul_f32(h, w_down)
+
+
 class RankStep:
     """The loss of one step over the ranks of a mesh, from a placed
     parameter tree (``ShardedTensor`` leaves). ``loss(params, batch)``
-    is differentiable in every chunk; ``stage_fn``, ``embed_fn`` and
+    is differentiable in every chunk; ``forward`` runs the family's
+    forward (``placed_forward``); ``stage_fn``, ``embed_fn`` and
     ``head_fn`` are the 1F1B pipeline's, for Llama."""
 
     def __init__(self, family, cfg, mesh: Mesh, rules, *, attn_impl="auto",
@@ -162,23 +248,27 @@ class RankStep:
         self.fused_loss, self.loss_chunk = fused_loss, loss_chunk
         self.loss_fn = loss_fn
         self.tp = tp_axis(mesh, rules)
+        # the vocabulary stays cut where the rules cut it over the tp axis
+        self.vocab_tp = self.tp is not None and \
+            wide_axis(mesh, rules.vocab) == self.tp
+        self.ep = wide_axis(mesh, rules.expert) if family is mixtral \
+            else None
         self.data_axes = tuple(
             a for a in _axes_of(batch_sharding(mesh, rules, 2,
                                                shard_seq=False).spec[0])
             if mesh.shape[a] > 1)
-        if self.tp is not None:
-            n = mesh.shape[self.tp]
-            if family is not llama:
-                raise NotImplementedError(
-                    f"{family.__name__} has no tensor-parallel block yet "
-                    f"(a {self.tp} axis of {n}): it comes with slice 9 of "
-                    "the port (ROADMAP Queue A item 3); dp and fsdp work")
+        if self.tp is None:
+            return
+        n = mesh.shape[self.tp]
+        if family in (llama, mixtral):
             if cfg.n_heads % n or cfg.n_kv_heads % n:
                 raise ValueError(f"{cfg.n_heads} q and {cfg.n_kv_heads} kv "
                                  f"heads do not divide over {self.tp}={n}")
             self.tp_cfg = dataclasses.replace(
                 cfg, n_heads=cfg.n_heads // n,
                 n_kv_heads=cfg.n_kv_heads // n)
+        else:
+            self.heads = head_ranges(cfg.n_heads, n)
 
     # --- the ranks ---
 
@@ -202,14 +292,23 @@ class RankStep:
             out.append(places)
         return out
 
+    def expert_places(self, mesh: Mesh) -> list:
+        """Each ep index's tp places, the data axes at 0 (one group of
+        every expert when the rules cut no expert over a wide axis)."""
+        n_ep = mesh.shape[self.ep] if self.ep else 1
+        n_tp = mesh.shape[self.tp] if self.tp else 1
+        return [[tuple({self.ep: i, self.tp: t}.get(a, 0)
+                       for a in mesh.axis_names) for t in range(n_tp)]
+                for i in range(n_ep)]
+
     def chunks_of(self, placed: ShardedTensor, units: list) -> list:
         """A batch placed by ``batch_sharding``: the chunk at each data
         rank's first place."""
         return [placed.chunks[_flat(self.mesh, p[0])] for p in units]
 
     def cut(self, x: torch.Tensor, units: list) -> list:
-        """``x`` (a pipeline microbatch) cut over the data ranks as
-        ``batch_sharding`` cuts a batch."""
+        """``x`` (a pipeline microbatch, a forward's tokens) cut over the
+        data ranks as ``batch_sharding`` cuts a batch."""
         return self.chunks_of(device_put(x, batch_sharding(
             self.mesh, self.rules, x.dim(), shard_seq=False)), units)
 
@@ -223,7 +322,7 @@ class RankStep:
             grid[i] = d
         return Mesh(grid, (self.sp_axis,))
 
-    # --- Llama ---
+    # --- the layers ---
 
     def _rope(self, s: int, devices) -> dict:
         out = {}
@@ -235,111 +334,256 @@ class RankStep:
                                              theta=self.cfg.rope_theta)
         return out
 
-    def _layer(self, xs_units, layer: dict, *, mesh, units, rope):
+    def _layer(self, xs_units, layer: dict, *, mesh, units, rope,
+               segments):
         """One transformer block on every rank: each rank's weights
         gathered (all but tp) inside the call, the tp ranks' partial sums
-        psummed."""
+        psummed. Returns the ranks' activations and Mixtral's aux loss
+        (None for the dense families)."""
         g = _Gathers()
         keep = (self.tp,) if self.tp else ()
         out = []
+        for places, xs, seg in zip(units, xs_units, segments):
+            ps = [{n: g.local(st, c, keep) for n, st in layer.items()
+                   if n not in _EXPERT_LEAVES} for c in places]
+            if self.family in (gpt, bert):
+                out.append(self._fused_qkv_block(xs, ps, seg))
+            else:
+                out.append(self._llama_block(mesh, places, xs, ps, rope))
+        if self.family is not mixtral:
+            return out, None
+        return self._moe(g, layer, mesh, units, out)
+
+    def _llama_block(self, mesh, places, xs, ps, rope):
+        """Llama's block, or Mixtral's attention sublayer (its MoE comes
+        after, over every data rank), on one data rank's tp places."""
+        moe = self.family is mixtral
+        ring = [dict(mesh=self._ring_mesh(mesh, c), sp_axis=self.sp_axis)
+                for c in places]
+        sc = [rope[str(x.device)] for x in xs]
+        if len(places) == 1:
+            block = llama.attention_sublayer if moe else llama._block
+            return [block(self.cfg, xs[0], ps[0], *sc[0], None,
+                          self.attn_impl, **ring[0])]
+        parts = [llama.attention_out(self.tp_cfg, x, p, *sin_cos, None,
+                                     self.attn_impl, **r)
+                 for x, p, sin_cos, r in zip(xs, ps, sc, ring)]
+        xs = [x + y for x, y in zip(xs, reduce_attention(parts))]
+        if moe:
+            return xs
+        parts = [llama.mlp_out(self.cfg, x, p) for x, p in zip(xs, ps)]
+        return [x + y for x, y in zip(xs, reduce_mlp(parts))]
+
+    def _fused_qkv_block(self, xs, ps, seg):
+        """GPT's pre-LN or BERT's post-LN block on one data rank's tp
+        places (see the module docstring)."""
+        cfg, family = self.cfg, self.family
+        if len(xs) == 1:
+            return [family._block(cfg, xs[0], ps[0], seg, self.attn_impl)]
+        post = family is bert
+        d, hd, n = cfg.d_model, cfg.head_dim, len(xs)
+        b, s, _ = xs[0].shape
+
+        def norm(x, p, i):
+            return layer_norm(x, p[f"ln{i}_w"], p[f"ln{i}_b"],
+                              eps=cfg.ln_eps)
+
+        hs = xs if post else [norm(x, p, 1) for x, p in zip(xs, ps)]
+        qkv = [h @ p["wqkv"] + p["bqkv"] for h, p in zip(hs, ps)]
+        q, k, v = (regroup(qkv, _even(3 * d, n), want)
+                   for want in qkv_columns(d, hd, self.heads))
+        outs = [attention(*(t.reshape(b, s, -1, hd) for t in qkv_r),
+                          causal=not post, segment_ids=seg,
+                          impl=self.attn_impl).reshape(b, s, -1)
+                for qkv_r in zip(q, k, v)]
+        outs = regroup(outs, [(a * hd, z * hd) for a, z in self.heads],
+                       [[r] for r in _even(d, n)])
+        parts = reduce_attention([o @ p["wo"] for o, p in zip(outs, ps)])
+        xs = [x + y + p["bo"] for x, y, p in zip(xs, parts, ps)]
+        if post:
+            xs = [norm(x, p, 1) for x, p in zip(xs, ps)]
+        hs = xs if post else [norm(x, p, 2) for x, p in zip(xs, ps)]
+        ups = [F.gelu(h @ p["w_up"] + p["b_up"], approximate="tanh")
+               for h, p in zip(hs, ps)]
+        parts = reduce_mlp([u @ p["w_down"] for u, p in zip(ups, ps)])
+        xs = [x + y + p["b_down"] for x, y, p in zip(xs, parts, ps)]
+        return [norm(x, p, 2) for x, p in zip(xs, ps)] if post else xs
+
+    def _moe(self, g: _Gathers, layer: dict, mesh, units, xs_units):
+        """Mixtral's MoE sublayer over every data rank: global routing,
+        each ep place its own experts (see the module docstring).
+        Returns the ranks' activations and the layer's aux loss."""
+        cfg = self.cfg
+        keep = (self.tp,) if self.tp else ()
+        e, d = cfg.n_experts, cfg.d_model
+        hs, logits = [], []
         for places, xs in zip(units, xs_units):
-            ps = [{n: g.local(st, c, keep) for n, st in layer.items()}
-                  for c in places]
-            ring = [dict(mesh=self._ring_mesh(mesh, c),
-                         sp_axis=self.sp_axis) for c in places]
-            sc = [rope[str(x.device)] for x in xs]
-            if len(places) == 1:
-                out.append([llama._block(self.cfg, xs[0], ps[0], *sc[0],
-                                         None, self.attn_impl, **ring[0])])
-                continue
-            parts = [llama.attention_out(self.tp_cfg, x, p, *sin_cos, None,
-                                         self.attn_impl, **r)
-                     for x, p, sin_cos, r in zip(xs, ps, sc, ring)]
-            xs = [x + y for x, y in zip(xs, reduce_attention(parts))]
-            parts = [llama.mlp_out(self.cfg, x, p) for x, p in zip(xs, ps)]
-            out.append([x + y for x, y in zip(xs, reduce_mlp(parts))])
-        return out
+            h = rms_norm(xs[0], g.local(layer["mlp_norm"], places[0], keep),
+                         eps=cfg.rms_eps).reshape(-1, d)
+            hs.append(h)
+            logits.append(h.float() @ g.local(layer["router"], places[0],
+                                              keep).float())
+        home = hs[0].device
+        rows = np.cumsum([0] + [h.shape[0] for h in hs])
+        capacity = max(1, int(cfg.capacity_factor * int(rows[-1])
+                              * cfg.top_k / e))
+        dispatch, combine, aux = router_topk(
+            torch.cat([x.to(home) for x in logits]), top_k=cfg.top_k,
+            capacity=capacity)
+        dtype = hs[0].dtype
+        # each data rank's tokens into every expert's slots, float32
+        partials = [matmul_f32(
+            dispatch[a:z].to(h.device, dtype).reshape(z - a, -1).T, h)
+            for h, a, z in zip(hs, rows[:-1], rows[1:])]
+        groups = self.expert_places(mesh)
+        slots = e // len(groups) * capacity
+        keep = tuple(a for a in (self.ep, self.tp) if a)
+        outs = []
+        for i, group in enumerate(groups):
+            dev = mesh.devices[group[0]]
+            total = None
+            for part in partials:
+                piece = part[i * slots:(i + 1) * slots].to(dev)
+                total = piece if total is None else total + piece
+            x = total.to(dtype).reshape(-1, capacity, d)
+            parts = [_expert_ffn(x.to(mesh.devices[c]),
+                                 *(g.local(layer[n], c, keep)
+                                   for n in _EXPERT_LEAVES))
+                     for c in group]
+            outs.append(reduce_mlp(parts)[0].to(dtype))
+        expert_out = gather_experts(outs, gather_axis=0)[0] \
+            .reshape(-1, d)
+        out = []
+        for places, xs, a, z in zip(units, xs_units, rows[:-1], rows[1:]):
+            x = xs[0]
+            y = matmul_f32(combine[a:z].to(x.device, dtype).reshape(z - a, -1),
+                           expert_out.to(x.device)).to(dtype)
+            x = x + y.reshape(x.shape)
+            out.append([x.to(mesh.devices[c]) for c in places])
+        return out, aux
 
     def run_layers(self, blocks: dict, xs_units: list, units: list,
-                   mesh: Mesh) -> list:
+                   mesh: Mesh, segments=None) -> tuple:
         """Every layer of ``blocks`` (placed stacked tensors, or lists of
         one placed tensor per layer) over the ranks, each through the
-        config's remat policy."""
+        config's remat policy; ``segments`` each data rank's attention
+        segment ids (BERT's padding mask). Returns the ranks' activations
+        and the layers' aux losses (Mixtral; empty otherwise)."""
         rope = self._rope(xs_units[0][0].shape[1],
-                          [x.device for xs in xs_units for x in xs])
+                          [x.device for xs in xs_units for x in xs]) \
+            if self.family in (llama, mixtral) else None
         per_layer = {n: st if isinstance(st, list) else unbind_layers(st)
                      for n, st in blocks.items()}
         body = llama.remat_block(self.cfg, partial(
-            self._layer, mesh=mesh, units=units, rope=rope))
+            self._layer, mesh=mesh, units=units, rope=rope,
+            segments=segments or [None] * len(units)),
+            self.family.REMAT_POLICIES)
         n_layers = len(next(iter(per_layer.values())))
+        aux = []
         for i in range(n_layers):
-            xs_units = body(xs_units, {n: ls[i] for n, ls in
-                                       per_layer.items()})
-        return xs_units
+            xs_units, a = body(xs_units, {n: ls[i] for n, ls in
+                                          per_layer.items()})
+            if a is not None:
+                aux.append(a)
+        return xs_units, aux
 
-    def _embed(self, g: _Gathers, embedding: ShardedTensor, tokens: list,
-               units: list, mesh: Mesh) -> list:
-        """Each data rank's embedded tokens, on each of its tp ranks."""
+    # --- the embedding and the head ---
+
+    def _embed(self, g: _Gathers, params: dict, tokens: list, units: list,
+               mesh: Mesh, types=None) -> list:
+        """Each data rank's embedded tokens, on each of its tp ranks: the
+        lookup cut over the vocab where the rules cut it there, then (gpt,
+        bert) the positions, bert's token types and LayerNorm, once at
+        the data rank's first place."""
+        cfg, emb = self.cfg, params["embedding"]
         out = []
-        for places, tok in zip(units, tokens):
-            emb = g.local(embedding, places[0])
-            x = emb[tok.to(emb.device)]
+        for k, (places, tok) in enumerate(zip(units, tokens)):
+            if self.vocab_tp:
+                x = reduce_embed(_lookup([g.local(emb, c, (self.tp,))
+                                          for c in places], tok))[0]
+            else:
+                table = g.local(emb, places[0])
+                x = table[tok.to(table.device)]
+            if self.family in (gpt, bert):
+                s = tok.shape[1]
+                if s > cfg.max_seq_len:
+                    raise ValueError(f"sequence length {s} exceeds "
+                                     f"max_seq_len={cfg.max_seq_len}")
+                x = x + g.local(params["pos_embedding"], places[0])[:s][None]
+            if self.family is bert:
+                if types is not None:
+                    x = x + g.local(params["type_embedding"], places[0])[
+                        types[k].to(x.device)]
+                x = layer_norm(x, g.local(params["emb_ln_w"], places[0]),
+                               g.local(params["emb_ln_b"], places[0]),
+                               eps=cfg.ln_eps)
             out.append([x.to(_device(mesh, c)) for c in places])
         return out
 
-    def _head(self, g: _Gathers, params: dict, places: list) -> torch.Tensor:
-        name = "embedding" if self.cfg.tie_embeddings else "lm_head"
-        w = g.local(params[name], places[0])
-        return w.T if self.cfg.tie_embeddings else w
+    def _final_norm(self, g: _Gathers, params: dict, x, place):
+        if self.family is gpt:
+            return layer_norm(x, g.local(params["final_ln_w"], place),
+                              g.local(params["final_ln_b"], place),
+                              eps=self.cfg.ln_eps)
+        return rms_norm(x, g.local(params["final_norm"], place),
+                        eps=self.cfg.rms_eps)
 
-    def llama_loss(self, params: dict, batch: ShardedTensor):
-        cfg, mesh = self.cfg, self.mesh
+    def _head(self, g: _Gathers, params: dict, place, keep=()):
+        """The LM head [d, vocab] at ``place``: ``lm_head``, or the tied
+        embedding transposed; with ``keep=(tp,)`` that place's vocab
+        piece."""
+        if "lm_head" in params:
+            return g.local(params["lm_head"], place, keep)
+        return g.local(params["embedding"], place, keep).T
+
+    def _vocab_places(self, places: list) -> tuple:
+        """The places that hold the head's vocab pieces, and the axes their
+        pieces keep: every tp place where the rules cut the vocab over tp,
+        else the data rank's first place with the head whole."""
+        if self.vocab_tp:
+            return places, (self.tp,)
+        return places[:1], ()
+
+    def _logits(self, g: _Gathers, params: dict, places: list, h):
+        """One data rank's float32 logits [b, s, vocab], each vocab piece
+        computed at its place, joined on the first."""
+        places, keep = self._vocab_places(places)
+        return torch.cat([matmul_f32(h.to(_device(self.mesh, c)),
+                                     self._head(g, params, c, keep))
+                          .to(h.device) for c in places], dim=-1)
+
+    def _loss(self, g: _Gathers, params: dict, places: list, h, targets,
+              mask, fused: bool):
+        """The mean masked cross-entropy of one data rank, chunked when
+        ``fused``: vocab-parallel over its tp places where the rules cut
+        the vocab there (the head never gathered over tp)."""
+        places, keep = self._vocab_places(places)
+        return llama.vocab_parallel_cross_entropy(
+            [h.to(_device(self.mesh, c)) for c in places],
+            [self._head(g, params, c, keep) for c in places], targets,
+            mask=mask, chunk=self.loss_chunk if fused else None,
+            reduce=reduce_vocab)
+
+    # --- the losses ---
+
+    def lm_loss(self, params: dict, batch: ShardedTensor):
+        """The next-token loss of Llama or GPT: each data rank runs its
+        chunk of the batch through the embedding, the layers and the
+        head; the ranks' masked sums combine as the global mean."""
+        mesh = self.mesh
         units = self.units(mesh)
         chunks = self.chunks_of(batch, units)
         g = _Gathers()
-        xs = self._embed(g, params["embedding"], [c[:, :-1] for c in chunks],
-                         units, mesh)
-        xs = self.run_layers(params["blocks"], xs, units, mesh)
+        xs = self._embed(g, params, [c[:, :-1] for c in chunks], units,
+                         mesh)
+        xs, _ = self.run_layers(params["blocks"], xs, units, mesh)
         parts = []
         for places, x, c in zip(units, xs, chunks):
             targets = c[:, 1:].to(x[0].device)
             mask = (targets != -1).float()
-            h = rms_norm(x[0], g.local(params["final_norm"], places[0]),
-                         eps=cfg.rms_eps)
-            head = self._head(g, params, places)
-            if self.fused_loss:
-                # lm_head_weights of this tree is the gathered head
-                io = {"embedding": head.T} if cfg.tie_embeddings \
-                    else {"lm_head": head}
-                loss = llama.fused_cross_entropy(
-                    cfg, io, h, targets, mask=mask, chunk=self.loss_chunk)
-            else:
-                loss = llama.cross_entropy_loss(
-                    matmul_f32(h, head), targets.clamp(min=0), mask=mask)
-            parts.append((loss, mask.sum()))
-        return _combine(parts)
-
-    # --- the other families, and the loss_fn hook ---
-
-    def _gathered(self, g: _Gathers, params, coords: tuple):
-        if isinstance(params, dict):
-            return {k: self._gathered(g, v, coords)
-                    for k, v in params.items()}
-        return g.local(params, coords)
-
-    def family_loss(self, params: dict, batch: ShardedTensor):
-        """A causal LM other than Llama: each data rank runs the family's
-        forward on its chunk with the parameters gathered."""
-        units = self.units(self.mesh)
-        g = _Gathers()
-        parts = []
-        for places, c in zip(units, self.chunks_of(batch, units)):
-            inputs, targets = c[:, :-1], c[:, 1:]
-            mask = (targets != -1).float()
-            logits = self.family.forward(
-                self.cfg, self._gathered(g, params, places[0]), inputs)
-            parts.append((llama.cross_entropy_loss(
-                logits, targets.clamp(min=0), mask=mask), mask.sum()))
+            h = self._final_norm(g, params, x[0], places[0])
+            parts.append((self._loss(g, params, places, h, targets, mask,
+                                     self.fused_loss), mask.sum()))
         return _combine(parts)
 
     def hook_loss(self, params: dict, batch):
@@ -348,17 +592,43 @@ class RankStep:
         home = tuple(0 for _ in self.mesh.axis_names)
         batch = {k: v.unshard() for k, v in batch.items()} \
             if isinstance(batch, dict) else batch.unshard()
-        return self.loss_fn(self.cfg, self._gathered(_Gathers(), params,
-                                                     home), batch)
+        return self.loss_fn(self.cfg, _gathered(_Gathers(), params, home),
+                            batch)
 
     def loss(self, params: dict, batch):
         """The loss of placed ``params`` on a batch placed by
         ``batch_sharding`` (a dictionary of them for the hook)."""
         if self.loss_fn is not None:
             return self.hook_loss(params, batch)
-        if self.family is llama:
-            return self.llama_loss(params, batch)
-        return self.family_loss(params, batch)
+        return self.lm_loss(params, batch)
+
+    def forward(self, params: dict, tokens: torch.Tensor, *,
+                attention_mask=None, token_type_ids=None,
+                return_aux_loss: bool = False):
+        """``family.forward`` (bert: ``encode``) of placed ``params`` on
+        ``tokens`` [B, S], cut over the data ranks: the global float32
+        logits [B, S, vocab] (bert: the hidden states [B, S, d]) on the
+        mesh's first device; Mixtral with ``return_aux_loss`` also its
+        weighted aux loss."""
+        mesh = self.mesh
+        units = self.units(mesh)
+        g = _Gathers()
+        cut = partial(self.cut, units=units)
+        types = None if token_type_ids is None else cut(token_type_ids)
+        segments = None if attention_mask is None else [
+            m.int() for m in cut(attention_mask)]
+        xs = self._embed(g, params, cut(tokens), units, mesh, types)
+        xs, aux = self.run_layers(params["blocks"], xs, units, mesh,
+                                  segments)
+        home = mesh.devices.ravel()[0]
+        if self.family is bert:
+            return torch.cat([x[0].to(home) for x in xs])
+        out = torch.cat([self._logits(
+            g, params, places, self._final_norm(g, params, x[0], places[0]))
+            .to(home) for places, x in zip(units, xs)])
+        if return_aux_loss:
+            return out, torch.stack(aux).sum() * self.cfg.aux_loss_weight
+        return out
 
     # --- the 1F1B pipeline's functions (Llama) ---
 
@@ -370,28 +640,25 @@ class RankStep:
         units = self.units(mesh)
         xs_units = [[x.to(_device(mesh, c)) for x, c in zip(xs, places)]
                     for xs, places in zip(xs_units, units)]
-        return self.run_layers(blocks, xs_units, units, mesh)
+        return self.run_layers(blocks, xs_units, units, mesh)[0]
 
     def embed_fn(self, pp_axis: str):
         """(io params, tokens [mb, s]) -> each data rank's embedded
         microbatch chunk, at the first stage."""
         def embed(io, tokens):
             units = self.units(self.mesh, {pp_axis: 0})
-            return self._embed(_Gathers(), io["embedding"],
-                               self.cut(tokens, units), units,
-                               self.mesh)
+            return self._embed(_Gathers(), io, self.cut(tokens, units),
+                               units, self.mesh)
         return embed
 
     def head_fn(self, pp_axis: str):
         """(io params, the last stage's activations, targets, mask) ->
         (loss sum, weight sum) over the data ranks: final norm, LM head
         and masked cross-entropy sums (JAX's ``make_llama_head_fn``),
-        through the chunked loss (``llama.fused_cross_entropy``, chunks of
-        ``loss_chunk`` rows) so that no microbatch's [mb, s, vocab]
-        float32 logits exist at once (2 GB for 2 x 2048 tokens at
-        Llama-3's vocab, beside a 64 GB state)."""
-        cfg = self.cfg
-
+        through the chunked loss (chunks of ``loss_chunk`` rows,
+        vocab-parallel where the rules cut the vocab over tp) so that no
+        microbatch's [mb, s, vocab] float32 logits exist at once (2 GB
+        for 2 x 2048 tokens at Llama-3's vocab, beside a 64 GB state)."""
         def head_fn(io, ys, tgt, msk):
             units = self.units(self.mesh,
                                {pp_axis: self.mesh.shape[pp_axis] - 1})
@@ -400,16 +667,10 @@ class RankStep:
             for places, y, t, mk in zip(units, ys, self.cut(tgt, units),
                                         self.cut(msk, units)):
                 dev = _device(self.mesh, places[0])
-                h = rms_norm(y[0].to(dev), g.local(io["final_norm"],
-                                                   places[0]),
-                             eps=cfg.rms_eps)
-                head = self._head(g, io, places)
+                h = self._final_norm(g, io, y[0].to(dev), places[0])
                 mk = mk.to(dev).float()
                 ws = mk.sum()
-                mean = llama.fused_cross_entropy(
-                    cfg, {"embedding": head.T} if cfg.tie_embeddings
-                    else {"lm_head": head}, h, t.to(dev), mask=mk,
-                    chunk=self.loss_chunk)
+                mean = self._loss(g, io, places, h, t.to(dev), mk, True)
                 ls = mean * ws.clamp(min=1.0)
                 loss = ls if loss is None else loss + ls.to(loss.device)
                 weight = ws if weight is None else \
@@ -417,6 +678,25 @@ class RankStep:
             return loss, weight
         return head_fn
 
+
+def _gathered(g: _Gathers, params, coords: tuple):
+    if isinstance(params, dict):
+        return {k: _gathered(g, v, coords) for k, v in params.items()}
+    return g.local(params, coords)
+
+
+def placed_forward(family, cfg, params: dict, tokens, *, mesh: Mesh, rules,
+                   attn_impl: str = "auto", **kwargs):
+    """The forward of ``family`` (llama, gpt, mixtral; bert's ``encode``)
+    over a tree placed by ``shard_tree(params, axes, mesh, rules)``: the
+    counterpart of ``jax.jit(family.forward)(placed, tokens)``. Each data
+    rank runs its rows of ``tokens`` [B, S] with the per-rank blocks
+    (tensor-parallel where the rules cut heads, Mixtral's experts over
+    ``ep`` with global routing) and the global output comes back on the
+    mesh's first device. ``kwargs``: ``return_aux_loss`` (mixtral),
+    ``attention_mask`` and ``token_type_ids`` (bert)."""
+    step = RankStep(family, cfg, mesh, rules, attn_impl=attn_impl)
+    return step.forward(params, torch.as_tensor(tokens), **kwargs)
 
 def _combine(parts: list):
     """The mean loss over every data rank's tokens from each rank's mean

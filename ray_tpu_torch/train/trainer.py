@@ -21,7 +21,9 @@ device), so it is updated in place. On a mesh of one place a placed leaf
 is the tensor itself. As in JAX:
 
 - the batch is cut over the data axes (``batch_sharding``), fsdp leaves
-  are gathered before use, tp cuts Llama's heads and MLP (``train.spmd``);
+  are gathered before use, tp cuts the heads and MLP of Llama and GPT
+  (GPT's fused qkv columns need not hold whole heads), and the vocabulary
+  stays cut over tp through the embedding and the loss (``train.spmd``);
 - when ``rules.seq`` names a mesh axis wider than one, Llama's attention
   runs as ring attention over it (``attn_impl="ring"``);
 - when ``rules.layers`` names one (``pp_fsdp``), Llama's layers run as
@@ -42,11 +44,11 @@ are checked equal by checksum. fsdp, tp, sp or pp across processes raise
 ``NotImplementedError``.
 
 The model family comes from the config's type, as in JAX: llama, gpt or
-bert (``_resolve_family``); any other config raises ``TypeError``. A
-family other than llama trains on ``family.forward`` and the next-token
-cross-entropy, or on the ``loss_fn`` hook, which bert needs (it has no
-causal-LM forward); ``fused_loss``, ring attention, the pipeline and the
-tensor-parallel block are llama's alone.
+bert (``_resolve_family``); any other config raises ``TypeError``. GPT
+trains on the next-token cross-entropy of its forward, per rank as
+Llama's; bert needs the ``loss_fn`` hook (it has no causal-LM forward),
+which sees the gathered parameters under every preset. ``fused_loss``,
+ring attention and the pipeline are llama's alone.
 """
 
 from __future__ import annotations
@@ -231,8 +233,8 @@ class Trainer:
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.optimizer = make_optimizer(cfg)
-        # the per-rank step's checks (a tp block for the family, heads
-        # dividing over tp) run now, as JAX's placement would refuse
+        # the per-rank step's checks (Llama's heads dividing over tp) run
+        # now, as JAX's placement would refuse
         self._rank_step()
 
     @staticmethod

@@ -216,7 +216,8 @@ def test_placed_gradients_equal_the_one_place_gradients(monkeypatch):
     """loss_and_grads under fsdp_tp on {dp 2, fsdp 2, tp 2} equals the
     one-place gradient (and a plain tree gets global gradients back);
     without the psum after wo, or with two chunks of every fsdp gather
-    swapped, some gradient moves by more than half its scale."""
+    along a weight's rows swapped, some gradient moves by more than half
+    its scale."""
     _, tcfg = _configs("llama")
     params = tllama.init_params(tcfg, seed=1, device="cpu")
     batch = _batch("llama", 4)
@@ -237,27 +238,17 @@ def test_placed_gradients_equal_the_one_place_gradients(monkeypatch):
     assert max(_grad_errors(bad, want).values()) > 0.5
     monkeypatch.undo()
 
-    def swapped(xs, **kw):
+    # swapped in the gathers along a weight's rows only: a swap in every
+    # gather permutes the model dimension alike in every weight, which
+    # the function cannot see once no gather cuts the vocabulary
+    def swapped(xs, gather_axis=0, **kw):
         xs = list(xs)
-        xs[0], xs[1] = xs[1], xs[0]
-        return collectives.all_gather(xs, **kw)
+        if gather_axis == 0:
+            xs[0], xs[1] = xs[1], xs[0]
+        return collectives.all_gather(xs, gather_axis=gather_axis, **kw)
     monkeypatch.setattr(spmd, "all_gather", swapped)
     _, bad = tr.loss_and_grads(placed, batch)
     assert max(_grad_errors(bad, want).values()) > 0.5
-
-
-@pytest.mark.parametrize("family", ["gpt", "bert"])
-def test_gpt_and_bert_have_no_tp_block_yet(family):
-    """Under a tp axis wider than one the port refuses what JAX trains
-    through GSPMD: their tp blocks come with a later slice."""
-    _, tcfg = _configs(family)
-    _, mesh = _meshes({"fsdp": 2, "tp": 2})
-    hook = _mlm_loss(tbert) if family == "bert" else None
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        Trainer(tcfg, TrainConfig(strategy="fsdp_tp"), mesh=mesh,
-                device="cpu", loss_fn=hook)
-    Trainer(tcfg, TrainConfig(strategy="fsdp"), mesh=mesh, device="cpu",
-            loss_fn=hook)
 
 
 def test_batch_must_divide_over_the_data_ranks():
