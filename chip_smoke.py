@@ -38,7 +38,15 @@ against the one-process trainer's), two ranks on this card over gloo at
 depth 4 (their parameters and gradient norms against the
 single-controller trainer on {dp 2}, with controls that skip the
 gradient all-reduce and that average in place of the sum), and
-ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Every
+ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Then
+fsdp, tp and sp across processes, four gloo rank processes on this card
+sharing one global mesh: Llama-3-8B's width at depth 4 on {fsdp 2, tp 2}
+(one place a process) and at depth 2 on {sp 4} (the ring between the
+processes), each held against its single-controller counterpart run
+first in the same script, with controls (the rank-list psum backward in
+place of Megatron's g, a skipped fsdp reduce-scatter, the ring shifted
+the wrong way). ``--only-xproc`` builds the kernels and runs these two
+phases alone, and prints no result line. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -2000,8 +2008,8 @@ def gloo_rank_loop(config):
     batch = torch.from_numpy(config["batch"]).to(ctx.device)
     real = ProcessGroup.all_reduce_grads
 
-    def mean(self, grads):
-        real(self, grads)
+    def mean(self, grads, group=None):
+        real(self, grads, group)
         for g in grads:
             g.div_(self.world_size)
     # this rank's work: 6 FLOPs a parameter a token of its rows
@@ -2012,7 +2020,8 @@ def gloo_rank_loop(config):
                           device=ctx.device, process_group=pg)
         state = trainer.init_state(seed=SEED)
         if case == "skip_all_reduce":
-            ProcessGroup.all_reduce_grads = lambda self, grads: None
+            ProcessGroup.all_reduce_grads = \
+                lambda self, grads, group=None: None
         elif case == "mean_all_reduce":
             ProcessGroup.all_reduce_grads = mean
         try:
@@ -2259,6 +2268,537 @@ def check_elastic(torch, cfg):
     if counts != want:
         raise AssertionError(f"elastic launches {counts}, want {want}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# fsdp, tp and sp across processes (slice 10): four gloo rank processes on
+# this card share one global mesh, one place a process; each phase holds
+# them against its single-controller counterpart run here first, on the
+# same weights (every process initialises from the same seed) and batch
+# ---------------------------------------------------------------------------
+
+XPROC_WORLD = 4
+XPROC_FSDP_TP_DEPTH = 4
+XPROC_SP_DEPTH = 2
+XPROC_STEPS = 2
+# a phase's ranks are killed after this long (their fit takes about 40 s
+# on an H100 80GB HBM3 at 700 W)
+XPROC_LIMIT_S = 240.0
+# the cases of a rank: the real one (XPROC_STEPS steps), then each control
+# (one step: its gradient norm must leave the bound)
+XPROC_CASES = {"xproc_fsdp_tp": ("real", "psum_backward",
+                                 "skip_reduce_scatter"),
+               "xproc_sp4": ("real",)}
+
+
+@contextlib.contextmanager
+def xproc_control(case: str):
+    """The faults of the cross-process step, patched in for a case:
+    ``psum_backward`` (the rank-list psum's backward, an all-reduce, at the
+    exits of the tp regions in place of ``g``'s identity: each process's
+    replica of the sum carries the gradient on, so it is counted once a
+    tp process), ``skip_reduce_scatter`` (the fsdp gathers keep their
+    piece of the gradient, unsummed over the data processes) and
+    ``reversed_ring`` (K/V shifted the wrong way round)."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import ring_attention
+    from ray_tpu_torch.train import spmd
+
+    saved = {(spmd, "tp_exit"): spmd.tp_exit,
+             (spmd, "all_gather"): spmd.all_gather,
+             (ring_attention, "ring_shift"): ring_attention.ring_shift}
+    if case == "psum_backward":
+        spmd.tp_exit = lambda xs, group: col.psum(xs, group=group)
+    elif case == "skip_reduce_scatter":
+        def gather(xs, gather_axis=0, tiled=True, group=None):
+            if group is None:
+                return col.all_gather(xs, gather_axis=gather_axis,
+                                      tiled=tiled)
+            return col.gather_from_group(xs, gather_axis=gather_axis,
+                                         tiled=tiled, group=group)
+        spmd.all_gather = gather
+    elif case == "reversed_ring":
+        ring_attention.ring_shift = lambda xs, shift=1, group=None: \
+            col.ring_shift(xs, shift=-shift, group=group)
+    try:
+        yield
+    finally:
+        for (module, attr), value in saved.items():
+            setattr(module, attr, value)
+
+
+def ring_seeded(torch):
+    """Seeded q, k, v and dO at RING_SHAPE on the card, bf16 (the same in
+    every process: one generator seed on one device)."""
+    b, s, h, hk, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    return [torch.randn(shape, generator=gen, device="cuda")
+            .to(torch.bfloat16) for shape in ((b, s, h, d), (b, s, hk, d),
+                                              (b, s, hk, d), (b, s, h, d))]
+
+
+def xproc_ring_check(torch, pg, out_dir):
+    """A rank of xproc_sp4: ``ring_attention(impl="flash")`` across the
+    four processes on this rank's chunk of the seeded RING_SHAPE inputs,
+    causal, and its gradients; then the same with the ring shifted the
+    wrong way (the control). Saves both to ``<out>/ring_rank<r>.pt``;
+    returns the launches of the real one, causal and not."""
+    from ray_tpu_torch.parallel import ring_attention as ra
+    from ray_tpu_torch.parallel.mesh import Mesh
+    from ray_tpu_torch.parallel.process_group import mesh_layout
+
+    grid = np.empty(1, dtype=object)
+    grid[0] = pg.device
+    mesh = Mesh(grid, ("sp",), mesh_layout(pg, {"sp": RING_SP}))
+    q, k, v, do = (x.chunk(RING_SP, dim=1)[pg.rank] for x in
+                   ring_seeded(torch))
+    saved = {}
+    for case in ("real", "reversed_ring"):
+        leaves = tuple(x.detach().clone().requires_grad_() for x in (q, k, v))
+        with xproc_control(case), count_ring_launches() as split:
+            zero_counts()
+            out = ra.ring_attention(*leaves, mesh=mesh, causal=True,
+                                    impl="flash")
+            grads = torch.autograd.grad(out, leaves, do)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        saved[case] = {"out": out.detach().cpu(),
+                       **{f"d{n}": g.cpu() for n, g in zip("qkv", grads)}}
+        if case == "real":
+            real_counts = {**counts, **split}
+    torch.save(saved, os.path.join(out_dir, f"ring_rank{pg.rank}.pt"))
+    return real_counts
+
+
+@contextlib.contextmanager
+def count_ring_launches():
+    """The ring's K1 calls, split into causal (the diagonal) and not (K/V
+    of another rank), by wrapping the ring's ``flash_fwd``."""
+    from ray_tpu_torch.parallel import ring_attention as ra
+
+    split = {"flash_fwd_causal": 0, "flash_fwd_noncausal": 0}
+    real = ra.flash_fwd
+
+    def counted(*args, causal=False, **kw):
+        split["flash_fwd_causal" if causal else "flash_fwd_noncausal"] += 1
+        return real(*args, causal=causal, **kw)
+    ra.flash_fwd = counted
+    try:
+        yield split
+    finally:
+        ra.flash_fwd = real
+
+
+def xproc_rank_loop(config):
+    """A rank of an xproc phase: ``Trainer`` over the rank's process group
+    on the global mesh ``config["train_config"].mesh_axes``, from
+    ``init_state(seed)`` (the rank's chunks), for each case of
+    ``XPROC_CASES[phase]``: the real one ``XPROC_STEPS`` steps, a control
+    one. Reports each step (its seconds, each collective kind's seconds
+    and bytes, the launches, the ring's K1 split); after the real case
+    saves this rank's distinct chunks of the parameters by index range to
+    ``<out>/real_rank<r>.pt``. Under xproc_sp4 the ring check runs
+    first."""
+    import torch
+
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.trainer import Trainer
+
+    ctx = session.get_context()
+    pg = ctx.process_group
+    phase = config["phase"]
+    batch = torch.from_numpy(config["batch"]).to(ctx.device)
+    session.set_flops_per_step(config["rank_flops"])
+    ring = xproc_ring_check(torch, pg, config["out"]) \
+        if phase == "xproc_sp4" else None
+    reports = []
+    for case in XPROC_CASES[phase]:
+        with xproc_control(case), count_ring_launches() as split:
+            trainer = Trainer(config["model_config"], config["train_config"],
+                              device=ctx.device, process_group=pg)
+            state = trainer.init_state(seed=SEED)
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(XPROC_STEPS if case == "real" else 1):
+                before = dict(pg.stats)
+                for key in split:
+                    split[key] = 0
+                zero_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = trainer.train_step(state, batch)
+                loss = float(m["loss"])
+                step_s = time.perf_counter() - t0
+                reports.append({
+                    "case": case, "rank": ctx.rank, "loss": loss,
+                    "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+                    "launches": {**launch_counts(), **split},
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    "collectives": {k: pg.stats[k] - before[k]
+                                    for k in pg.stats},
+                    "ring_launches": ring})
+                session.report({"case": case, "loss": loss})
+        if case == "real":
+            chunks = {}
+            for name, st in named_leaves(state.params):
+                if isinstance(st, ShardedTensor):
+                    idx = st.sharding.indices(st.shape)
+                    chunks[name] = {
+                        tuple((s.start, s.stop) for s in idx[place]):
+                        c.detach().cpu() for place, c in st.distinct()}
+                else:
+                    chunks[name] = {tuple((0, n) for n in st.shape):
+                                    st.detach().cpu()}
+            torch.save(chunks, os.path.join(config["out"],
+                                            f"real_rank{ctx.rank}.pt"))
+            del chunks
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(os.path.join(config["out"], f"steps_rank{ctx.rank}.json"),
+              "w") as f:
+        json.dump(reports, f)
+
+
+def xproc_update_err(torch, ranks: list, ref: dict, init: dict) -> tuple:
+    """The ranks' chunks against the single controller's parameters: the
+    RMS of their difference over the RMS of the reference's update, each
+    index range once, and the elements where two replicas of one range
+    differ (host tensors, each range's arithmetic on the card)."""
+    num = den = 0.0
+    replicas_differing = 0
+    seen = {}
+    for chunks in ranks:
+        for name, pieces in chunks.items():
+            for key, got in pieces.items():
+                idx = tuple(slice(a, b) for a, b in key)
+                if (name, key) in seen:
+                    replicas_differing += int(
+                        (got.cuda() != seen[name, key].cuda()).sum())
+                    continue
+                seen[name, key] = got
+                r = ref[name][idx].cuda().float()
+                num += float((got.cuda().float() - r).square().sum(
+                    dtype=torch.float64))
+                den += float((r - init[name][idx].cuda().float()).square()
+                             .sum(dtype=torch.float64))
+    return (num / den) ** 0.5, replicas_differing
+
+
+def xproc_single_controller(torch, cfg, train_cfg, batch, mesh=None):
+    """The single-controller counterpart on this card: ``Trainer`` on the
+    same global mesh, every place here, from ``init_state(seed)``,
+    ``XPROC_STEPS`` steps. Returns its losses, gradient norms, step
+    seconds and the parameters' host copies before and after."""
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+    from ray_tpu_torch.train.trainer import Trainer
+
+    def host(params):
+        return {n: (t.unshard() if isinstance(t, ShardedTensor) else t)
+                .detach().cpu() for n, t in named_leaves(params)}
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_cfg, mesh=mesh)
+    state = trainer.init_state(seed=SEED)
+    init = host(state.params)
+    losses, norms, times = [], [], []
+    for _ in range(XPROC_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t1)
+        norms.append(float(m["grad_norm"]))
+    ref = host(state.params)
+    del state, trainer
+    free_card(torch)
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "init": init, "ref": ref, "seconds": time.perf_counter() - t0}
+
+
+def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out):
+    """The phase's ranks: XPROC_WORLD gloo processes on this card running
+    ``xproc_rank_loop``, joined within XPROC_LIMIT_S (on expiry every
+    rank is killed and the phase fails); their result."""
+    import multiprocessing
+    import threading
+
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.data_parallel_trainer import \
+        DataParallelTrainer
+
+    t0 = time.perf_counter()
+    trainer = DataParallelTrainer(
+        xproc_rank_loop,
+        train_loop_config={"phase": phase, "model_config": cfg,
+                           "train_config": train_cfg,
+                           "batch": batch.cpu().numpy(),
+                           "rank_flops": rank_flops, "out": out},
+        scaling_config=ScalingConfig(num_workers=XPROC_WORLD, use_gpu=True,
+                                     backend="gloo"),
+        run_config=RunConfig(storage_path=out))
+    box = {}
+    fit = threading.Thread(target=lambda: box.update(result=trainer.fit()),
+                           daemon=True)
+    fit.start()
+    fit.join(XPROC_LIMIT_S)
+    if fit.is_alive():
+        for child in multiprocessing.active_children():
+            child.kill()
+        raise AssertionError(f"{phase}: the ranks did not finish within "
+                             f"{XPROC_LIMIT_S} s; killed")
+    if "result" not in box:
+        raise AssertionError(f"{phase}: fit() raised (see above)")
+    result = box["result"]
+    if result.error is not None:
+        raise AssertionError(f"{phase} failed:\n{result.error}")
+    return result, time.perf_counter() - t0
+
+
+def xproc_steps(out: str) -> list:
+    """Every rank's step reports (each rank writes its own: only rank 0's
+    stream reaches the harness's result), rank order."""
+    steps = []
+    for r in range(XPROC_WORLD):
+        with open(os.path.join(out, f"steps_rank{r}.json")) as f:
+            steps += json.load(f)
+    return steps
+
+
+def xproc_summary(steps: list) -> dict:
+    """Per rank, its real steps: seconds, each collective kind's seconds
+    and bytes (the kinds that ran), launches, peak memory."""
+    from ray_tpu_torch.parallel.process_group import KINDS
+
+    out = {}
+    for r in steps:
+        if r["case"] != "real":
+            continue
+        c = r["collectives"]
+        kinds = {k: {"calls": c[f"{k}_calls"], "s": c[f"{k}_s"],
+                     "bytes": c[f"{k}_bytes"]} for k in KINDS
+                 if c[f"{k}_calls"]}
+        if c["grad_all_reduces"]:
+            kinds["grad_all_reduce"] = {"calls": c["grad_all_reduces"],
+                                        "s": c["grad_all_reduce_s"],
+                                        "bytes": c["grad_bytes"]}
+        out.setdefault(r["rank"], []).append({
+            "step_s": r["step_s"], "loss": r["loss"],
+            "grad_norm": r["grad_norm"], "launches": r["launches"],
+            "peak_memory_bytes": r["peak_memory_bytes"],
+            "staging_s": c["staging_s"], "staged_bytes": c["staged_bytes"],
+            "collectives": kinds})
+    return out
+
+
+def xproc_norm_errs(steps: list, ref_norms: list) -> dict:
+    """Each case's largest gradient-norm error against the single
+    controller's, relative, over ranks and steps."""
+    errs, seen = {}, {}
+    for r in steps:
+        i = seen.get((r["case"], r["rank"]), 0)
+        seen[r["case"], r["rank"]] = i + 1
+        errs[r["case"]] = max(errs.get(r["case"], 0.0),
+                              abs(r["grad_norm"] / ref_norms[i] - 1.0))
+    return errs
+
+
+def check_xproc_fsdp_tp(torch, cfg, peaks):
+    """``llama3_8b()`` at full width and depth XPROC_FSDP_TP_DEPTH on the
+    global mesh {fsdp 2, tp 2} under fsdp_tp, dealt to four gloo rank
+    processes on this card, one place each: each rank its data row of
+    the global [2, 2049] batch, 16 q and 4 kv heads, half the vocabulary
+    through the fused vocab-parallel loss. Held after XPROC_STEPS steps:
+    every rank's chunks against the single-controller trainer's on the
+    same mesh of this card (PR 7's path), run first, within
+    HARNESS_PARAM_TOL of its update, and every rank's gradient norms
+    within HARNESS_NORM_TOL; each control (the rank-list psum backward in
+    place of the f/g pair; the fsdp gathers' reduce-scatter skipped) must
+    break the norm bound in its one step. Every real step's launches per
+    rank: K1 8 and the backward 4. Returns rank 0's launches of one
+    real step."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    b, s, L = 2, 2048, XPROC_FSDP_TP_DEPTH
+    cfg4 = dataclasses.replace(cfg, n_layers=L)
+    train_cfg = TrainConfig(mesh_axes=dict(PLACED_AXES), strategy="fsdp_tp",
+                            fused_loss=True, loss_chunk=1024, warmup_steps=1)
+    batch = train_batch(cfg, b, s, SEED + 23)
+    single = xproc_single_controller(torch, cfg4, train_cfg, batch)
+    n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + single["init"]["lm_head"].numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    with tempfile.TemporaryDirectory() as d:
+        result, fit_s = xproc_spawn(torch, "xproc_fsdp_tp", cfg4, train_cfg,
+                                    batch, flops / XPROC_WORLD, d)
+        t0 = time.perf_counter()
+        ranks = [torch.load(os.path.join(d, f"real_rank{r}.pt"),
+                            weights_only=True)
+                 for r in range(XPROC_WORLD)]
+        update_rel_err, replicas_differing = xproc_update_err(
+            torch, ranks, single["ref"], single["init"])
+        del ranks
+        compare_s = time.perf_counter() - t0
+        steps = xproc_steps(d)
+    norm_errs = xproc_norm_errs(steps, single["grad_norms"])
+    per_rank = xproc_summary(steps)
+    want = {"flash_fwd": 2 * L, "flash_bwd": L}
+    launches = {r: [{k: st["launches"][k] for k in want} for st in rs]
+                for r, rs in per_rank.items()}
+    step_s = max(st["step_s"] for rs in per_rank.values()
+                 for st in rs[1:])
+    emit("xproc_fsdp_tp", config="llama3_8b", n_layers=L,
+         depth_cut=f"{L} of {cfg.n_layers} layers (four states' chunks and "
+                   "the single controller's state on one card)",
+         tokens=[b, s + 1], steps=XPROC_STEPS, backend="gloo",
+         world_size=XPROC_WORLD, mesh=PLACED_AXES, strategy="fsdp_tp",
+         one_place_a_process=True,
+         single_controller_losses=single["losses"],
+         single_controller_grad_norms=single["grad_norms"],
+         single_controller_step_s=single["step_s"],
+         losses=[st["loss"] for st in per_rank[0]],
+         update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         grad_norm_rel_err=norm_errs["real"], norm_tol=HARNESS_NORM_TOL,
+         replica_elements_differing=replicas_differing,
+         controls={c: {"grad_norm_rel_err": norm_errs[c]}
+                   for c in XPROC_CASES["xproc_fsdp_tp"][1:]},
+         step_s=step_s, tokens_per_s=b * s / step_s,
+         rank_flops_per_step=flops / XPROC_WORLD,
+         mfu_of_the_card=flops / step_s / peaks[0],
+         ranks=per_rank, want_launches=want,
+         spawn_to_first_report_s=result.first_report_s, fit_s=fit_s,
+         single_controller_s=single["seconds"], compare_s=compare_s)
+    if update_rel_err > HARNESS_PARAM_TOL or \
+            norm_errs["real"] > HARNESS_NORM_TOL or not all(
+                norm_errs[c] > HARNESS_NORM_TOL
+                for c in XPROC_CASES["xproc_fsdp_tp"][1:]):
+        raise AssertionError(
+            f"xproc_fsdp_tp: update error {update_rel_err} (tol "
+            f"{HARNESS_PARAM_TOL}), norm errors {norm_errs} (tol "
+            f"{HARNESS_NORM_TOL}; each control must exceed it)")
+    if any(c != want for cs in launches.values() for c in cs):
+        raise AssertionError(f"xproc_fsdp_tp launches {launches}, want "
+                             f"{want} a rank's step")
+    return launches[0][-1]
+
+
+def check_xproc_sp4(torch, cfg, peaks):
+    """``llama3_8b()`` at full width and depth XPROC_SP_DEPTH on the
+    global mesh {sp 4} under fsdp_tp_sp, dealt to four gloo rank
+    processes on this card: each its 2048-token chunk of [1, 8193], the
+    ring between the processes (K/V by subgroup sends), the whole state
+    replicated over sp and its gradient all-reduced over it. First the
+    ring alone at RING_SHAPE, each rank its chunk: the output within 1e-2
+    a row and the gradients within 2e-2 a row of the whole-sequence
+    kernels (as ring_kernels), and the ring shifted the wrong way must
+    fail the output bound. Then XPROC_STEPS trainer steps against the
+    single-controller sp-4 ring trainer on this card (PR 6's path): the
+    losses within HARNESS_LOSS_TOL, the update within HARNESS_PARAM_TOL.
+    Launches a rank's step: K1 causal 2·L (the diagonal, the forward and
+    its recompute) and non-causal 2·L·rank, the backward L·(rank + 1).
+    Returns rank 3's launches of one real step."""
+    import dataclasses
+    import tempfile
+
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    b, s, L = 1, RING_SHAPE[1], XPROC_SP_DEPTH
+    cfg2 = dataclasses.replace(cfg, n_layers=L)
+    train_cfg = TrainConfig(mesh_axes={"sp": RING_SP},
+                            strategy="fsdp_tp_sp", fused_loss=True,
+                            loss_chunk=1024, warmup_steps=1)
+    batch = train_batch(cfg, b, s, SEED + 29)
+    single = xproc_single_controller(torch, cfg2, train_cfg, batch,
+                                     mesh=sp_mesh(torch))
+    n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + single["init"]["lm_head"].numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    with tempfile.TemporaryDirectory() as d:
+        result, fit_s = xproc_spawn(torch, "xproc_sp4", cfg2, train_cfg,
+                                    batch, flops / XPROC_WORLD, d)
+        t0 = time.perf_counter()
+        ranks = [torch.load(os.path.join(d, f"real_rank{r}.pt"),
+                            weights_only=True)
+                 for r in range(XPROC_WORLD)]
+        update_rel_err, replicas_differing = xproc_update_err(
+            torch, ranks, single["ref"], single["init"])
+        del ranks
+        rings = [torch.load(os.path.join(d, f"ring_rank{r}.pt"),
+                            weights_only=True)
+                 for r in range(XPROC_WORLD)]
+        compare_s = time.perf_counter() - t0
+        steps = xproc_steps(d)
+    # the ring against the whole-sequence kernels on the same inputs
+    q, k, v, do = ring_seeded(torch)
+    leaves = tuple(x.requires_grad_() for x in (q, k, v))
+    want = flash_attention(*leaves, causal=True)
+    want_grads = torch.autograd.grad(want, leaves, do)
+    ring_errs = {}
+    for case in ("real", "reversed_ring"):
+        got = {n: torch.cat([r[case][n] for r in rings], dim=1).cuda()
+               for n in ("out", "dq", "dk", "dv")}
+        ring_errs[case] = {
+            "out": row_rel_err(got["out"], want.detach()),
+            **{f"d{n}": grad_row_err(got[f"d{n}"], w)
+               for n, w in zip("qkv", want_grads)}}
+    del q, k, v, do, leaves, want, want_grads, rings, got
+    free_card(torch)
+    out_tol, grad_tol = 1e-2, 2e-2
+    per_rank = xproc_summary(steps)
+    losses = [st["loss"] for st in per_rank[0]]
+    loss_err = max(abs(a - w) for a, w in zip(losses, single["losses"]))
+    wants = {r: {"flash_fwd": 2 * L * (r + 1), "flash_bwd": L * (r + 1),
+                 "flash_fwd_causal": 2 * L, "flash_fwd_noncausal": 2 * L * r}
+             for r in range(XPROC_WORLD)}
+    launches = {r: [st["launches"] for st in rs]
+                for r, rs in per_rank.items()}
+    ring_launches = {r: next(x["ring_launches"] for x in steps
+                             if x["rank"] == r) for r in range(XPROC_WORLD)}
+    step_s = max(st["step_s"] for rs in per_rank.values()
+                 for st in rs[1:])
+    emit("xproc_sp4", config="llama3_8b", n_layers=L,
+         depth_cut=f"{L} of {cfg.n_layers} layers (the state replicated "
+                   "over sp: four whole states on one card)",
+         tokens=[b, s + 1], chunk=s // RING_SP, steps=XPROC_STEPS,
+         backend="gloo", world_size=XPROC_WORLD, mesh={"sp": RING_SP},
+         strategy="fsdp_tp_sp", ring_shape=list(RING_SHAPE),
+         ring_row_rel_err=ring_errs["real"], out_tol=out_tol,
+         grad_tol=grad_tol,
+         ring_controls={"reversed_ring": ring_errs["reversed_ring"]},
+         ring_launches=ring_launches,
+         single_controller_losses=single["losses"],
+         single_controller_grad_norms=single["grad_norms"],
+         single_controller_step_s=single["step_s"], losses=losses,
+         loss_max_abs_err=loss_err, loss_tol=HARNESS_LOSS_TOL,
+         update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         replica_elements_differing=replicas_differing,
+         grad_norm_rel_err=xproc_norm_errs(steps, single["grad_norms"]),
+         step_s=step_s, tokens_per_s=b * s / step_s,
+         rank_flops_per_step=flops / XPROC_WORLD,
+         mfu_of_the_card=flops / step_s / peaks[0], ranks=per_rank,
+         want_launches=wants, spawn_to_first_report_s=result.first_report_s,
+         fit_s=fit_s, single_controller_s=single["seconds"],
+         compare_s=compare_s)
+    real = ring_errs["real"]
+    if real["out"] > out_tol or max(real[f"d{n}"] for n in "qkv") > \
+            grad_tol or ring_errs["reversed_ring"]["out"] <= out_tol:
+        raise AssertionError(f"xproc_sp4 ring: {ring_errs} (out tol "
+                             f"{out_tol}, grad tol {grad_tol}; the reversed "
+                             "ring must fail the out bound)")
+    if loss_err > HARNESS_LOSS_TOL or update_rel_err > HARNESS_PARAM_TOL:
+        raise AssertionError(f"xproc_sp4: losses {losses} against "
+                             f"{single['losses']} (tol {HARNESS_LOSS_TOL}), "
+                             f"update error {update_rel_err} (tol "
+                             f"{HARNESS_PARAM_TOL})")
+    if any(c != wants[r] for r, cs in launches.items() for c in cs):
+        raise AssertionError(f"xproc_sp4 launches {launches}, want {wants}")
+    return launches[XPROC_WORLD - 1][-1]
 
 
 def check_gpt(torch, peaks) -> dict:
@@ -3094,6 +3634,15 @@ def main() -> int:
              for name in ("flash_fwd", "flash_bwd")}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
+    if sys.argv[1:] == ["--only-xproc"]:
+        # the slice-10 phases alone (a quicker check while they change);
+        # prints no result line
+        cfg = llama.llama3_8b()
+        check_xproc_fsdp_tp(torch, cfg, peaks)
+        free_card(torch)
+        check_xproc_sp4(torch, cfg, peaks)
+        emit("partial", seconds=time.perf_counter() - t_start)
+        return 0
 
     fwd_rows = check_flash(torch, peaks)
     main_case, train_case, gpt2_case = (fwd_rows[k] for k in (
@@ -3187,6 +3736,16 @@ def main() -> int:
     free_card(torch)
     elastic_counts = check_elastic(torch, cfg)
     emit("harness_phases", seconds=time.perf_counter() - t0)
+    # fsdp, tp and sp across processes (slice 10): four gloo ranks on this
+    # card, each phase beside its single-controller counterpart, the card
+    # freed before each
+    t0 = time.perf_counter()
+    free_card(torch)
+    xproc_fsdp_tp_counts = check_xproc_fsdp_tp(torch, cfg, peaks)
+    free_card(torch)
+    xproc_sp4_counts = check_xproc_sp4(torch, cfg, peaks)
+    free_card(torch)
+    emit("xproc_phases", seconds=time.perf_counter() - t0)
     # the other families, each at full width, one after another on the
     # card's memory (Mixtral at reduced depth)
     gpt_counts = check_gpt(torch, peaks)
@@ -3230,7 +3789,9 @@ def main() -> int:
                    "pp_fsdp_train_step_full": pp_counts[k],
                    "harness_nccl_rank_3_steps": harness_nccl_counts[k],
                    "harness_gloo_dp2_rank0_6_steps": harness_gloo_counts[k],
-                   "elastic_step_after_reform": elastic_counts[k]}
+                   "elastic_step_after_reform": elastic_counts[k],
+                   "xproc_fsdp_tp_rank0_step": xproc_fsdp_tp_counts[k],
+                   "xproc_sp4_rank3_step": xproc_sp4_counts[k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",

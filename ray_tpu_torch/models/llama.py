@@ -230,10 +230,13 @@ def mlp_sublayer(cfg, x, p):
     return x + mlp_out(cfg, x, p)
 
 
-def mlp_out(cfg, x, p):
+def mlp_out(cfg, x, p, enter=None):
     """The MLP sublayer's output before the residual add (with a
-    tensor-parallel rank's cut of the weights, its partial sum)."""
+    tensor-parallel rank's cut of the weights, its partial sum; ``enter``
+    applied to the normed input before the column-parallel products)."""
     h = rms_norm(x, p["mlp_norm"], eps=cfg.rms_eps)
+    if enter is not None:
+        h = enter(h)
     gated = F.silu(h @ p["w_gate"]) * (h @ p["w_up"])
     return gated @ p["w_down"]
 
@@ -247,13 +250,18 @@ def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
 
 
 def attention_out(cfg, x, p, sin, cos, segment_ids, attn_impl, mesh=None,
-                  sp_axis="sp"):
+                  sp_axis="sp", enter=None):
     """The attention sublayer's output before the residual add, over
     ``cfg.n_heads`` q and ``cfg.n_kv_heads`` kv heads (with a
     tensor-parallel rank's cut of the weights and head counts, its
-    partial sum)."""
+    partial sum; ``enter`` applied to the normed input before the
+    column-parallel products). Under ``attn_impl="ring"`` on a ``mesh``
+    whose ``sp_axis`` spans processes, ``x`` is this process's chunk of
+    the sequence (``sin`` and ``cos`` at its positions)."""
     b, s, _ = x.shape
     h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
+    if enter is not None:
+        h = enter(h)
     q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
@@ -347,10 +355,12 @@ def lm_head_weights(cfg, params) -> torch.Tensor:
             else params["lm_head"])
 
 
-def _target_logits(logits: list, targets, offsets) -> list:
+def _target_logits(logits: list, targets, offsets,
+                   reduce=collectives.psum) -> list:
     """Each row's logit at its target, from logits cut along the vocab
     (piece ``i`` holds columns from ``offsets[i]``): each piece's own
-    where it holds the target, zero elsewhere, summed over the pieces."""
+    where it holds the target, zero elsewhere, summed over the pieces
+    with ``reduce``."""
     out = []
     for x, off in zip(logits, offsets):
         local = targets.to(x.device) - off
@@ -358,12 +368,21 @@ def _target_logits(logits: list, targets, offsets) -> list:
         out.append(torch.where(
             own, x.gather(-1, local.clamp(0, x.shape[-1] - 1)[..., None])
             [..., 0], 0.0))
-    return collectives.psum(out)
+    return reduce(out)
 
 
-def _offsets(heads) -> list:
+def _target_reduce(reduce, group):
+    """The sum of the pieces' target logits: the rank-list ``psum`` on
+    one process, the loss's ``reduce`` across processes."""
+    return collectives.psum if group is None else reduce
+
+
+def _offsets(heads, group=None) -> list:
+    """The first vocab column of each head piece (across processes, this
+    process's one piece at its index of ``group``)."""
     widths = [h.shape[-1] for h in heads]
-    return [sum(widths[:i]) for i in range(len(widths))]
+    base = 0 if group is None else group.index * widths[0]
+    return [base + sum(widths[:i]) for i in range(len(widths))]
 
 
 class _FusedCrossEntropy(torch.autograd.Function):
@@ -371,16 +390,18 @@ class _FusedCrossEntropy(torch.autograd.Function):
     one chunk of rows at a time. The head may come cut along the vocab:
     ``pieces`` is (x, head piece) pairs, piece ``i`` on its own device
     holding the next columns, and the log-sum-exp combines the pieces'
-    with ``reduce`` (``collectives.logsumexp``), so no piece is gathered.
+    with ``reduce`` (``collectives.logsumexp``; across processes the
+    pieces are those of ``group``'s processes, one here), so no piece is
+    gathered.
     The forward keeps each row's log-sum-exp (n floats a piece) and no
     logits; the backward recomputes a chunk's logits, turns them into
     their gradient in place and runs the two transposed products, summing
     each head piece's gradient over chunks in its own dtype."""
 
     @staticmethod
-    def forward(ctx, targets, mask, chunk, z_loss, reduce, *pieces):
+    def forward(ctx, targets, mask, chunk, z_loss, reduce, group, *pieces):
         xs, heads = pieces[0::2], pieces[1::2]
-        offsets = _offsets(heads)
+        offsets = _offsets(heads, group)
         n = xs[0].shape[0]
         lses = [torch.empty(n, dtype=torch.float32, device=x.device)
                 for x in xs]
@@ -388,17 +409,19 @@ class _FusedCrossEntropy(torch.autograd.Function):
         for c0 in range(0, n, chunk):
             c1 = min(c0 + chunk, n)
             logits = [matmul_f32(x[c0:c1], h) for x, h in zip(xs, heads)]
-            for out, lse in zip(lses, collectives.logsumexp(logits,
-                                                            reduce=reduce)):
+            for out, lse in zip(lses, collectives.logsumexp(
+                    logits, reduce=reduce, group=group)):
                 out[c0:c1] = lse
             lse = lses[0][c0:c1]
-            nll = lse - _target_logits(logits, targets[c0:c1], offsets)[0]
+            nll = lse - _target_logits(logits, targets[c0:c1], offsets,
+                                       _target_reduce(reduce, group))[0]
             if z_loss > 0.0:
                 nll = nll + z_loss * lse.square()
             total += (nll * mask[c0:c1]).sum()
         count = mask.sum().clamp(min=1.0)
         ctx.save_for_backward(targets, mask, count, *pieces, *lses)
         ctx.chunk, ctx.z_loss, ctx.n_pieces = chunk, z_loss, len(xs)
+        ctx.group = group
         return total / count
 
     @staticmethod
@@ -411,7 +434,8 @@ class _FusedCrossEntropy(torch.autograd.Function):
         # d loss / d logits of row i = w_i ((1 + 2 z lse_i) softmax_i - onehot_i)
         w = mask * (g / count)
         grads = []
-        for x, head, lse, off in zip(xs, heads, lses, _offsets(heads)):
+        for x, head, lse, off in zip(xs, heads, lses,
+                                     _offsets(heads, ctx.group)):
             dev = x.device
             wk, tk = w.to(dev), targets.to(dev) - off
             own = (tk >= 0) & (tk < head.shape[-1])
@@ -431,7 +455,7 @@ class _FusedCrossEntropy(torch.autograd.Function):
                 dx[c0:c1] = grad @ head.T
                 dhead.addmm_(x[c0:c1].T, grad)
             grads += [dx, dhead]
-        return (None,) * 5 + tuple(grads)
+        return (None,) * 6 + tuple(grads)
 
 
 def fused_cross_entropy(cfg, params, hidden, targets, *, mask=None,
@@ -450,7 +474,7 @@ def fused_cross_entropy(cfg, params, hidden, targets, *, mask=None,
 def vocab_parallel_cross_entropy(hiddens: list, heads: list, targets, *,
                                  mask=None, chunk: int | None = 1024,
                                  z_loss: float = 0.0,
-                                 reduce=collectives.psum):
+                                 reduce=collectives.psum, group=None):
     """The mean cross-entropy against an LM head cut along the vocab over
     ranks, none of it gathered: rank ``i`` holds ``hiddens[i]`` [b, s, d]
     (one tensor, on each rank's device) and ``heads[i]`` [d, V_i], the
@@ -460,7 +484,9 @@ def vocab_parallel_cross_entropy(hiddens: list, heads: list, targets, *,
     time as ``fused_cross_entropy`` (the same function for one rank), or
     the whole logits under autograd with ``chunk=None``. targets [b, s]
     int (-1 = padding); mask as ``fused_cross_entropy``'s. The loss is on
-    the first rank's device."""
+    the first rank's device. Across processes (``group``: the tp axis'
+    ``AxisGroup``) each process holds one piece, at its index of the
+    group, and ``reduce`` sums over the group."""
     n = targets.numel()
     flat = targets.reshape(n)
     mk = ((flat >= 0) if mask is None else mask.reshape(n)).float()
@@ -468,11 +494,12 @@ def vocab_parallel_cross_entropy(hiddens: list, heads: list, targets, *,
     xs = [h.reshape(n, -1) for h in hiddens]
     if chunk is not None:
         return _FusedCrossEntropy.apply(
-            flat, mk, chunk, float(z_loss), reduce,
+            flat, mk, chunk, float(z_loss), reduce, group,
             *(t for pair in zip(xs, heads) for t in pair))
     logits = [matmul_f32(x, h) for x, h in zip(xs, heads)]
-    lse = collectives.logsumexp(logits, reduce=reduce)[0]
-    nll = lse - _target_logits(logits, flat, _offsets(heads))[0]
+    lse = collectives.logsumexp(logits, reduce=reduce, group=group)[0]
+    nll = lse - _target_logits(logits, flat, _offsets(heads, group),
+                               _target_reduce(reduce, group))[0]
     if z_loss > 0.0:
         nll = nll + z_loss * lse.square()
     return (nll * mk).sum() / mk.sum().clamp(min=1.0)

@@ -13,14 +13,40 @@ its rank's device.
 The same card may fill several places of a mesh: on one H100 a ring of
 four is ``create_mesh({"sp": 4}, devices=[card] * 4)``, and its "transfers"
 between ranks are no-ops. On a machine with several cards the same code
-runs across them, each transfer a peer copy. Two other designs fail on one
-card: one process per rank over NCCL (NCCL refuses two ranks on one GPU),
-and one thread per rank with a rendezvous (``torch.autograd`` runs the
-backward of a device's tensors on one engine thread, so a ring backward
-that waits for another rank's backward deadlocks). One process per rank
-over ``torch.distributed``, the counterpart of
-``jax.distributed.initialize`` (``ray_tpu/train/worker_group.py``), comes
-with the port's multi-process training harness.
+runs across them, each transfer a peer copy. One thread per rank with a
+rendezvous fails (``torch.autograd`` runs the backward of a device's
+tensors on one engine thread, so a ring backward that waits for another
+rank's backward deadlocks).
+
+**Across processes.** One process per rank over ``torch.distributed``,
+the counterpart of ``jax.distributed.initialize``
+(``ray_tpu/train/worker_group.py``), comes with the port's training
+harness (``parallel.process_group``). Then the global mesh's places are
+dealt to the ``world`` processes as JAX orders processes along a mesh's
+leading axes: in row-major ``AXIS_ORDER``, rank ``p`` owns places
+``[p·n/world, (p+1)·n/world)`` of the ``n``. The axes the processes span
+are therefore a prefix (``split_axes``). Every axis but ``dp`` lies
+either wholly inside one process or wholly across processes, one index a
+process; ``dp`` may also be split, an equal share of its indices a
+process. Any other cut raises ``NotImplementedError`` naming the axis, and
+so do ``pp`` and ``ep`` across processes (a per-stage schedule with
+point-to-point sends, and the experts' exchange, come with ROADMAP slice
+11). On ``{fsdp 2, tp 2}``, world 4 gives one place a process and world 2
+lets fsdp span the processes while each drives its two tp places as
+above.
+
+Such a process's ``Mesh`` carries a ``ProcessLayout``: ``shape`` and
+``size`` are the global mesh's, ``devices`` (and ``local_shape``) the
+grid of this process's places, one index along each spanned axis, and
+``group(axis)`` this process's line of a spanned axis, the subgroup of
+the processes along it (``process_group.AxisGroup``; every process makes
+the subgroup of every line, in one order, as ``dist.new_group``
+requires). The rank-list collectives then take the list of this
+process's chunks along an axis: as above on a local axis, a list of one
+chunk and a collective on the subgroup on a spanned one. A rank's device
+is ``process_group.rank_device``: on one card every rank is on it, over
+gloo (NCCL refuses two ranks on one GPU). A mesh of one process has no
+layout and is the mesh above, unchanged.
 
 Axis convention, outer to inner (slowest to fastest varying):
 
@@ -78,37 +104,157 @@ class MeshSpec:
         return {a: axes[a] for a in known + extra}
 
 
+def _ordered(axes: dict) -> list:
+    known = [a for a in AXIS_ORDER if a in axes]
+    return known + [a for a in axes if a not in AXIS_ORDER]
+
+
+def split_axes(axes: dict, world: int) -> tuple[dict, dict]:
+    """The global mesh ``axes`` dealt to ``world`` processes (module
+    docstring): (this process's local axes, the number of processes along
+    each spanned axis). ``dp=-1`` takes one index a process; any other -1
+    axis size 1."""
+    axes = {a: (world if a == "dp" else 1) if n == -1 else n
+            for a, n in axes.items()}
+    if world == 1:
+        return axes, {}
+    local, procs, left = {}, {}, world
+    for a in _ordered(axes):
+        n = axes[a]
+        if left == 1 or n == 1:
+            local[a] = n
+        elif left % n == 0:
+            procs[a], local[a] = n, 1
+            left //= n
+        elif a == "dp" and n % left == 0:
+            procs[a], local[a] = left, n // left
+            left = 1
+        else:
+            raise NotImplementedError(
+                f"axis {a!r} of size {n} in {axes} would be cut between "
+                f"{world} processes: an axis other than dp lies wholly in "
+                "one process or wholly across processes, one index a "
+                "process, and dp splits into equal shares")
+    if left != 1:
+        raise ValueError(f"{world} processes for the "
+                         f"{math.prod(axes.values())} places of {axes}")
+    for a in ("pp", "ep"):
+        if a in procs:
+            raise NotImplementedError(
+                f"axis {a!r} across processes ({axes}, {world} processes) "
+                "comes with ROADMAP slice 11")
+    return local, procs
+
+
+@dataclass(frozen=True)
+class ProcessLayout:
+    """This process's part of a global mesh (``split_axes``): ``local``
+    axes, ``procs`` (processes along each spanned axis), ``index`` (this
+    process's index along each), ``groups`` (its
+    ``process_group.AxisGroup`` on each)."""
+
+    rank: int
+    world: int
+    local: dict
+    procs: dict
+    index: dict
+    groups: dict
+
+    def restrict(self, names) -> "ProcessLayout":
+        keep = [a for a in names if a in self.procs]
+        return ProcessLayout(self.rank, self.world,
+                             {a: self.local[a] for a in names},
+                             {a: self.procs[a] for a in keep},
+                             {a: self.index[a] for a in keep},
+                             {a: self.groups[a] for a in keep
+                              if a in self.groups})
+
+
 class Mesh:
     """A named grid of ``torch.device``s (``devices``: an object array
     whose dimensions are the axes ``axis_names``). ``shape`` maps each
-    axis to its size, as ``jax.sharding.Mesh.shape`` does."""
+    axis to its size, as ``jax.sharding.Mesh.shape`` does. With a
+    ``layout`` (module docstring) ``devices`` holds this process's places
+    only, and ``shape`` and ``size`` are the global mesh's."""
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple):
+    def __init__(self, devices: np.ndarray, axis_names: tuple,
+                 layout: ProcessLayout | None = None):
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d device grid for axes "
                              f"{axis_names}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.layout = layout if layout is not None and layout.procs \
+            else None
 
     @property
-    def shape(self) -> dict[str, int]:
+    def local_shape(self) -> dict[str, int]:
+        """The grid of this process's places."""
         return dict(zip(self.axis_names, self.devices.shape))
 
     @property
+    def shape(self) -> dict[str, int]:
+        procs = self.layout.procs if self.layout else {}
+        return {a: n * procs.get(a, 1)
+                for a, n in zip(self.axis_names, self.devices.shape)}
+
+    @property
     def size(self) -> int:
-        return self.devices.size
+        return math.prod(self.shape.values())
+
+    def spans(self, axis: str) -> bool:
+        """Whether the places along ``axis`` lie in several processes."""
+        return self.layout is not None and axis in self.layout.procs
+
+    @property
+    def spanned(self) -> tuple:
+        return tuple(self.layout.procs) if self.layout else ()
+
+    def group(self, axis: str):
+        """This process's line of the spanned ``axis``
+        (``process_group.AxisGroup``)."""
+        return self.layout.groups[axis]
+
+    def offset(self, axis: str) -> int:
+        """The global index along ``axis`` of this process's first
+        place."""
+        if not self.spans(axis):
+            return 0
+        return self.layout.index[axis] * self.local_shape[axis]
+
+    def global_coords(self, coords: tuple) -> tuple:
+        """The global coordinates of the local place at ``coords``."""
+        return tuple(c + self.offset(a)
+                     for a, c in zip(self.axis_names, coords))
+
+    def local(self) -> "Mesh":
+        """This process's places as a mesh of their own (no layout)."""
+        return Mesh(self.devices, self.axis_names)
+
+    def line(self, axis: str, at: dict | None = None) -> "Mesh":
+        """The one-axis mesh of the places along ``axis`` at the local
+        index ``at`` of the other axes, spanning processes where ``axis``
+        does."""
+        devs = self.axis_devices(axis, at)
+        grid = np.empty(len(devs), dtype=object)
+        for i, d in enumerate(devs):
+            grid[i] = d
+        return Mesh(grid, (axis,), self.layout.restrict((axis,))
+                    if self.layout else None)
 
     def axis_devices(self, axis: str, at: dict | None = None) -> list:
         """The devices along ``axis``, in order, at the index ``at[name]``
         of every other axis (0 where ``at`` names none): the ranks of one
-        ring."""
+        ring (this process's places only, local indices)."""
         at = at or {}
         index = tuple(slice(None) if name == axis else at.get(name, 0)
                       for name in self.axis_names)
         return list(self.devices[index])
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={self.devices.ravel().tolist()})"
+        procs = f", processes={self.layout.procs}" if self.layout else ""
+        return (f"Mesh({self.shape}, devices="
+                f"{self.devices.ravel().tolist()}{procs})")
 
 
 def _device_grid(devices, shape) -> np.ndarray:

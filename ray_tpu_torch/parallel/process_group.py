@@ -4,12 +4,17 @@ group over ``tcp://localhost:<port>``.
 The counterpart of ``jax.distributed.initialize``
 (``ray_tpu/train/worker_group.py:39-41``). The single-controller mesh
 (``parallel.mesh``) and its rank-list collectives stay the plane inside a
-process; this module carries the few collectives the train harness needs
-between processes, one process per index of the global mesh's ``dp``
-axis:
+process; this module carries the collectives between processes, on the
+whole group or on a subgroup, one line of a mesh axis whose places are in
+different processes (``AxisGroup``, made by ``mesh_layout``):
 
-- ``all_reduce`` (sum, then divide for a mean: gloo has no AVG on every
-  build), ``broadcast`` and ``all_gather_object``;
+- ``all_reduce`` (sum, max, or the sum divided for a mean: gloo has no
+  AVG on every build), ``broadcast`` and ``all_gather_object``;
+- ``all_gather_flat`` and ``reduce_scatter_flat`` into and out of flat
+  tensors, ``exchange`` (point-to-point sends and receives posted as one
+  ``batch_isend_irecv``, so that no pair of ranks deadlocks on the order
+  of blocking sends; a ring shift is one of them) and ``all_to_all_flat``
+  (uneven splits), each counted by kind in ``stats``;
 - ``all_reduce_grads``: the gradients in flat buckets, one collective per
   bucket rather than one per leaf (a leaf at least a bucket's size is
   reduced in place, by itself), timed on the device by CUDA events, so
@@ -30,16 +35,26 @@ has only run with one rank: the machine it was checked on has one card.
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import socket
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
+
+from ray_tpu_torch.parallel.mesh import ProcessLayout, split_axes
 
 # collectives and the rendezvous fail after this long without progress
 DEFAULT_TIMEOUT_S = 300.0
 # bytes of one gradient bucket (and of the largest piece staged at once)
 BUCKET_BYTES = 1 << 28
+# the collectives on flat tensors, each counted in ``stats`` under its name
+KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
+         "all_to_all")
+# subgroups by their ranks, made once per process group (dist.new_group)
+_LINES: dict = {}
 
 
 def free_port() -> int:
@@ -89,8 +104,10 @@ def check_backend(backend: str, world_size: int, use_gpu: bool) -> None:
 class ProcessGroup:
     """This process's membership of the group: ``rank`` of
     ``world_size``, its ``device``, and the collectives between the
-    ranks. ``stats`` counts the seconds in the gradient all-reduce and in
-    gloo's staging through host memory."""
+    ranks. ``stats`` counts the seconds in the gradient all-reduce, in
+    each kind of collective on flat tensors (``KINDS``: calls, seconds,
+    and the bytes in and out of this rank) and in gloo's staging through
+    host memory."""
 
     def __init__(self, backend: str, rank: int, world_size: int,
                  device: torch.device):
@@ -98,6 +115,9 @@ class ProcessGroup:
         self.device = torch.device(device)
         self._stats = {"grad_all_reduces": 0, "grad_all_reduce_s": 0.0,
                        "grad_bytes": 0, "staging_s": 0.0, "staged_bytes": 0}
+        for kind in KINDS:
+            self._stats.update({f"{kind}_calls": 0, f"{kind}_s": 0.0,
+                                f"{kind}_bytes": 0})
         self._pinned: dict[torch.dtype, torch.Tensor] = {}
         # (start, end) CUDA events of gradient all-reduces not yet read
         self._pending: list = []
@@ -146,25 +166,121 @@ class ProcessGroup:
             self._stats["staged_bytes"] += 2 * piece.numel() * \
                 piece.element_size()
 
-    def _reduce_flat(self, flat: torch.Tensor) -> None:
-        self._on_flat(dist.all_reduce, flat)
+    def _reduce_flat(self, flat: torch.Tensor, group=None) -> None:
+        handle = None if group is None else group.handle
+        self._on_flat(lambda t: dist.all_reduce(t, group=handle), flat)
+
+    def _run(self, kind: str, fn, ins: list, outs: list | None) -> None:
+        """``fn(ins, outs)`` on contiguous 1-d tensors of one dtype
+        (``outs=None``: in place on ``ins``), timed and counted under
+        ``kind``; under gloo, CUDA tensors go through the pinned staging
+        buffer (in, the collective, out), the staging timed."""
+        t0 = time.perf_counter()
+        inplace = outs is None
+        outs = ins if inplace else outs
+        both = ins if inplace else ins + outs
+        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
+        if not any(self._staged(t) for t in both):
+            fn(ins, outs)
+        else:
+            sizes = [t.numel() for t in both]
+            host = list(self._pinned_buffer(both[0].dtype,
+                                            sum(sizes)).split(sizes))
+            for h, t in zip(host, ins):
+                h.copy_(t)
+            h_ins = host[:len(ins)]
+            h_outs = h_ins if inplace else host[len(ins):]
+            t1 = time.perf_counter()
+            fn(h_ins, h_outs)
+            t2 = time.perf_counter()
+            for t, h in zip(outs, h_outs):
+                t.copy_(h)
+            if outs:
+                torch.cuda.current_stream(outs[0].device).synchronize()
+            self._stats["staging_s"] += t1 - t0 + time.perf_counter() - t2
+            self._stats["staged_bytes"] += nbytes
+        self._stats[f"{kind}_calls"] += 1
+        self._stats[f"{kind}_s"] += time.perf_counter() - t0
+        self._stats[f"{kind}_bytes"] += nbytes
 
     # --- collectives ---
 
-    def all_reduce(self, tensor: torch.Tensor, op: str = "sum"):
-        """``tensor`` summed (``op="sum"``) or averaged (``"mean"``: the
-        sum divided by the world size) over the ranks, in place; returns
-        it."""
-        if op not in ("sum", "mean"):
+    def all_reduce(self, tensor: torch.Tensor, op: str = "sum", *,
+                   group=None):
+        """``tensor`` summed (``op="sum"``), maximized (``"max"``) or
+        averaged (``"mean"``: the sum divided by the group's size) over
+        the ranks of ``group`` (an ``AxisGroup``; default: every rank), in
+        place; returns it."""
+        if op not in ("sum", "mean", "max"):
             raise ValueError(f"unknown op {op!r}")
+        handle = None if group is None else group.handle
         flat = tensor.view(-1) if tensor.is_contiguous() else \
             tensor.contiguous().view(-1)
-        self._reduce_flat(flat)
+        red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+        self._run("all_reduce", lambda ins, outs: dist.all_reduce(
+            ins[0], op=red, group=handle), [flat], None)
         if flat.data_ptr() != tensor.data_ptr():
             tensor.copy_(flat.view_as(tensor))
         if op == "mean":
-            tensor.div_(self.world_size)
+            tensor.div_(self.world_size if group is None else group.size)
         return tensor
+
+    def all_gather_flat(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The flat ``x`` of every rank of ``group``, in its order: one
+        tensor [size · numel]."""
+        x = x.contiguous().view(-1)
+        out = torch.empty(group.size * x.numel(), dtype=x.dtype,
+                          device=x.device)
+        self._run("all_gather", lambda ins, outs: dist.all_gather_into_tensor(
+            outs[0], ins[0], group=group.handle), [x], [out])
+        return out
+
+    def reduce_scatter_flat(self, x: torch.Tensor, group) -> torch.Tensor:
+        """The flat ``x`` summed over the ranks of ``group``, this rank
+        keeping its piece: [numel / size]."""
+        x = x.contiguous().view(-1)
+        if x.numel() % group.size:
+            raise ValueError(f"{x.numel()} elements do not divide over "
+                             f"{group.size} ranks")
+        out = torch.empty(x.numel() // group.size, dtype=x.dtype,
+                          device=x.device)
+        self._run("reduce_scatter",
+                  lambda ins, outs: dist.reduce_scatter_tensor(
+                      outs[0], ins[0], group=group.handle), [x], [out])
+        return out
+
+    def exchange(self, sends: dict, recvs: dict, group) -> dict:
+        """Point-to-point along ``group``: ``sends`` maps a destination
+        (an index of the group) to a tensor, ``recvs`` a source to the
+        shape, dtype and device of what it sends; all posted as one
+        ``batch_isend_irecv`` and waited for. Returns source -> received
+        tensor."""
+        got = {src: torch.empty(shape, dtype=dtype, device=device)
+               for src, (shape, dtype, device) in recvs.items()}
+        ins = [sends[d].contiguous().view(-1) for d in sorted(sends)]
+        outs = [got[s].view(-1) for s in sorted(got)]
+
+        def run(h_ins, h_outs):
+            ops = [dist.P2POp(dist.isend, t, group.ranks[d], group.handle)
+                   for d, t in zip(sorted(sends), h_ins)]
+            ops += [dist.P2POp(dist.irecv, t, group.ranks[s], group.handle)
+                    for s, t in zip(sorted(got), h_outs)]
+            for req in dist.batch_isend_irecv(ops) if ops else []:
+                req.wait()
+        self._run("send_recv", run, ins, outs)
+        return got
+
+    def all_to_all_flat(self, x: torch.Tensor, in_splits: list,
+                        out_splits: list, group) -> torch.Tensor:
+        """``x`` (flat) cut into ``in_splits`` elements, piece ``j`` to
+        rank ``j`` of ``group``; returns what every rank sent here, joined
+        in rank order (``out_splits`` elements from each)."""
+        x = x.contiguous().view(-1)
+        out = torch.empty(sum(out_splits), dtype=x.dtype, device=x.device)
+        self._run("all_to_all", lambda ins, outs: dist.all_to_all_single(
+            outs[0], ins[0], list(out_splits), list(in_splits),
+            group=group.handle), [x], [out])
+        return out
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0):
         """``tensor`` of rank ``src`` copied to every rank, in place."""
@@ -181,11 +297,12 @@ class ProcessGroup:
         dist.all_gather_object(out, obj)
         return out
 
-    def all_reduce_grads(self, grads: list) -> None:
+    def all_reduce_grads(self, grads: list, group=None) -> None:
         """Sum ``grads`` (distinct tensors, in the same order on every
-        rank) over the ranks in place. Leaves are packed by dtype into flat
-        buckets of ``BUCKET_BYTES`` (one copy in, one collective and one
-        copy out per bucket); a leaf of at least a bucket's size is reduced
+        rank) over the ranks of ``group`` (an ``AxisGroup``; default:
+        every rank) in place. Leaves are packed by dtype into flat buckets
+        of ``BUCKET_BYTES`` (one copy in, one collective and one copy out
+        per bucket); a leaf of at least a bucket's size is reduced
         in place by itself. On the card its seconds (``stats``) run from
         the end of the kernels queued before it (the backward) to the end
         of its own, by CUDA events: the host does not wait here."""
@@ -203,7 +320,7 @@ class ProcessGroup:
             else:
                 small.setdefault(g.dtype, []).append(g)
         for g in big:
-            self._reduce_flat(g.view(-1))
+            self._reduce_flat(g.view(-1), group)
         for leaves in small.values():
             bucket, nbytes = [], 0
             for g in leaves + [None]:
@@ -213,7 +330,7 @@ class ProcessGroup:
                     nbytes += g.numel() * g.element_size()
                     continue
                 flat = torch.cat([x.reshape(-1) for x in bucket])
-                self._reduce_flat(flat)
+                self._reduce_flat(flat, group)
                 for x, piece in zip(bucket, flat.split(
                         [x.numel() for x in bucket])):
                     x.copy_(piece.view_as(x))
@@ -230,20 +347,22 @@ class ProcessGroup:
                                          for g in grads)
 
     def check_same(self, named: list) -> None:
-        """Raise unless every rank holds the same tensors ``named`` ((name,
-        tensor) pairs, in the same order on every rank), by a gathered
-        per-leaf checksum: the float32 sum and 2-norm of each."""
+        """Raise unless the ranks hold equal tensors wherever they hold one
+        name (``named``: (name, tensor) pairs; a placed leaf's chunk is
+        named by its index range, so replicas of one range are compared
+        and the chunks of other ranges are not), by a gathered per-leaf
+        checksum: the float32 sum and 2-norm of each."""
         with torch.no_grad():
             sums = [torch.stack([t.sum(dtype=torch.float32),
                                  torch.linalg.vector_norm(
                                      t, dtype=torch.float32)])
                     for _, t in named]
-        mine = torch.stack(sums).cpu().tolist() if sums else []
+        mine = dict(zip([n for n, _ in named],
+                        torch.stack(sums).cpu().tolist() if sums else []))
         every = self.all_gather_object(mine)
-        bad = sorted({name for other in every
-                      for (name, _), a, b in zip(named, mine, other)
-                      if a != b})
-        if bad or any(len(o) != len(mine) for o in every):
+        bad = sorted({name for other in every for name, a in mine.items()
+                      if name in other and other[name] != a})
+        if bad:
             raise RuntimeError(
                 f"rank {self.rank}: the ranks' states differ before the "
                 f"first step (checksums of {bad[:8]}"
@@ -251,8 +370,66 @@ class ProcessGroup:
                 "start from the same state (the same init seed)")
 
     def destroy(self) -> None:
+        _LINES.clear()
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+class AxisGroup:
+    """One line of a mesh axis whose places lie in different processes:
+    the processes along ``axis`` (``ranks``, global ranks in the axis'
+    order) at this process's index of every other spanned axis, this
+    process at ``index`` of ``size``. ``handle`` is the
+    ``torch.distributed`` group (None: the whole world); ``pg`` runs the
+    collectives."""
+
+    def __init__(self, pg, axis: str, ranks: tuple, handle):
+        self.pg, self.axis, self.ranks, self.handle = pg, axis, ranks, handle
+        self.size = len(ranks)
+        self.index = ranks.index(pg.rank)
+
+    def __repr__(self) -> str:
+        return (f"AxisGroup({self.axis!r}, ranks={list(self.ranks)}, "
+                f"index={self.index})")
+
+
+def _line(ranks: tuple, world: int):
+    """The group of ``ranks`` (None for the whole world), made by
+    ``dist.new_group`` the first time: every process asks for every line
+    in one order, as ``new_group`` requires, whether or not it is in
+    it."""
+    if len(ranks) == world:
+        return None
+    if ranks not in _LINES:
+        _LINES[ranks] = dist.new_group(list(ranks))
+    return _LINES[ranks]
+
+
+def mesh_layout(pg, axes: dict) -> ProcessLayout:
+    """This process's part of the global mesh ``axes`` when ``pg``'s
+    ranks share it (``parallel.mesh.split_axes``): its index along each
+    spanned axis (the rank unravelled over the spanned axes, row-major)
+    and its ``AxisGroup`` on each. Every process makes the subgroups of
+    every line, in the same order."""
+    local, procs = split_axes(axes, pg.world_size)
+    names = list(procs)
+    sizes = [procs[a] for a in names]
+    grid = np.arange(pg.world_size).reshape(sizes) if names else None
+    coords = dict(zip(names, map(int, np.unravel_index(pg.rank, sizes)))) \
+        if names else {}
+    groups = {}
+    for i, axis in enumerate(names):
+        others = [range(n) for j, n in enumerate(sizes) if j != i]
+        for at in itertools.product(*others):
+            index = list(at)
+            index.insert(i, slice(None))
+            ranks = tuple(int(r) for r in grid[tuple(index)])
+            handle = _line(ranks, pg.world_size)
+            if pg.rank in ranks:
+                groups[axis] = AxisGroup(pg, axis, ranks, handle)
+    assert math.prod(sizes) == pg.world_size
+    return ProcessLayout(rank=pg.rank, world=pg.world_size, local=local,
+                         procs=procs, index=coords, groups=groups)
 
 
 def init_process_group(backend: str, rank: int, world_size: int, port: int,

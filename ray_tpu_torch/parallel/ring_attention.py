@@ -39,6 +39,16 @@ the kernels do not take here (fewer than 256 tokens, not a multiple of
 reference body. On a CPU tensor the flash body runs the kernels' plain
 versions.
 
+**Across processes.** When ``axis`` spans processes (``Mesh.spans``:
+one sp index a process), q, k and v are this process's chunk of the
+sequence and both bodies run this one index: K/V ride the ring by the
+subgroup's sends and receives (``collectives.ring_shift`` with
+``group=``, every shift posted as one ``batch_isend_irecv``), the causal
+skips are decided per process (rank ``idx`` runs the diagonal and the
+``idx`` steps after it), and in the flash body's backward dK and dV ride
+the ring home in float32, as on one card. Every process makes every
+shift, skipped step or not, so that the ring's sends pair up.
+
 Under the ``attn`` and ``dots_attn`` remat policies of ``models/llama.py``
 the ring recomputes its forward in the backward, as JAX's ring does: its
 custom VJP names no residual, and ``_RingFlash`` launches the kernels
@@ -54,6 +64,10 @@ import torch
 
 from ray_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
 from ray_tpu_torch.parallel import collectives as col
+
+# the ring's move of K/V (and dK/dV) one rank on (a module attribute, so
+# that a fault check can replace it)
+ring_shift = col.ring_shift
 
 
 def _chunk_attention(q, k, v, *, scale, mask):
@@ -90,76 +104,115 @@ def _skipped(causal: bool, r: int, idx: int) -> bool:
     return causal and r > 0 and idx < r
 
 
-def _ring_reference(q, k, v, devices, scale, causal):
-    """The reference body over one ring: global [b, s, h|hk, d] in, the
-    global output out, through per-rank lists."""
-    n = len(devices)
-    qs, ks, vs = (col.shard(x, devices, 1) for x in (q, k, v))
+class _Ring:
+    """The ranks of one ring this process walks: ``idxs`` (all ``n`` on
+    one mesh, this process's one index across processes) and the shift
+    of their chunks one rank on."""
+
+    def __init__(self, n: int, group=None):
+        self.n, self.group = n, group
+        self.idxs = range(n) if group is None else [group.index]
+
+    def shift(self, xs: list) -> list:
+        return ring_shift(xs) if self.group is None else \
+            ring_shift(xs, group=self.group)
+
+
+def _ring_reference(qs, ks, vs, ring, scale, causal):
+    """The reference body over per-rank chunks [b, sc, h|hk, d] (every
+    rank of the ring): per rank the output in q's dtype."""
     sc = qs[0].shape[1]
-    os_, lses = [None] * n, [None] * n
-    for r in range(n):
-        for idx in range(n):
+    os_, lses = [None] * len(qs), [None] * len(qs)
+    for r in range(ring.n):
+        for j, idx in enumerate(ring.idxs):
             if _skipped(causal, r, idx):
                 continue
             mask = None
             if causal and r == 0:
                 mask = torch.ones(sc, sc, dtype=torch.bool,
-                                  device=qs[idx].device).tril()
-            o_r, lse_r = _chunk_attention(qs[idx], ks[idx], vs[idx],
+                                  device=qs[j].device).tril()
+            o_r, lse_r = _chunk_attention(qs[j], ks[j], vs[j],
                                           scale=scale, mask=mask)
             if r == 0:
-                os_[idx], lses[idx] = o_r, lse_r
+                os_[j], lses[j] = o_r, lse_r
             else:
-                os_[idx], lses[idx] = _merge(os_[idx], lses[idx], o_r, lse_r)
-        if r < n - 1:
-            ks, vs = col.ring_shift(ks), col.ring_shift(vs)
-    return col.unshard([o.to(q.dtype) for o in os_], 1, q.device)
+                os_[j], lses[j] = _merge(os_[j], lses[j], o_r, lse_r)
+        if r < ring.n - 1:
+            ks, vs = ring.shift(ks), ring.shift(vs)
+    return [o.to(q.dtype) for o, q in zip(os_, qs)]
 
 
-def _ring_flash_fwd(qs, ks, vs, scale, causal):
+def _ring_reference_across(q, k, v, ring, scale, causal):
+    """The reference body on this process's chunks, the ring's index
+    ``ring.group.index``, differentiated by autograd through the shifts.
+    K and V ride the ring stacked, one chain of shifts, so that the
+    backward's reverse shifts come in one order in every process; a
+    chain link whose step this process skips still reaches the output
+    (times zero), so that every process runs every link's backward, which
+    its ring neighbours wait for."""
+    sc, idx = q.shape[1], ring.group.index
+    kv = torch.stack([k, v])
+    out = lse = None
+    idle = []
+    for r in range(ring.n):
+        if _skipped(causal, r, idx):
+            idle.append(kv)
+        else:
+            mask = torch.ones(sc, sc, dtype=torch.bool,
+                              device=q.device).tril() \
+                if causal and r == 0 else None
+            o_r, lse_r = _chunk_attention(q, kv[0], kv[1], scale=scale,
+                                          mask=mask)
+            out, lse = (o_r, lse_r) if out is None else \
+                _merge(out, lse, o_r, lse_r)
+        if r < ring.n - 1:
+            kv = ring.shift([kv])[0]
+    for x in idle:
+        out = out + 0.0 * x.sum()
+    return out.to(q.dtype)
+
+
+def _ring_flash_fwd(qs, ks, vs, ring, scale, causal):
     """The forward ring on kernel-layout chunks [b, h|hk, sc, d]: per rank
     (out in q's dtype, merged lse float32 [b, h, sc])."""
-    n = len(qs)
-    os_, lses = [None] * n, [None] * n
-    for r in range(n):
-        for idx in range(n):
+    os_, lses = [None] * len(qs), [None] * len(qs)
+    for r in range(ring.n):
+        for j, idx in enumerate(ring.idxs):
             if _skipped(causal, r, idx):
                 continue
-            o_r, lse_r = flash_fwd(qs[idx], ks[idx], vs[idx], scale=scale,
+            o_r, lse_r = flash_fwd(qs[j], ks[j], vs[j], scale=scale,
                                    causal=causal and r == 0, with_lse=True)
             if r == 0:
-                os_[idx], lses[idx] = o_r.float(), lse_r
+                os_[j], lses[j] = o_r.float(), lse_r
             else:
-                os_[idx], lses[idx] = _merge(os_[idx], lses[idx],
-                                             o_r.float(), lse_r)
-        if r < n - 1:
-            ks, vs = col.ring_shift(ks), col.ring_shift(vs)
+                os_[j], lses[j] = _merge(os_[j], lses[j], o_r.float(), lse_r)
+        if r < ring.n - 1:
+            ks, vs = ring.shift(ks), ring.shift(vs)
     return [o.to(q.dtype) for o, q in zip(os_, qs)], lses
 
 
-def _ring_flash_bwd(qs, ks, vs, os_, lses, dos, scale, causal):
+def _ring_flash_bwd(qs, ks, vs, os_, lses, dos, ring, scale, causal):
     """The backward ring: per rank (dq, dk, dv) in the inputs' dtypes. dq
     accumulates in float32 at home; dk and dv accumulate in float32 while
     they ride the ring with their kv chunk, and are home after n hops."""
-    n = len(qs)
-    dqs, dks, dvs = [None] * n, [None] * n, [None] * n
-    for r in range(n):
-        for idx in range(n):
+    m = len(qs)
+    dqs, dks, dvs = [None] * m, [None] * m, [None] * m
+    for r in range(ring.n):
+        for j, idx in enumerate(ring.idxs):
             if _skipped(causal, r, idx):
                 continue
-            dq, dk, dv = flash_bwd(qs[idx], ks[idx], vs[idx], os_[idx],
-                                   lses[idx], dos[idx], scale=scale,
+            dq, dk, dv = flash_bwd(qs[j], ks[j], vs[j], os_[j], lses[j],
+                                   dos[j], scale=scale,
                                    causal=causal and r == 0)
             if r == 0:
-                dqs[idx], dks[idx], dvs[idx] = dq.float(), dk.float(), \
-                    dv.float()
+                dqs[j], dks[j], dvs[j] = dq.float(), dk.float(), dv.float()
             else:
-                dqs[idx] = dqs[idx] + dq.float()
-                dks[idx] = dks[idx] + dk.float()
-                dvs[idx] = dvs[idx] + dv.float()
-        dks, dvs = col.ring_shift(dks), col.ring_shift(dvs)
-        if r < n - 1:
-            ks, vs = col.ring_shift(ks), col.ring_shift(vs)
+                dqs[j] = dqs[j] + dq.float()
+                dks[j] = dks[j] + dk.float()
+                dvs[j] = dvs[j] + dv.float()
+        dks, dvs = ring.shift(dks), ring.shift(dvs)
+        if r < ring.n - 1:
+            ks, vs = ring.shift(ks), ring.shift(vs)
     return ([x.to(qs[0].dtype) for x in dqs], [x.to(ks[0].dtype) for x in dks],
             [x.to(vs[0].dtype) for x in dvs])
 
@@ -176,18 +229,22 @@ def _global(xs, device):
 
 
 class _RingFlash(torch.autograd.Function):
-    """The flash body over one ring, on global [b, s, h|hk, d] tensors;
-    both passes walk the ring (module docstring)."""
+    """The flash body over one ring, on global [b, s, h|hk, d] tensors
+    cut over ``devices`` (or, with ``group``, this process's chunk of
+    them); both passes walk the ring (module docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, scale, causal):
+    def forward(ctx, q, k, v, devices, group, scale, causal):
+        ring = _Ring(len(devices) if group is None else group.size, group)
         os_, lses = _ring_flash_fwd(_kernel_chunks(q, devices),
                                     _kernel_chunks(k, devices),
-                                    _kernel_chunks(v, devices), scale, causal)
+                                    _kernel_chunks(v, devices), ring, scale,
+                                    causal)
         out = _global(os_, q.device)
         lse = col.unshard(lses, 2, q.device)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.devices, ctx.scale, ctx.causal = devices, scale, causal
+        ctx.devices, ctx.ring = devices, ring
+        ctx.scale, ctx.causal = scale, causal
         return out
 
     @staticmethod
@@ -197,9 +254,10 @@ class _RingFlash(torch.autograd.Function):
         chunks = [_kernel_chunks(x, devices) for x in (q, k, v, out)]
         dqs, dks, dvs = _ring_flash_bwd(
             *chunks, col.shard(lse, devices, 2),
-            _kernel_chunks(dout.to(q.dtype), devices), ctx.scale, ctx.causal)
+            _kernel_chunks(dout.to(q.dtype), devices), ctx.ring, ctx.scale,
+            ctx.causal)
         return (_global(dqs, q.device), _global(dks, k.device),
-                _global(dvs, v.device), None, None, None)
+                _global(dvs, v.device), None, None, None, None)
 
 
 def _check_flash_chunk(sc: int, d: int) -> None:
@@ -232,6 +290,10 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
     index 0 of any other axis, whose work JAX replicates).
     ``block_q``/``block_k`` are TPU tiling arguments, kept in the
     signature and ignored: the kernels pick their own tiles.
+
+    When ``axis`` spans processes (module docstring), q, k and v are this
+    process's chunk of the sequence and the output is its chunk; the
+    mesh's other axes must then be one place wide here.
     """
     del block_q, block_k
     if mesh is None:
@@ -239,9 +301,26 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
     b, s, h, d = q.shape
     hk = k.shape[2]
     n = mesh.shape[axis]
+    scale = scale if scale is not None else d ** -0.5
+    if impl not in ("auto", "flash", "reference"):
+        raise ValueError(
+            f"ring_attention impl must be 'auto', 'flash' or 'reference', "
+            f"got {impl!r}")
+    use_flash = impl == "flash" or (impl == "auto" and q.is_cuda)
+    if mesh.spans(axis):
+        if any(mesh.local_shape[a] > 1 for a in mesh.axis_names):
+            raise NotImplementedError(
+                f"ring_attention over the processes of {axis!r} takes a mesh "
+                f"of one place a process, got {mesh}")
+        group = mesh.group(axis)
+        devices = [q.device]
+        if use_flash:
+            _check_flash_chunk(s, d)
+            return _RingFlash.apply(q, k, v, devices, group, scale, causal)
+        return _ring_reference_across(q, k, v, _Ring(n, group), scale,
+                                      causal)
     if s % n:
         raise ValueError(f"seq {s} not divisible by {axis} size {n}")
-    scale = scale if scale is not None else d ** -0.5
 
     b_ax = tuple(a for a in batch_axes
                  if a in mesh.axis_names and mesh.shape[a] > 1)
@@ -252,14 +331,15 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
             and h % mesh.shape[head_axis] == 0
             and hk % mesh.shape[head_axis] == 0 else None)
 
-    if impl not in ("auto", "flash", "reference"):
-        raise ValueError(
-            f"ring_attention impl must be 'auto', 'flash' or 'reference', "
-            f"got {impl!r}")
-    use_flash = impl == "flash" or (impl == "auto" and q.is_cuda)
     if use_flash:
         _check_flash_chunk(s // n, d)
-    body = _RingFlash.apply if use_flash else _ring_reference
+
+    def body(qh, kh, vh, devices):
+        if use_flash:
+            return _RingFlash.apply(qh, kh, vh, devices, None, scale, causal)
+        qs, ks, vs = (col.shard(x, devices, 1) for x in (qh, kh, vh))
+        return col.unshard(_ring_reference(qs, ks, vs, _Ring(n), scale,
+                                           causal), 1, qh.device)
 
     b_sizes = [mesh.shape[a] for a in b_ax]
     nb = math.prod(b_sizes)
@@ -274,7 +354,6 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
                                        kb.chunk(nh, 2), vb.chunk(nh, 2)):
             if h_ax:
                 at[h_ax] = h_index
-            heads.append(body(qh, kh, vh, mesh.axis_devices(axis, at),
-                              scale, causal))
+            heads.append(body(qh, kh, vh, mesh.axis_devices(axis, at)))
         rows.append(_join(heads, 2))
     return _join(rows, 0)

@@ -39,6 +39,15 @@ nothing is copied on one card. A dp-4 state on one card therefore costs
 its 64 GB once, not four times; only a place on another device gets a
 copy. Chunks are leaves that share storage, so updating one in place
 updates the tensor it was cut from and every place that shares it.
+
+**Across processes** (a mesh with a ``ProcessLayout``, ``parallel.mesh``)
+a process holds the chunks of its own places only, in the order of its
+``mesh.devices.ravel()``, each the index range of that place's global
+coordinates; ``distinct()`` lists them. ``device_put`` of a tensor cut over a
+spanned axis copies each chunk (a view would keep the global tensor
+alive in every process), and ``unshard`` of a tensor cut over a spanned
+axis is an explicit all-gather over that axis' subgroup, a collective
+every process of the line must make.
 """
 
 from __future__ import annotations
@@ -223,6 +232,15 @@ class NamedSharding:
     def __repr__(self) -> str:
         return f"NamedSharding(mesh={self.mesh.shape}, spec={self.spec})"
 
+    def cut_axes(self) -> set:
+        """The mesh axes the spec cuts over."""
+        return {a for entry in self.spec for a in _axes_of(entry)}
+
+    def spans_processes(self) -> bool:
+        """Whether some process lacks some index range: the spec cuts
+        over an axis whose places lie in several processes."""
+        return any(self.mesh.spans(a) for a in self.cut_axes())
+
     def shard_shape(self, shape) -> tuple:
         """The shape of every chunk of a ``shape`` tensor."""
         shape = tuple(shape)
@@ -242,13 +260,15 @@ class NamedSharding:
         """The index range of each place, in the order of
         ``mesh.devices.ravel()``: a tuple of slices per place (JAX's
         ``devices_indices_map``, keyed by position, as one device may
-        fill several places)."""
+        fill several places; this process's places only, at their global
+        coordinates, on a mesh across processes)."""
         chunk = self.shard_shape(shape)
         grid = self.mesh.devices.shape
         names = self.mesh.axis_names
         out = []
-        for flat in range(self.mesh.size):
-            coords = dict(zip(names, np.unravel_index(flat, grid)))
+        for flat in range(self.mesh.devices.size):
+            coords = dict(zip(names, self.mesh.global_coords(
+                np.unravel_index(flat, grid))))
             idx = []
             for d in range(len(shape)):
                 entry = self.spec[d] if d < len(self.spec) else None
@@ -313,23 +333,48 @@ class ShardedTensor:
                 shape[d] //= mesh.shape[axis]
                 axes = axes[1:]
             spec.append(axes or None)
-        grid = np.arange(mesh.size).reshape(mesh.devices.shape)
+        grid = np.arange(mesh.devices.size).reshape(mesh.devices.shape)
         places = grid.take(index, axis=i).ravel()
         return ShardedTensor(shape, self.dtype, NamedSharding(sub, P(*spec)),
                              [self.chunks[p] for p in places])
 
     def unshard(self, device=None) -> torch.Tensor:
         """The global tensor, assembled on ``device`` (default: the first
-        chunk's) from one chunk of each index range."""
+        chunk's) from one chunk of each index range. Cut over an axis that
+        spans processes, this process's block is all-gathered over each
+        such axis' subgroup, the minor axis of a dimension first (a
+        collective: every process of the line calls it)."""
         device = device if device is not None else self.chunks[0].device
-        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        indices = self.sharding.indices(self.shape)
+        lo = [min(idx[d].start for idx in indices)
+              for d in range(len(self.shape))]
+        hi = [max(idx[d].stop for idx in indices)
+              for d in range(len(self.shape))]
+        out = torch.empty([b - a for a, b in zip(lo, hi)], dtype=self.dtype,
+                          device=device)
         done = set()
-        for idx, chunk in zip(self.sharding.indices(self.shape),
-                              self.chunks):
+        for idx, chunk in zip(indices, self.chunks):
             key = tuple((s.start, s.stop) for s in idx)
             if key not in done:
                 done.add(key)
-                out[idx] = chunk.detach().to(device)
+                out[tuple(slice(s.start - a, s.stop - a)
+                          for s, a in zip(idx, lo))] = \
+                    chunk.detach().to(device)
+        mesh = self.mesh
+        for d, entry in enumerate(self.spec):
+            axes = _axes_of(entry)
+            for k, ax in reversed(list(enumerate(axes))):
+                if not mesh.spans(ax):
+                    continue
+                if any(not mesh.spans(a) and mesh.local_shape[a] > 1
+                       for a in axes[:k]):
+                    raise NotImplementedError(
+                        f"unshard of {self}: the local axes before {ax!r} "
+                        f"leave this process's block of dim {d} in pieces")
+                from ray_tpu_torch.parallel.collectives import all_gather
+
+                out = all_gather([out], gather_axis=d,
+                                 group=mesh.group(ax))[0]
         return out
 
 
@@ -338,7 +383,10 @@ def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     view of ``x`` (``x`` itself when the range is all of it) on ``x``'s
     device, a copy elsewhere; places with one range on one device share
     one chunk. When every place is on one other device, ``x`` moves there
-    once and the chunks are views of that copy."""
+    once and the chunks are views of that copy. Cut over an axis that
+    spans processes, every chunk short of the whole tensor is a copy
+    (module docstring)."""
+    copy = sharding.spans_processes()
     devices = sharding.mesh.devices.ravel()
     if not same_device(x.device, devices[0]) and all(
             same_device(devices[0], d) for d in devices):
@@ -349,7 +397,8 @@ def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
         key = (tuple((s.start, s.stop) for s in idx), str(dev))
         if key not in made:
             if same_device(x.device, dev):
-                made[key] = x if key[0] == whole else x.detach()[idx]
+                made[key] = x if key[0] == whole else (
+                    x.detach()[idx].clone() if copy else x.detach()[idx])
             else:
                 made[key] = x.detach()[idx].to(dev, copy=True)
         chunks.append(made[key])

@@ -17,7 +17,10 @@ sp size (GQA kv-head counts below it cannot be re-cut by head).
 The port is single-controller (``parallel.mesh``): ``ulysses_attention``
 takes the ranks' sequence chunks as one list in mesh order and returns
 the list of output chunks; ``ulysses_attention_sharded`` cuts global
-inputs over the mesh axis and joins the result.
+inputs over the mesh axis and joins the result. Across processes
+(``group=``, the sp axis' ``AxisGroup``) the lists hold this process's
+chunk and both all-to-alls run on the subgroup, each differentiable
+through the inverse exchange (``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -27,12 +30,12 @@ from ray_tpu_torch.parallel import collectives as col
 
 
 def ulysses_attention(qs: list, ks: list, vs: list, *, causal: bool = True,
-                      scale: float | None = None) -> list:
+                      scale: float | None = None, group=None) -> list:
     """Per-rank sequence chunks [B, S/sp, H, D] (one list entry per rank
     along the sp axis, in order) -> per-rank output chunks, with
     whole-sequence attention semantics. Every head count must be
     divisible by the sp size."""
-    sp = col.axis_size(qs)
+    sp = col.axis_size(qs, group=group)
     d = qs[0].shape[-1]
     for name, xs in (("q", qs), ("k", ks), ("v", vs)):
         if xs[0].shape[2] % sp != 0:
@@ -45,10 +48,10 @@ def ulysses_attention(qs: list, ks: list, vs: list, *, causal: bool = True,
 
     # [B, S/sp, H, D] -> [B, S, H/sp, D]: scatter heads, gather sequence
     def to_heads(xs):
-        return col.all_to_all(xs, split_axis=2, concat_axis=1)
+        return col.all_to_all(xs, split_axis=2, concat_axis=1, group=group)
 
     def to_seq(xs):
-        return col.all_to_all(xs, split_axis=1, concat_axis=2)
+        return col.all_to_all(xs, split_axis=1, concat_axis=2, group=group)
 
     out = [reference_attention(q, k, v, causal=causal, scale=scale)
            for q, k, v in zip(to_heads(qs), to_heads(ks), to_heads(vs))]

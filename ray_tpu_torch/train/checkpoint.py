@@ -5,7 +5,13 @@ Port of ``ray_tpu/train/checkpoint.py`` (Orbax there) with ``torch.save``.
 One file per step, ``<step>.pt``, written under a temporary name and
 renamed, so a partly written file is never listed. A save writes global
 arrays, as Orbax does: a placed leaf (``ShardedTensor``) is assembled
-from one chunk of each index range. An asynchronous save copies the
+from one chunk of each index range. A state cut across processes (a
+leaf cut over a mesh axis whose places lie in several processes,
+``parallel.mesh``) is written as Orbax writes each device's shards
+(``ray_tpu/train/checkpoint.py:1-8``): each process writes its own
+chunks, each under its index range, to ``<step>.proc<rank>of<world>.pt``,
+and ``restore(shardings=)`` reads back the chunks of this process's
+places, bit for bit on the same layout. An asynchronous save copies the
 state to the host before ``save`` returns (the trainer updates its
 tensors in place, so a later step would otherwise tear the write) and
 writes it on one background thread. Retention keeps the newest
@@ -25,9 +31,13 @@ from typing import Any
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.parallel.sharding import ShardedTensor, place_tree
-from ray_tpu_torch.train.optim import tree_map
+from ray_tpu_torch.parallel.sharding import (ShardedTensor, device_put,
+                                             map_trees)
+from ray_tpu_torch.train.optim import tree_leaves, tree_map
 from ray_tpu_torch.train.state import TrainState
+
+# the marker of a leaf saved as this process's chunks
+_CHUNKS = "__chunks__"
 
 
 def _as_tree(state: Any):
@@ -39,24 +49,71 @@ def _as_tree(state: Any):
     return state
 
 
-def _global_host(x):
-    """A host copy of a tensor or of a placed tensor's global value."""
+def _range_key(idx) -> str:
+    return ",".join(f"{s.start}:{s.stop}" for s in idx)
+
+
+def _host(x):
+    """A host copy of a tensor or of a placed tensor's global value; of a
+    tensor cut across processes, this process's distinct chunks by index
+    range."""
     if isinstance(x, ShardedTensor):
-        return x.unshard(device="cpu")
+        if not x.sharding.spans_processes():
+            return x.unshard(device="cpu")
+        indices = x.sharding.indices(x.shape)
+        return {_CHUNKS: list(x.shape), "dtype": str(x.dtype).split(".")[-1],
+                "chunks": {_range_key(indices[place]):
+                           c.detach().to("cpu", copy=True)
+                           for place, c in x.distinct()}}
     if isinstance(x, torch.Tensor):
         return x.detach().to("cpu", copy=True)
     return x
 
 
+def _process(tree) -> tuple | None:
+    """(rank, world) of this process when a leaf of ``tree`` (placed
+    tensors or shardings) is cut across processes, else None."""
+    for x in tree_leaves(tree):
+        sharding = getattr(x, "sharding", x)
+        if hasattr(sharding, "spans_processes") and \
+                sharding.spans_processes():
+            layout = sharding.mesh.layout
+            return layout.rank, layout.world
+    return None
+
+
 def _to_host(state: Any) -> dict:
     """A host copy of ``state`` that later in-place updates cannot touch,
-    every leaf global."""
+    every leaf global or, cut across processes, this process's chunks."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
-        return _global_host(node)
+        return _host(node)
     return {"train_state": isinstance(state, TrainState),
             "tree": walk(_as_tree(state))}
+
+
+def _place(leaf, sharding):
+    """A restored leaf placed by ``sharding``: a global tensor by
+    ``device_put``, saved chunks each at the places of its index
+    range."""
+    if not isinstance(leaf, dict):
+        return device_put(leaf, sharding) if isinstance(
+            leaf, torch.Tensor) else leaf
+    shape = leaf[_CHUNKS]
+    made, chunks = {}, []
+    for idx, dev in zip(sharding.indices(shape),
+                        sharding.mesh.devices.ravel()):
+        key = (_range_key(idx), str(dev))
+        if key not in made:
+            if key[0] not in leaf["chunks"]:
+                raise ValueError(f"the checkpoint holds no chunk {key[0]} of "
+                                 f"a {shape} leaf: restore on the layout it "
+                                 "was saved from")
+            made[key] = leaf["chunks"][key[0]].to(dev)
+        chunks.append(made[key])
+    return ShardedTensor(shape, getattr(torch, leaf["dtype"]), sharding,
+                         chunks)
 
 
 def _check_like(got, want, path="state"):
@@ -67,6 +124,13 @@ def _check_like(got, want, path="state"):
         for k in want:
             _check_like(got[k], want[k], f"{path}.{k}")
     elif isinstance(want, (torch.Tensor, ShardedTensor)):
+        if isinstance(got, dict) and _CHUNKS in got:
+            if tuple(got[_CHUNKS]) == tuple(want.shape) and \
+                    got["dtype"] == str(want.dtype).split(".")[-1]:
+                return
+            raise ValueError(f"{path}: checkpoint holds chunks of "
+                             f"{got[_CHUNKS]} {got['dtype']}, target "
+                             f"{tuple(want.shape)} {want.dtype}")
         if not isinstance(got, torch.Tensor) or got.shape != want.shape \
                 or got.dtype != want.dtype:
             raise ValueError(f"{path}: checkpoint holds "
@@ -85,16 +149,19 @@ class CheckpointManager:
             if async_save else None
         self._pending: list[Future] = []
 
-    def _path(self, step: int) -> Path:
-        return self.directory / f"{step}.pt"
+    def _path(self, step: int, process: tuple | None = None) -> Path:
+        if process is None:
+            return self.directory / f"{step}.pt"
+        return self.directory / f"{step}.proc{process[0]}of{process[1]}.pt"
 
-    def _write(self, step: int, payload: dict) -> None:
-        tmp = self.directory / f".{step}.pt.tmp"
+    def _write(self, step: int, payload: dict, process) -> None:
+        path = self._path(step, process)
+        tmp = path.with_name(f".{path.name}.tmp")
         torch.save(payload, tmp)
-        os.replace(tmp, self._path(step))
+        os.replace(tmp, path)
         if self.max_to_keep:
-            for old in self.all_steps()[:-self.max_to_keep]:
-                self._path(old).unlink(missing_ok=True)
+            for old in self.all_steps(process)[:-self.max_to_keep]:
+                self._path(old, process).unlink(missing_ok=True)
 
     def save(self, step: int, state: Any, *, metrics: dict | None = None,
              force: bool = False) -> bool:
@@ -102,15 +169,18 @@ class CheckpointManager:
         ``step``. The host copy is made before this returns; with
         ``async_save`` the write happens on the background thread.
         ``metrics`` are stored beside the state; ``force`` is accepted for
-        the JAX signature (every call saves)."""
+        the JAX signature (every call saves). A state cut across processes
+        is saved by every process, each its own chunks (module
+        docstring)."""
         del force
+        process = _process(_as_tree(state))
         payload = _to_host(state)
         payload["metrics"] = metrics
         if self._writer is None:
-            self._write(step, payload)
+            self._write(step, payload, process)
         else:
             self._pending.append(self._writer.submit(self._write, step,
-                                                     payload))
+                                                     payload, process))
         return True
 
     def restore(self, step: int | None = None, *, target: Any = None,
@@ -118,16 +188,20 @@ class CheckpointManager:
         """Restore ``step`` (default: the latest) onto ``device``, or, with
         ``shardings`` (a tree of ``NamedSharding``s of the state's
         structure), each leaf placed by its sharding on the devices of its
-        mesh (``parallel.sharding.device_put``). ``target`` (a state
-        of the same structure, plain, placed or on the meta device) is
-        checked against the checkpoint's structure, shapes and dtypes."""
+        mesh (``parallel.sharding.device_put``); a state saved across
+        processes restores through the shardings of its layout, each
+        process reading its own chunks. ``target`` (a state of the same
+        structure, plain, placed or on the meta device) is checked against
+        the checkpoint's structure, shapes and dtypes."""
         self.wait()
+        process = None if shardings is None else _process(
+            _as_tree(shardings))
         if step is None:
-            step = self.latest_step()
+            step = self.latest_step(process)
             if step is None:
                 raise FileNotFoundError(
                     f"No checkpoints under {self.directory}")
-        payload = torch.load(self._path(step), map_location="cpu",
+        payload = torch.load(self._path(step, process), map_location="cpu",
                              weights_only=True)
         tree = payload["tree"]
         if target is not None:
@@ -136,16 +210,23 @@ class CheckpointManager:
             dev = resolve_device(device)
             tree = tree_map(lambda t: t.to(dev), tree)
         else:
-            tree = place_tree(tree, _as_tree(shardings))
+            tree = map_trees(_place, tree, _as_tree(shardings),
+                             is_leaf=lambda x: isinstance(
+                                 x, torch.Tensor) or (isinstance(x, dict)
+                                                      and _CHUNKS in x))
         return TrainState(**tree) if payload["train_state"] else tree
 
-    def latest_step(self) -> int | None:
-        steps = self.all_steps()
+    def latest_step(self, process: tuple | None = None) -> int | None:
+        steps = self.all_steps(process)
         return steps[-1] if steps else None
 
-    def all_steps(self) -> list[int]:
-        return sorted(int(p.stem) for p in self.directory.glob("*.pt")
-                      if p.stem.isdigit())
+    def all_steps(self, process: tuple | None = None) -> list[int]:
+        """The saved steps (``process``: those with that process's
+        file)."""
+        return sorted(int(p.name.split(".")[0])
+                      for p in self.directory.glob("*.pt")
+                      if p.name.split(".")[0].isdigit() and
+                      p == self._path(int(p.name.split(".")[0]), process))
 
     def wait(self):
         """Block until pending asynchronous saves are on disk; raise the

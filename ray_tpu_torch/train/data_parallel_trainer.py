@@ -18,7 +18,9 @@ it is a module-level function, with its settings in
 
 ``TorchMeshTrainer`` is the counterpart of ``JaxMeshTrainer`` (``:200``):
 each rank runs ``train.trainer.Trainer`` over its process group, fed from
-the device feed when it has a dataset.
+the device feed when it has a dataset; the global mesh's places are dealt
+to the ranks (``parallel.mesh.split_axes``), checked before any rank
+starts.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
 from ray_tpu_torch.data.iterator import DataIterator
+from ray_tpu_torch.parallel.mesh import split_axes
 from ray_tpu_torch.train.worker_group import BackendExecutor
 
 
@@ -185,8 +188,10 @@ def mesh_train_loop(config: dict) -> None:
     dataset shard through the device feed (``iter_torch_batches``), else
     random tokens [batch_size, seq_len] seeded by the step. Declares the
     rank's FLOPs a step as JAX does (6 · parameters · batch elements), of
-    the rank's rows of the global batch, and reports ``loss``,
-    ``grad_norm`` and ``step`` each step."""
+    its own work: its rows of the global batch, over the processes along
+    tp (each its heads and mlp columns) and along sp (each its chunk of
+    the sequence). Reports ``loss``, ``grad_norm`` and ``step`` each
+    step."""
     import torch
 
     from ray_tpu_torch.train import session
@@ -220,27 +225,39 @@ def mesh_train_loop(config: dict) -> None:
         if step == 0:
             n_params = sum(math.prod(x.shape)
                            for x in tree_leaves(state.params))
-            # the rank's work: its rows (Trainer keeps them) of the batch
+            # the rank's work: its rows (Trainer keeps them) of the batch,
+            # over the processes along tp and sp; the processes of one
+            # line of any other spanned axis do the same work
+            procs = trainer.mesh.layout.procs if trainer.mesh.layout \
+                else {}
+            share = math.prod(procs.get(a, 1) for a in
+                              {*trainer._rank_step().split_axes, "tp", "sp"})
             session.set_flops_per_step(6.0 * n_params * batch.numel()
-                                       / ctx.world_size)
+                                       / share)
         state, metrics = trainer.train_step(state, batch)
         session.report({k: float(v) for k, v in metrics.items()})
 
 
 class TorchMeshTrainer(DataParallelTrainer):
-    """One rank per ``dp`` index of the global mesh, each running the
-    mesh ``Trainer`` step over its process group (the counterpart of
-    ``JaxMeshTrainer``; reference: TorchTrainer). The configs travel in
-    ``train_loop_config`` (``model_config``, ``train_config``, and
-    ``seed``, ``steps``, ``batch_size``, ``seq_len``). With a dataset every
-    rank reads the whole of it as global batches, and its ``Trainer``
-    keeps the rank's rows of each (the trainer's contract is the global
-    batch; the rows it drops are token ids, a few kB a step)."""
+    """``ScalingConfig.num_workers`` ranks sharing the global mesh
+    ``train_config.mesh_axes``, each running the mesh ``Trainer`` step on
+    its places over its process group (the counterpart of
+    ``JaxMeshTrainer``; reference: TorchTrainer). The world is the product
+    of the spanned axes' sizes (dp's share of processes for dp): the
+    layout is checked before any rank starts (``split_axes``; pp, ep or
+    an axis cut between processes raise ``NotImplementedError``). The
+    configs travel in ``train_loop_config`` (``model_config``,
+    ``train_config``, and ``seed``, ``steps``, ``batch_size``,
+    ``seq_len``). With a dataset every rank reads the whole of it as
+    global batches, and its ``Trainer`` keeps the rank's rows of each (the
+    trainer's contract is the global batch; the rows it drops are token
+    ids, a few kB a step)."""
 
     def __init__(self, model_config, train_config, **kw):
         config = dict(kw.pop("train_loop_config", None) or {})
         config.update(model_config=model_config, train_config=train_config)
         super().__init__(mesh_train_loop, train_loop_config=config, **kw)
+        split_axes(train_config.mesh_axes, self.scaling.num_workers)
 
     def _shard(self, columns: dict, rank: int) -> DataIterator:
         return DataIterator([{k: np.asarray(v) for k, v in

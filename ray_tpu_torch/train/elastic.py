@@ -39,13 +39,21 @@ class ElasticTrainer:
 
     ``mesh_axes_fn(n_places) -> axes`` decides the mesh shape for any
     number of places, so a reformation after losing (or gaining) places
-    picks a valid factorization."""
+    picks a valid factorization. The places are this process's: a reform
+    of a mesh across processes (``process_group=``) comes with ROADMAP
+    slice 11 and raises ``NotImplementedError``."""
 
     def __init__(self, model_cfg, train_cfg: TrainConfig, *,
                  checkpoint_dir: str,
                  mesh_axes_fn: Callable[[int], dict] | None = None,
                  devices=None, checkpoint_every: int = 50,
-                 max_to_keep: int = 3, run_name: str | None = None):
+                 max_to_keep: int = 3, run_name: str | None = None,
+                 process_group=None):
+        if process_group is not None:
+            raise NotImplementedError(
+                "ElasticTrainer's reform of a mesh across processes (the "
+                "spanned axes re-dealt to the processes left) comes with "
+                "ROADMAP slice 11")
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.mesh_axes_fn = mesh_axes_fn or _dp_axes

@@ -91,15 +91,21 @@ def _slices(x: torch.Tensor) -> tuple:
     return x.split(rows)
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt(sum of squares) of all the tensors, in float32 (optax's
-    ``global_norm``), one slice at a time."""
+def sum_of_squares(tensors, device=None) -> torch.Tensor:
+    """The sum of squares of all the tensors, in float32, one slice at a
+    time (a float32 zero on ``device`` for none)."""
     total = None
     for x in tensors:
         for sl in _slices(x):
             sq = sl.float().square().sum()
             total = sq if total is None else total + sq.to(total.device)
-    return total.sqrt()
+    return torch.zeros((), device=device) if total is None else total
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt(sum of squares) of all the tensors, in float32 (optax's
+    ``global_norm``), one slice at a time."""
+    return sum_of_squares(tensors).sqrt()
 
 
 class AdamW:
@@ -122,16 +128,19 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: list, grads: list, state: dict, *,
-               moments: tuple | None = None,
-               norm_of: list | None = None) -> torch.Tensor:
+               moments: tuple | None = None, norm_of: list | None = None,
+               reduce_sq=None) -> torch.Tensor:
         """Update ``params`` (the leaves of the state's parameter tree, in
         ``tree_leaves`` order) in place from ``grads``; advance ``state``.
         ``moments``: the (mu, nu) tensors of ``params``, in order (default:
         the leaves of the state's trees); ``norm_of``: the gradients whose
         global norm clips (default: ``grads``; a placed state passes one
-        chunk per index range, so replicas count once). Returns that norm,
-        before clipping."""
-        norm = global_norm(grads if norm_of is None else norm_of)
+        chunk per index range, so replicas count once); ``reduce_sq``: a
+        function that sums the squared norm over processes. Returns that
+        norm, before clipping."""
+        sq = sum_of_squares(grads if norm_of is None else norm_of,
+                            params[0].device if params else None)
+        norm = (sq if reduce_sq is None else reduce_sq(sq)).sqrt()
         norm_f = float(norm)
         clip = not norm_f < self.max_grad_norm
         count = state["count"] + 1

@@ -60,13 +60,38 @@ move back.
   its experts' products, their ``mlp`` cut over tp and ``psum``med in
   float32 (``_expert_ffn``, ``reduce_mlp``); the experts' outputs come
   back to the data ranks (``gather_experts``) for the combine.
-- **Replicated work is done once.** What every rank of an axis computes
-  alike in JAX (the embedding's positions, the loss's final norm, all
-  work over an axis that cuts neither the batch nor a weight) runs once,
-  at the axis' first rank. Under ring attention the ranks of the
-  sequence axis run the attention (``parallel.ring_attention`` on the
-  mesh's sp ranks at that place); the rest of the layer runs once over
-  the whole sequence, as on the port's ring path of slice 6.
+- **Replicated work is done once a process.** What every rank of an
+  axis computes alike in JAX (the embedding's positions, the loss's final
+  norm, all work over an axis that cuts neither the batch nor a weight)
+  runs once in a process, at the axis' first local rank. Under ring
+  attention the ranks of the sequence axis run the attention
+  (``parallel.ring_attention`` on the mesh's sp ranks at that place); the
+  rest of the layer runs once over the whole sequence, as on the port's
+  ring path of slice 6.
+- **Across processes** (a mesh with a ``ProcessLayout``,
+  ``parallel.mesh``): the step runs this process's places only, and an
+  axis whose places lie in other processes moves its data by the
+  subgroup collectives of ``parallel.collectives``. Each process does
+  its own copy of replicated work, as every device does under GSPMD. The
+  processes along a spanned axis either compute different parts of the
+  loss (``split_axes``: dp and fsdp, each its rows, and sp, each its
+  chunk of the sequence, on the ring between processes with the rope
+  positions offset by the chunk's start) or compute it alike (tp, whose
+  processes all hold the data rank's residual stream; under the
+  ``loss_fn`` hook every axis but dp). The fsdp gathers over a split
+  axis reduce-scatter their gradient back; over an alike axis they keep
+  their piece of it (``gather_from_group``). A tp block across processes
+  is Megatron's: ``tp_enter`` (``f``, the identity forward and an
+  all-reduce backward) where the normed activation enters the
+  column-parallel products and the vocab-parallel head, ``tp_exit``
+  (``g``, an all-reduce forward and the identity backward) after ``wo``,
+  ``w_down``, the embedding lookup and the loss's exp-sums and target
+  logits; a ``psum`` there would count each gradient once per tp
+  process. GPT's and BERT's columns move between processes by an
+  exchange (``regroup`` with ``group=``). The trainer sums the gradient
+  of a leaf over every split axis that does not cut it, and
+  ``apply_update``'s clip norm counts each index range once across
+  processes.
 - **The optimizer on chunks** (``apply_update``). AdamW updates each
   distinct chunk in place; the global norm for the clip counts each index
   range once, so replicated chunks are not counted twice, and replicas of
@@ -93,8 +118,9 @@ from ray_tpu_torch.ops.matmul import matmul_f32
 from ray_tpu_torch.ops.moe import router_topk
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
 from ray_tpu_torch.ops.rope import rope_sin_cos
-from ray_tpu_torch.parallel.collectives import (all_gather, psum,
-                                                regroup)
+from ray_tpu_torch.parallel.collectives import (all_gather, copy_to_group,
+                                                gather_from_group, psum,
+                                                reduce_from_group, regroup)
 from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import (ShardedTensor, _axes_of,
                                              batch_sharding, device_put)
@@ -110,6 +136,10 @@ reduce_mlp = psum
 reduce_vocab = psum
 reduce_embed = psum
 gather_experts = all_gather
+# a tp block across processes: Megatron's g at the exit of a tp region and
+# f at its entry (the module docstring)
+tp_exit = reduce_from_group
+tp_enter = copy_to_group
 
 _EXPERT_LEAVES = ("wi_gate", "wi_up", "wo_e")
 
@@ -149,10 +179,15 @@ class _Gathers:
     """All-gathers of placed tensors over every axis of their spec but the
     kept ones (``parallel.collectives.all_gather``, one per group of
     ranks). Within one ``_Gathers`` a group gathers once and its ranks
-    share the result."""
+    share the result. Over an axis that spans processes the gather runs
+    on its subgroup: a reduce-scatter backward over the ``split`` axes,
+    whose processes compute different parts of the loss, and this
+    process's piece of the gradient over the others
+    (``gather_from_group``)."""
 
-    def __init__(self):
+    def __init__(self, split=()):
         self._memo = {}
+        self.split = split
 
     def local(self, st: ShardedTensor, coords: tuple, keep=()):
         """The tensor of the place at ``coords`` with every axis of the
@@ -166,9 +201,18 @@ class _Gathers:
         if level == 0:
             return st.chunks[_flat(st.mesh, coords)]
         d, ax = steps[level - 1]
+        if st.mesh.spans(ax):
+            x = self._at(st, steps, level - 1, coords)
+            key = (id(x), d, ax)
+            if key not in self._memo:
+                gather = all_gather if ax in self.split else \
+                    gather_from_group
+                self._memo[key] = (gather([x], gather_axis=d,
+                                          group=st.mesh.group(ax))[0], x)
+            return self._memo[key][0]
         i = st.mesh.axis_names.index(ax)
         ring = [coords[:i] + (k,) + coords[i + 1:]
-                for k in range(st.mesh.shape[ax])]
+                for k in range(st.mesh.local_shape[ax])]
         xs = [self._at(st, steps, level - 1, c) for c in ring]
         key = (tuple(map(id, xs)), d)
         if key not in self._memo:
@@ -210,11 +254,11 @@ def qkv_columns(d: int, head_dim: int, heads: list) -> list:
             for off in (0, d, 2 * d)]
 
 
-def _lookup(pieces: list, tokens) -> list:
+def _lookup(pieces: list, tokens, off: int = 0) -> list:
     """Each rank's rows of an embedding cut along the vocab (piece ``i``
-    the next rows): the token's row where the rank holds it, zero
-    elsewhere."""
-    out, off = [], 0
+    the next rows, the first from row ``off``): the token's row where the
+    rank holds it, zero elsewhere."""
+    out = []
     for e in pieces:
         local = tokens.to(e.device) - off
         own = (local >= 0) & (local < e.shape[0])
@@ -257,6 +301,19 @@ class RankStep:
             a for a in _axes_of(batch_sharding(mesh, rules, 2,
                                                shard_seq=False).spec[0])
             if mesh.shape[a] > 1)
+        # across processes: the axes whose processes compute different
+        # parts of the loss, and the tp and sp lines
+        split = ("dp",) if loss_fn is not None else \
+            self.data_axes + ((sp_axis,) if attn_impl == "ring" else ())
+        self.split_axes = tuple(a for a in split if mesh.spans(a))
+        self.tp_group = mesh.group(self.tp) if self.tp and \
+            mesh.spans(self.tp) else None
+        self.sp_group = mesh.group(sp_axis) if attn_impl == "ring" and \
+            mesh.spans(sp_axis) else None
+        if mesh.spanned and family is mixtral:
+            raise NotImplementedError(
+                "Mixtral over a mesh across processes (ep's exchange between "
+                "processes) comes with ROADMAP slice 11")
         if self.tp is None:
             return
         n = mesh.shape[self.tp]
@@ -273,13 +330,14 @@ class RankStep:
     # --- the ranks ---
 
     def units(self, mesh: Mesh, base: dict | None = None) -> list:
-        """The data ranks of ``mesh``, each as the coordinates of its tp
-        ranks (one place when there is no tp axis). ``base`` fixes other
-        axes (a pipeline stage); the rest sit at 0."""
+        """The data ranks of ``mesh`` in this process, each as the
+        coordinates of its tp ranks here (one place when there is no tp
+        axis, or when tp spans processes). ``base`` fixes other axes (a
+        pipeline stage); the rest sit at 0."""
         names = mesh.axis_names
         data = [a for a in self.data_axes if a in names]
-        sizes = [mesh.shape[a] for a in data]
-        n_tp = mesh.shape[self.tp] if self.tp in names else 1
+        sizes = [mesh.local_shape[a] for a in data]
+        n_tp = mesh.local_shape[self.tp] if self.tp in names else 1
         out = []
         for k in range(math.prod(sizes)):
             at = dict(base or {})
@@ -295,8 +353,8 @@ class RankStep:
     def expert_places(self, mesh: Mesh) -> list:
         """Each ep index's tp places, the data axes at 0 (one group of
         every expert when the rules cut no expert over a wide axis)."""
-        n_ep = mesh.shape[self.ep] if self.ep else 1
-        n_tp = mesh.shape[self.tp] if self.tp else 1
+        n_ep = mesh.local_shape[self.ep] if self.ep else 1
+        n_tp = mesh.local_shape[self.tp] if self.tp else 1
         return [[tuple({self.ep: i, self.tp: t}.get(a, 0)
                        for a in mesh.axis_names) for t in range(n_tp)]
                 for i in range(n_ep)]
@@ -315,20 +373,40 @@ class RankStep:
     def _ring_mesh(self, mesh: Mesh, coords: tuple) -> Mesh | None:
         if self.attn_impl != "ring":
             return None
-        devs = mesh.axis_devices(self.sp_axis,
-                                 at=dict(zip(mesh.axis_names, coords)))
-        grid = np.empty(len(devs), dtype=object)
-        for i, d in enumerate(devs):
-            grid[i] = d
-        return Mesh(grid, (self.sp_axis,))
+        return mesh.line(self.sp_axis, dict(zip(mesh.axis_names, coords)))
+
+    def seq_chunk(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's chunk of the sequence (dim 1) when the ring's
+        axis spans processes; ``x`` itself otherwise."""
+        if self.sp_group is None:
+            return x
+        n, i = self.sp_group.size, self.sp_group.index
+        if x.shape[1] % n:
+            raise ValueError(f"sequence of {x.shape[1]} tokens does not "
+                             f"divide over {n} sp processes")
+        return x.chunk(n, dim=1)[i]
+
+    def _sum(self, reduce, parts: list) -> list:
+        """The tp ranks' partial sums: ``reduce`` over the local ranks, or
+        ``tp_exit`` over the tp processes."""
+        if self.tp_group is not None:
+            return tp_exit(parts, self.tp_group)
+        return reduce(parts)
+
+    def _enter(self, h):
+        """A replicated activation entering a tp region across processes
+        (``tp_enter``); itself otherwise."""
+        return h if self.tp_group is None else tp_enter(h, self.tp_group)
 
     # --- the layers ---
 
     def _rope(self, s: int, devices) -> dict:
+        # a chunk of the sequence starts at its offset in the whole
+        start = 0 if self.sp_group is None else self.sp_group.index * s
         out = {}
         for dev in devices:
             if str(dev) not in out:
-                positions = torch.arange(s, dtype=torch.int32,
+                positions = torch.arange(start, start + s, dtype=torch.int32,
                                          device=dev)[None, :]
                 out[str(dev)] = rope_sin_cos(positions, self.cfg.head_dim,
                                              theta=self.cfg.rope_theta)
@@ -340,7 +418,7 @@ class RankStep:
         gathered (all but tp) inside the call, the tp ranks' partial sums
         psummed. Returns the ranks' activations and Mixtral's aux loss
         (None for the dense families)."""
-        g = _Gathers()
+        g = _Gathers(self.split_axes)
         keep = (self.tp,) if self.tp else ()
         out = []
         for places, xs, seg in zip(units, xs_units, segments):
@@ -361,51 +439,57 @@ class RankStep:
         ring = [dict(mesh=self._ring_mesh(mesh, c), sp_axis=self.sp_axis)
                 for c in places]
         sc = [rope[str(x.device)] for x in xs]
-        if len(places) == 1:
+        if self.tp is None:
             block = llama.attention_sublayer if moe else llama._block
             return [block(self.cfg, xs[0], ps[0], *sc[0], None,
                           self.attn_impl, **ring[0])]
+        enter = None if self.tp_group is None else self._enter
         parts = [llama.attention_out(self.tp_cfg, x, p, *sin_cos, None,
-                                     self.attn_impl, **r)
+                                     self.attn_impl, enter=enter, **r)
                  for x, p, sin_cos, r in zip(xs, ps, sc, ring)]
-        xs = [x + y for x, y in zip(xs, reduce_attention(parts))]
+        xs = [x + y for x, y in zip(xs, self._sum(reduce_attention, parts))]
         if moe:
             return xs
-        parts = [llama.mlp_out(self.cfg, x, p) for x, p in zip(xs, ps)]
-        return [x + y for x, y in zip(xs, reduce_mlp(parts))]
+        parts = [llama.mlp_out(self.cfg, x, p, enter=enter)
+                 for x, p in zip(xs, ps)]
+        return [x + y for x, y in zip(xs, self._sum(reduce_mlp, parts))]
 
     def _fused_qkv_block(self, xs, ps, seg):
         """GPT's pre-LN or BERT's post-LN block on one data rank's tp
         places (see the module docstring)."""
         cfg, family = self.cfg, self.family
-        if len(xs) == 1:
+        if self.tp is None:
             return [family._block(cfg, xs[0], ps[0], seg, self.attn_impl)]
         post = family is bert
-        d, hd, n = cfg.d_model, cfg.head_dim, len(xs)
+        d, hd, n = cfg.d_model, cfg.head_dim, self.mesh.shape[self.tp]
         b, s, _ = xs[0].shape
+        move = partial(regroup, group=self.tp_group)
 
         def norm(x, p, i):
             return layer_norm(x, p[f"ln{i}_w"], p[f"ln{i}_b"],
                               eps=cfg.ln_eps)
 
         hs = xs if post else [norm(x, p, 1) for x, p in zip(xs, ps)]
-        qkv = [h @ p["wqkv"] + p["bqkv"] for h, p in zip(hs, ps)]
-        q, k, v = (regroup(qkv, _even(3 * d, n), want)
+        qkv = [self._enter(h) @ p["wqkv"] + p["bqkv"]
+               for h, p in zip(hs, ps)]
+        q, k, v = (move(qkv, _even(3 * d, n), want)
                    for want in qkv_columns(d, hd, self.heads))
         outs = [attention(*(t.reshape(b, s, -1, hd) for t in qkv_r),
                           causal=not post, segment_ids=seg,
                           impl=self.attn_impl).reshape(b, s, -1)
                 for qkv_r in zip(q, k, v)]
-        outs = regroup(outs, [(a * hd, z * hd) for a, z in self.heads],
-                       [[r] for r in _even(d, n)])
-        parts = reduce_attention([o @ p["wo"] for o, p in zip(outs, ps)])
+        outs = move(outs, [(a * hd, z * hd) for a, z in self.heads],
+                    [[r] for r in _even(d, n)])
+        parts = self._sum(reduce_attention,
+                          [o @ p["wo"] for o, p in zip(outs, ps)])
         xs = [x + y + p["bo"] for x, y, p in zip(xs, parts, ps)]
         if post:
             xs = [norm(x, p, 1) for x, p in zip(xs, ps)]
         hs = xs if post else [norm(x, p, 2) for x, p in zip(xs, ps)]
-        ups = [F.gelu(h @ p["w_up"] + p["b_up"], approximate="tanh")
-               for h, p in zip(hs, ps)]
-        parts = reduce_mlp([u @ p["w_down"] for u, p in zip(ups, ps)])
+        ups = [F.gelu(self._enter(h) @ p["w_up"] + p["b_up"],
+                      approximate="tanh") for h, p in zip(hs, ps)]
+        parts = self._sum(reduce_mlp,
+                          [u @ p["w_down"] for u, p in zip(ups, ps)])
         xs = [x + y + p["b_down"] for x, y, p in zip(xs, parts, ps)]
         return [norm(x, p, 2) for x, p in zip(xs, ps)] if post else xs
 
@@ -499,8 +583,10 @@ class RankStep:
         out = []
         for k, (places, tok) in enumerate(zip(units, tokens)):
             if self.vocab_tp:
-                x = reduce_embed(_lookup([g.local(emb, c, (self.tp,))
-                                          for c in places], tok))[0]
+                pieces = [g.local(emb, c, (self.tp,)) for c in places]
+                first = 0 if self.tp_group is None else \
+                    self.tp_group.index * pieces[0].shape[0]
+                x = self._sum(reduce_embed, _lookup(pieces, tok, first))[0]
             else:
                 table = g.local(emb, places[0])
                 x = table[tok.to(table.device)]
@@ -558,11 +644,15 @@ class RankStep:
         ``fused``: vocab-parallel over its tp places where the rules cut
         the vocab there (the head never gathered over tp)."""
         places, keep = self._vocab_places(places)
+        group = self.tp_group if self.vocab_tp else None
+        reduce = reduce_vocab if group is None else \
+            partial(tp_exit, group=group)
         return llama.vocab_parallel_cross_entropy(
-            [h.to(_device(self.mesh, c)) for c in places],
+            [h.to(_device(self.mesh, c)) if group is None else
+             self._enter(h) for c in places],
             [self._head(g, params, c, keep) for c in places], targets,
             mask=mask, chunk=self.loss_chunk if fused else None,
-            reduce=reduce_vocab)
+            reduce=reduce, group=group)
 
     # --- the losses ---
 
@@ -573,13 +663,14 @@ class RankStep:
         mesh = self.mesh
         units = self.units(mesh)
         chunks = self.chunks_of(batch, units)
-        g = _Gathers()
-        xs = self._embed(g, params, [c[:, :-1] for c in chunks], units,
-                         mesh)
+        g = _Gathers(self.split_axes)
+        # the shift first, then this process's chunk of the sequence
+        xs = self._embed(g, params, [self.seq_chunk(c[:, :-1])
+                                     for c in chunks], units, mesh)
         xs, _ = self.run_layers(params["blocks"], xs, units, mesh)
         parts = []
         for places, x, c in zip(units, xs, chunks):
-            targets = c[:, 1:].to(x[0].device)
+            targets = self.seq_chunk(c[:, 1:]).to(x[0].device)
             mask = (targets != -1).float()
             h = self._final_norm(g, params, x[0], places[0])
             parts.append((self._loss(g, params, places, h, targets, mask,
@@ -592,8 +683,8 @@ class RankStep:
         home = tuple(0 for _ in self.mesh.axis_names)
         batch = {k: v.unshard() for k, v in batch.items()} \
             if isinstance(batch, dict) else batch.unshard()
-        return self.loss_fn(self.cfg, _gathered(_Gathers(), params, home),
-                            batch)
+        return self.loss_fn(self.cfg, _gathered(_Gathers(self.split_axes),
+                                                params, home), batch)
 
     def loss(self, params: dict, batch):
         """The loss of placed ``params`` on a batch placed by
@@ -611,6 +702,10 @@ class RankStep:
         mesh's first device; Mixtral with ``return_aux_loss`` also its
         weighted aux loss."""
         mesh = self.mesh
+        if mesh.spanned:
+            raise NotImplementedError(
+                f"the forward over a mesh across processes ({mesh}) comes "
+                "with ROADMAP slice 11")
         units = self.units(mesh)
         g = _Gathers()
         cut = partial(self.cut, units=units)
@@ -720,17 +815,31 @@ def distinct_chunks(tree) -> list:
     return out
 
 
+def _counts_norm(st: ShardedTensor) -> bool:
+    """Whether this process counts its index ranges of ``st`` in the clip
+    norm: it is the first process along every spanned axis that does not
+    cut ``st`` (the others hold replicas of the same ranges)."""
+    layout = st.mesh.layout
+    if layout is None:
+        return True
+    cut = st.sharding.cut_axes()
+    return all(i == 0 for a, i in layout.index.items() if a not in cut)
+
+
 def apply_update(optimizer, params: dict, grads: dict, opt_state: dict,
-                 moments: tuple):
+                 moments: tuple, reduce_norm=None):
     """AdamW on chunks: ``params`` and ``moments`` (mu, nu) are trees of
     placed tensors with one placement, ``grads`` maps ``id(chunk)`` to its
     gradient, ``opt_state`` holds the step count. Replicas of an index
     range on different devices psum their gradients first; the clip's
-    global norm counts each index range once. Returns the norm."""
+    global norm counts each index range once, across processes too
+    (``reduce_norm`` sums the processes' squared norms). Returns the
+    norm."""
     ps, gs, ms, vs, norm_of = [], [], [], [], []
     for p, m, v in zip(tree_leaves(params), tree_leaves(moments[0]),
                        tree_leaves(moments[1]), strict=True):
         ranges, indices = {}, p.sharding.indices(p.shape)
+        counted = _counts_norm(p)
         for place, chunk in p.distinct():
             idx = indices[place]
             ranges.setdefault(tuple((s.start, s.stop) for s in idx),
@@ -739,11 +848,12 @@ def apply_update(optimizer, params: dict, grads: dict, opt_state: dict,
             g = [grads[id(c)] for _, c in group]
             if len(g) > 1:
                 g = psum(g)
-            norm_of.append(g[0])
+            if counted:
+                norm_of.append(g[0])
             for (place, c), gi in zip(group, g):
                 ps.append(c)
                 gs.append(gi)
                 ms.append(m.chunks[place])
                 vs.append(v.chunks[place])
     return optimizer.update(ps, gs, opt_state, moments=(ms, vs),
-                            norm_of=norm_of)
+                            norm_of=norm_of, reduce_sq=reduce_norm)

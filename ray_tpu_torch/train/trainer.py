@@ -32,16 +32,26 @@ is the tensor itself. As in JAX:
 
 Across processes (``process_group=``, a ``parallel.process_group``
 ``ProcessGroup``), as JAX across the processes of ``jax.distributed``:
-the global mesh's ``dp`` axis spans the processes, one process a ``dp``
-index (the group's rank), and each process drives the other axes on its
-own mesh, as above. ``train_step`` takes the global batch and keeps this
-rank's rows; the loss is the global masked mean (each rank's token count
-is all-reduced first, and its loss, before the backward, weighted by its
-share of the tokens, a float32 scalar on the device), and the gradients
-are summed over the ranks before the update, so every rank takes the same
-step. Before the first step the ranks' states
-are checked equal by checksum. fsdp, tp, sp or pp across processes raise
-``NotImplementedError``.
+the global mesh's places are dealt to the processes in row-major order
+(``parallel.mesh.split_axes``): dp, fsdp, tp and sp may span processes,
+one index a process (dp also an equal share of its indices), and each
+process drives its own places, as above, with subgroup collectives along
+the spanned axes (``train.spmd``); pp or ep across processes, or an axis
+cut between them, raise ``NotImplementedError``. ``train_step`` takes the
+global batch and keeps this process's rows over the spanned data axes
+(and, under a spanned sp, ``train.spmd`` its chunk of the sequence after
+the shift); the loss is the global masked mean (each process's token
+count is summed over the processes that compute different parts of it,
+and its loss, before the backward, weighted by its share of the tokens, a
+float32 scalar on the device). A leaf's gradient is summed over those
+processes along every axis that does not cut it (dp always; fsdp for a
+leaf it does not cut, whose cut leaves come back reduce-scattered by the
+gathers' backward; sp for every leaf), so that every replica of an index
+range takes the same step, and the clip norm counts each range once.
+Before the first step the replicas of every index range are checked
+equal by checksum. A placed state across processes holds this process's
+chunks only (``init_state``, or ``place_tree`` of a state on the
+process's device).
 
 The model family comes from the config's type, as in JAX: llama, gpt or
 bert (``_resolve_family``); any other config raises ``TypeError``. GPT
@@ -63,15 +73,18 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import llama
-from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
+from ray_tpu_torch.parallel.mesh import Mesh, create_mesh, split_axes
 from ray_tpu_torch.parallel.pipeline import pipeline_value_and_grad
+from ray_tpu_torch.parallel.process_group import mesh_layout
 from ray_tpu_torch.parallel.sharding import (PRESETS, ShardedTensor,
-                                             ShardingRules, batch_sharding,
-                                             device_put, map_trees,
-                                             place_tree, replicated,
-                                             same_device, tree_shardings)
+                                             ShardingRules, _axes_of,
+                                             batch_sharding, device_put,
+                                             map_trees, place_tree,
+                                             replicated, same_device,
+                                             tree_shardings)
 from ray_tpu_torch.train import spmd
-from ray_tpu_torch.train.optim import AdamW, warmup_cosine_decay_schedule
+from ray_tpu_torch.train.optim import (AdamW, tree_leaves,
+                                      warmup_cosine_decay_schedule)
 from ray_tpu_torch.train.state import TrainState, state_logical_axes
 
 
@@ -110,37 +123,33 @@ def _rules(strategy) -> ShardingRules:
     return PRESETS[strategy]
 
 
-def _mesh_on(device, mesh_axes: dict) -> Mesh:
+def _mesh_on(device, mesh_axes: dict, layout=None) -> Mesh:
     """A mesh of ``mesh_axes`` with every place on ``device`` (a -1 axis
-    takes size 1)."""
+    takes size 1), this process's part of a global mesh with
+    ``layout``."""
     n = math.prod(n for n in mesh_axes.values() if n != -1)
-    return create_mesh(mesh_axes, devices=[device] * n)
+    mesh = create_mesh(mesh_axes, devices=[device] * n)
+    return Mesh(mesh.devices, mesh.axis_names, layout)
 
 
 def _local_axes(mesh_axes: dict, world: int) -> dict:
-    """The axes of one process's mesh when ``world`` processes span the
-    global mesh's dp axis (one process a dp index, or an equal share of
-    them)."""
-    dp = mesh_axes.get("dp", 1)
-    if dp == -1:
-        return {**mesh_axes, "dp": 1}
-    if dp % world:
-        raise NotImplementedError(
-            f"{world} processes span only the global mesh's dp axis "
-            f"(dp={dp} in {mesh_axes}): fsdp, tp, sp or pp across processes "
-            "come with a later slice of the port (ROADMAP Queue A)")
-    return {**mesh_axes, "dp": dp // world}
+    """The axes of one process's mesh when ``world`` processes share the
+    global mesh ``mesh_axes`` (``parallel.mesh.split_axes``)."""
+    return split_axes(mesh_axes, world)[0]
 
 
 def _named_chunks(tree, prefix="") -> list:
     """(name, tensor) of every distinct chunk of a tree of tensors and
-    placed tensors, in tree order."""
+    placed tensors, in tree order; a chunk is named by its leaf and its
+    index range, which replicas share."""
     if isinstance(tree, dict):
         return [item for k, v in tree.items()
                 for item in _named_chunks(v, f"{prefix}{k}.")]
     if isinstance(tree, ShardedTensor):
-        return [(f"{prefix[:-1]}[{place}]", c) for place, c in
-                tree.distinct()]
+        indices = tree.sharding.indices(tree.shape)
+        return [(f"{prefix[:-1]}"
+                 f"{[(s.start, s.stop) for s in indices[place]]}", c)
+                for place, c in tree.distinct()]
     if isinstance(tree, torch.Tensor):
         return [(prefix[:-1], tree)]
     return []
@@ -148,6 +157,13 @@ def _named_chunks(tree, prefix="") -> list:
 
 def _is_leaf(x) -> bool:
     return isinstance(x, (torch.Tensor, ShardedTensor))
+
+
+def _zeros_like(st: ShardedTensor) -> ShardedTensor:
+    """Zeros placed as ``st`` is, shared chunks sharing."""
+    made = {id(c): torch.zeros_like(c) for _, c in st.distinct()}
+    return ShardedTensor(st.shape, st.dtype, st.sharding,
+                         [made[id(c)] for c in st.chunks])
 
 
 def make_optimizer(cfg: TrainConfig) -> AdamW:
@@ -179,15 +195,18 @@ class Trainer:
                  device="cuda", process_group=None):
         """``loss_fn(model_cfg, params, batch) -> scalar`` overrides the
         default next-token cross-entropy. ``process_group``: this
-        process's ``ProcessGroup`` when the global mesh's dp axis spans
-        processes (``mesh``, if given, is then this process's mesh)."""
+        process's ``ProcessGroup`` when the global mesh ``mesh_axes``
+        spans processes (``mesh``, if given, is then this process's
+        mesh)."""
         self.family = self._resolve_family(model_cfg)
         self.device = resolve_device(device)
         self.rules = _rules(cfg.strategy)
         self.process_group = process_group
-        axes = cfg.mesh_axes if process_group is None else _local_axes(
-            cfg.mesh_axes, process_group.world_size)
-        self.mesh = mesh if mesh is not None else _mesh_on(self.device, axes)
+        if mesh is None and process_group is not None:
+            layout = mesh_layout(process_group, cfg.mesh_axes)
+            mesh = _mesh_on(self.device, layout.local, layout)
+        self.mesh = mesh if mesh is not None else _mesh_on(
+            self.device, cfg.mesh_axes)
         self._states_checked = False
         # sequence parallelism: ring attention when the rules cut seq over
         # a mesh axis that exists on this mesh and is wider than one
@@ -279,13 +298,24 @@ class Trainer:
     def init_state(self, seed: int = 0) -> TrainState:
         """Random parameters (``family.init_params`` with ``seed``) and a
         fresh optimizer state, each leaf placed by its sharding (on one
-        card, as views: nothing is copied)."""
+        card, as views: nothing is copied; a mesh of one place here keeps
+        plain tensors). Cut across processes, each process keeps its
+        chunks alone, its moments made at their size."""
         params = self.family.init_params(self.model_cfg, seed=seed,
                                          device=self.device)
-        state = TrainState.create(params, self.optimizer)
-        if self.mesh.size == 1:
-            return state
-        return place_tree(state, self.state_shardings())
+        shardings = self.state_shardings()
+        across = [sh for sh in tree_leaves(shardings.params)
+                  if sh.spans_processes()]
+        if self.mesh.devices.size == 1 and not across:
+            return TrainState.create(params, self.optimizer)
+        if not across:
+            return place_tree(TrainState.create(params, self.optimizer),
+                              shardings)
+        params = place_tree(params, shardings.params)
+        zeros = {"mu": map_trees(_zeros_like, params, is_leaf=_is_leaf),
+                 "nu": map_trees(_zeros_like, params, is_leaf=_is_leaf)}
+        return TrainState(params=params, opt_state={"count": 0, **zeros},
+                          step=0)
 
     def _placed(self, tree, shardings):
         """``tree`` with its plain tensors placed by ``shardings`` as views
@@ -294,8 +324,9 @@ class Trainer:
             if isinstance(x, ShardedTensor) or not isinstance(
                     x, torch.Tensor):
                 return x
-            if not all(same_device(x.device, d)
-                       for d in self.mesh.devices.ravel()):
+            if sharding.spans_processes() or not all(
+                    same_device(x.device, d)
+                    for d in self.mesh.devices.ravel()):
                 raise ValueError(
                     f"a state of plain tensors on {x.device} cannot be "
                     f"placed as views over {self.mesh}: place it first "
@@ -314,7 +345,8 @@ class Trainer:
                                device=self.mesh.devices.ravel()[0])
 
     def _place_batch(self, batch):
-        """``batch`` on the mesh's first device, placed by
+        """``batch`` (this process's rows across processes) on the mesh's
+        first device, placed over this process's places by
         ``_batch_shardings`` (as JAX's ``train_step`` puts it)."""
         batch = self._to_device(batch)
         return place_tree(batch, self._batch_shardings(batch))
@@ -415,6 +447,8 @@ class Trainer:
         grad_norm (before clipping) are float32 scalars on the card."""
         placed = self._placed(state, self.state_shardings())
         pg = self.process_group
+        step = self._rank_step()
+        reduce_norm = None
         if pg is not None:
             if not self._states_checked:
                 pg.check_same(_named_chunks(
@@ -425,64 +459,102 @@ class Trainer:
                              float(state.opt_state["count"])],
                             device=self.device))])
                 self._states_checked = True
-            batch = self._to_device(self._rank_rows(batch))
-            share = self._token_share(batch)
+            batch = self._to_device(self._rank_rows(batch, step))
+            share = self._token_share(batch, step)
+            reduce_norm = pg.all_reduce
         else:
             share = None
         loss, grads = self._chunk_grads(placed.params,
                                         self._place_batch(batch), share)
         if pg is not None:
-            loss = pg.all_reduce(loss.detach() * share)
-            # each distinct gradient once (pipeline stages share some)
-            distinct = {id(g): g for g in (
-                grads[id(c)] for c in spmd.distinct_chunks(placed.params))}
-            pg.all_reduce_grads(list(distinct.values()))
+            loss = self._split_sum(loss.detach() * share, step)
+            self._all_reduce_grads(placed.params, grads, step)
         gnorm = spmd.apply_update(
             self.optimizer, placed.params, grads, state.opt_state,
-            (placed.opt_state["mu"], placed.opt_state["nu"]))
+            (placed.opt_state["mu"], placed.opt_state["nu"]), reduce_norm)
         del grads
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
                        "step": state.step}
 
-    def _rank_rows(self, batch):
-        """This process's rows of a global batch: rows [rank·B/world,
-        (rank+1)·B/world) of every leaf with a batch axis."""
-        pg = self.process_group
+    def _rank_rows(self, batch, step=None):
+        """This process's rows of a global batch: its block of the pieces
+        the batch axis is cut into, over the spanned axes whose processes
+        compute different parts of the loss (``RankStep.split_axes``); the
+        whole batch along the others."""
         if isinstance(batch, dict):
-            return {k: self._rank_rows(v) for k, v in batch.items()}
+            return {k: self._rank_rows(v, step) for k, v in batch.items()}
         if int(getattr(batch, "ndim", 0)) == 0:
             return batch
-        n = batch.shape[0]
-        if n % pg.world_size:
+        step = step or self._rank_step()
+        mesh = self.mesh
+        axes = list(_axes_of(batch_sharding(
+            mesh, self.rules, 2, shard_seq=False).spec[0]))
+        sizes = [mesh.shape[a] for a in axes]
+        lo, span = [], []
+        for a in axes:
+            split = a in step.split_axes
+            lo.append(mesh.offset(a) if split else 0)
+            span.append(mesh.local_shape[a] if split else mesh.shape[a])
+        # one contiguous block: the spanned axes lead (split_axes)
+        first = int(np.ravel_multi_index(lo, sizes)) if axes else 0
+        count = math.prod(span)
+        n, pieces = batch.shape[0], math.prod(sizes)
+        if n % pieces:
             raise ValueError(f"global batch of {n} rows does not divide over "
-                             f"{pg.world_size} processes")
-        per = n // pg.world_size
-        return batch[pg.rank * per:(pg.rank + 1) * per]
+                             f"{pieces} data ranks")
+        per = n // pieces
+        return batch[first * per:(first + count) * per]
 
-    def _token_share(self, batch):
-        """This rank's share of the global batch's loss weight: its
-        unpadded target tokens over every rank's (the token counts
-        all-reduced), so that the ranks' weighted means sum to the global
+    def _split_sum(self, x, step):
+        """``x`` summed over the processes that compute different parts of
+        the loss (one line of each split axis in turn), in place."""
+        for a in step.split_axes:
+            self.process_group.all_reduce(x, group=self.mesh.group(a))
+        return x
+
+    def _token_share(self, batch, step=None):
+        """This process's share of the global batch's loss weight: its
+        unpadded target tokens (of its chunk of the sequence under a
+        spanned sp) over those of every process that computes another
+        part of the loss, so that the weighted means sum to the global
         masked mean; a float32 scalar on the device (no wait for the
         card). With the ``loss_fn`` hook, whose weights the trainer cannot
-        see, each rank weighs 1/world."""
-        pg = self.process_group
+        see, each of those processes weighs alike."""
+        step = step or self._rank_step()
         if self.loss_fn is not None:
-            return 1.0 / pg.world_size
-        n = (batch[:, 1:] != -1).sum(dtype=torch.float32)
-        total = pg.all_reduce(n.clone())
+            return 1.0 / math.prod(self.mesh.group(a).size
+                                   for a in step.split_axes)
+        n = (step.seq_chunk(batch[:, 1:]) != -1).sum(dtype=torch.float32)
+        total = self._split_sum(n.clone(), step)
         return n / total.clamp(min=1.0)
+
+    def _all_reduce_grads(self, params: dict, grads: dict, step) -> None:
+        """Sum each leaf's gradient over every split axis that does not
+        cut it (each distinct gradient once: pipeline stages share
+        some)."""
+        pg = self.process_group
+        for a in step.split_axes:
+            leaves = [st for st in tree_leaves(params)
+                      if a not in st.sharding.cut_axes()]
+            distinct = {id(g): g for g in (
+                grads[id(c)] for st in leaves for _, c in st.distinct())}
+            if not distinct:
+                continue
+            pg.all_reduce_grads(list(distinct.values()),
+                                group=self.mesh.group(a))
 
     def _batch_shardings(self, batch):
         """Per-leaf data sharding: dim 0 is the batch axis, the rest
         replicated, so dict batches may mix ranks (e.g. [B, S] tokens
         with [B] labels)."""
+        mesh = self.mesh.local()
+
         def leaf(x):
             nd = int(getattr(x, "ndim", 0))
             if nd == 0:   # python scalars and 0-d arrays: replicated
-                return replicated(self.mesh)
-            return batch_sharding(self.mesh, self.rules, ndim=nd,
+                return replicated(mesh)
+            return batch_sharding(mesh, self.rules, ndim=nd,
                                   shard_seq=False)
         if isinstance(batch, dict):
             return {k: self._batch_shardings(v) for k, v in batch.items()}

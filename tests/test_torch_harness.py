@@ -425,12 +425,31 @@ def test_mesh_trainer_world_2_declares_each_rank_its_rows(tmp_path):
 
 
 def test_local_axes_span_dp_only():
+    """The global mesh's places dealt to the processes in row-major axis
+    order: dp may split into equal shares; fsdp, tp and sp span the
+    processes one index a process or stay inside each; an axis cut
+    between processes otherwise, and pp or ep across processes, raise
+    naming the axis (the last two naming ROADMAP slice 11)."""
     assert _local_axes({"dp": 2}, 2) == {"dp": 1}
     assert _local_axes({"dp": 4, "fsdp": 2}, 2) == {"dp": 2, "fsdp": 2}
     assert _local_axes({"dp": -1, "tp": 2}, 3) == {"dp": 1, "tp": 2}
-    for axes in ({"fsdp": 2}, {"dp": 3}, {"pp": 2, "dp": 1}):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            _local_axes(axes, 2)
+    assert _local_axes({"fsdp": 2}, 2) == {"fsdp": 1}
+    assert _local_axes({"fsdp": 2, "tp": 2}, 4) == {"fsdp": 1, "tp": 1}
+    assert _local_axes({"fsdp": 2, "tp": 2}, 2) == {"fsdp": 1, "tp": 2}
+    assert _local_axes({"sp": 4}, 4) == {"sp": 1}
+    assert _local_axes({"dp": 2, "fsdp": 2, "tp": 2}, 4) == {
+        "dp": 1, "fsdp": 1, "tp": 2}
+    for axes, world, axis in (({"dp": 3}, 2, "dp"),
+                              ({"tp": 4}, 2, "tp"),
+                              ({"dp": 2, "tp": 3}, 4, "tp"),
+                              ({"fsdp": 2, "sp": 4}, 4, "sp")):
+        with pytest.raises(NotImplementedError, match=f"axis '{axis}'"):
+            _local_axes(axes, world)
+    for axes, axis in (({"pp": 2, "dp": 1}, "pp"),
+                       ({"fsdp": 2, "ep": 2}, "ep")):
+        with pytest.raises(NotImplementedError,
+                           match=f"axis '{axis}' across processes.*slice 11"):
+            _local_axes(axes, 2 if axis == "pp" else 4)
 
 
 class _FakeGroup:
@@ -445,7 +464,7 @@ def test_rank_rows_and_device_batches_are_not_copied():
     _, tcfg = _configs()
     tr = Trainer(tcfg, TrainConfig(**TRAIN_KW), device="cpu",
                  process_group=_FakeGroup())
-    assert tr.mesh.shape == {"dp": 1}
+    assert tr.mesh.local_shape == {"dp": 1} and tr.mesh.shape == {"dp": 2}
     batch = torch.arange(4 * 17).reshape(4, 17)
     rows = tr._rank_rows(batch)
     assert torch.equal(rows, batch[2:])

@@ -152,12 +152,13 @@ def train_loop(config):
         state = TrainState.create(params, tr.optimizer)
         real = ProcessGroup.all_reduce_grads
 
-        def mean(self, grads):
-            real(self, grads)
+        def mean(self, grads, group=None):
+            real(self, grads, group)
             for g in grads:
                 g.div_(self.world_size)
         if "skip_all_reduce" in case:
-            ProcessGroup.all_reduce_grads = lambda self, grads: None
+            ProcessGroup.all_reduce_grads = \
+                lambda self, grads, group=None: None
         elif "mean_all_reduce" in case:
             ProcessGroup.all_reduce_grads = mean
         try:
@@ -180,3 +181,210 @@ def train_loop(config):
         np.savez(os.path.join(config["out"], f"{case}_rank{ctx.rank}.npz"),
                  **flat)
         session.report({"case": case, "losses": losses})
+
+
+def mlm_hook(model_cfg, params, batch):
+    """BERT's masked-LM loss as the ``Trainer`` hook."""
+    from ray_tpu_torch.models import bert
+
+    return bert.mlm_loss(model_cfg, params, batch["tokens"],
+                         batch["targets"],
+                         attention_mask=batch["attention_mask"],
+                         loss_mask=batch["loss_mask"])
+
+
+def _controls(control: str, stack):
+    """The faults of the cross-process step, patched in for a case:
+    ``psum_backward`` (the rank-list ``psum``'s backward, an all-reduce,
+    at the exits of the tp regions in place of ``g``'s identity: each
+    process's replica of the sum carries the gradient on, so it is counted
+    once a tp process), ``skip_reduce_scatter``
+    (the fsdp gathers keep their piece of the gradient, unsummed over the
+    data processes) and ``reversed_ring`` (K/V shifted the wrong way
+    round the ring)."""
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import ring_attention
+    from ray_tpu_torch.train import spmd
+
+    def patch(module, name, value):
+        old = getattr(module, name)
+        setattr(module, name, value)
+        stack.callback(setattr, module, name, old)
+
+    if control == "psum_backward":
+        patch(spmd, "tp_exit", lambda xs, group: col.psum(xs, group=group))
+    elif control == "skip_reduce_scatter":
+        def gather(xs, gather_axis=0, tiled=True, group=None):
+            if group is None:
+                return col.all_gather(xs, gather_axis=gather_axis,
+                                      tiled=tiled)
+            return col.gather_from_group(xs, gather_axis=gather_axis,
+                                         tiled=tiled, group=group)
+        patch(spmd, "all_gather", gather)
+    elif control == "reversed_ring":
+        patch(ring_attention, "ring_shift", lambda xs, shift=1, group=None:
+              col.ring_shift(xs, shift=-shift, group=group))
+    elif control:
+        raise ValueError(f"unknown control {control!r}")
+
+
+def placed_chunks(tree, mesh, prefix="") -> dict:
+    """``{"<leaf>@<global place>": chunk}`` for every place of this
+    process (the global place is the flat index in the global mesh's
+    row-major order, JAX's ``mesh.devices.ravel()`` position)."""
+    out = {}
+    grid = tuple(mesh.shape.values())
+    for name, st in tree.items():
+        if isinstance(st, dict):
+            out.update(placed_chunks(st, mesh, f"{prefix}{name}."))
+            continue
+        chunks = getattr(st, "chunks", None) or [st] * mesh.devices.size
+        for i, c in enumerate(chunks):
+            at = mesh.global_coords(np.unravel_index(i, mesh.devices.shape))
+            out[f"{prefix}{name}@{int(np.ravel_multi_index(at, grid))}"] = \
+                c.detach().numpy()
+    return out
+
+
+def cross_process_loop(config):
+    """``Trainer`` over this rank's process group for each case of
+    ``config["cases"]`` (name -> model config, train config kwargs, numpy
+    weights, global batches, and optional ``hook``, ``control`` and
+    ``ring_impl``), from the weights through
+    ``convert.params_from_numpy``, placed by ``place_tree``. Each case's
+    losses, gradient norms and every chunk of this process's places of
+    the final parameters and moments go to ``<out>/<case>_rank<r>.npz``."""
+    import contextlib
+    from functools import partial
+
+    torch.set_num_threads(1)
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.models import llama
+    from ray_tpu_torch.parallel.ring_attention import ring_attention
+    from ray_tpu_torch.parallel.sharding import place_tree
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    ctx = session.get_context()
+    for case, c in config["cases"].items():
+        with contextlib.ExitStack() as stack:
+            _controls(c.get("control"), stack)
+            if c.get("ring_impl"):
+                # the ring's body: "flash" runs the kernels' plain
+                # versions on the CPU
+                old = llama.ring_attention
+                llama.ring_attention = partial(ring_attention,
+                                               impl=c["ring_impl"])
+                stack.callback(setattr, llama, "ring_attention", old)
+            tr = Trainer(c["model_config"], TrainConfig(**c["train"]),
+                         device="cpu", process_group=ctx.process_group,
+                         loss_fn=mlm_hook if c.get("hook") else None)
+            params = convert.params_from_numpy(c["model_config"],
+                                               c["params"], device="cpu")
+            state = place_tree(TrainState.create(params, tr.optimizer),
+                               tr.state_shardings())
+            losses, norms = [], []
+            for batch in c["batches"]:
+                state, m = tr.train_step(state, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        flat = {"losses": np.array(losses), "grad_norms": np.array(norms)}
+        for tree in ("params", "mu", "nu"):
+            node = state.params if tree == "params" else \
+                state.opt_state[tree]
+            flat.update(placed_chunks(node, tr.mesh, f"{tree}."))
+        np.savez(os.path.join(config["out"], f"{case}_rank{ctx.rank}.npz"),
+                 **flat)
+        session.report({"case": case, "losses": losses})
+
+
+def resume_loop(config):
+    """``Trainer`` over this rank's process group on ``config["case"]``
+    (as ``cross_process_loop``'s), resumed by ``DataParallelTrainer``'s
+    retry. The first attempt takes one step, saves its checkpoint (every
+    process its own chunks), waits for every process to have saved,
+    reports it and fails; the retry restores it into the same layout and
+    takes the remaining steps. Writes ``saved``, ``restored`` and
+    ``resumed`` chunks of this process to ``<out>/<name>_rank<r>.npz``."""
+    torch.set_num_threads(1)
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.parallel.sharding import place_tree
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.checkpoint import CheckpointManager
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    ctx = session.get_context()
+    c = config["case"]
+    tr = Trainer(c["model_config"], TrainConfig(**c["train"]), device="cpu",
+                 process_group=ctx.process_group)
+
+    def dump(name, state, **extra):
+        flat = dict(extra)
+        for tree in ("params", "mu", "nu"):
+            node = state.params if tree == "params" else \
+                state.opt_state[tree]
+            flat.update(placed_chunks(node, tr.mesh, f"{tree}."))
+        np.savez(os.path.join(config["out"], f"{name}_rank{ctx.rank}.npz"),
+                 **flat)
+
+    restore = session.get_checkpoint_dir()
+    if restore is None:
+        params = convert.params_from_numpy(c["model_config"], c["params"],
+                                           device="cpu")
+        state = place_tree(TrainState.create(params, tr.optimizer),
+                           tr.state_shardings())
+        state, m = tr.train_step(state, c["batches"][0])
+        ckpt = os.path.join(ctx.trial_dir, "ckpt_1")
+        CheckpointManager(ckpt, async_save=False).save(state.step, state)
+        dump("saved", state, losses=[float(m["loss"])],
+             grad_norms=[float(m["grad_norm"])])
+        # every process's chunks are on disk before rank 0 names the
+        # checkpoint
+        ctx.process_group.all_reduce(torch.zeros(1))
+        session.report({"step": state.step}, checkpoint_dir=ckpt)
+        raise RuntimeError("transient-failure")
+    state = CheckpointManager(restore).restore(
+        shardings=tr.state_shardings())
+    dump("restored", state, checkpoint_dir=restore)
+    losses, norms = [], []
+    for batch in c["batches"][state.step:]:
+        state, m = tr.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    dump("resumed", state, losses=losses, grad_norms=norms)
+    session.report({"step": state.step})
+
+
+def collectives_across_loop(config):
+    """Each collective of ``parallel.collectives`` across processes on a
+    line of ``config["axes"]`` (``config["axis"]``), forward and backward:
+    this rank's input, seeded by the rank, and a seeded cotangent; the
+    outputs and input gradients to ``<out>/<op>_rank<r>.npz``."""
+    torch.set_num_threads(1)
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.process_group import mesh_layout
+    from ray_tpu_torch.train import session
+
+    ctx = session.get_context()
+    layout = mesh_layout(ctx.process_group, config["axes"])
+    group = layout.groups[config["axis"]]
+    for op, (shape, fn) in config["ops"].items():
+        rng = np.random.default_rng(100 + ctx.rank)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).requires_grad_(True)
+        out = getattr(col, fn[0])([x], group=group, **fn[1]) \
+            if fn[0] not in ("copy_to_group",) else \
+            [col.copy_to_group(x, group)]
+        y = out[0]
+        cot = torch.from_numpy(np.random.default_rng(200 + ctx.rank)
+                               .standard_normal(tuple(y.shape))
+                               .astype(np.float32))
+        (grad,) = torch.autograd.grad(y, x, cot) if y.requires_grad \
+            else (torch.zeros_like(x),)
+        np.savez(os.path.join(config["out"], f"{op}_rank{ctx.rank}.npz"),
+                 y=y.detach().numpy(), grad=grad.numpy(),
+                 index=group.index, stats_calls=sum(
+                     v for k, v in ctx.process_group.stats.items()
+                     if k.endswith("_calls")))
