@@ -320,6 +320,8 @@ OPS = {
     "reduce_from_group": ((4, 6), ("reduce_from_group", {})),
     "copy_to_group": ((4, 6), ("copy_to_group", {})),
     "gather_from_group": ((4, 6), ("gather_from_group", {})),
+    # q, k, v [1, 8, 4, 16] stacked: each process 8 tokens of 16
+    "ulysses": ((3, 1, 8, 4, 16), ("ulysses_attention", {})),
 }
 
 
@@ -361,6 +363,10 @@ def _expected(op, line, shape):
         ys = [x * 1 for x in xs]
     elif fn == "gather_from_group":
         ys = col.all_gather(xs)
+    elif fn == "ulysses_attention":
+        from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+        ys = ulysses_attention(*([x[i] for x in xs] for i in range(3)))
     else:
         ys = getattr(col, fn)(xs, **kw)
     cots = [torch.from_numpy(np.random.default_rng(200 + r).standard_normal(
@@ -381,7 +387,8 @@ def _expected(op, line, shape):
 @pytest.mark.parametrize("op", list(OPS))
 def test_collective_across_processes_and_its_conjugate(collectives_run, op):
     """Each process's output and input gradient against the rank-list
-    collective on the same chunks (its VJP), or Megatron's definitions:
+    collective on the same chunks (its VJP; Ulysses' attention through
+    its two all-to-alls), or Megatron's definitions:
     ``g`` sums forward and passes the gradient, ``f`` passes forward and
     sums the gradient, ``gather_from_group`` keeps its piece of it."""
     shape = OPS[op][0]

@@ -374,9 +374,16 @@ def collectives_across_loop(config):
         rng = np.random.default_rng(100 + ctx.rank)
         x = torch.from_numpy(rng.standard_normal(shape).astype(
             np.float32)).requires_grad_(True)
-        out = getattr(col, fn[0])([x], group=group, **fn[1]) \
-            if fn[0] not in ("copy_to_group",) else \
-            [col.copy_to_group(x, group)]
+        if fn[0] == "copy_to_group":
+            out = [col.copy_to_group(x, group)]
+        elif fn[0] == "ulysses_attention":
+            # q, k and v stacked on a leading axis
+            from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+            out = ulysses_attention(*([t] for t in x.unbind(0)),
+                                    group=group)
+        else:
+            out = getattr(col, fn[0])([x], group=group, **fn[1])
         y = out[0]
         cot = torch.from_numpy(np.random.default_rng(200 + ctx.rank)
                                .standard_normal(tuple(y.shape))
