@@ -426,7 +426,14 @@ class Trainer:
     def loss_and_grads(self, params, batch):
         """The loss of ``params`` on ``batch`` and its gradient, in the
         form of ``params``: placed tensors for a placed tree, global
-        tensors for plain ones. No update."""
+        tensors for plain ones. No update. Where fsdp or sp split the
+        loss between processes, each process's part is only summed by
+        ``train_step``: this raises there."""
+        split = set(self._rank_step().split_axes) - {"dp"}
+        if split:
+            raise NotImplementedError(
+                f"loss_and_grads with {sorted(split)} across processes: "
+                "their parts of the loss are summed in train_step")
         placed = self._placed(params, self.state_shardings().params)
         loss, grads = self._chunk_grads(placed, self._place_batch(batch))
 

@@ -448,10 +448,11 @@ def test_mesh_trainer_spans_fsdp_and_tp_over_four_ranks(tmp_path):
 
 def test_what_spans_processes_is_refused_before_any_rank_starts(tmp_path):
     """pp across processes (ROADMAP slice 11), an axis cut between
-    processes, and ElasticTrainer's reform across processes raise before
-    anything runs; nothing falls back to one process."""
+    processes, ElasticTrainer's reform across processes, and
+    ``loss_and_grads`` where fsdp splits the loss between processes raise
+    before anything runs; nothing falls back to one process."""
     from ray_tpu_torch.train.elastic import ElasticTrainer
-    from ray_tpu_torch.train.trainer import TrainConfig
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
 
     _, tcfg = _configs("llama")
     for axes, match in (({"pp": 2, "dp": 2}, "axis 'pp' across processes"
@@ -466,3 +467,18 @@ def test_what_spans_processes_is_refused_before_any_rank_starts(tmp_path):
     with pytest.raises(NotImplementedError, match="slice 11"):
         ElasticTrainer(tcfg, TrainConfig(), checkpoint_dir=str(tmp_path),
                        devices=["cpu"], process_group=object())
+    # one process of two sharing {fsdp 2}: its loss is a part of the
+    # global one, which only train_step sums
+    tr = Trainer(tcfg, TrainConfig(mesh_axes={"fsdp": 2}), device="cpu",
+                 process_group=_OneOfTwo())
+    assert tr.mesh.spans("fsdp") and tr.mesh.local_shape == {"fsdp": 1}
+    with pytest.raises(NotImplementedError, match="fsdp"):
+        tr.loss_and_grads(tllama.init_params(tcfg, device="cpu"),
+                          _batch("llama", 2, 8, 0))
+
+
+class _OneOfTwo:
+    """A stand-in for rank 0 of a two-process group (no collective runs:
+    a line of the whole world needs no subgroup)."""
+
+    rank, world_size = 0, 2
