@@ -45,8 +45,7 @@ sharing one global mesh: Llama-3-8B's width at depth 4 on {fsdp 2, tp 2}
 processes), each held against its single-controller counterpart run
 first in the same script, with controls (the rank-list psum backward in
 place of Megatron's g, a skipped fsdp reduce-scatter, the ring shifted
-the wrong way). ``--only-xproc`` builds the kernels and runs these two
-phases alone, and prints no result line. Every
+the wrong way). Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -836,7 +835,16 @@ def launch_counts():
 
 def zero_counts():
     from ray_tpu_torch.ops.flash_attention import flash_bwd, flash_fwd
-    flash_fwd.launches = flash_bwd.launches = 0
+    flash_fwd.launches = flash_fwd.causal_launches = flash_bwd.launches = 0
+
+
+def causal_split():
+    """K1's launches since the counts were zeroed, causal and not, as its
+    wrapper counts them where it launches the kernel."""
+    from ray_tpu_torch.ops.flash_attention import flash_fwd
+    return {"flash_fwd_causal": flash_fwd.causal_launches,
+            "flash_fwd_noncausal":
+                flash_fwd.launches - flash_fwd.causal_launches}
 
 
 def named_leaves(tree, prefix=""):
@@ -2285,10 +2293,23 @@ XPROC_STEPS = 2
 # on an H100 80GB HBM3 at 700 W)
 XPROC_LIMIT_S = 240.0
 # the cases of a rank: the real one (XPROC_STEPS steps), then each control
-# (one step: its gradient norm must leave the bound)
+# (one step), with the bound it must leave: the gradient norm's
+# (HARNESS_NORM_TOL) or some leaf's first moment's (XPROC_MOMENT_TOL)
 XPROC_CASES = {"xproc_fsdp_tp": ("real", "psum_backward",
-                                 "skip_reduce_scatter"),
+                                 "skip_reduce_scatter", "norm_unreduced"),
                "xproc_sp4": ("real",)}
+XPROC_CONTROL_BREAKS = {"psum_backward": "grad_norm",
+                        "skip_reduce_scatter": "grad_norm",
+                        "norm_unreduced": "first_moment"}
+# Each leaf's first moment (the gradients' running mean, bf16) after the
+# ranks' steps against the single controller's: the RMS of the difference
+# over the RMS of the reference, leaf by leaf. The norm weights' bf16
+# update (lr against 1.0) rounds away in two steps, so only this reads a
+# fault confined to them, which the global norm hardly sees. Runs on an
+# H100 80GB HBM3 at 700 W read at most 1.1e-2 (fsdp_tp) and 4.9e-3 (sp 4),
+# about twice the single controller's own rerun (PERF.md, section 6); a
+# gradient summed over half its processes reads 0.5 or more.
+XPROC_MOMENT_TOL = 5e-2
 
 
 @contextlib.contextmanager
@@ -2298,8 +2319,10 @@ def xproc_control(case: str):
     exits of the tp regions in place of ``g``'s identity: each process's
     replica of the sum carries the gradient on, so it is counted once a
     tp process), ``skip_reduce_scatter`` (the fsdp gathers keep their
-    piece of the gradient, unsummed over the data processes) and
-    ``reversed_ring`` (K/V shifted the wrong way round)."""
+    piece of the gradient, unsummed over the data processes),
+    ``norm_unreduced`` (the same for the norm weights alone: the gathers
+    of 1-d pieces) and ``reversed_ring`` (K/V shifted the wrong way
+    round)."""
     from ray_tpu_torch.parallel import collectives as col
     from ray_tpu_torch.parallel import ring_attention
     from ray_tpu_torch.train import spmd
@@ -2309,11 +2332,12 @@ def xproc_control(case: str):
              (ring_attention, "ring_shift"): ring_attention.ring_shift}
     if case == "psum_backward":
         spmd.tp_exit = lambda xs, group: col.psum(xs, group=group)
-    elif case == "skip_reduce_scatter":
+    elif case in ("skip_reduce_scatter", "norm_unreduced"):
         def gather(xs, gather_axis=0, tiled=True, group=None):
-            if group is None:
+            if group is None or (case == "norm_unreduced"
+                                 and xs[0].dim() > 1):
                 return col.all_gather(xs, gather_axis=gather_axis,
-                                      tiled=tiled)
+                                      tiled=tiled, group=group)
             return col.gather_from_group(xs, gather_axis=gather_axis,
                                          tiled=tiled, group=group)
         spmd.all_gather = gather
@@ -2355,38 +2379,19 @@ def xproc_ring_check(torch, pg, out_dir):
     saved = {}
     for case in ("real", "reversed_ring"):
         leaves = tuple(x.detach().clone().requires_grad_() for x in (q, k, v))
-        with xproc_control(case), count_ring_launches() as split:
+        with xproc_control(case):
             zero_counts()
             out = ra.ring_attention(*leaves, mesh=mesh, causal=True,
                                     impl="flash")
             grads = torch.autograd.grad(out, leaves, do)
             torch.cuda.synchronize()
-            counts = launch_counts()
+            counts = {**launch_counts(), **causal_split()}
         saved[case] = {"out": out.detach().cpu(),
                        **{f"d{n}": g.cpu() for n, g in zip("qkv", grads)}}
         if case == "real":
-            real_counts = {**counts, **split}
+            real_counts = counts
     torch.save(saved, os.path.join(out_dir, f"ring_rank{pg.rank}.pt"))
     return real_counts
-
-
-@contextlib.contextmanager
-def count_ring_launches():
-    """The ring's K1 calls, split into causal (the diagonal) and not (K/V
-    of another rank), by wrapping the ring's ``flash_fwd``."""
-    from ray_tpu_torch.parallel import ring_attention as ra
-
-    split = {"flash_fwd_causal": 0, "flash_fwd_noncausal": 0}
-    real = ra.flash_fwd
-
-    def counted(*args, causal=False, **kw):
-        split["flash_fwd_causal" if causal else "flash_fwd_noncausal"] += 1
-        return real(*args, causal=causal, **kw)
-    ra.flash_fwd = counted
-    try:
-        yield split
-    finally:
-        ra.flash_fwd = real
 
 
 def xproc_rank_loop(config):
@@ -2395,15 +2400,49 @@ def xproc_rank_loop(config):
     ``init_state(seed)`` (the rank's chunks), for each case of
     ``XPROC_CASES[phase]``: the real one ``XPROC_STEPS`` steps, a control
     one. Reports each step (its seconds, each collective kind's seconds
-    and bytes, the launches, the ring's K1 split); after the real case
-    saves this rank's distinct chunks of the parameters by index range to
-    ``<out>/real_rank<r>.pt``. Under xproc_sp4 the ring check runs
-    first."""
+    and bytes, the launches, the ring's K1 split). After the real case it
+    saves its chunks of the parameters and the first moment by index
+    range to ``<out>/<case>_rank<r>.pt``, and after a control held by the
+    first moment its chunks of that (XPROC_CONTROL_BREAKS): each
+    range by the lowest rank that holds it, once the real case's replicas
+    of a range are checked equal across processes (``check_same``).
+    Under xproc_sp4 the ring check runs first."""
     import torch
 
     from ray_tpu_torch.parallel.sharding import ShardedTensor
     from ray_tpu_torch.train import session
     from ray_tpu_torch.train.trainer import Trainer
+
+    def chunks(tree):
+        """(name, index range) -> this rank's chunk, on the card."""
+        out = {}
+        for name, st in named_leaves(tree):
+            if isinstance(st, ShardedTensor):
+                idx = st.sharding.indices(st.shape)
+                out.update({(name, tuple((s.start, s.stop)
+                                         for s in idx[place])): c.detach()
+                            for place, c in st.distinct()})
+            else:
+                out[name, tuple((0, n) for n in st.shape)] = st.detach()
+        return out
+
+    def save(case, trees):
+        """Each tree's chunks that no lower rank holds, to the host and
+        ``<out>/<case>_rank<r>.pt``."""
+        held = {t: chunks(tree) for t, tree in trees.items()}
+        every = pg.all_gather_object({t: sorted(c) for t, c in held.items()})
+        lower = {(t, key) for other in every[:ctx.rank]
+                 for t, keys in other.items() for key in keys}
+        if case == "real":
+            pg.check_same([(f"{t}.{name}{key}", c) for t, cs in held.items()
+                           for (name, key), c in cs.items()])
+        out = {t: {} for t in held}
+        for t, cs in held.items():
+            for (name, key), c in cs.items():
+                if (t, (name, key)) not in lower:
+                    out[t].setdefault(name, {})[key] = c.cpu()
+        torch.save(out, os.path.join(config["out"],
+                                     f"{case}_rank{ctx.rank}.pt"))
 
     ctx = session.get_context()
     pg = ctx.process_group
@@ -2414,15 +2453,13 @@ def xproc_rank_loop(config):
         if phase == "xproc_sp4" else None
     reports = []
     for case in XPROC_CASES[phase]:
-        with xproc_control(case), count_ring_launches() as split:
+        with xproc_control(case):
             trainer = Trainer(config["model_config"], config["train_config"],
                               device=ctx.device, process_group=pg)
             state = trainer.init_state(seed=SEED)
             torch.cuda.reset_peak_memory_stats()
             for _ in range(XPROC_STEPS if case == "real" else 1):
                 before = dict(pg.stats)
-                for key in split:
-                    split[key] = 0
                 zero_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2432,26 +2469,16 @@ def xproc_rank_loop(config):
                 reports.append({
                     "case": case, "rank": ctx.rank, "loss": loss,
                     "grad_norm": float(m["grad_norm"]), "step_s": step_s,
-                    "launches": {**launch_counts(), **split},
+                    "launches": {**launch_counts(), **causal_split()},
                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                     "collectives": {k: pg.stats[k] - before[k]
                                     for k in pg.stats},
                     "ring_launches": ring})
                 session.report({"case": case, "loss": loss})
         if case == "real":
-            chunks = {}
-            for name, st in named_leaves(state.params):
-                if isinstance(st, ShardedTensor):
-                    idx = st.sharding.indices(st.shape)
-                    chunks[name] = {
-                        tuple((s.start, s.stop) for s in idx[place]):
-                        c.detach().cpu() for place, c in st.distinct()}
-                else:
-                    chunks[name] = {tuple((0, n) for n in st.shape):
-                                    st.detach().cpu()}
-            torch.save(chunks, os.path.join(config["out"],
-                                            f"real_rank{ctx.rank}.pt"))
-            del chunks
+            save(case, {"params": state.params, "mu": state.opt_state["mu"]})
+        elif XPROC_CONTROL_BREAKS[case] == "first_moment":
+            save(case, {"mu": state.opt_state["mu"]})
         del state, trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -2460,60 +2487,144 @@ def xproc_rank_loop(config):
         json.dump(reports, f)
 
 
-def xproc_update_err(torch, ranks: list, ref: dict, init: dict) -> tuple:
-    """The ranks' chunks against the single controller's parameters: the
-    RMS of their difference over the RMS of the reference's update, each
-    index range once, and the elements where two replicas of one range
-    differ (host tensors, each range's arithmetic on the card)."""
-    num = den = 0.0
-    replicas_differing = 0
-    seen = {}
+def xproc_chunk_err(torch, ranks: list, ref: dict,
+                    init: dict | None = None) -> dict:
+    """The ranks' chunks (``ranks``: each a dict name -> index range ->
+    tensor, each range once) against the single controller's leaves
+    ``ref``: the RMS of their difference over the RMS of ``ref - init``
+    (the update; ``init`` None: of ``ref`` itself), in all (``rel_err``)
+    and for each leaf (``by_leaf``: its own ratio, None where its
+    denominator is 0, and its share of the squared difference in all;
+    ``worst_leaf`` has the largest ratio, ``largest_share_leaf`` carries
+    the most). Each range's arithmetic runs on the card."""
+    num, den = {}, {}
     for chunks in ranks:
         for name, pieces in chunks.items():
             for key, got in pieces.items():
                 idx = tuple(slice(a, b) for a, b in key)
-                if (name, key) in seen:
-                    replicas_differing += int(
-                        (got.cuda() != seen[name, key].cuda()).sum())
-                    continue
-                seen[name, key] = got
                 r = ref[name][idx].cuda().float()
-                num += float((got.cuda().float() - r).square().sum(
-                    dtype=torch.float64))
-                den += float((r - init[name][idx].cuda().float()).square()
-                             .sum(dtype=torch.float64))
-    return (num / den) ** 0.5, replicas_differing
+                base = r if init is None else \
+                    r - init[name][idx].cuda().float()
+                num[name] = num.get(name, 0.0) + float(
+                    (got.cuda().float() - r).square().sum(
+                        dtype=torch.float64))
+                den[name] = den.get(name, 0.0) + float(
+                    base.square().sum(dtype=torch.float64))
+    total = sum(num.values())
+    by_leaf = {n: {"rel_err": (num[n] / den[n]) ** 0.5 if den[n] else None,
+                   "share": num[n] / total if total else 0.0} for n in num}
+    return {"rel_err": (total / sum(den.values())) ** 0.5,
+            "by_leaf": by_leaf,
+            "worst_leaf": max(by_leaf, key=lambda n:
+                              by_leaf[n]["rel_err"] or 0.0),
+            "largest_share_leaf": max(by_leaf,
+                                      key=lambda n: by_leaf[n]["share"])}
+
+
+def as_rank_chunks(leaves: dict) -> list:
+    """Whole leaves as one rank's chunks, each leaf one range."""
+    return [{n: {tuple((0, k) for k in t.shape): t} for n, t in
+             leaves.items()}]
 
 
 def xproc_single_controller(torch, cfg, train_cfg, batch, mesh=None):
     """The single-controller counterpart on this card: ``Trainer`` on the
     same global mesh, every place here, from ``init_state(seed)``,
-    ``XPROC_STEPS`` steps. Returns its losses, gradient norms, step
-    seconds and the parameters' host copies before and after."""
+    ``XPROC_STEPS`` steps; then all again, both states held on the card,
+    for the rerun against the first run (``xproc_chunk_err`` of the
+    update and the first moment: the card's own run-to-run noise).
+    Returns the first run's losses, gradient norms and step seconds, host
+    copies of its parameters before, of its first moment after one step
+    (the controls take one) and of its parameters and first moment
+    after, and the rerun's comparison and gradient norms."""
     from ray_tpu_torch.parallel.sharding import ShardedTensor
     from ray_tpu_torch.train.trainer import Trainer
 
-    def host(params):
+    def leaves(tree):
         return {n: (t.unshard() if isinstance(t, ShardedTensor) else t)
-                .detach().cpu() for n, t in named_leaves(params)}
+                .detach() for n, t in named_leaves(tree)}
+
+    def host(tree):
+        return {n: t.cpu() for n, t in leaves(tree).items()}
 
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, train_cfg, mesh=mesh)
-    state = trainer.init_state(seed=SEED)
-    init = host(state.params)
-    losses, norms, times = [], [], []
-    for _ in range(XPROC_STEPS):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        state, m = trainer.train_step(state, batch)
-        losses.append(float(m["loss"]))
-        times.append(time.perf_counter() - t1)
-        norms.append(float(m["grad_norm"]))
-    ref = host(state.params)
-    del state, trainer
+    out, states = {}, []
+    for run in range(2):
+        trainer = Trainer(cfg, train_cfg, mesh=mesh)
+        state = trainer.init_state(seed=SEED)
+        if run == 0:
+            out["init"] = host(state.params)
+        losses, norms, times = [], [], []
+        for i in range(XPROC_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = trainer.train_step(state, batch)
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t1)
+            norms.append(float(m["grad_norm"]))
+            if run == 0 and i == 0:
+                out["mu_step1"] = host(state.opt_state["mu"])
+        out.update({"losses": losses, "grad_norms": norms, "step_s": times}
+                   if run == 0 else {"rerun_grad_norms": norms})
+        states.append(state)
+        del state, trainer
+    first, again = states
+    del states
+    out["rerun"] = {
+        "update": xproc_chunk_err(torch, as_rank_chunks(leaves(
+            again.params)), leaves(first.params), out["init"]),
+        "first_moment": xproc_chunk_err(torch, as_rank_chunks(leaves(
+            again.opt_state["mu"])), leaves(first.opt_state["mu"]))}
+    del again
     free_card(torch)
-    return {"losses": losses, "grad_norms": norms, "step_s": times,
-            "init": init, "ref": ref, "seconds": time.perf_counter() - t0}
+    out["ref"], out["ref_mu"] = host(first.params), \
+        host(first.opt_state["mu"])
+    del first
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def xproc_compare(torch, d: str, phase: str, single: dict) -> dict:
+    """The ranks' saved chunks (``<d>/<case>_rank<r>.pt``) against the
+    single controller's leaves (``xproc_chunk_err``): the real case's
+    update and first moment (the gradients' running mean: the norm
+    weights' bf16 update rounds away in two steps, their moment does
+    not), beside the single controller's rerun against its first run,
+    leaf by leaf; the first moment of each control held by it after its
+    one step. Returns the emitted fields."""
+    def load(case):
+        return [torch.load(os.path.join(d, f"{case}_rank{r}.pt"),
+                           weights_only=True) for r in range(XPROC_WORLD)]
+
+    def fields(err):
+        return {"rel_err": err["rel_err"], "by_leaf": err["by_leaf"],
+                "worst_leaf": err["worst_leaf"],
+                "largest_share_leaf": err["largest_share_leaf"]}
+
+    real = load("real")
+    out = {
+        "update": fields(xproc_chunk_err(
+            torch, [r["params"] for r in real], single["ref"],
+            single["init"])),
+        "first_moment": fields(xproc_chunk_err(
+            torch, [r["mu"] for r in real], single["ref_mu"])),
+        "single_controller_rerun": {
+            **{t: fields(e) for t, e in single["rerun"].items()},
+            "grad_norms": single["rerun_grad_norms"]}}
+    del real
+    out["controls_first_moment"] = {
+        case: fields(xproc_chunk_err(
+            torch, [r["mu"] for r in load(case)], single["mu_step1"]))
+        for case in XPROC_CASES[phase][1:]
+        if XPROC_CONTROL_BREAKS[case] == "first_moment"}
+    return out
+
+
+def worst_moment(fields: dict) -> float:
+    """The largest leaf's first-moment ratio of ``xproc_compare``'s
+    fields."""
+    return max(v["rel_err"] or 0.0 for v in fields["by_leaf"].values())
 
 
 def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out):
@@ -2611,12 +2722,14 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
     through the fused vocab-parallel loss. Held after XPROC_STEPS steps:
     every rank's chunks against the single-controller trainer's on the
     same mesh of this card (PR 7's path), run first, within
-    HARNESS_PARAM_TOL of its update, and every rank's gradient norms
-    within HARNESS_NORM_TOL; each control (the rank-list psum backward in
-    place of the f/g pair; the fsdp gathers' reduce-scatter skipped) must
-    break the norm bound in its one step. Every real step's launches per
-    rank: K1 8 and the backward 4. Returns rank 0's launches of one
-    real step."""
+    HARNESS_PARAM_TOL of its update, every leaf's first moment within
+    XPROC_MOMENT_TOL of its own, and every rank's gradient norms within
+    HARNESS_NORM_TOL. In its one step each control must break its bound
+    (XPROC_CONTROL_BREAKS): the norm's for the rank-list psum backward in
+    place of the f/g pair and for the fsdp gathers' reduce-scatter
+    skipped, a leaf's first moment's for that skip on the norm weights
+    alone. Every real step's launches per rank: K1 8 (all causal) and the
+    backward 4. Returns rank 0's launches of one real step."""
     import dataclasses
     import tempfile
 
@@ -2636,18 +2749,28 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
         result, fit_s = xproc_spawn(torch, "xproc_fsdp_tp", cfg4, train_cfg,
                                     batch, flops / XPROC_WORLD, d)
         t0 = time.perf_counter()
-        ranks = [torch.load(os.path.join(d, f"real_rank{r}.pt"),
-                            weights_only=True)
-                 for r in range(XPROC_WORLD)]
-        update_rel_err, replicas_differing = xproc_update_err(
-            torch, ranks, single["ref"], single["init"])
-        del ranks
+        cmp = xproc_compare(torch, d, "xproc_fsdp_tp", single)
         compare_s = time.perf_counter() - t0
         steps = xproc_steps(d)
+    update_rel_err = cmp["update"]["rel_err"]
+    moment_err = worst_moment(cmp["first_moment"])
     norm_errs = xproc_norm_errs(steps, single["grad_norms"])
+    controls = {}
+    for c in XPROC_CASES["xproc_fsdp_tp"][1:]:
+        controls[c] = {"grad_norm_rel_err": norm_errs[c],
+                       "must_break": XPROC_CONTROL_BREAKS[c]}
+        if XPROC_CONTROL_BREAKS[c] == "grad_norm":
+            controls[c]["broke"] = norm_errs[c] > HARNESS_NORM_TOL
+        else:
+            fields = cmp["controls_first_moment"][c]
+            controls[c].update(
+                first_moment=fields,
+                first_moment_worst_leaf_rel_err=worst_moment(fields),
+                broke=worst_moment(fields) > XPROC_MOMENT_TOL)
     per_rank = xproc_summary(steps)
-    want = {"flash_fwd": 2 * L, "flash_bwd": L}
-    launches = {r: [{k: st["launches"][k] for k in want} for st in rs]
+    want = {"flash_fwd": 2 * L, "flash_bwd": L, "flash_fwd_causal": 2 * L,
+            "flash_fwd_noncausal": 0}
+    launches = {r: [st["launches"] for st in rs]
                 for r, rs in per_rank.items()}
     step_s = max(st["step_s"] for rs in per_rank.values()
                  for st in rs[1:])
@@ -2662,10 +2785,11 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
          single_controller_step_s=single["step_s"],
          losses=[st["loss"] for st in per_rank[0]],
          update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         update=cmp["update"], first_moment_worst_leaf_rel_err=moment_err,
+         moment_tol=XPROC_MOMENT_TOL, first_moment=cmp["first_moment"],
+         single_controller_rerun=cmp["single_controller_rerun"],
          grad_norm_rel_err=norm_errs["real"], norm_tol=HARNESS_NORM_TOL,
-         replica_elements_differing=replicas_differing,
-         controls={c: {"grad_norm_rel_err": norm_errs[c]}
-                   for c in XPROC_CASES["xproc_fsdp_tp"][1:]},
+         controls=controls,
          step_s=step_s, tokens_per_s=b * s / step_s,
          rank_flops_per_step=flops / XPROC_WORLD,
          mfu_of_the_card=flops / step_s / peaks[0],
@@ -2673,13 +2797,15 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
          spawn_to_first_report_s=result.first_report_s, fit_s=fit_s,
          single_controller_s=single["seconds"], compare_s=compare_s)
     if update_rel_err > HARNESS_PARAM_TOL or \
-            norm_errs["real"] > HARNESS_NORM_TOL or not all(
-                norm_errs[c] > HARNESS_NORM_TOL
-                for c in XPROC_CASES["xproc_fsdp_tp"][1:]):
+            moment_err > XPROC_MOMENT_TOL or \
+            norm_errs["real"] > HARNESS_NORM_TOL or \
+            not all(c["broke"] for c in controls.values()):
         raise AssertionError(
             f"xproc_fsdp_tp: update error {update_rel_err} (tol "
-            f"{HARNESS_PARAM_TOL}), norm errors {norm_errs} (tol "
-            f"{HARNESS_NORM_TOL}; each control must exceed it)")
+            f"{HARNESS_PARAM_TOL}), worst leaf's first moment {moment_err} "
+            f"(tol {XPROC_MOMENT_TOL}), norm errors {norm_errs} (tol "
+            f"{HARNESS_NORM_TOL}); each control must break its bound: "
+            f"{ {c: v['broke'] for c, v in controls.items()} }")
     if any(c != want for cs in launches.values() for c in cs):
         raise AssertionError(f"xproc_fsdp_tp launches {launches}, want "
                              f"{want} a rank's step")
@@ -2697,7 +2823,8 @@ def check_xproc_sp4(torch, cfg, peaks):
     kernels (as ring_kernels), and the ring shifted the wrong way must
     fail the output bound. Then XPROC_STEPS trainer steps against the
     single-controller sp-4 ring trainer on this card (PR 6's path): the
-    losses within HARNESS_LOSS_TOL, the update within HARNESS_PARAM_TOL.
+    losses within HARNESS_LOSS_TOL, the update within HARNESS_PARAM_TOL,
+    every leaf's first moment within XPROC_MOMENT_TOL.
     Launches a rank's step: K1 causal 2·L (the diagonal, the forward and
     its recompute) and non-causal 2·L·rank, the backward L·(rank + 1).
     Returns rank 3's launches of one real step."""
@@ -2723,12 +2850,7 @@ def check_xproc_sp4(torch, cfg, peaks):
         result, fit_s = xproc_spawn(torch, "xproc_sp4", cfg2, train_cfg,
                                     batch, flops / XPROC_WORLD, d)
         t0 = time.perf_counter()
-        ranks = [torch.load(os.path.join(d, f"real_rank{r}.pt"),
-                            weights_only=True)
-                 for r in range(XPROC_WORLD)]
-        update_rel_err, replicas_differing = xproc_update_err(
-            torch, ranks, single["ref"], single["init"])
-        del ranks
+        cmp = xproc_compare(torch, d, "xproc_sp4", single)
         rings = [torch.load(os.path.join(d, f"ring_rank{r}.pt"),
                             weights_only=True)
                  for r in range(XPROC_WORLD)]
@@ -2751,6 +2873,8 @@ def check_xproc_sp4(torch, cfg, peaks):
     free_card(torch)
     out_tol, grad_tol = 1e-2, 2e-2
     per_rank = xproc_summary(steps)
+    update_rel_err = cmp["update"]["rel_err"]
+    moment_err = worst_moment(cmp["first_moment"])
     losses = [st["loss"] for st in per_rank[0]]
     loss_err = max(abs(a - w) for a, w in zip(losses, single["losses"]))
     wants = {r: {"flash_fwd": 2 * L * (r + 1), "flash_bwd": L * (r + 1),
@@ -2777,7 +2901,9 @@ def check_xproc_sp4(torch, cfg, peaks):
          single_controller_step_s=single["step_s"], losses=losses,
          loss_max_abs_err=loss_err, loss_tol=HARNESS_LOSS_TOL,
          update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
-         replica_elements_differing=replicas_differing,
+         update=cmp["update"], first_moment_worst_leaf_rel_err=moment_err,
+         moment_tol=XPROC_MOMENT_TOL, first_moment=cmp["first_moment"],
+         single_controller_rerun=cmp["single_controller_rerun"],
          grad_norm_rel_err=xproc_norm_errs(steps, single["grad_norms"]),
          step_s=step_s, tokens_per_s=b * s / step_s,
          rank_flops_per_step=flops / XPROC_WORLD,
@@ -2791,11 +2917,13 @@ def check_xproc_sp4(torch, cfg, peaks):
         raise AssertionError(f"xproc_sp4 ring: {ring_errs} (out tol "
                              f"{out_tol}, grad tol {grad_tol}; the reversed "
                              "ring must fail the out bound)")
-    if loss_err > HARNESS_LOSS_TOL or update_rel_err > HARNESS_PARAM_TOL:
+    if loss_err > HARNESS_LOSS_TOL or update_rel_err > HARNESS_PARAM_TOL \
+            or moment_err > XPROC_MOMENT_TOL:
         raise AssertionError(f"xproc_sp4: losses {losses} against "
                              f"{single['losses']} (tol {HARNESS_LOSS_TOL}), "
                              f"update error {update_rel_err} (tol "
-                             f"{HARNESS_PARAM_TOL})")
+                             f"{HARNESS_PARAM_TOL}), worst leaf's first "
+                             f"moment {moment_err} (tol {XPROC_MOMENT_TOL})")
     if any(c != wants[r] for r, cs in launches.items() for c in cs):
         raise AssertionError(f"xproc_sp4 launches {launches}, want {wants}")
     return launches[XPROC_WORLD - 1][-1]
@@ -3634,16 +3762,6 @@ def main() -> int:
              for name in ("flash_fwd", "flash_bwd")}
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
-    if sys.argv[1:] == ["--only-xproc"]:
-        # the slice-10 phases alone (a quicker check while they change);
-        # prints no result line
-        cfg = llama.llama3_8b()
-        check_xproc_fsdp_tp(torch, cfg, peaks)
-        free_card(torch)
-        check_xproc_sp4(torch, cfg, peaks)
-        emit("partial", seconds=time.perf_counter() - t_start)
-        return 0
-
     fwd_rows = check_flash(torch, peaks)
     main_case, train_case, gpt2_case = (fwd_rows[k] for k in (
         "llama3_8b", "llama3_8b_train", "gpt2_xl_train"))

@@ -31,8 +31,9 @@ K2 and K3 together) that takes its plain version (``flash_fwd_plain``;
 plain PyTorch) for a CPU tensor, and for a CUDA tensor launches the
 kernel (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``, built at first use
 by ``ray_tpu_torch._kernels``) or raises. There is no fallback. Each
-wrapper counts its kernel launches in ``<wrapper>.launches``;
-``flash_fwd.calls`` counts the forward's runs on either device (the remat
+wrapper counts its kernel launches in ``<wrapper>.launches`` (K1's
+causal ones also in ``flash_fwd.causal_launches``); ``flash_fwd.calls``
+counts the forward's runs on either device (the remat
 tests read it).
 
 The gradient: the forward and the backward are ``torch.library``
@@ -261,6 +262,7 @@ def _launch_fwd(q, k, v, out, lse, *, scale: float, causal: bool):
             float(scale), int(causal), _stream(q))
     _kernels.check(err, "flash_fwd kernel launch")
     flash_fwd.launches += 1
+    flash_fwd.causal_launches += int(causal)
 
 
 def _forward(q, k, v, scale: float, causal: bool, with_lse: bool):
@@ -409,8 +411,10 @@ def flash_fwd(q, k, v, *, scale: float | None = None, causal: bool = True,
     return _forward(q, k, v, scale, causal, with_lse)
 
 
-# K1 launches and forward runs (either device) since the last reset
+# K1 launches (of them causal) and forward runs (either device) since the
+# last reset
 flash_fwd.launches = 0
+flash_fwd.causal_launches = 0
 flash_fwd.calls = 0
 
 

@@ -26,10 +26,12 @@ Backends. NCCL carries CUDA tensors between cards; it refuses two ranks on
 one GPU, so ``init_process_group`` raises before it starts when the world
 is larger than the cards this host has (it never falls back to gloo).
 gloo carries CPU tensors, and here CUDA tensors too: each is staged
-explicitly through one pinned host buffer (copied to the host, reduced or
-broadcast there, copied back), and the staging's seconds and bytes are
-counted in ``stats``. The NCCL path across several cards is written but
-has only run with one rank: the machine it was checked on has one card.
+explicitly through one pinned host buffer, a round of at most
+``BUCKET_BYTES`` at a time (copied to the host, reduced, gathered or sent
+there, copied back; ``ProcessGroup._run``), and the staging's seconds
+and bytes are counted in ``stats``. The NCCL path across several cards
+is written but has only run with one rank: the machine it was checked on
+has one card.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from ray_tpu_torch.parallel.mesh import ProcessLayout, split_axes
 
 # collectives and the rendezvous fail after this long without progress
 DEFAULT_TIMEOUT_S = 300.0
-# bytes of one gradient bucket (and of the largest piece staged at once)
+# bytes of one gradient bucket, and the most staged at once (a round)
 BUCKET_BYTES = 1 << 28
 # the collectives on flat tensors, each counted in ``stats`` under its name
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
@@ -101,6 +103,20 @@ def check_backend(backend: str, world_size: int, use_gpu: bool) -> None:
     _check_card(use_gpu)
 
 
+def _nbytes(ins: list, outs: list | None) -> int:
+    """The bytes in and out of a collective (``outs`` None: in place)."""
+    return sum(t.numel() * t.element_size()
+               for t in ins + (ins if outs is None else outs))
+
+
+def _cuts(n: int, step: int | None) -> list:
+    """[a, b) ranges of ``step`` elements covering ``n`` (``step`` None:
+    the whole)."""
+    if step is None:
+        return [(0, n)]
+    return [(a, min(a + step, n)) for a in range(0, n, step)]
+
+
 class ProcessGroup:
     """This process's membership of the group: ``rank`` of
     ``world_size``, its ``device``, and the collectives between the
@@ -137,71 +153,80 @@ class ProcessGroup:
         return self.backend == "gloo" and t.device.type == "cuda"
 
     def _pinned_buffer(self, dtype: torch.dtype, numel: int) -> torch.Tensor:
-        """The first ``numel`` elements of this dtype's pinned staging
-        buffer, grown to the largest piece staged so far."""
+        """The first ``numel`` elements of this dtype's staging buffer
+        (pinned where a card is), grown to the largest round staged so
+        far: at most ``BUCKET_BYTES``."""
         buf = self._pinned.get(dtype)
         if buf is None or buf.numel() < numel:
-            buf = torch.empty(numel, dtype=dtype, pin_memory=True)
+            buf = torch.empty(numel, dtype=dtype,
+                              pin_memory=torch.cuda.is_available())
             self._pinned[dtype] = buf
         return buf[:numel]
 
-    def _on_flat(self, collective, flat: torch.Tensor) -> None:
-        """``collective(t)`` (in place) on a contiguous 1-d tensor; a CUDA
-        tensor under gloo goes through the pinned buffer a bucket at a
-        time, the staging timed."""
-        if not self._staged(flat):
-            collective(flat)
-            return
-        step = BUCKET_BYTES // flat.element_size()
-        for piece in flat.split(step):
-            t0 = time.perf_counter()
-            host = self._pinned_buffer(piece.dtype, piece.numel())
-            host.copy_(piece)
-            t1 = time.perf_counter()
-            collective(host)
-            t2 = time.perf_counter()
-            piece.copy_(host)
-            torch.cuda.current_stream(piece.device).synchronize()
-            self._stats["staging_s"] += t1 - t0 + time.perf_counter() - t2
-            self._stats["staged_bytes"] += 2 * piece.numel() * \
-                piece.element_size()
+    def _stage(self, fn, ins: list, outs: list | None) -> None:
+        """One round through the staging buffer: ``ins`` copied to host
+        tensors of their shapes, ``fn(host_ins, host_outs)`` on those,
+        ``outs`` (None: in place on ``ins``) copied back; the copies
+        timed."""
+        t0 = time.perf_counter()
+        both = ins if outs is None else ins + outs
+        sizes = [t.numel() for t in both]
+        host = [h.view(t.shape) for h, t in zip(self._pinned_buffer(
+            both[0].dtype, sum(sizes)).split(sizes), both)]
+        for h, t in zip(host, ins):
+            h.copy_(t)
+        h_ins = host[:len(ins)]
+        h_outs = h_ins if outs is None else host[len(ins):]
+        t1 = time.perf_counter()
+        fn(h_ins, h_outs)
+        t2 = time.perf_counter()
+        for t, h in zip(ins if outs is None else outs, h_outs):
+            t.copy_(h)
+        if both[0].device.type == "cuda":
+            torch.cuda.current_stream(both[0].device).synchronize()
+        self._stats["staging_s"] += t1 - t0 + time.perf_counter() - t2
+        self._stats["staged_bytes"] += _nbytes(ins, outs)
+
+    def _run(self, kind: str | None, rounds, ins: list,
+             outs: list | None = None) -> None:
+        """A collective from the tensors ``ins`` into ``outs`` (None: in
+        place on ``ins``; one dtype), timed and counted under ``kind``
+        (None: not by kind). ``rounds(step)`` yields its rounds, each
+        ``(fn, ins, outs)``: ``fn(ins, outs)`` on views of the tensors,
+        each view at most ``step`` elements along its cut; with ``step``
+        None, one round of the whole tensors, run as it is. Under gloo,
+        CUDA tensors go through the staging buffer a round at a time:
+        ``step`` is ``BUCKET_BYTES`` in elements, which the builder
+        divides by the views that stand side by side in a round, so that
+        no round stages more; every rank of the group derives the same
+        cut."""
+        t0 = time.perf_counter()
+        both = ins + (outs or [])
+        if any(self._staged(t) for t in both):
+            step = BUCKET_BYTES // both[0].element_size()
+            for fn, r_ins, r_outs in rounds(step):
+                self._stage(fn, r_ins, r_outs)
+        else:
+            for fn, r_ins, r_outs in rounds(None):
+                fn(r_ins, r_ins if r_outs is None else r_outs)
+        if kind is not None:
+            self._stats[f"{kind}_calls"] += 1
+            self._stats[f"{kind}_s"] += time.perf_counter() - t0
+            self._stats[f"{kind}_bytes"] += _nbytes(ins, outs)
+
+    def _in_place(self, kind: str | None, collective,
+                  flat: torch.Tensor) -> None:
+        """``collective(t)`` in place on the flat ``flat``, a bucket at a
+        time when staged."""
+        def rounds(step):
+            for a, b in _cuts(flat.numel(), step):
+                yield lambda ins, outs: collective(ins[0]), [flat[a:b]], None
+        self._run(kind, rounds, [flat])
 
     def _reduce_flat(self, flat: torch.Tensor, group=None) -> None:
         handle = None if group is None else group.handle
-        self._on_flat(lambda t: dist.all_reduce(t, group=handle), flat)
-
-    def _run(self, kind: str, fn, ins: list, outs: list | None) -> None:
-        """``fn(ins, outs)`` on contiguous 1-d tensors of one dtype
-        (``outs=None``: in place on ``ins``), timed and counted under
-        ``kind``; under gloo, CUDA tensors go through the pinned staging
-        buffer (in, the collective, out), the staging timed."""
-        t0 = time.perf_counter()
-        inplace = outs is None
-        outs = ins if inplace else outs
-        both = ins if inplace else ins + outs
-        nbytes = sum(t.numel() * t.element_size() for t in ins + outs)
-        if not any(self._staged(t) for t in both):
-            fn(ins, outs)
-        else:
-            sizes = [t.numel() for t in both]
-            host = list(self._pinned_buffer(both[0].dtype,
-                                            sum(sizes)).split(sizes))
-            for h, t in zip(host, ins):
-                h.copy_(t)
-            h_ins = host[:len(ins)]
-            h_outs = h_ins if inplace else host[len(ins):]
-            t1 = time.perf_counter()
-            fn(h_ins, h_outs)
-            t2 = time.perf_counter()
-            for t, h in zip(outs, h_outs):
-                t.copy_(h)
-            if outs:
-                torch.cuda.current_stream(outs[0].device).synchronize()
-            self._stats["staging_s"] += t1 - t0 + time.perf_counter() - t2
-            self._stats["staged_bytes"] += nbytes
-        self._stats[f"{kind}_calls"] += 1
-        self._stats[f"{kind}_s"] += time.perf_counter() - t0
-        self._stats[f"{kind}_bytes"] += nbytes
+        self._in_place(None, lambda t: dist.all_reduce(t, group=handle),
+                       flat)
 
     # --- collectives ---
 
@@ -217,8 +242,8 @@ class ProcessGroup:
         flat = tensor.view(-1) if tensor.is_contiguous() else \
             tensor.contiguous().view(-1)
         red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
-        self._run("all_reduce", lambda ins, outs: dist.all_reduce(
-            ins[0], op=red, group=handle), [flat], None)
+        self._in_place("all_reduce", lambda t: dist.all_reduce(
+            t, op=red, group=handle), flat)
         if flat.data_ptr() != tensor.data_ptr():
             tensor.copy_(flat.view_as(tensor))
         if op == "mean":
@@ -227,26 +252,45 @@ class ProcessGroup:
 
     def all_gather_flat(self, x: torch.Tensor, group) -> torch.Tensor:
         """The flat ``x`` of every rank of ``group``, in its order: one
-        tensor [size · numel]."""
+        tensor [size · numel]. Staged, a round is a range of ``x`` and
+        that range of every rank's piece of the result."""
         x = x.contiguous().view(-1)
         out = torch.empty(group.size * x.numel(), dtype=x.dtype,
                           device=x.device)
-        self._run("all_gather", lambda ins, outs: dist.all_gather_into_tensor(
-            outs[0], ins[0], group=group.handle), [x], [out])
+        rows = out.view(group.size, x.numel())
+
+        def run(ins, outs):
+            dist.all_gather_into_tensor(outs[0].view(-1), ins[0],
+                                        group=group.handle)
+
+        def rounds(step):
+            for a, b in _cuts(x.numel(), step and max(
+                    1, step // (group.size + 1))):
+                yield run, [x[a:b]], [rows[:, a:b]]
+        self._run("all_gather", rounds, [x], [out])
         return out
 
     def reduce_scatter_flat(self, x: torch.Tensor, group) -> torch.Tensor:
         """The flat ``x`` summed over the ranks of ``group``, this rank
-        keeping its piece: [numel / size]."""
+        keeping its piece: [numel / size]. Staged, a round is a range of
+        the result and that range of each rank's piece of ``x``."""
         x = x.contiguous().view(-1)
         if x.numel() % group.size:
             raise ValueError(f"{x.numel()} elements do not divide over "
                              f"{group.size} ranks")
         out = torch.empty(x.numel() // group.size, dtype=x.dtype,
                           device=x.device)
-        self._run("reduce_scatter",
-                  lambda ins, outs: dist.reduce_scatter_tensor(
-                      outs[0], ins[0], group=group.handle), [x], [out])
+        rows = x.view(group.size, out.numel())
+
+        def run(ins, outs):
+            dist.reduce_scatter_tensor(outs[0], ins[0].view(-1),
+                                       group=group.handle)
+
+        def rounds(step):
+            for a, b in _cuts(out.numel(), step and max(
+                    1, step // (group.size + 1))):
+                yield run, [rows[:, a:b]], [out[a:b]]
+        self._run("reduce_scatter", rounds, [x], [out])
         return out
 
     def exchange(self, sends: dict, recvs: dict, group) -> dict:
@@ -254,39 +298,83 @@ class ProcessGroup:
         (an index of the group) to a tensor, ``recvs`` a source to the
         shape, dtype and device of what it sends; all posted as one
         ``batch_isend_irecv`` and waited for. Returns source -> received
-        tensor."""
+        tensor. Staged, round ``j`` posts the ``j``-th range of every
+        tensor that has one: a send and its receive are cut alike."""
         got = {src: torch.empty(shape, dtype=dtype, device=device)
                for src, (shape, dtype, device) in recvs.items()}
-        ins = [sends[d].contiguous().view(-1) for d in sorted(sends)]
-        outs = [got[s].view(-1) for s in sorted(got)]
+        posts = [(dist.isend, group.ranks[d], sends[d].contiguous().view(-1))
+                 for d in sorted(sends)]
+        posts += [(dist.irecv, group.ranks[s], got[s].view(-1))
+                  for s in sorted(got)]
 
-        def run(h_ins, h_outs):
-            ops = [dist.P2POp(dist.isend, t, group.ranks[d], group.handle)
-                   for d, t in zip(sorted(sends), h_ins)]
-            ops += [dist.P2POp(dist.irecv, t, group.ranks[s], group.handle)
-                    for s, t in zip(sorted(got), h_outs)]
-            for req in dist.batch_isend_irecv(ops) if ops else []:
-                req.wait()
-        self._run("send_recv", run, ins, outs)
+        def post(live):
+            def run(ins, outs):
+                host = {dist.isend: iter(ins), dist.irecv: iter(outs)}
+                ops = [dist.P2POp(op, next(host[op]), peer, group.handle)
+                       for op, peer, _ in live]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+            return run
+
+        def rounds(step):
+            cuts = [_cuts(t.numel(), step and max(1, step // (2 * group.size)))
+                    for _, _, t in posts]
+            for j in range(max(map(len, cuts), default=0)):
+                live = [(op, peer, t[c[j][0]:c[j][1]])
+                        for (op, peer, t), c in zip(posts, cuts)
+                        if j < len(c)]
+                yield (post(live),
+                       [t for op, _, t in live if op is dist.isend],
+                       [t for op, _, t in live if op is dist.irecv])
+        self._run("send_recv", rounds, [t for op, _, t in posts
+                                        if op is dist.isend],
+                  [t for op, _, t in posts if op is dist.irecv])
         return got
 
     def all_to_all_flat(self, x: torch.Tensor, in_splits: list,
                         out_splits: list, group) -> torch.Tensor:
         """``x`` (flat) cut into ``in_splits`` elements, piece ``j`` to
         rank ``j`` of ``group``; returns what every rank sent here, joined
-        in rank order (``out_splits`` elements from each)."""
+        in rank order (``out_splits`` elements from each). Staged, round
+        ``j`` moves the ``j``-th range of every piece (the ranks agree on
+        the number of rounds by a max over the group first)."""
         x = x.contiguous().view(-1)
         out = torch.empty(sum(out_splits), dtype=x.dtype, device=x.device)
-        self._run("all_to_all", lambda ins, outs: dist.all_to_all_single(
-            outs[0], ins[0], list(out_splits), list(in_splits),
-            group=group.handle), [x], [out])
+
+        def run(i_splits, o_splits):
+            return lambda ins, outs: dist.all_to_all_single(
+                outs[0], ins[0], list(o_splits), list(i_splits),
+                group=group.handle)
+
+        def rounds(step):
+            if step is None:
+                yield run(in_splits, out_splits), [x], [out]
+                return
+            step = max(1, step // (2 * group.size))
+            n = torch.tensor([-(-max(list(in_splits) + list(out_splits),
+                                     default=0)
+                                // step)])
+            dist.all_reduce(n, op=dist.ReduceOp.MAX, group=group.handle)
+            for j in range(int(n)):
+                a = j * step
+                i_sub = [min(max(s - a, 0), step) for s in in_splits]
+                o_sub = [min(max(s - a, 0), step) for s in out_splits]
+                send = torch.cat([p[a:a + w] for p, w in zip(
+                    x.split(list(in_splits)), i_sub)])
+                recv = torch.empty(sum(o_sub), dtype=x.dtype,
+                                   device=x.device)
+                yield run(i_sub, o_sub), [send], [recv]
+                for p, piece in zip(out.split(list(out_splits)),
+                                    recv.split(o_sub)):
+                    p[a:a + piece.numel()].copy_(piece)
+        self._run("all_to_all", rounds, [x], [out])
         return out
 
     def broadcast(self, tensor: torch.Tensor, src: int = 0):
         """``tensor`` of rank ``src`` copied to every rank, in place."""
         flat = tensor.view(-1) if tensor.is_contiguous() else \
             tensor.contiguous().view(-1)
-        self._on_flat(lambda t: dist.broadcast(t, src=src), flat)
+        self._in_place(None, lambda t: dist.broadcast(t, src=src), flat)
         if flat.data_ptr() != tensor.data_ptr():
             tensor.copy_(flat.view_as(tensor))
         return tensor

@@ -32,6 +32,7 @@ import inspect
 import multiprocessing as mp
 import os
 import queue as queue_mod
+import time
 import traceback
 from typing import Callable
 
@@ -192,6 +193,17 @@ class BackendExecutor:
             else:
                 out.append(rep)
 
+    def _settle(self, out: list, quiet_s: float = 0.2,
+                limit_s: float = 2.0) -> None:
+        """Take the reports still arriving until none has come for
+        ``quiet_s`` (at most ``limit_s``)."""
+        end = time.monotonic() + limit_s
+        while time.monotonic() < end:
+            got = self._drain(quiet_s)
+            if not got:
+                return
+            self._take(got, out)
+
     def poll_reports(self, wait_s: float = 0.05) -> tuple[list, bool]:
         """Reports that arrived (metrics reports, and ``{"rank",
         "error"}`` for a failed rank), and whether the run is over: every
@@ -222,6 +234,9 @@ class BackendExecutor:
                         for r in lost]
                 errors = [out[-1]["error"]]
         if errors:
+            # the other ranks' last puts (a report naming a checkpoint,
+            # made just before they failed too) may still be on their way
+            self._settle(out)
             self._failed = True
             self.group.shutdown()
         return out, self._failed or \

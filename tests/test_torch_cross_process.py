@@ -325,20 +325,27 @@ OPS = {
 }
 
 
+# the most a staged round may hold in the staged runs: 16 float32 values
+STAGED_BUCKET_BYTES = 64
+
+
 @pytest.fixture(scope="module")
 def collectives_run(tmp_path_factory):
     """Every op on the tp lines of {fsdp 2, tp 2} over 4 processes (ranks
-    0 and 1 one line, 2 and 3 the other)."""
+    0 and 1 one line, 2 and 3 the other), as it runs and (``<op>_staged``)
+    staged through the host buffer in rounds of STAGED_BUCKET_BYTES."""
     out = tmp_path_factory.mktemp("collectives")
     result = _fit(dpt.DataParallelTrainer(
         loops.collectives_across_loop,
         scaling_config=ScalingConfig(num_workers=4, use_gpu=False),
         train_loop_config={"axes": FSDP_TP, "axis": "tp", "ops": OPS,
-                           "out": str(out)},
+                           "out": str(out),
+                           "staged_bucket_bytes": STAGED_BUCKET_BYTES},
         run_config=RunConfig(storage_path=str(out / "runs"))))
     assert result.error is None, result.error
-    return {op: [dict(np.load(out / f"{op}_rank{r}.npz")) for r in range(4)]
-            for op in OPS}
+    return {f"{op}{tag}": [dict(np.load(out / f"{op}{tag}_rank{r}.npz"))
+                           for r in range(4)]
+            for op in OPS for tag in ("", "_staged")}
 
 
 def _inputs(rank, shape):
@@ -402,6 +409,25 @@ def test_collective_across_processes_and_its_conjugate(collectives_run, op):
             np.testing.assert_allclose(got["grad"], grads[i].numpy(),
                                        rtol=0, atol=1e-6,
                                        err_msg=f"{op} grad {r}")
+
+
+@pytest.mark.parametrize("op", list(OPS))
+def test_staged_collective_moves_in_bounded_rounds(collectives_run, op):
+    """The same op with gloo's staging through the host buffer (the path
+    of a CUDA tensor) taken for the CPU tensors, in rounds of at most
+    STAGED_BUCKET_BYTES (a few values: every collective is cut into many
+    rounds, and the ranks must cut alike): the outputs and gradients of
+    the unstaged run, bit for bit, bytes staged, and no staging buffer
+    larger than a round."""
+    for r in range(4):
+        want, got = collectives_run[op][r], collectives_run[f"{op}_staged"][r]
+        np.testing.assert_array_equal(got["y"], want["y"],
+                                      err_msg=f"{op} y {r}")
+        np.testing.assert_array_equal(got["grad"], want["grad"],
+                                      err_msg=f"{op} grad {r}")
+        assert int(want["staged_bytes"]) == 0
+        assert int(got["staged_bytes"]) > 0
+        assert 0 < int(got["buffer_bytes"]) <= STAGED_BUCKET_BYTES
 
 
 # --- TorchMeshTrainer across processes; what is refused ---------------------

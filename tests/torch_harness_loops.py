@@ -361,37 +361,53 @@ def collectives_across_loop(config):
     """Each collective of ``parallel.collectives`` across processes on a
     line of ``config["axes"]`` (``config["axis"]``), forward and backward:
     this rank's input, seeded by the rank, and a seeded cotangent; the
-    outputs and input gradients to ``<out>/<op>_rank<r>.npz``."""
+    outputs and input gradients to ``<out>/<op>_rank<r>.npz``. Then all
+    again with the staging through the host buffer taken for these CPU
+    tensors, in rounds of at most ``config["staged_bucket_bytes"]``, to
+    ``<out>/<op>_staged_rank<r>.npz``; each with the op's staged bytes and
+    the largest staging buffer so far."""
     torch.set_num_threads(1)
     from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel import process_group as pgm
     from ray_tpu_torch.parallel.process_group import mesh_layout
     from ray_tpu_torch.train import session
 
     ctx = session.get_context()
-    layout = mesh_layout(ctx.process_group, config["axes"])
+    pg = ctx.process_group
+    layout = mesh_layout(pg, config["axes"])
     group = layout.groups[config["axis"]]
-    for op, (shape, fn) in config["ops"].items():
-        rng = np.random.default_rng(100 + ctx.rank)
-        x = torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).requires_grad_(True)
-        if fn[0] == "copy_to_group":
-            out = [col.copy_to_group(x, group)]
-        elif fn[0] == "ulysses_attention":
-            # q, k and v stacked on a leading axis
-            from ray_tpu_torch.parallel.ulysses import ulysses_attention
+    for tag in ("", "_staged"):
+        if tag:
+            pgm.BUCKET_BYTES = config["staged_bucket_bytes"]
+            pg._staged = lambda t: True
+        for op, (shape, fn) in config["ops"].items():
+            staged_before = pg.stats["staged_bytes"]
+            rng = np.random.default_rng(100 + ctx.rank)
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).requires_grad_(True)
+            if fn[0] == "copy_to_group":
+                out = [col.copy_to_group(x, group)]
+            elif fn[0] == "ulysses_attention":
+                # q, k and v stacked on a leading axis
+                from ray_tpu_torch.parallel.ulysses import ulysses_attention
 
-            out = ulysses_attention(*([t] for t in x.unbind(0)),
-                                    group=group)
-        else:
-            out = getattr(col, fn[0])([x], group=group, **fn[1])
-        y = out[0]
-        cot = torch.from_numpy(np.random.default_rng(200 + ctx.rank)
-                               .standard_normal(tuple(y.shape))
-                               .astype(np.float32))
-        (grad,) = torch.autograd.grad(y, x, cot) if y.requires_grad \
-            else (torch.zeros_like(x),)
-        np.savez(os.path.join(config["out"], f"{op}_rank{ctx.rank}.npz"),
-                 y=y.detach().numpy(), grad=grad.numpy(),
-                 index=group.index, stats_calls=sum(
-                     v for k, v in ctx.process_group.stats.items()
-                     if k.endswith("_calls")))
+                out = ulysses_attention(*([t] for t in x.unbind(0)),
+                                        group=group)
+            else:
+                out = getattr(col, fn[0])([x], group=group, **fn[1])
+            y = out[0]
+            cot = torch.from_numpy(np.random.default_rng(200 + ctx.rank)
+                                   .standard_normal(tuple(y.shape))
+                                   .astype(np.float32))
+            (grad,) = torch.autograd.grad(y, x, cot) if y.requires_grad \
+                else (torch.zeros_like(x),)
+            np.savez(os.path.join(config["out"],
+                                  f"{op}{tag}_rank{ctx.rank}.npz"),
+                     y=y.detach().numpy(), grad=grad.numpy(),
+                     index=group.index, stats_calls=sum(
+                         v for k, v in pg.stats.items()
+                         if k.endswith("_calls")),
+                     staged_bytes=pg.stats["staged_bytes"] - staged_before,
+                     buffer_bytes=max((b.numel() * b.element_size()
+                                       for b in pg._pinned.values()),
+                                      default=0))
