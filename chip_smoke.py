@@ -40,12 +40,19 @@ single-controller trainer on {dp 2}, with controls that skip the
 gradient all-reduce and that average in place of the sum), and
 ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Then
 fsdp, tp and sp across processes, four gloo rank processes on this card
-sharing one global mesh: Llama-3-8B's width at depth 4 on {fsdp 2, tp 2}
+sharing one global mesh: Llama-3-8B's width at depth 2 on {fsdp 2, tp 2}
 (one place a process) and at depth 2 on {sp 4} (the ring between the
 processes), each held against its single-controller counterpart run
 first in the same script, with controls (the rank-list psum backward in
 place of Megatron's g, a skipped fsdp reduce-scatter, the ring shifted
-the wrong way). Every
+the wrong way). Then pp and ep across processes and the elastic reform
+to a new world, the three in one spawn of four gloo ranks, each against
+its single controller run first: Llama-3-8B's width at depth 4 on {pp 4}
+(a stage a process; control: gradients sent to the next stage),
+Mixtral 8x7B's depth-16 forward with fsdp and ep across the processes
+(control: the experts' outputs from the wrong ep process), and a save at
+world 4 on {fsdp 2, tp 2} that two survivors restore onto {fsdp 2} bit
+for bit before a step (control: a restore one row off). Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -2286,7 +2293,9 @@ def check_elastic(torch, cfg):
 # ---------------------------------------------------------------------------
 
 XPROC_WORLD = 4
-XPROC_FSDP_TP_DEPTH = 4
+# depth 2 since slice 11 (4 before), so that the script stays near half its
+# time limit as slice 11's phases join it
+XPROC_FSDP_TP_DEPTH = 2
 XPROC_SP_DEPTH = 2
 XPROC_STEPS = 2
 # a phase's ranks are killed after this long (their fit takes about 40 s
@@ -2297,10 +2306,12 @@ XPROC_LIMIT_S = 240.0
 # (HARNESS_NORM_TOL) or some leaf's first moment's (XPROC_MOMENT_TOL)
 XPROC_CASES = {"xproc_fsdp_tp": ("real", "psum_backward",
                                  "skip_reduce_scatter", "norm_unreduced"),
-               "xproc_sp4": ("real",)}
+               "xproc_sp4": ("real",),
+               "xproc_pp": ("real", "backward_to_next_stage")}
 XPROC_CONTROL_BREAKS = {"psum_backward": "grad_norm",
                         "skip_reduce_scatter": "grad_norm",
-                        "norm_unreduced": "first_moment"}
+                        "norm_unreduced": "first_moment",
+                        "backward_to_next_stage": "grad_norm"}
 # Each leaf's first moment (the gradients' running mean, bf16) after the
 # ranks' steps against the single controller's: the RMS of the difference
 # over the RMS of the reference, leaf by leaf. The norm weights' bf16
@@ -2321,14 +2332,20 @@ def xproc_control(case: str):
     tp process), ``skip_reduce_scatter`` (the fsdp gathers keep their
     piece of the gradient, unsummed over the data processes),
     ``norm_unreduced`` (the same for the norm weights alone: the gathers
-    of 1-d pieces) and ``reversed_ring`` (K/V shifted the wrong way
-    round)."""
+    of 1-d pieces), ``reversed_ring`` (K/V shifted the wrong way
+    round), ``backward_to_next_stage`` (the 1F1B's gradients sent to
+    stage s+1 in place of s-1) and ``experts_from_wrong_ep`` (the
+    experts' outputs taken from the other ep process)."""
+    import torch
+
     from ray_tpu_torch.parallel import collectives as col
-    from ray_tpu_torch.parallel import ring_attention
+    from ray_tpu_torch.parallel import pipeline, ring_attention
     from ray_tpu_torch.train import spmd
 
     saved = {(spmd, "tp_exit"): spmd.tp_exit,
              (spmd, "all_gather"): spmd.all_gather,
+             (spmd, "gather_experts"): spmd.gather_experts,
+             (pipeline, "backward_peer"): pipeline.backward_peer,
              (ring_attention, "ring_shift"): ring_attention.ring_shift}
     if case == "psum_backward":
         spmd.tp_exit = lambda xs, group: col.psum(xs, group=group)
@@ -2344,6 +2361,16 @@ def xproc_control(case: str):
     elif case == "reversed_ring":
         ring_attention.ring_shift = lambda xs, shift=1, group=None: \
             col.ring_shift(xs, shift=-shift, group=group)
+    elif case == "backward_to_next_stage":
+        pipeline.backward_peer = lambda s, n: (s + 1) % n
+    elif case == "experts_from_wrong_ep":
+        gather = spmd.gather_experts
+
+        def wrong_ep(xs, **kw):
+            out = gather(xs, **kw)[0]
+            n = kw["group"].size if "group" in kw else len(xs)
+            return [torch.cat(out.chunk(n)[::-1])]
+        spmd.gather_experts = wrong_ep
     try:
         yield
     finally:
@@ -2394,6 +2421,46 @@ def xproc_ring_check(torch, pg, out_dir):
     return real_counts
 
 
+def xproc_chunks(tree) -> dict:
+    """(name, index range) -> this rank's chunk of each leaf of ``tree``,
+    on the card."""
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+    out = {}
+    for name, st in named_leaves(tree):
+        if isinstance(st, ShardedTensor):
+            idx = st.sharding.indices(st.shape)
+            out.update({(name, tuple((s.start, s.stop)
+                                     for s in idx[place])): c.detach()
+                        for place, c in st.distinct()})
+        else:
+            out[name, tuple((0, n) for n in st.shape)] = st.detach()
+    return out
+
+
+def xproc_save(pg, out_dir: str, case: str, trees: dict,
+               check: bool) -> None:
+    """Each tree's chunks that no lower rank of ``pg`` holds, to the host
+    and ``<out_dir>/<case>_rank<r>.pt``; with ``check``, the replicas of
+    every range first checked equal across the processes
+    (``check_same``)."""
+    import torch
+
+    held = {t: xproc_chunks(tree) for t, tree in trees.items()}
+    every = pg.all_gather_object({t: sorted(c) for t, c in held.items()})
+    lower = {(t, key) for other in every[:pg.rank]
+             for t, keys in other.items() for key in keys}
+    if check:
+        pg.check_same([(f"{t}.{name}{key}", c) for t, cs in held.items()
+                       for (name, key), c in cs.items()])
+    out = {t: {} for t in held}
+    for t, cs in held.items():
+        for (name, key), c in cs.items():
+            if (t, (name, key)) not in lower:
+                out[t].setdefault(name, {})[key] = c.cpu()
+    torch.save(out, os.path.join(out_dir, f"{case}_rank{pg.rank}.pt"))
+
+
 def xproc_rank_loop(config):
     """A rank of an xproc phase: ``Trainer`` over the rank's process group
     on the global mesh ``config["train_config"].mesh_axes``, from
@@ -2409,40 +2476,11 @@ def xproc_rank_loop(config):
     Under xproc_sp4 the ring check runs first."""
     import torch
 
-    from ray_tpu_torch.parallel.sharding import ShardedTensor
     from ray_tpu_torch.train import session
     from ray_tpu_torch.train.trainer import Trainer
 
-    def chunks(tree):
-        """(name, index range) -> this rank's chunk, on the card."""
-        out = {}
-        for name, st in named_leaves(tree):
-            if isinstance(st, ShardedTensor):
-                idx = st.sharding.indices(st.shape)
-                out.update({(name, tuple((s.start, s.stop)
-                                         for s in idx[place])): c.detach()
-                            for place, c in st.distinct()})
-            else:
-                out[name, tuple((0, n) for n in st.shape)] = st.detach()
-        return out
-
     def save(case, trees):
-        """Each tree's chunks that no lower rank holds, to the host and
-        ``<out>/<case>_rank<r>.pt``."""
-        held = {t: chunks(tree) for t, tree in trees.items()}
-        every = pg.all_gather_object({t: sorted(c) for t, c in held.items()})
-        lower = {(t, key) for other in every[:ctx.rank]
-                 for t, keys in other.items() for key in keys}
-        if case == "real":
-            pg.check_same([(f"{t}.{name}{key}", c) for t, cs in held.items()
-                           for (name, key), c in cs.items()])
-        out = {t: {} for t in held}
-        for t, cs in held.items():
-            for (name, key), c in cs.items():
-                if (t, (name, key)) not in lower:
-                    out[t].setdefault(name, {})[key] = c.cpu()
-        torch.save(out, os.path.join(config["out"],
-                                     f"{case}_rank{ctx.rank}.pt"))
+        xproc_save(pg, config["out"], case, trees, check=case == "real")
 
     ctx = session.get_context()
     pg = ctx.process_group
@@ -2585,7 +2623,8 @@ def xproc_single_controller(torch, cfg, train_cfg, batch, mesh=None):
     return out
 
 
-def xproc_compare(torch, d: str, phase: str, single: dict) -> dict:
+def xproc_compare(torch, d: str, phase: str, single: dict,
+                  world: int = XPROC_WORLD, case: str = "real") -> dict:
     """The ranks' saved chunks (``<d>/<case>_rank<r>.pt``) against the
     single controller's leaves (``xproc_chunk_err``): the real case's
     update and first moment (the gradients' running mean: the norm
@@ -2595,14 +2634,14 @@ def xproc_compare(torch, d: str, phase: str, single: dict) -> dict:
     one step. Returns the emitted fields."""
     def load(case):
         return [torch.load(os.path.join(d, f"{case}_rank{r}.pt"),
-                           weights_only=True) for r in range(XPROC_WORLD)]
+                           weights_only=True) for r in range(world)]
 
     def fields(err):
         return {"rel_err": err["rel_err"], "by_leaf": err["by_leaf"],
                 "worst_leaf": err["worst_leaf"],
                 "largest_share_leaf": err["largest_share_leaf"]}
 
-    real = load("real")
+    real = load(case)
     out = {
         "update": fields(xproc_chunk_err(
             torch, [r["params"] for r in real], single["ref"],
@@ -2616,7 +2655,7 @@ def xproc_compare(torch, d: str, phase: str, single: dict) -> dict:
     out["controls_first_moment"] = {
         case: fields(xproc_chunk_err(
             torch, [r["mu"] for r in load(case)], single["mu_step1"]))
-        for case in XPROC_CASES[phase][1:]
+        for case in XPROC_CASES.get(phase, ())[1:]
         if XPROC_CONTROL_BREAKS[case] == "first_moment"}
     return out
 
@@ -2627,10 +2666,12 @@ def worst_moment(fields: dict) -> float:
     return max(v["rel_err"] or 0.0 for v in fields["by_leaf"].values())
 
 
-def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out):
+def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out,
+                loop=None, **extra):
     """The phase's ranks: XPROC_WORLD gloo processes on this card running
-    ``xproc_rank_loop``, joined within XPROC_LIMIT_S (on expiry every
-    rank is killed and the phase fails); their result."""
+    ``loop`` (default ``xproc_rank_loop``) on the phase's config (and
+    ``extra``), joined within XPROC_LIMIT_S (on expiry every rank is
+    killed and the phase fails); their result."""
     import multiprocessing
     import threading
 
@@ -2640,11 +2681,12 @@ def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out):
 
     t0 = time.perf_counter()
     trainer = DataParallelTrainer(
-        xproc_rank_loop,
+        loop or xproc_rank_loop,
         train_loop_config={"phase": phase, "model_config": cfg,
                            "train_config": train_cfg,
-                           "batch": batch.cpu().numpy(),
-                           "rank_flops": rank_flops, "out": out},
+                           "batch": None if batch is None else
+                           batch.cpu().numpy(),
+                           "rank_flops": rank_flops, "out": out, **extra},
         scaling_config=ScalingConfig(num_workers=XPROC_WORLD, use_gpu=True,
                                      backend="gloo"),
         run_config=RunConfig(storage_path=out))
@@ -2666,11 +2708,11 @@ def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out):
     return result, time.perf_counter() - t0
 
 
-def xproc_steps(out: str) -> list:
+def xproc_steps(out: str, world: int = XPROC_WORLD) -> list:
     """Every rank's step reports (each rank writes its own: only rank 0's
     stream reaches the harness's result), rank order."""
     steps = []
-    for r in range(XPROC_WORLD):
+    for r in range(world):
         with open(os.path.join(out, f"steps_rank{r}.json")) as f:
             steps += json.load(f)
     return steps
@@ -2728,8 +2770,8 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
     (XPROC_CONTROL_BREAKS): the norm's for the rank-list psum backward in
     place of the f/g pair and for the fsdp gathers' reduce-scatter
     skipped, a leaf's first moment's for that skip on the norm weights
-    alone. Every real step's launches per rank: K1 8 (all causal) and the
-    backward 4. Returns rank 0's launches of one real step."""
+    alone. Every real step's launches per rank: K1 2·L (all causal) and the
+    backward L. Returns rank 0's launches of one real step."""
     import dataclasses
     import tempfile
 
@@ -2927,6 +2969,872 @@ def check_xproc_sp4(torch, cfg, peaks):
     if any(c != wants[r] for r, cs in launches.items() for c in cs):
         raise AssertionError(f"xproc_sp4 launches {launches}, want {wants}")
     return launches[XPROC_WORLD - 1][-1]
+
+
+# ---------------------------------------------------------------------------
+# pp and ep across processes, and the elastic reform to a new world
+# (slice 11): four gloo rank processes on this card, each phase held
+# against its single-controller counterpart run here first
+# ---------------------------------------------------------------------------
+
+XPROC_PP_DEPTH = PP_STAGES       # one layer a stage
+XPROC_PP_MICRO = 4
+# Mixtral 8x7B's width at ep_placed_forward's depth, EP_AXES dealt to the
+# four processes: fsdp and ep across them, tp inside each
+XPROC_EP_DEPTH = 16
+# the wrong-ep control's depth: the fault shows in the first layer
+XPROC_EP_CONTROL_DEPTH = 2
+XPROC_ELASTIC_DEPTH = 2
+XPROC_SURVIVORS = 2
+
+
+def collective_share(step: dict) -> float:
+    """The share of a rank's step (``xproc_summary``'s entry) in its
+    collectives (every kind, the gradient all-reduce, the staging between
+    their rounds is inside each)."""
+    return sum(c["s"] for c in step["collectives"].values()) / step["step_s"]
+
+
+def xproc_pp_setup(torch, cfg) -> dict:
+    """``llama3_8b()`` at full width and depth XPROC_PP_DEPTH on the
+    global mesh {pp 4} under pp_fsdp, dealt to four gloo rank processes
+    on this card, one stage (one layer) a process: [8, 2049] in
+    XPROC_PP_MICRO microbatches, each process running its own stage's
+    slots of the 1F1B, the activations and gradients sent between the
+    processes (one ``batch_isend_irecv`` a move), the io parameters
+    (embedding, final norm, head) replicated in every process and their
+    gradients summed over pp. Held after XPROC_STEPS steps against the
+    single-controller pp_fsdp trainer on {pp 4} of this card (the
+    ``pp_fsdp`` phase's path), run first: every rank's chunks within HARNESS_PARAM_TOL of its
+    update, every leaf's first moment within XPROC_MOMENT_TOL of its own,
+    every rank's gradient norms within HARNESS_NORM_TOL, and the io
+    replicas equal across the processes (``check_same``). Control: the
+    gradients sent to stage s+1 in place of s-1, which must break the
+    norm's bound in its one step. Launches a rank's step: K1 12, all
+    causal (4 microbatches: the forward slot, the backward slot's forward
+    and its remat), the backward 4. This part runs the single controller
+    and returns it, with the ranks' config; ``check_xproc_pp`` reads the
+    ranks' results."""
+    import dataclasses
+
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    t_start = time.perf_counter()
+    b, s, L, m = 8, 2048, XPROC_PP_DEPTH, XPROC_PP_MICRO
+    cfg4 = dataclasses.replace(cfg, n_layers=L)
+    train_cfg = TrainConfig(mesh_axes={"pp": PP_STAGES}, strategy="pp_fsdp",
+                            n_microbatches=m, warmup_steps=1)
+    batch = train_batch(cfg, b, s, SEED + 37)
+    single = xproc_single_controller(torch, cfg4, train_cfg, batch)
+    n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + single["init"]["lm_head"].numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    return {"single": single, "flops": flops, "shape": (b, s, L, m),
+            "seconds": time.perf_counter() - t_start,
+            "rank": {"model_config": cfg4, "train_config": train_cfg,
+                     "batch": batch.cpu().numpy(),
+                     "rank_flops": flops / XPROC_WORLD}}
+
+
+def check_xproc_pp(torch, cfg, peaks, setup: dict, d: str,
+                   spawn: dict) -> dict:
+    """``xproc_pp_setup``'s phase held, from its ranks' results in ``d``
+    (``spawn``: the shared spawn's times). Returns rank 0's launches of
+    one real step."""
+    single, flops = setup["single"], setup["flops"]
+    b, s, L, m = setup["shape"]
+    t0 = time.perf_counter()
+    cmp = xproc_compare(torch, d, "xproc_pp", single)
+    compare_s = time.perf_counter() - t0
+    steps = xproc_steps(d)
+    update_rel_err = cmp["update"]["rel_err"]
+    moment_err = worst_moment(cmp["first_moment"])
+    norm_errs = xproc_norm_errs(steps, single["grad_norms"])
+    controls = {c: {"grad_norm_rel_err": norm_errs[c],
+                    "must_break": XPROC_CONTROL_BREAKS[c],
+                    "broke": norm_errs[c] > HARNESS_NORM_TOL}
+                for c in XPROC_CASES["xproc_pp"][1:]}
+    per_rank = xproc_summary(steps)
+    want = {"flash_fwd": 3 * m * L // PP_STAGES,
+            "flash_bwd": m * L // PP_STAGES,
+            "flash_fwd_causal": 3 * m * L // PP_STAGES,
+            "flash_fwd_noncausal": 0}
+    launches = {r: [st["launches"] for st in rs]
+                for r, rs in per_rank.items()}
+    step_s = max(st["step_s"] for rs in per_rank.values()
+                 for st in rs[1:])
+    emit("xproc_pp", config="llama3_8b", n_layers=L,
+         depth_cut=f"{L} of {cfg.n_layers} layers, one a stage (the io "
+                   "parameters, their moments and gradients in every "
+                   "process, and the single controller's state first)",
+         tokens=[b, s + 1], microbatches=m, steps=XPROC_STEPS,
+         backend="gloo", world_size=XPROC_WORLD, mesh={"pp": PP_STAGES},
+         strategy="pp_fsdp", one_stage_a_process=True,
+         single_controller_losses=single["losses"],
+         single_controller_grad_norms=single["grad_norms"],
+         single_controller_step_s=single["step_s"],
+         losses=[st["loss"] for st in per_rank[0]],
+         update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         update=cmp["update"], first_moment_worst_leaf_rel_err=moment_err,
+         moment_tol=XPROC_MOMENT_TOL, first_moment=cmp["first_moment"],
+         single_controller_rerun=cmp["single_controller_rerun"],
+         grad_norm_rel_err=norm_errs["real"], norm_tol=HARNESS_NORM_TOL,
+         controls=controls, step_s=step_s, tokens_per_s=b * s / step_s,
+         collective_share={r: [collective_share(st) for st in rs]
+                           for r, rs in per_rank.items()},
+         rank_flops_per_step=flops / XPROC_WORLD,
+         mfu_of_the_card=flops / step_s / peaks[0],
+         ranks=per_rank, want_launches=want,
+         single_controller_s=single["seconds"], ranks_s=spawn["xproc_pp"],
+         compare_s=compare_s,
+         seconds=setup["seconds"] + spawn["xproc_pp"] + compare_s)
+    if update_rel_err > HARNESS_PARAM_TOL or \
+            moment_err > XPROC_MOMENT_TOL or \
+            norm_errs["real"] > HARNESS_NORM_TOL or \
+            not all(c["broke"] for c in controls.values()):
+        raise AssertionError(
+            f"xproc_pp: update error {update_rel_err} (tol "
+            f"{HARNESS_PARAM_TOL}), worst leaf's first moment {moment_err} "
+            f"(tol {XPROC_MOMENT_TOL}), norm errors {norm_errs} (tol "
+            f"{HARNESS_NORM_TOL}); the control must break the norm's "
+            f"bound: {controls}")
+    if any(c != want for cs in launches.values() for c in cs):
+        raise AssertionError(f"xproc_pp launches {launches}, want {want} "
+                             "a rank's step")
+    return launches[0][-1]
+
+
+def mixtral_layer(cfg, layer: int, device) -> dict:
+    """Layer ``layer`` of xproc_ep's Mixtral, drawn from a seed of its own
+    (so that a process draws one layer at a time and keeps only its
+    chunks): its block leaves, [1, ...] each."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+
+    return mixtral.init_params(
+        dataclasses.replace(cfg, n_layers=1, vocab_size=1),
+        seed=SEED + 300 + layer, device=device)["blocks"]
+
+
+def mixtral_io(cfg, device) -> dict:
+    """xproc_ep's Mixtral embedding, final norm and head."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+
+    # one layer of one-column experts beside them: the io leaves depend
+    # on the vocabulary and the width alone
+    params = mixtral.init_params(
+        dataclasses.replace(cfg, n_layers=1, d_ff=1), seed=SEED + 299,
+        device=device)
+    return {k: v for k, v in params.items() if k != "blocks"}
+
+
+def mixtral_layerwise(torch, cfg, device) -> dict:
+    """xproc_ep's whole Mixtral tree, its layers drawn one at a time into
+    the stacked leaves."""
+    blocks = {}
+    for layer in range(cfg.n_layers):
+        for n, w in mixtral_layer(cfg, layer, device).items():
+            if n not in blocks:
+                blocks[n] = torch.empty((cfg.n_layers,) + tuple(w.shape[1:]),
+                                        dtype=w.dtype, device=device)
+            blocks[n][layer] = w[0]
+    return {**mixtral_io(cfg, device), "blocks": blocks}
+
+
+def mixtral_placed_layerwise(torch, cfg, mesh, rules) -> dict:
+    """This process's chunks of ``mixtral_layerwise``'s tree, placed by
+    ``rules`` on ``mesh`` (its places of a mesh across processes), drawn
+    one layer at a time: no process holds the whole model. Places with
+    one range on one device share one chunk, as ``device_put`` makes
+    them."""
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.sharding import (ShardedTensor, device_put,
+                                                 tree_shardings)
+
+    shardings = tree_shardings(mixtral.param_logical_axes(cfg), mesh, rules)
+    dev = mesh.devices.ravel()[0]
+    out = {k: device_put(v, shardings[k])
+           for k, v in mixtral_io(cfg, dev).items()}
+    leaves = {}
+    for layer in range(cfg.n_layers):
+        for n, w in mixtral_layer(cfg, layer, dev).items():
+            sh = shardings["blocks"][n]
+            shape = (cfg.n_layers,) + tuple(w.shape[1:])
+            if n not in leaves:
+                made, places = {}, []
+                for idx, d in zip(sh.indices(shape), mesh.devices.ravel()):
+                    key = (tuple((x.start, x.stop) for x in idx), str(d))
+                    if key not in made:
+                        made[key] = (idx, torch.empty(
+                            [x.stop - x.start for x in idx], dtype=w.dtype,
+                            device=d))
+                    places.append(made[key])
+                leaves[n] = (shape, w.dtype, sh, places, list(made.values()))
+            for idx, chunk in leaves[n][4]:
+                if idx[0].start <= layer < idx[0].stop:
+                    chunk[layer - idx[0].start] = w[0][idx[1:]].to(
+                        chunk.device)
+    out["blocks"] = {n: ShardedTensor(shape, dtype, sh,
+                                      [c for _, c in places])
+                     for n, (shape, dtype, sh, places, _) in leaves.items()}
+    return out
+
+
+def placed_first_layers(tree: dict, depth: int) -> dict:
+    """The first ``depth`` layers of a placed stacked tree: views of its
+    chunks, places that share a chunk sharing its view."""
+    from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+    def first(st):
+        views = {}
+        return ShardedTensor((depth,) + tuple(st.shape[1:]), st.dtype,
+                             st.sharding, [views.setdefault(id(c), c[:depth])
+                                           for c in st.chunks])
+    return {k: {n: first(st) for n, st in v.items()} if k == "blocks"
+            else v for k, v in tree.items()}
+
+
+def xproc_ep_loop(config):
+    """A rank of xproc_ep: this process's places of EP_AXES (one fsdp and
+    one ep index, both tp places), its chunks of the layerwise Mixtral
+    (``mixtral_placed_layerwise``), and ``spmd.placed_forward`` across the
+    processes on the global [2, 2048] with the routing replayed from the
+    single controller's run; then the control, the first
+    XPROC_EP_CONTROL_DEPTH layers with the experts' outputs taken from the
+    wrong ep process. Each forward's logit rows (this process's data row)
+    against the single controller's at its depth, on the card, its aux
+    loss, launches, seconds, collectives and peak memory to
+    ``<out>/steps_rank<r>.json``."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
+    from ray_tpu_torch.parallel.process_group import mesh_layout
+    from ray_tpu_torch.parallel.sharding import MOE_RULES
+    from ray_tpu_torch.train import session, spmd
+
+    ctx = session.get_context()
+    pg = ctx.process_group
+    cfg = config["model_config"]
+    layout = mesh_layout(pg, EP_AXES)
+    local = create_mesh(layout.local, devices=[torch.device(ctx.device)]
+                        * math.prod(layout.local.values()))
+    mesh = Mesh(local.devices, local.axis_names, layout)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    placed = mixtral_placed_layerwise(torch, cfg, mesh, MOE_RULES)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref = torch.load(config["reference"], map_location="cpu",
+                     weights_only=True, mmap=True)
+    rows = mesh.offset("fsdp"), mesh.offset("fsdp") + 1
+    tokens = torch.from_numpy(config["tokens"]).to(ctx.device)
+    replay = Routing()
+    replay.choice = {i: torch.from_numpy(c).to(ctx.device)
+                     for i, c in enumerate(config["routing"])}
+    reports = []
+    for case, depth in (("real", cfg.n_layers),
+                        ("experts_from_wrong_ep", XPROC_EP_CONTROL_DEPTH)):
+        cfg_d = dataclasses.replace(cfg, n_layers=depth)
+        tree = placed if depth == cfg.n_layers else \
+            placed_first_layers(placed, depth)
+        want = ref[f"logits_depth{depth}"][rows[0]:rows[1]].to(ctx.device)
+        before = dict(pg.stats)
+        with torch.no_grad(), xproc_control(case), CallRouting(replay):
+            zero_counts()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got, aux = spmd.placed_forward(mixtral, cfg_d, tree, tokens,
+                                           mesh=mesh, rules=MOE_RULES,
+                                           return_aux_loss=True)
+            torch.cuda.synchronize()
+            forward_s = time.perf_counter() - t1
+            counts = {**launch_counts(), **causal_split()}
+        reports.append({
+            "case": case, "rank": ctx.rank, "rows": list(rows),
+            "n_layers": depth, "shape": list(got.shape),
+            "finite": bool(torch.isfinite(got).all()),
+            "logits_rel_rms_err": rel_rms(got, want),
+            "aux_loss": float(aux),
+            "aux_rel_err": abs(float(aux) / ref[f"aux_depth{depth}"] - 1),
+            "forward_s": forward_s, "init_s": init_s, "launches": counts,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "collectives": {k: pg.stats[k] - before[k] for k in pg.stats}})
+        session.report({"case": case})
+        del got, want, tree
+    with open(os.path.join(config["out"], f"steps_rank{ctx.rank}.json"),
+              "w") as f:
+        json.dump(reports, f)
+
+
+def xproc_ep_setup(torch) -> dict:
+    """Mixtral 8x7B at full width and depth XPROC_EP_DEPTH (its layers
+    drawn one at a time from seeds of their own), the forward over a tree
+    placed by ``moe`` on EP_AXES {fsdp 2, ep 2, tp 2} dealt to four gloo
+    rank processes on this card: fsdp and ep across the processes (each
+    its data row of the global [2, 2048] and 4 of the 8 experts), tp
+    inside each (16 q and 4 kv heads a place). The router's logits are
+    gathered over the data processes and routed once, each process runs
+    its own experts on the tokens of every data process (summed over
+    fsdp) and gathers every expert's outputs over ep. Held against the
+    single-process placed forward on the same mesh of this card
+    (``ep_placed_forward``'s path), run first, with the routing fixed to its choices: each
+    process's logit rows and the aux loss within FAMILY_FORWARD_TOL.
+    Control: the experts' outputs taken from the wrong ep process, which
+    must break the bound, over the first XPROC_EP_CONTROL_DEPTH layers
+    against the single process's forward of those. K1 32 a process's
+    forward (2 tp places, 16 layers) at [1, 16, 4, 2048, 128]. This
+    part runs the single process's forwards and returns their logits
+    (host) and routing, with the ranks' config; ``check_xproc_ep`` reads
+    the ranks' results."""
+    import dataclasses
+
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.mesh import create_mesh
+    from ray_tpu_torch.parallel.sharding import MOE_RULES, shard_tree
+    from ray_tpu_torch.train import spmd
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(mixtral.mixtral_8x7b(), n_layers=XPROC_EP_DEPTH)
+    card = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    params = mixtral_layerwise(torch, cfg, card)
+    torch.cuda.synchronize()
+    single_init_s = time.perf_counter() - t0
+    mesh = create_mesh(EP_AXES, devices=[card] * 8)
+    placed = shard_tree(params, mixtral.param_logical_axes(cfg), mesh,
+                        MOE_RULES)
+    tokens = train_batch(cfg, 2, 2047, SEED + 41)    # [2, 2048]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with CallRouting() as recorded:
+            want, want_aux = spmd.placed_forward(
+                mixtral, cfg, placed, tokens, mesh=mesh, rules=MOE_RULES,
+                return_aux_loss=True)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+        # the control's reference: the first layers, the same routing
+        with CallRouting(recorded):
+            want_c, aux_c = spmd.placed_forward(
+                mixtral, dataclasses.replace(
+                    cfg, n_layers=XPROC_EP_CONTROL_DEPTH),
+                placed_first_layers(placed, XPROC_EP_CONTROL_DEPTH), tokens,
+                mesh=mesh, rules=MOE_RULES, return_aux_loss=True)
+    dropped = recorded.dropped_share(cfg)
+    routing = [recorded.choice[i].cpu().numpy()
+               for i in range(len(recorded.choice))]
+    reference = {f"logits_depth{cfg.n_layers}": want.cpu(),
+                 f"aux_depth{cfg.n_layers}": float(want_aux),
+                 f"logits_depth{XPROC_EP_CONTROL_DEPTH}": want_c.cpu(),
+                 f"aux_depth{XPROC_EP_CONTROL_DEPTH}": float(aux_c)}
+    del params, placed, want, want_c, recorded
+    return {"cfg": cfg, "reference": reference, "dropped": dropped,
+            "single_s": single_s, "single_init_s": single_init_s,
+            "seconds": time.perf_counter() - t_start,
+            "rank": {"model_config": cfg, "tokens": tokens.cpu().numpy(),
+                     "routing": routing}}
+
+
+def check_xproc_ep(torch, setup: dict, d: str, spawn: dict) -> dict:
+    """``xproc_ep_setup``'s phase held, from its ranks' results in ``d``
+    (``spawn``: the shared spawn's times). Returns rank 0's launches."""
+    cfg, dropped = setup["cfg"], setup["dropped"]
+    tol = FAMILY_FORWARD_TOL
+    steps = xproc_steps(d)
+    real = [r for r in steps if r["case"] == "real"]
+    control = [r for r in steps if r["case"] != "real"]
+    err = max(r["logits_rel_rms_err"] for r in real)
+    aux_err = max(r["aux_rel_err"] for r in real)
+    bad = min(r["logits_rel_rms_err"] for r in control)
+    want_counts = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd": 0,
+                   "flash_fwd_causal": 2 * cfg.n_layers,
+                   "flash_fwd_noncausal": 0}
+    launches = {r["rank"]: r["launches"] for r in real}
+    ranks = {r["rank"]: {k: r[k] for k in (
+        "rows", "logits_rel_rms_err", "aux_loss", "aux_rel_err",
+        "forward_s", "init_s", "launches", "peak_memory_bytes")} | {
+        "collectives": {k: {"calls": r["collectives"][f"{k}_calls"],
+                            "s": r["collectives"][f"{k}_s"],
+                            "bytes": r["collectives"][f"{k}_bytes"]}
+                        for k in ("all_gather", "all_reduce")},
+        "staging_s": r["collectives"]["staging_s"]} for r in real}
+    forward_s = max(r["forward_s"] for r in real)
+    emit("xproc_ep", config="mixtral_8x7b", n_layers=cfg.n_layers,
+         depth_cut=f"{cfg.n_layers} of 32 layers (ep_placed_forward's)",
+         tokens=[2, 2048], backend="gloo", world_size=XPROC_WORLD,
+         mesh=EP_AXES, spanned=["fsdp", "ep"], strategy="moe",
+         routing="fixed (the single controller's)",
+         capacity_dropped_share=dropped, logits_rel_rms_err=err,
+         aux_rel_err=aux_err, single_controller_aux_loss=setup[
+             "reference"][f"aux_depth{cfg.n_layers}"],
+         tol=tol, controls={"experts_from_wrong_ep": {
+             "n_layers": XPROC_EP_CONTROL_DEPTH,
+             "logits_rel_rms_err": bad, "broke": bad > tol}},
+         all_finite=all(r["finite"] for r in steps),
+         forward_s=forward_s,
+         collective_share=max(sum(c["s"] for c in r["collectives"].values())
+                              / r["forward_s"] for r in ranks.values()),
+         single_controller_forward_s=setup["single_s"],
+         single_controller_init_s=setup["single_init_s"], ranks=ranks,
+         want_launches=want_counts, single_controller_phase_s=setup[
+             "seconds"], ranks_s=spawn["xproc_ep"],
+         seconds=setup["seconds"] + spawn["xproc_ep"])
+    if not (err <= tol < bad and aux_err <= tol) or \
+            not all(r["finite"] and r["shape"] == [1, 2048, cfg.vocab_size]
+                    for r in steps):
+        raise AssertionError(
+            f"xproc_ep: logits rel err {err}, aux rel err {aux_err} (tol "
+            f"{tol}); the wrong-ep control must exceed it: {bad}")
+    if any(c != want_counts for c in launches.values()):
+        raise AssertionError(f"xproc_ep launches {launches}, want "
+                             f"{want_counts}")
+    return launches[0]
+
+
+def xproc_elastic_axes(n: int) -> dict:
+    """xproc_elastic's mesh for ``n`` places: {fsdp 2, tp n/2}, {fsdp n}
+    for two or fewer."""
+    return {"fsdp": 2, "tp": n // 2} if n > 2 else {"fsdp": n}
+
+
+def saved_leaf(tree, name: str):
+    """The leaf ``name`` (dotted, ``named_leaves``'s) of a saved tree."""
+    for part in name.split("."):
+        tree = tree[part]
+    return tree
+
+
+def file_mismatches(torch, path, trees: dict) -> list:
+    """The leaves of ``trees`` (placed, this process's) whose saved copy
+    in this process's file ``path`` differs anywhere, bit for bit: each
+    chunk by its index range, a leaf within this process whole."""
+    from ray_tpu_torch.train.checkpoint import _range_key
+
+    tree = torch.load(path, map_location="cpu", weights_only=True,
+                      mmap=True)["tree"]
+    bad = []
+    for name, st in named_leaves(trees):
+        saved = saved_leaf(tree, name)
+        idx = st.sharding.indices(st.shape)
+        for place, c in st.distinct():
+            got = saved["chunks"][_range_key(idx[place])] \
+                if isinstance(saved, dict) else saved[idx[place]]
+            if not torch.equal(got.to(c.device), c):
+                bad.append(name)
+                break
+    return bad
+
+
+def restored_mismatches(torch, paths, trees: dict) -> tuple:
+    """The restored leaves of ``trees`` (this process's chunks) that
+    differ, bit for bit, from any saved chunk of every process's file in
+    ``paths`` where their ranges overlap; and the elements compared."""
+    from ray_tpu_torch.train.checkpoint import _range
+
+    saved = [torch.load(p, map_location="cpu", weights_only=True,
+                        mmap=True)["tree"] for p in paths]
+    bad, compared = [], 0
+    for name, st in named_leaves(trees):
+        idx = st.sharding.indices(st.shape)
+        for place, c in st.distinct():
+            mine = [(s.start, s.stop) for s in idx[place]]
+            for tree in saved:
+                leaf = saved_leaf(tree, name)
+                pieces = leaf["chunks"].items() if isinstance(leaf, dict) \
+                    else [("", leaf)]
+                for key, chunk in pieces:
+                    have = _range(key) or [(0, n) for n in chunk.shape]
+                    lo = [max(a, b[0]) for (a, _), b in zip(mine, have)]
+                    hi = [min(a, b[1]) for (_, a), b in zip(mine, have)]
+                    if any(a >= z for a, z in zip(lo, hi)):
+                        continue
+                    got = c[tuple(slice(a - m[0], z - m[0]) for a, z, m in
+                                  zip(lo, hi, mine))]
+                    want = chunk[tuple(slice(a - h[0], z - h[0]) for a, z, h
+                                       in zip(lo, hi, have))]
+                    compared += got.numel()
+                    if not torch.equal(want.to(c.device), got):
+                        bad.append(name)
+    return sorted(set(bad)), compared
+
+
+def xproc_elastic_loop(config):
+    """A rank of xproc_elastic: ``ElasticTrainer(process_group=)`` on the
+    global {fsdp 2, tp 2} of four processes, XPROC_STEPS steps from
+    ``init_state(seed)`` and a checkpoint (each process its chunks, its
+    file checked bit for bit against its state); then the first
+    XPROC_SURVIVORS ranks leave this group, join a new one of their own
+    (the port agreed through the old one) and ``reform`` onto {fsdp 2},
+    restoring the checkpoint into their places, each restored chunk
+    checked bit for bit against every saved chunk it overlaps, and take
+    one more step. Writes the survivors' parameters and first moment by
+    index range (``xproc_save``: ``after_rank<r>.pt``) and every rank's
+    report to ``steps_rank<r>.json``."""
+    import glob
+
+    import torch
+
+    from ray_tpu_torch.parallel.process_group import (free_port,
+                                                      init_process_group)
+    from ray_tpu_torch.train import session
+    from ray_tpu_torch.train.elastic import ElasticTrainer
+    from ray_tpu_torch.train.telemetry import run_goodput
+
+    ctx = session.get_context()
+    pg, rank = ctx.process_group, ctx.rank
+    batch = torch.from_numpy(config["batch"]).to(ctx.device)
+    ckpt_dir = config["checkpoint_dir"]
+    run = f"xproc-elastic-rank{rank}"
+    et = ElasticTrainer(config["model_config"], config["train_config"],
+                        checkpoint_dir=ckpt_dir,
+                        mesh_axes_fn=xproc_elastic_axes,
+                        devices=[torch.device(ctx.device)],
+                        checkpoint_every=XPROC_STEPS, run_name=run,
+                        process_group=pg)
+    state = et.init_state(seed=SEED)
+    report = {"rank": rank, "mesh_before": et.trainer.mesh.shape,
+              "losses": [], "grad_norms": []}
+    state = et.fit(state, iter([batch] * XPROC_STEPS), steps=XPROC_STEPS,
+                   on_metrics=lambda m: (report["losses"].append(m["loss"]),
+                                         report["grad_norms"].append(
+                                             m["grad_norm"])))
+    t0 = time.perf_counter()
+    et.ckpt.wait()
+    report["save_wait_s"] = time.perf_counter() - t0
+    report["file_bytes"] = os.path.getsize(os.path.join(
+        ckpt_dir, f"{XPROC_STEPS}.proc{rank}of{XPROC_WORLD}.pt"))
+    trees = {"params": state.params,
+             "opt_state": {k: state.opt_state[k] for k in ("mu", "nu")}}
+    report["saved_step"] = state.step
+    report["file_not_bit_equal"] = file_mismatches(
+        torch, os.path.join(ckpt_dir,
+                            f"{XPROC_STEPS}.proc{rank}of{XPROC_WORLD}.pt"),
+        trees)
+    port = pg.all_gather_object(free_port() if rank == 0 else None)[0]
+    # every process's file is on disk before a survivor restores
+    pg.all_reduce(torch.zeros(1, device=ctx.device))
+    report["files"] = sorted(os.path.basename(f) for f in
+                             glob.glob(os.path.join(ckpt_dir, "*.pt")))
+    del state, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank < XPROC_SURVIVORS:
+        pg.destroy()
+        new = init_process_group(
+            "gloo", rank, XPROC_SURVIVORS, port,
+            use_gpu=torch.device(ctx.device).type == "cuda")
+        state = et.reform(process_group=new)
+        event = et.reform_events[0]
+        t0 = time.perf_counter()
+        report["restored_not_bit_equal"], report["restored_compared"] = \
+            restored_mismatches(torch, [os.path.join(
+                ckpt_dir, f"{XPROC_STEPS}.proc{r}of{XPROC_WORLD}.pt")
+                for r in range(XPROC_WORLD)],
+                {"params": state.params, "opt_state": {
+                    k: state.opt_state[k] for k in ("mu", "nu")}})
+        report["restore_check_s"] = time.perf_counter() - t0
+        # the control: a restore that assembles every block one row off
+        from ray_tpu_torch.train import checkpoint
+
+        assemble = checkpoint._assemble
+        checkpoint._assemble = lambda leaf, idx, device: assemble(
+            leaf, idx, device).roll(1, 0)
+        try:
+            wrong = et.ckpt.restore(
+                target=et.trainer.abstract_state(),
+                shardings=et.trainer.state_shardings())
+        finally:
+            checkpoint._assemble = assemble
+        report["control_rows_off_not_bit_equal"] = restored_mismatches(
+            torch, [os.path.join(ckpt_dir,
+                                 f"{XPROC_STEPS}.proc{r}of{XPROC_WORLD}.pt")
+                    for r in range(XPROC_WORLD)],
+            {"params": wrong.params, "opt_state": {
+                k: wrong.opt_state[k] for k in ("mu", "nu")}})[0]
+        del wrong
+        torch.cuda.empty_cache()
+        report.update(mesh_after=et.trainer.mesh.shape,
+                      restored_step=event.step, reform_s=event.seconds,
+                      reform_places=[event.old_devices, event.new_devices],
+                      restart_bucket_s=run_goodput(run)["restart"])
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = et.trainer.train_step(state, batch)
+        report.update(loss_after=float(m["loss"]),
+                      grad_norm_after=float(m["grad_norm"]),
+                      step_after_s=time.perf_counter() - t0,
+                      launches_after={**launch_counts(), **causal_split()},
+                      peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                      collectives=dict(new.stats))
+        xproc_save(new, config["out"], "after",
+                   {"params": state.params, "mu": state.opt_state["mu"]},
+                   check=True)
+        del state
+        new.destroy()
+    et.close()
+    with open(os.path.join(config["out"], f"steps_rank{rank}.json"),
+              "w") as f:
+        json.dump(report, f)
+    session.report({"done": 1})
+
+
+def xproc_elastic_single(torch, cfg, kw: dict, batch) -> dict:
+    """The single controller's counterpart on this card: the trainer on
+    {fsdp 2, tp 2} for XPROC_STEPS steps from ``init_state(seed)``, its
+    state then placed on {fsdp 2} (the reform's mesh) and one more step.
+    Host copies of the parameters at the reform and of the parameters and
+    first moment after; the losses and norms."""
+    from ray_tpu_torch.parallel.sharding import (ShardedTensor, map_trees,
+                                                 place_tree)
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    def whole(tree):
+        return map_trees(lambda t: t.unshard() if isinstance(
+            t, ShardedTensor) else t, tree,
+            is_leaf=lambda x: isinstance(x, (ShardedTensor, torch.Tensor)))
+
+    def host(tree):
+        return {n: t.detach().cpu() for n, t in named_leaves(whole(tree))}
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, TrainConfig(mesh_axes=xproc_elastic_axes(4), **kw))
+    state = tr.init_state(seed=SEED)
+    losses, norms = [], []
+    for _ in range(XPROC_STEPS):
+        state, m = tr.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    mid = TrainState(params=whole(state.params), opt_state={
+        "count": state.opt_state["count"],
+        "mu": whole(state.opt_state["mu"]),
+        "nu": whole(state.opt_state["nu"])}, step=state.step)
+    del state, tr
+    free_card(torch)
+    out = {"init": host(mid.params), "losses": losses, "grad_norms": norms}
+    tr = Trainer(cfg, TrainConfig(mesh_axes=xproc_elastic_axes(2), **kw))
+    state = place_tree(mid, tr.state_shardings())
+    del mid
+    state, m = tr.train_step(state, batch)
+    out.update(loss_after=float(m["loss"]),
+               grad_norm_after=float(m["grad_norm"]),
+               ref=host(state.params), ref_mu=host(state.opt_state["mu"]),
+               seconds=time.perf_counter() - t0)
+    del state, tr
+    free_card(torch)
+    return out
+
+
+def xproc_elastic_setup(torch, cfg) -> dict:
+    """``ElasticTrainer(process_group=)`` on ``llama3_8b()`` at full width
+    and depth XPROC_ELASTIC_DEPTH: four gloo rank processes on this card
+    on {fsdp 2, tp 2} under fsdp_tp take XPROC_STEPS steps on [2, 2049]
+    and save (each process its chunks, ``<step>.proc<r>of4.pt``); two of
+    them leave the group, join a new one and reform onto {fsdp 2},
+    restoring the checkpoint across layouts. Held: each process's file
+    bit-equal to its state, each survivor's restored chunks bit-equal to
+    every saved chunk they overlap (and every element of its places
+    compared), the step restored; the step after the reform against the
+    single controller's (the same two steps, the state placed on {fsdp
+    2}, one step; run first): the update within HARNESS_PARAM_TOL, every
+    leaf's first moment within XPROC_MOMENT_TOL, the gradient norm within
+    HARNESS_NORM_TOL. Control: a restore that assembles every block one
+    row off, which the bit-for-bit check must find unequal. Launches a
+    survivor's step: K1 4 (causal) and the backward 2. This part runs
+    the single controller and returns it, with the ranks' config;
+    ``check_xproc_elastic`` reads the ranks' results."""
+    import dataclasses
+
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    t_start = time.perf_counter()
+    b, s, L = 2, 2048, XPROC_ELASTIC_DEPTH
+    cfg2 = dataclasses.replace(cfg, n_layers=L)
+    kw = dict(strategy="fsdp_tp", fused_loss=True, loss_chunk=1024,
+              warmup_steps=1)
+    batch = train_batch(cfg, b, s, SEED + 43)
+    single = xproc_elastic_single(torch, cfg2, kw, batch)
+    return {"single": single, "shape": (b, s, L),
+            "seconds": time.perf_counter() - t_start,
+            "rank": {"model_config": cfg2, "batch": batch.cpu().numpy(),
+                     "train_config": TrainConfig(
+                         mesh_axes=xproc_elastic_axes(4), **kw)}}
+
+
+def check_xproc_elastic(torch, cfg, setup: dict, d: str,
+                        spawn: dict) -> dict:
+    """``xproc_elastic_setup``'s phase held, from its ranks' results in
+    ``d`` (``spawn``: the shared spawn's times). Returns rank 0's
+    launches of the step after the reform."""
+    single = setup["single"]
+    b, s, L = setup["shape"]
+    reports = []
+    for r in range(XPROC_WORLD):
+        with open(os.path.join(d, f"steps_rank{r}.json")) as f:
+            reports.append(json.load(f))
+    t0 = time.perf_counter()
+    cmp = xproc_compare(torch, d, "xproc_elastic", {
+        "ref": single["ref"], "ref_mu": single["ref_mu"],
+        "init": single["init"], "rerun": {}, "rerun_grad_norms": []},
+        case="after", world=XPROC_SURVIVORS)
+    compare_s = time.perf_counter() - t0
+    survivors = reports[:XPROC_SURVIVORS]
+    update_rel_err = cmp["update"]["rel_err"]
+    moment_err = worst_moment(cmp["first_moment"])
+    norm_err = max(abs(r["grad_norm_after"] / single["grad_norm_after"] - 1)
+                   for r in survivors)
+    want = {"flash_fwd": 2 * L, "flash_bwd": L, "flash_fwd_causal": 2 * L,
+            "flash_fwd_noncausal": 0}
+    file_bad = {r["rank"]: r["file_not_bit_equal"] for r in reports}
+    restored_bad = {r["rank"]: r["restored_not_bit_equal"]
+                    for r in survivors}
+    emit("xproc_elastic", config="llama3_8b", n_layers=L,
+         depth_cut=f"{L} of {cfg.n_layers} layers", tokens=[b, s + 1],
+         steps_before=XPROC_STEPS, backend="gloo", world_before=XPROC_WORLD,
+         world_after=XPROC_SURVIVORS,
+         mesh_before=reports[0]["mesh_before"],
+         mesh_after=survivors[0]["mesh_after"], strategy="fsdp_tp",
+         files=reports[0]["files"],
+         file_bytes={r["rank"]: r["file_bytes"] for r in reports},
+         save_wait_s={r["rank"]: r["save_wait_s"] for r in reports},
+         file_not_bit_equal=file_bad, restored_not_bit_equal=restored_bad,
+         controls={"rows_off": {
+             "not_bit_equal": {r["rank"]: r["control_rows_off_not_bit_equal"]
+                               for r in survivors},
+             "broke": all(r["control_rows_off_not_bit_equal"]
+                          for r in survivors)}},
+         restored_compared={r["rank"]: r["restored_compared"]
+                            for r in survivors},
+         restored_step={r["rank"]: r["restored_step"] for r in survivors},
+         reform_s={r["rank"]: r["reform_s"] for r in survivors},
+         restore_check_s={r["rank"]: r["restore_check_s"]
+                          for r in survivors},
+         restart_bucket_s={r["rank"]: r["restart_bucket_s"]
+                           for r in survivors},
+         losses=reports[0]["losses"],
+         single_controller_losses=single["losses"],
+         loss_after={r["rank"]: r["loss_after"] for r in survivors},
+         single_controller_loss_after=single["loss_after"],
+         update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         update=cmp["update"], first_moment_worst_leaf_rel_err=moment_err,
+         moment_tol=XPROC_MOMENT_TOL, first_moment=cmp["first_moment"],
+         grad_norm_rel_err=norm_err, norm_tol=HARNESS_NORM_TOL,
+         step_after_s={r["rank"]: r["step_after_s"] for r in survivors},
+         peak_memory_bytes={r["rank"]: r["peak_memory_bytes"]
+                            for r in survivors},
+         launches_after={r["rank"]: r["launches_after"] for r in survivors},
+         want_launches=want, single_controller_s=single["seconds"],
+         ranks_s=spawn["xproc_elastic"], compare_s=compare_s,
+         seconds=setup["seconds"] + spawn["xproc_elastic"] + compare_s)
+    if any(file_bad.values()) or any(restored_bad.values()) or any(
+            r["restored_step"] != XPROC_STEPS or r["restored_compared"] == 0
+            or not r["control_rows_off_not_bit_equal"] for r in survivors):
+        raise AssertionError(f"xproc_elastic: files not bit-equal "
+                             f"{file_bad}, restores not bit-equal "
+                             f"{restored_bad}; the rows-off control must "
+                             "be found unequal")
+    if update_rel_err > HARNESS_PARAM_TOL or \
+            moment_err > XPROC_MOMENT_TOL or norm_err > HARNESS_NORM_TOL:
+        raise AssertionError(
+            f"xproc_elastic: update error {update_rel_err} (tol "
+            f"{HARNESS_PARAM_TOL}), worst leaf's first moment {moment_err} "
+            f"(tol {XPROC_MOMENT_TOL}), norm error {norm_err} (tol "
+            f"{HARNESS_NORM_TOL})")
+    launches = {r["rank"]: r["launches_after"] for r in survivors}
+    if any(c != want for c in launches.values()):
+        raise AssertionError(f"xproc_elastic launches {launches}, want "
+                             f"{want}")
+    return launches[0]
+
+
+XPROC_SLICE11 = ("xproc_pp", "xproc_ep", "xproc_elastic")
+
+
+def xproc_slice11_loop(config):
+    """A rank of slice 11's shared spawn: ``xproc_rank_loop`` on xproc_pp,
+    ``xproc_ep_loop`` and ``xproc_elastic_loop`` in turn (the elastic
+    reform last: its survivors leave this group), each on its config and
+    in a directory of its own, the card freed after each; each one's
+    seconds to ``<out>/phase_seconds_rank<r>.json``."""
+    import torch
+
+    from ray_tpu_torch.train import session
+
+    loops = {"xproc_pp": xproc_rank_loop, "xproc_ep": xproc_ep_loop,
+             "xproc_elastic": xproc_elastic_loop}
+    rank = session.get_context().rank
+    seconds = {}
+    for phase in XPROC_SLICE11:
+        t0 = time.perf_counter()
+        loops[phase]({**config["phases"][phase], "phase": phase,
+                      "out": os.path.join(config["out"], phase)})
+        gc.collect()
+        torch.cuda.empty_cache()
+        seconds[phase] = time.perf_counter() - t0
+    with open(os.path.join(config["out"], f"phase_seconds_rank{rank}.json"),
+              "w") as f:
+        json.dump(seconds, f)
+
+
+def check_xproc_slice11(torch, cfg, peaks) -> dict:
+    """pp and ep across processes and the elastic reform (slice 11): each
+    phase's single controller on this card first (``xproc_pp_setup``,
+    ``xproc_ep_setup``, ``xproc_elastic_setup``, the card freed after
+    each), then one spawn of four gloo ranks runs the three phases in
+    turn (a spawn costs 24-27 s of start-up), then each phase is held
+    (``check_xproc_pp``, ``check_xproc_ep``, ``check_xproc_elastic``).
+    Returns each phase's launches."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    setups = {}
+    for phase, setup in (("xproc_pp", lambda: xproc_pp_setup(torch, cfg)),
+                         ("xproc_ep", lambda: xproc_ep_setup(torch)),
+                         ("xproc_elastic",
+                          lambda: xproc_elastic_setup(torch, cfg))):
+        setups[phase] = setup()
+        free_card(torch)
+    setup_s = time.perf_counter() - t_start
+    with tempfile.TemporaryDirectory() as d:
+        for phase in XPROC_SLICE11:
+            os.makedirs(os.path.join(d, phase))
+        reference = os.path.join(d, "xproc_ep", "reference.pt")
+        torch.save(setups["xproc_ep"]["reference"], reference)
+        phases = {p: dict(setups[p]["rank"]) for p in XPROC_SLICE11}
+        phases["xproc_ep"]["reference"] = reference
+        phases["xproc_elastic"]["checkpoint_dir"] = os.path.join(
+            d, "xproc_elastic", "checkpoints")
+        result, fit_s = xproc_spawn(torch, "slice11", None, None, None,
+                                    None, d, loop=xproc_slice11_loop,
+                                    phases=phases)
+        spawn = {p: 0.0 for p in XPROC_SLICE11}
+        for r in range(XPROC_WORLD):
+            with open(os.path.join(d, f"phase_seconds_rank{r}.json")) as f:
+                for p, sec in json.load(f).items():
+                    spawn[p] = max(spawn[p], sec)
+        counts = {
+            "xproc_pp": check_xproc_pp(torch, cfg, peaks,
+                                       setups["xproc_pp"],
+                                       os.path.join(d, "xproc_pp"), spawn),
+            "xproc_ep": check_xproc_ep(torch, setups["xproc_ep"],
+                                       os.path.join(d, "xproc_ep"), spawn),
+            "xproc_elastic": check_xproc_elastic(
+                torch, cfg, setups["xproc_elastic"],
+                os.path.join(d, "xproc_elastic"), spawn)}
+    emit("xproc_slice11", setup_s=setup_s, fit_s=fit_s,
+         spawn_to_first_report_s=result.first_report_s,
+         ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
+    return counts
 
 
 def check_gpt(torch, peaks) -> dict:
@@ -3863,6 +4771,10 @@ def main() -> int:
     free_card(torch)
     xproc_sp4_counts = check_xproc_sp4(torch, cfg, peaks)
     free_card(torch)
+    # pp and ep across processes and the elastic reform to a new world
+    # (slice 11), the same way
+    slice11_counts = check_xproc_slice11(torch, cfg, peaks)
+    free_card(torch)
     emit("xproc_phases", seconds=time.perf_counter() - t0)
     # the other families, each at full width, one after another on the
     # card's memory (Mixtral at reduced depth)
@@ -3909,7 +4821,12 @@ def main() -> int:
                    "harness_gloo_dp2_rank0_6_steps": harness_gloo_counts[k],
                    "elastic_step_after_reform": elastic_counts[k],
                    "xproc_fsdp_tp_rank0_step": xproc_fsdp_tp_counts[k],
-                   "xproc_sp4_rank3_step": xproc_sp4_counts[k]}
+                   "xproc_sp4_rank3_step": xproc_sp4_counts[k],
+                   "xproc_pp_rank0_step": slice11_counts["xproc_pp"][k],
+                   "xproc_ep_rank0_forward_depth16":
+                       slice11_counts["xproc_ep"][k],
+                   "xproc_elastic_rank0_step_after_reform":
+                       slice11_counts["xproc_elastic"][k]}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",

@@ -28,12 +28,15 @@ leading axes: in row-major ``AXIS_ORDER``, rank ``p`` owns places
 are therefore a prefix (``split_axes``). Every axis but ``dp`` lies
 either wholly inside one process or wholly across processes, one index a
 process; ``dp`` may also be split, an equal share of its indices a
-process. Any other cut raises ``NotImplementedError`` naming the axis, and
-so do ``pp`` and ``ep`` across processes (a per-stage schedule with
-point-to-point sends, and the experts' exchange, come with ROADMAP slice
-11). On ``{fsdp 2, tp 2}``, world 4 gives one place a process and world 2
+process. Any other cut raises ``NotImplementedError`` naming the axis.
+On ``{fsdp 2, tp 2}``, world 4 gives one place a process and world 2
 lets fsdp span the processes while each drives its two tp places as
-above.
+above. ``pp`` across processes runs each process's own stage of the 1F1B
+schedule, activations and gradients moving between the stages'
+processes by point-to-point sends (``parallel.pipeline``); ``ep`` across
+processes runs each process's own experts, their inputs summed from
+every data process and their outputs gathered to every one
+(``train.spmd``).
 
 Such a process's ``Mesh`` carries a ``ProcessLayout``: ``shape`` and
 ``size`` are the global mesh's, ``devices`` (and ``local_shape``) the
@@ -134,15 +137,11 @@ def split_axes(axes: dict, world: int) -> tuple[dict, dict]:
                 f"axis {a!r} of size {n} in {axes} would be cut between "
                 f"{world} processes: an axis other than dp lies wholly in "
                 "one process or wholly across processes, one index a "
-                "process, and dp splits into equal shares")
+                "process, and dp splits into equal shares (other cuts: "
+                "ROADMAP slice 11b)")
     if left != 1:
         raise ValueError(f"{world} processes for the "
                          f"{math.prod(axes.values())} places of {axes}")
-    for a in ("pp", "ep"):
-        if a in procs:
-            raise NotImplementedError(
-                f"axis {a!r} across processes ({axes}, {world} processes) "
-                "comes with ROADMAP slice 11")
     return local, procs
 
 

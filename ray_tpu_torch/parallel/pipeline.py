@@ -25,6 +25,24 @@ that skips the inactive slots. A masked slot adds zeros in JAX, so the
 results are the same; the slots that run, and their order within a tick
 (forward, loss, backward), are JAX's.
 
+Across processes. Where the ``pp`` axis spans processes
+(``parallel.mesh``), each process holds its own stage and runs only that
+stage's slots of the same schedule: the forward slot f = t - s, the
+backward slot b = t - 2(S-1) + s, T = M + 2(S-1) ticks, a stash of 2·S
+stage inputs. At the end of each tick the activations move on to stage
+s+1 and the gradients back to stage s-1 (JAX's ``perm_f`` and
+``perm_b``), each move one ``ProcessGroup.exchange`` (a
+``batch_isend_irecv``: no pair deadlocks on the order of its sends).
+Every process derives the tick's sends from the same (t, s) formulas for
+every stage, and posts its own and the receives addressed to it, so that
+a send is always its peer's receive of the same tick and an idle slot
+posts nothing. The head and its vjp run only on the last stage, the
+embedding and its vjp only on stage 0 (JAX runs both masked on every
+stage: the sums below make the results the same). The io parameters'
+gradients, ``loss_sum`` and ``weight_sum`` are then summed over the
+stages' processes, as JAX sums them over ``pp``, so that the replicas of
+the io parameters stay equal in every process.
+
 Devices. A stage function receives its inputs where the previous stage
 left them and moves what it needs to its own places (``Tensor.to`` is a
 no-op on one card and a differentiable copy across cards). Stage and io
@@ -43,6 +61,24 @@ import torch
 
 from ray_tpu_torch.parallel.mesh import Mesh
 from ray_tpu_torch.parallel.sharding import ShardedTensor
+
+
+def forward_peer(s: int, n: int) -> int:
+    """The stage that takes stage ``s``'s activations (JAX's ``perm_f``;
+    a module attribute, so a fault check can replace it)."""
+    return (s + 1) % n
+
+
+def backward_peer(s: int, n: int) -> int:
+    """The stage that takes stage ``s``'s input gradient (``perm_b``)."""
+    return (s - 1) % n
+
+
+def reduce_io_grads(grads: list, group) -> None:
+    """The io parameters' gradients summed over the stages' processes, in
+    place (JAX's sum over ``pp``; a module attribute, so a fault check
+    can replace it)."""
+    group.pg.all_reduce_grads(grads, group=group)
 
 
 def split_stages(stacked_params, n_stages: int):
@@ -194,9 +230,48 @@ def _read_slot(b: int, window: int) -> int:
     return b % window
 
 
+def _loss_slot(head_fn, io, io_leaves: list, y, tgt, msk, d_io: dict):
+    """The last stage's loss slot on its output ``y``: the head's loss and
+    weight sums, their gradient in the io parameters added to ``d_io``.
+    Returns (the gradient of ``y``, loss sum, weight sum); the slot's
+    other gradients go when it returns, before the next slot's are
+    made."""
+    y_in, y_leaves = _aliases(y)
+    with torch.enable_grad():
+        l_mb, w_mb = head_fn(io, y_in, tgt, msk)
+    grads = _grads([l_mb], [torch.ones_like(l_mb)], io_leaves + y_leaves)
+    _accumulate(d_io, io_leaves, grads[:len(io_leaves)])
+    return (_input_grads(y_in, y_leaves, grads[len(io_leaves):]),
+            l_mb.detach(), w_mb.detach())
+
+
+def _backward_slot(stage_fn, stage, leaves: list, x, g_in, d_stage: dict):
+    """A backward slot: the stage re-run from its stashed input ``x``
+    (rematerialization) and differentiated against ``g_in``, its
+    parameters' gradients added to ``d_stage``. Returns the gradient of
+    ``x``."""
+    x_in, x_leaves = _aliases(x)
+    with torch.enable_grad():
+        out = stage_fn(stage, x_in)
+    grads = _grads(_positions(out), _positions(g_in),
+                   x_leaves + list(leaves))
+    _accumulate(d_stage, leaves, grads[len(x_leaves):])
+    return _input_grads(x_in, x_leaves, grads[:len(x_leaves)])
+
+
+def _embed_backward(embed_fn, io, io_leaves: list, tokens, dx,
+                    d_io: dict) -> None:
+    """Stage 0 turns its input gradient ``dx`` into the embedding's, added
+    to ``d_io``."""
+    with torch.enable_grad():
+        e = embed_fn(io, tokens)
+    _accumulate(d_io, io_leaves,
+                _grads(_positions(e), _positions(dx), io_leaves))
+
+
 def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
                             x_micro, tgt_micro, msk_micro, *, mesh: Mesh,
-                            axis: str = "pp", embed_fn=None):
+                            axis: str = "pp", embed_fn=None, like=None):
     """1F1B pipelined loss and backprop.
 
     ``stage_fn(stage_params, x) -> y``; ``head_fn(io_params, y, tgt, msk)
@@ -222,7 +297,20 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
     2(S-1) ticks. The embedding (stage 0) and the head (the last stage)
     accumulate into one ``d_io_params``: with tied embeddings both
     contributions land in one leaf.
+
+    Where ``axis`` spans processes (module docstring), ``stage_params``
+    is this process's stage (a list of one tree, or [1, ...] tensors) and
+    so is ``d_stage_params``; ``like``, a tree of tensors with the
+    activations' structure, shapes, dtypes and devices (default:
+    ``x_micro[0]``), gives the shapes of what a stage receives; the
+    losses and ``d_io_params`` (``d_x_micro`` too) are the sums over the
+    stages.
     """
+    if mesh.spans(axis):
+        return _stage_value_and_grad(
+            stage_fn, head_fn, stage_params, io_params, x_micro, tgt_micro,
+            msk_micro, group=mesh.group(axis), embed_fn=embed_fn,
+            like=x_micro[0] if like is None else like)
     n_stages = mesh.shape[axis]
     m = x_micro.shape[0]
     window = 2 * n_stages
@@ -263,22 +351,11 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
                     y = stage_fn(stages[s], inp)
                 if last:
                     # --- loss slot: the last stage turns y into a gradient
-                    y_in, y_leaves = _aliases(y)
-                    with torch.enable_grad():
-                        l_mb, w_mb = head_fn(io, y_in, tgt_micro[f],
-                                             msk_micro[f])
-                    grads = _grads([l_mb], [torch.ones_like(l_mb)],
-                                   io_leaves + y_leaves)
-                    _accumulate(d_io_head, io_leaves,
-                                grads[:len(io_leaves)])
-                    dy = _input_grads(y_in, y_leaves,
-                                      grads[len(io_leaves):])
-                    # a slot's gradients go now, not when the next slot's
-                    # have been made beside them
-                    del grads
-                    loss = l_mb.detach() if loss is None else \
-                        loss + l_mb.detach().to(loss.device)
-                    w_mb = w_mb.detach()
+                    dy, l_mb, w_mb = _loss_slot(head_fn, io, io_leaves, y,
+                                                tgt_micro[f], msk_micro[f],
+                                                d_io_head)
+                    loss = l_mb if loss is None else \
+                        loss + l_mb.to(loss.device)
                     weight = w_mb if weight is None else \
                         weight + w_mb.to(weight.device)
                 else:
@@ -286,28 +363,16 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
             # --- backward slot: microbatch b flows back up the stages ---
             b = t - 2 * (n_stages - 1) + s
             if 0 <= b < m:
-                g_in = dy if last else bbuf[s]
-                x_in, x_leaves = _aliases(stash[s][_read_slot(b, window)])
-                with torch.enable_grad():
-                    out = stage_fn(stages[s], x_in)
-                grads = _grads(_positions(out), _positions(g_in),
-                               x_leaves + list(stage_leaves[s]))
-                _accumulate(d_stage[s], stage_leaves[s],
-                            grads[len(x_leaves):])
-                dx = _input_grads(x_in, x_leaves, grads[:len(x_leaves)])
-                del grads, out
+                dx = _backward_slot(stage_fn, stages[s], stage_leaves[s],
+                                    stash[s][_read_slot(b, window)],
+                                    dy if last else bbuf[s], d_stage[s])
                 if s > 0:
                     nb[s - 1] = dx
                 elif embed_fn is None:
                     d_x[b] = dx
                 else:
-                    # stage 0 turns its input gradient into the
-                    # embedding's
-                    with torch.enable_grad():
-                        e = embed_fn(io, x_micro[b])
-                    _accumulate(d_io_embed, io_leaves,
-                                _grads(_positions(e), _positions(dx),
-                                       io_leaves))
+                    _embed_backward(embed_fn, io, io_leaves, x_micro[b], dx,
+                                    d_io_embed)
         fbuf, bbuf = nf, nb
     d_sp = [_param_grads(sp, leaves, acc) for sp, leaves, acc in
             zip(stages, stage_leaves, d_stage)]
@@ -321,6 +386,167 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
     d_io = _param_grads(io, io_leaves, d_io_embed)
     d_x = torch.stack(d_x) if embed_fn is None else None
     return (loss, weight), (d_sp, d_io, d_x)
+
+
+def _wire_positions(like) -> list:
+    """The first position of each distinct tensor of ``like``: what goes
+    between the stages (the rest repeat one of them)."""
+    seen, out = set(), []
+    for i, t in enumerate(_positions(like)):
+        if id(t) not in seen:
+            seen.add(id(t))
+            out.append(i)
+    return out
+
+
+def _flat_wire(tree, wire: list) -> torch.Tensor:
+    """The tensors of ``tree`` at the ``wire`` positions, flat and joined
+    on the first one's device."""
+    pos = _positions(tree)
+    home = pos[wire[0]].device
+    return torch.cat([pos[i].detach().reshape(-1).to(home) for i in wire])
+
+
+def _unflat_wire(flat, like, wire: list, repeats: bool):
+    """``like``'s tree from a received flat tensor (None: zeros, what
+    ``lax.ppermute`` gives a stage nobody sends to): each distinct
+    tensor of ``like`` its piece, on its device; at its repeats the same
+    tensor (``repeats``, activations) or None (a gradient counts once)."""
+    pos = _positions(like)
+    sizes = [pos[i].numel() for i in wire]
+    pieces = flat.split(sizes) if flat is not None else [None] * len(wire)
+    got = {}
+    for i, piece in zip(wire, pieces):
+        t = pos[i]
+        got[id(t)] = torch.zeros_like(t) if piece is None else \
+            piece.view(t.shape).to(t.device)
+    seen = set()
+
+    def pick(t):
+        if id(t) in seen and not repeats:
+            return None
+        seen.add(id(t))
+        return got[id(t)]
+    return _map_tensors(pick, like)
+
+
+def _tick_posts(t: int, n: int, m: int) -> tuple:
+    """The (sender, receiver) stages of tick ``t``'s activation and
+    gradient moves, from the schedule's formulas for every stage: stage
+    ``r`` sends its output on when its forward slot t - r ran and it is
+    not the last, its input gradient back when its backward slot
+    t - 2(n-1) + r ran and it is not the first."""
+    fwd = [(r, forward_peer(r, n)) for r in range(n - 1) if 0 <= t - r < m]
+    bwd = [(r, backward_peer(r, n)) for r in range(1, n)
+           if 0 <= t - 2 * (n - 1) + r < m]
+    return fwd, bwd
+
+
+def _move(group, posts: list, out, like, wire: list, repeats: bool):
+    """One exchange of a tick along the stages' ``group``: this stage's
+    ``out`` to the receiver named by its post, and what a post addresses
+    to this stage, as ``like``'s tree (None: nothing addressed here)."""
+    me = group.index
+    sends = {d: _flat_wire(out, wire) for src, d in posts if src == me}
+    srcs = [src for src, d in posts if d == me]
+    if not sends and not srcs:
+        return None
+    first = _positions(like)[wire[0]]
+    numel = sum(_positions(like)[i].numel() for i in wire)
+    got = group.pg.exchange(sends, {src: ((numel,), first.dtype,
+                                          first.device) for src in srcs},
+                            group)
+    if not srcs:
+        return None
+    return _unflat_wire(got[srcs[0]], like, wire, repeats)
+
+
+def _stage_value_and_grad(stage_fn, head_fn, stage_params, io_params,
+                          x_micro, tgt_micro, msk_micro, *, group,
+                          embed_fn, like):
+    """``pipeline_value_and_grad`` where the stages are the processes of
+    ``group``: this process runs stage ``group.index``'s slots of the
+    schedule (module docstring)."""
+    n, s = group.size, group.index
+    m = x_micro.shape[0]
+    window = 2 * n
+    last, first = s == n - 1, s == 0
+    stacked = not isinstance(stage_params, list)
+    if stacked:
+        mine = _map_tensors(lambda a: a[0], stage_params)
+    elif len(stage_params) == 1:
+        mine = stage_params[0]
+    else:
+        raise ValueError(f"{len(stage_params)} stage trees for this "
+                         "process's one stage")
+    stage, stage_leaves = _aliases(mine)
+    io, io_leaves = _aliases(io_params)
+    wire = _wire_positions(like)
+    d_stage, d_io = {}, {}
+    loss = weight = None
+    fbuf = bbuf = None
+    stash = [None] * window
+    d_x = [None] * m
+    for t in range(m + 2 * (n - 1)):
+        y = dx = dy = None
+        # --- forward slot ---
+        f = t - s
+        if 0 <= f < m:
+            with torch.no_grad():
+                if not first:
+                    inp = fbuf if fbuf is not None else \
+                        _unflat_wire(None, like, wire, True)
+                elif embed_fn is None:
+                    inp = x_micro[f]
+                else:
+                    inp = embed_fn(io, x_micro[f])
+                stash[f % window] = inp
+                y = stage_fn(stage, inp)
+            if last:
+                # --- loss slot ---
+                dy, l_mb, w_mb = _loss_slot(head_fn, io, io_leaves, y,
+                                            tgt_micro[f], msk_micro[f], d_io)
+                y = None
+                loss = l_mb if loss is None else loss + l_mb
+                weight = w_mb if weight is None else weight + w_mb
+        # --- backward slot ---
+        b = t - 2 * (n - 1) + s
+        if 0 <= b < m:
+            g_in = dy if last else (bbuf if bbuf is not None else
+                                    _unflat_wire(None, like, wire, False))
+            dx = _backward_slot(stage_fn, stage, stage_leaves,
+                                stash[_read_slot(b, window)], g_in, d_stage)
+            if first:
+                if embed_fn is None:
+                    d_x[b] = dx
+                else:
+                    _embed_backward(embed_fn, io, io_leaves, x_micro[b], dx,
+                                    d_io)
+                dx = None
+        # --- the tick's moves: activations on, gradients back ---
+        fwd, bwd = _tick_posts(t, n, m)
+        fbuf = _move(group, fwd, y, like, wire, True)
+        bbuf = _move(group, bwd, dx, like, wire, False)
+    d_sp = _param_grads(stage, stage_leaves, d_stage)
+    d_sp = _stack_trees([d_sp]) if stacked else [d_sp]
+    io_grads = [d_io[id(a)] if id(a) in d_io else torch.zeros_like(a)
+                for a in io_leaves]
+    reduce_io_grads(io_grads, group)
+    by_id = dict(zip(map(id, io_leaves), io_grads))
+    d_io_tree = _map_tensors(lambda a: by_id[id(a)], io)
+    home = _positions(like)[wire[0]].device
+    zero = torch.zeros((), dtype=torch.float32, device=home)
+    sums = torch.stack([(zero if v is None else v.float().to(home))
+                        for v in (loss, weight)])
+    group.pg.all_reduce(sums, group=group)
+    if embed_fn is None:
+        d_x = torch.stack([g if g is not None else torch.zeros_like(like)
+                           for g in d_x]) if first else \
+            torch.zeros_like(x_micro)
+        group.pg.all_reduce(d_x, group=group)
+    else:
+        d_x = None
+    return (sums[0], sums[1]), (d_sp, d_io_tree, d_x)
 
 
 def _stack_trees(trees: list):

@@ -311,7 +311,8 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
         if any(mesh.local_shape[a] > 1 for a in mesh.axis_names):
             raise NotImplementedError(
                 f"ring_attention over the processes of {axis!r} takes a mesh "
-                f"of one place a process, got {mesh}")
+                f"of one place a process, got {mesh} (more places a "
+                "process: ROADMAP slice 11b)")
         group = mesh.group(axis)
         devices = [q.device]
         if use_flash:

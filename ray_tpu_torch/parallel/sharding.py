@@ -316,13 +316,16 @@ class ShardedTensor:
 
     def take(self, axis: str, index: int) -> "ShardedTensor":
         """The places at ``index`` of mesh axis ``axis`` (a pipeline
-        stage): a tensor on the mesh without that axis, holding the piece
-        of the dimension cut over ``axis`` (which must lead its entry),
-        with the same chunk objects."""
+        stage; a local index, this process's stage where ``axis`` spans
+        processes): a tensor on the mesh without that axis, holding the
+        piece of the dimension cut over ``axis`` (which must lead its
+        entry), with the same chunk objects."""
         mesh = self.mesh
         i = mesh.axis_names.index(axis)
+        names = mesh.axis_names[:i] + mesh.axis_names[i + 1:]
         sub = Mesh(np.squeeze(mesh.devices.take([index], axis=i), axis=i),
-                   mesh.axis_names[:i] + mesh.axis_names[i + 1:])
+                   names, mesh.layout.restrict(names) if mesh.layout
+                   else None)
         shape, spec = list(self.shape), []
         for d, entry in enumerate(self.spec):
             axes = _axes_of(entry)

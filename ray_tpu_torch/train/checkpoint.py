@@ -9,9 +9,15 @@ from one chunk of each index range. A state cut across processes (a
 leaf cut over a mesh axis whose places lie in several processes,
 ``parallel.mesh``) is written as Orbax writes each device's shards
 (``ray_tpu/train/checkpoint.py:1-8``): each process writes its own
-chunks, each under its index range, to ``<step>.proc<rank>of<world>.pt``,
-and ``restore(shardings=)`` reads back the chunks of this process's
-places, bit for bit on the same layout. An asynchronous save copies the
+chunks, each under its index range, to ``<step>.proc<rank>of<world>.pt``.
+Such a save restores, as Orbax's does, onto any layout: ``restore``
+assembles each leaf from the chunks of every process's file, whole in
+one process (no ``shardings``) or into the index ranges of the places of
+another mesh, of any world, by copies alone (bit for bit). A missing
+file, a missing chunk, or index ranges that do not tile a leaf raise,
+naming the leaf; nothing is padded. ``all_steps`` and ``latest_step``
+list a per-process save once every process's file of it is on disk. An
+asynchronous save copies the
 state to the host before ``save`` returns (the trainer updates its
 tensors in place, so a later step would otherwise tear the write) and
 writes it on one background thread. Retention keeps the newest
@@ -23,7 +29,9 @@ shardings=)`` places every restored leaf by a tree of ``NamedSharding``s
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
+import re
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any
@@ -33,11 +41,13 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.parallel.sharding import (ShardedTensor, device_put,
                                              map_trees)
-from ray_tpu_torch.train.optim import tree_leaves, tree_map
+from ray_tpu_torch.train.optim import tree_leaves
 from ray_tpu_torch.train.state import TrainState
 
 # the marker of a leaf saved as this process's chunks
 _CHUNKS = "__chunks__"
+# a per-process file: <step>.proc<rank>of<world>.pt
+_PROC_FILE = re.compile(r"(\d+)\.proc(\d+)of(\d+)\.pt")
 
 
 def _as_tree(state: Any):
@@ -93,27 +103,101 @@ def _to_host(state: Any) -> dict:
             "tree": walk(_as_tree(state))}
 
 
-def _place(leaf, sharding):
-    """A restored leaf placed by ``sharding``: a global tensor by
-    ``device_put``, saved chunks each at the places of its index
-    range."""
+def _range(key: str) -> tuple:
+    """A chunk's index range from its key: ((start, stop), ...)."""
+    return tuple(tuple(int(x) for x in part.split(":"))
+                 for part in key.split(",")) if key else ()
+
+
+def _check_tiles(path: str, shape, keys) -> None:
+    """Raise, naming the leaf, unless the saved ranges ``keys`` tile
+    ``shape``: along each dimension their intervals cut [0, n) into
+    pieces without gap or overlap, and every block of that grid is
+    saved."""
+    ranges = [_range(k) for k in keys]
+    grid = [sorted({r[d] for r in ranges}) for d in range(len(shape))]
+    for d, pieces in enumerate(grid):
+        bounds = [0] + [x for piece in pieces for x in piece] + [shape[d]]
+        if any(a != b for a, b in zip(bounds[::2], bounds[1::2])):
+            raise ValueError(
+                f"{path}: the saved chunks {sorted(keys)} do not tile dim "
+                f"{d} of the {list(shape)} leaf (a chunk is missing, or "
+                "the files come from different saves)")
+    missing = set(itertools.product(*grid)) - set(ranges)
+    if missing:
+        raise ValueError(f"{path}: the checkpoint holds no chunk "
+                         f"{_range_key([slice(*r) for r in sorted(missing)[0]])}"
+                         f" of the {list(shape)} leaf ({len(missing)} "
+                         "missing)")
+
+
+def _assemble(leaf: dict, idx, device) -> torch.Tensor:
+    """The index range ``idx`` (slices) of a leaf saved as chunks, on
+    ``device``: the saved chunk of that range as it is, else a block
+    filled by copies of the parts of the chunks that overlap it."""
+    key = _range_key(idx)
+    if key in leaf["chunks"]:
+        return leaf["chunks"][key].to(device, copy=True)
+    out = torch.empty([s.stop - s.start for s in idx],
+                      dtype=getattr(torch, leaf["dtype"]), device=device)
+    for k, chunk in leaf["chunks"].items():
+        have = _range(k)
+        lo = [max(s.start, a) for s, (a, _) in zip(idx, have)]
+        hi = [min(s.stop, b) for s, (_, b) in zip(idx, have)]
+        if all(a < b for a, b in zip(lo, hi)):
+            out[tuple(slice(a - s.start, b - s.start) for a, b, s in
+                      zip(lo, hi, idx))] = chunk[tuple(
+                          slice(a - h[0], b - h[0]) for a, b, h in
+                          zip(lo, hi, have))]
+    return out
+
+
+def _place(leaf, sharding, device):
+    """A restored leaf on ``device`` (``sharding`` None) or placed by
+    ``sharding``: a global tensor by ``device_put``; a leaf saved as
+    chunks assembled whole (then placed, on a mesh within this process)
+    or, cut across processes, each index range of this process's places
+    assembled at its place, places with one range on one device sharing
+    one tensor."""
     if not isinstance(leaf, dict):
-        return device_put(leaf, sharding) if isinstance(
-            leaf, torch.Tensor) else leaf
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return leaf.to(device) if sharding is None else \
+            device_put(leaf, sharding)
     shape = leaf[_CHUNKS]
+    whole = tuple(slice(0, n) for n in shape)
+    if sharding is None:
+        return _assemble(leaf, whole, device)
+    if not sharding.spans_processes():
+        return device_put(_assemble(leaf, whole, "cpu"), sharding)
     made, chunks = {}, []
     for idx, dev in zip(sharding.indices(shape),
                         sharding.mesh.devices.ravel()):
         key = (_range_key(idx), str(dev))
         if key not in made:
-            if key[0] not in leaf["chunks"]:
-                raise ValueError(f"the checkpoint holds no chunk {key[0]} of "
-                                 f"a {shape} leaf: restore on the layout it "
-                                 "was saved from")
-            made[key] = leaf["chunks"][key[0]].to(dev)
+            made[key] = _assemble(leaf, idx, dev)
         chunks.append(made[key])
     return ShardedTensor(shape, getattr(torch, leaf["dtype"]), sharding,
                          chunks)
+
+
+def _merge(trees: list, path: str = "state"):
+    """One tree from the trees of every process's file: a leaf saved as
+    chunks gathers every file's chunks (replicas of a range are one
+    chunk) and must tile its shape; any other leaf is the first file's
+    (every process saved the same global value)."""
+    first = trees[0]
+    if isinstance(first, dict) and _CHUNKS not in first:
+        return {k: _merge([t[k] for t in trees], f"{path}.{k}")
+                for k in first}
+    if isinstance(first, dict):
+        chunks = {}
+        for t in trees:
+            for k, c in t["chunks"].items():
+                chunks.setdefault(k, c)
+        _check_tiles(path, first[_CHUNKS], chunks)
+        return {**first, "chunks": chunks}
+    return first
 
 
 def _check_like(got, want, path="state"):
@@ -183,50 +267,91 @@ class CheckpointManager:
                                                      payload, process))
         return True
 
+    def _scan(self) -> tuple:
+        """The steps saved whole, and the per-process files: (step,
+        world) -> {rank: path}."""
+        whole, procs = set(), {}
+        for p in self.directory.glob("*.pt"):
+            m = _PROC_FILE.fullmatch(p.name)
+            if m:
+                step, rank, world = map(int, m.groups())
+                procs.setdefault((step, world), {})[rank] = p
+            elif p.name[:-3].isdigit():
+                whole.add(int(p.name[:-3]))
+        return whole, procs
+
+    def _process_files(self, step: int) -> list:
+        """The files of a per-process save of ``step``, in rank order;
+        raises if one of the world's is missing."""
+        found = {world: files for (s, world), files in self._scan()[1].items()
+                 if s == step}
+        if not found:
+            raise FileNotFoundError(f"No checkpoint of step {step} under "
+                                    f"{self.directory}")
+        if len(found) > 1:
+            raise ValueError(f"step {step} under {self.directory} was saved "
+                             f"by worlds {sorted(found)}")
+        (world, files), = found.items()
+        missing = [self._path(step, (r, world)).name for r in range(world)
+                   if r not in files]
+        if missing:
+            raise FileNotFoundError(
+                f"step {step} under {self.directory} lacks the per-process "
+                f"files {missing}: its leaves cut across processes cannot "
+                "be assembled")
+        return [files[r] for r in range(world)]
+
     def restore(self, step: int | None = None, *, target: Any = None,
                 shardings: Any = None, device="cuda") -> Any:
         """Restore ``step`` (default: the latest) onto ``device``, or, with
         ``shardings`` (a tree of ``NamedSharding``s of the state's
         structure), each leaf placed by its sharding on the devices of its
-        mesh (``parallel.sharding.device_put``); a state saved across
-        processes restores through the shardings of its layout, each
-        process reading its own chunks. ``target`` (a state of the same
-        structure, plain, placed or on the meta device) is checked against
-        the checkpoint's structure, shapes and dtypes."""
+        mesh (``parallel.sharding.device_put``). A state saved across
+        processes restores onto any layout and world: each leaf is
+        assembled from every process's chunks (module docstring), whole
+        or, on a mesh across processes, the ranges of this process's
+        places. ``target`` (a state of the same structure, plain, placed
+        or on the meta device) is checked against the checkpoint's
+        structure, shapes and dtypes."""
         self.wait()
-        process = None if shardings is None else _process(
-            _as_tree(shardings))
         if step is None:
-            step = self.latest_step(process)
+            step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(
                     f"No checkpoints under {self.directory}")
-        payload = torch.load(self._path(step, process), map_location="cpu",
-                             weights_only=True)
-        tree = payload["tree"]
+        if self._path(step).exists():
+            payloads = [torch.load(self._path(step), map_location="cpu",
+                                   weights_only=True)]
+        else:
+            payloads = [torch.load(p, map_location="cpu", weights_only=True,
+                                   mmap=True)
+                        for p in self._process_files(step)]
+        payload = payloads[0]
+        tree = _merge([p["tree"] for p in payloads])
         if target is not None:
             _check_like(tree, _as_tree(target))
-        if shardings is None:
-            dev = resolve_device(device)
-            tree = tree_map(lambda t: t.to(dev), tree)
-        else:
-            tree = map_trees(_place, tree, _as_tree(shardings),
-                             is_leaf=lambda x: isinstance(
-                                 x, torch.Tensor) or (isinstance(x, dict)
-                                                      and _CHUNKS in x))
+        dev = resolve_device(device) if shardings is None else None
+        tree = map_trees(
+            lambda leaf, *sh: _place(leaf, sh[0] if sh else None, dev),
+            tree, *(() if shardings is None else (_as_tree(shardings),)),
+            is_leaf=lambda x: isinstance(x, torch.Tensor) or (
+                isinstance(x, dict) and _CHUNKS in x))
         return TrainState(**tree) if payload["train_state"] else tree
 
-    def latest_step(self, process: tuple | None = None) -> int | None:
-        steps = self.all_steps(process)
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
         return steps[-1] if steps else None
 
     def all_steps(self, process: tuple | None = None) -> list[int]:
-        """The saved steps (``process``: those with that process's
-        file)."""
-        return sorted(int(p.name.split(".")[0])
-                      for p in self.directory.glob("*.pt")
-                      if p.name.split(".")[0].isdigit() and
-                      p == self._path(int(p.name.split(".")[0]), process))
+        """The saved steps: each step saved whole, or by every process
+        of a world (``process`` (rank, world): the steps with that
+        process's file, what its retention deletes)."""
+        whole, procs = self._scan()
+        if process is not None:
+            return sorted(step for (step, world), ranks in procs.items()
+                          if world == process[1] and process[0] in ranks)
+        return sorted(whole | {step for (step, world), ranks in procs.items()
+                               if len(ranks) == world})
 
     def wait(self):
         """Block until pending asynchronous saves are on disk; raise the

@@ -37,7 +37,6 @@ import numpy as np
 
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
 from ray_tpu_torch.data.iterator import DataIterator
-from ray_tpu_torch.parallel.mesh import split_axes
 from ray_tpu_torch.train.worker_group import BackendExecutor
 
 
@@ -189,9 +188,9 @@ def mesh_train_loop(config: dict) -> None:
     random tokens [batch_size, seq_len] seeded by the step. Declares the
     rank's FLOPs a step as JAX does (6 · parameters · batch elements), of
     its own work: its rows of the global batch, over the processes along
-    tp (each its heads and mlp columns) and along sp (each its chunk of
-    the sequence). Reports ``loss``, ``grad_norm`` and ``step`` each
-    step."""
+    tp (each its heads and mlp columns), along sp (each its chunk of
+    the sequence) and along pp (each its stage's layers). Reports
+    ``loss``, ``grad_norm`` and ``step`` each step."""
     import torch
 
     from ray_tpu_torch.train import session
@@ -226,12 +225,12 @@ def mesh_train_loop(config: dict) -> None:
             n_params = sum(math.prod(x.shape)
                            for x in tree_leaves(state.params))
             # the rank's work: its rows (Trainer keeps them) of the batch,
-            # over the processes along tp and sp; the processes of one
+            # over the processes along tp, sp and pp; the processes of one
             # line of any other spanned axis do the same work
             procs = trainer.mesh.layout.procs if trainer.mesh.layout \
                 else {}
-            share = math.prod(procs.get(a, 1) for a in
-                              {*trainer._rank_step().split_axes, "tp", "sp"})
+            share = math.prod(procs.get(a, 1) for a in {
+                *trainer._rank_step().split_axes, "tp", "sp", "pp"})
             session.set_flops_per_step(6.0 * n_params * batch.numel()
                                        / share)
         state, metrics = trainer.train_step(state, batch)
@@ -244,8 +243,9 @@ class TorchMeshTrainer(DataParallelTrainer):
     its places over its process group (the counterpart of
     ``JaxMeshTrainer``; reference: TorchTrainer). The world is the product
     of the spanned axes' sizes (dp's share of processes for dp): the
-    layout is checked before any rank starts (``split_axes``; pp, ep or
-    an axis cut between processes raise ``NotImplementedError``). The
+    layout is checked before any rank starts (an axis cut between
+    processes, or the ring across processes beside other places in a
+    process, raises ``NotImplementedError``). The
     configs travel in ``train_loop_config`` (``model_config``,
     ``train_config``, and ``seed``, ``steps``, ``batch_size``,
     ``seq_len``). With a dataset every rank reads the whole of it as
@@ -257,7 +257,10 @@ class TorchMeshTrainer(DataParallelTrainer):
         config = dict(kw.pop("train_loop_config", None) or {})
         config.update(model_config=model_config, train_config=train_config)
         super().__init__(mesh_train_loop, train_loop_config=config, **kw)
-        split_axes(train_config.mesh_axes, self.scaling.num_workers)
+        from ray_tpu_torch.train.trainer import _local_axes
+
+        _local_axes(train_config.mesh_axes, self.scaling.num_workers,
+                    train_config.strategy)
 
     def _shard(self, columns: dict, rank: int) -> DataIterator:
         return DataIterator([{k: np.asarray(v) for k, v in

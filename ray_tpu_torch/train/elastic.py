@@ -7,6 +7,16 @@ tensors), so a restore places the state onto whatever mesh exists now,
 fewer places after a failure or more after a scale-up, by the new mesh's
 shardings (``CheckpointManager.restore(target=, shardings=)``). A place is
 a ``torch.device``; one card may fill several places of a mesh.
+
+Across processes (``process_group=``) the mesh is global, its places
+dealt to the processes (``parallel.mesh.split_axes``), each process
+giving its own ``devices``. A checkpoint saved there holds each
+process's chunks in a file of its own, and restores onto any layout and
+world (``train.checkpoint``), so a reform is the JAX path after
+``jax.distributed`` re-initialises with the survivors: the survivors join
+a new process group, and each calls ``reform(process_group=)``, which
+rebuilds the global mesh over the new world and restores the newest
+checkpoint into this process's places of it.
 """
 
 from __future__ import annotations
@@ -16,7 +26,8 @@ import time
 from dataclasses import dataclass
 from typing import Callable
 
-from ray_tpu_torch.parallel.mesh import create_mesh, visible_devices
+from ray_tpu_torch.parallel.mesh import Mesh, create_mesh, visible_devices
+from ray_tpu_torch.parallel.process_group import mesh_layout
 from ray_tpu_torch.train.checkpoint import CheckpointManager
 from ray_tpu_torch.train.telemetry import StepTelemetry, record_run_bucket
 from ray_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -39,9 +50,11 @@ class ElasticTrainer:
 
     ``mesh_axes_fn(n_places) -> axes`` decides the mesh shape for any
     number of places, so a reformation after losing (or gaining) places
-    picks a valid factorization. The places are this process's: a reform
-    of a mesh across processes (``process_group=``) comes with ROADMAP
-    slice 11 and raises ``NotImplementedError``."""
+    picks a valid factorization. With ``process_group`` (this process's
+    ``ProcessGroup``) the places are global: ``mesh_axes_fn`` gets the
+    world size times this process's places (``devices``, default its
+    rank's device), and the mesh spans the processes (module
+    docstring)."""
 
     def __init__(self, model_cfg, train_cfg: TrainConfig, *,
                  checkpoint_dir: str,
@@ -49,11 +62,7 @@ class ElasticTrainer:
                  devices=None, checkpoint_every: int = 50,
                  max_to_keep: int = 3, run_name: str | None = None,
                  process_group=None):
-        if process_group is not None:
-            raise NotImplementedError(
-                "ElasticTrainer's reform of a mesh across processes (the "
-                "spanned axes re-dealt to the processes left) comes with "
-                "ROADMAP slice 11")
+        self.process_group = process_group
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.mesh_axes_fn = mesh_axes_fn or _dp_axes
@@ -66,16 +75,32 @@ class ElasticTrainer:
         # elastic runs are driver-driven (no rank session): the trainer
         # owns its step clock, so its accounting matches the harness's
         self.telemetry = StepTelemetry(self.run_name, 0)
-        self._build(devices if devices is not None else visible_devices())
+        self._build(devices)
+
+    @property
+    def places(self) -> int:
+        """The mesh's places: this process's, times the world size across
+        processes."""
+        world = self.process_group.world_size if self.process_group else 1
+        return world * len(self.devices)
 
     def _build(self, devices):
+        pg = self.process_group
+        if devices is None:
+            devices = [pg.device] if pg is not None else visible_devices()
         self.devices = list(devices)
         if not self.devices:
             raise ValueError("ElasticTrainer needs at least one place")
-        mesh = create_mesh(self.mesh_axes_fn(len(self.devices)),
-                           devices=self.devices)
+        axes = self.mesh_axes_fn(self.places)
+        if pg is None:
+            mesh = create_mesh(axes, devices=self.devices)
+        else:
+            layout = mesh_layout(pg, axes)
+            local = create_mesh(layout.local, devices=self.devices)
+            mesh = Mesh(local.devices, local.axis_names, layout)
         self.trainer = Trainer(self.model_cfg, self.train_cfg, mesh=mesh,
-                               device=mesh.devices.ravel()[0])
+                               device=mesh.devices.ravel()[0],
+                               process_group=pg)
 
     # -- state lifecycle -------------------------------------------------
 
@@ -96,17 +121,21 @@ class ElasticTrainer:
 
     # -- reformation -----------------------------------------------------
 
-    def reform(self, devices=None):
+    def reform(self, devices=None, *, process_group=None):
         """Rebuild the mesh over the (new) places and restore the newest
-        checkpoint onto it; returns the restored state. Its seconds go to
-        the run's ``restart`` goodput bucket."""
+        checkpoint onto it; returns the restored state. Across processes,
+        ``process_group`` is the group the processes left (or the new
+        world) joined, and the mesh is dealt to it. Its seconds go to the
+        run's ``restart`` goodput bucket."""
         t0 = time.perf_counter()
         self.ckpt.wait()  # pending async saves must be durable first
-        old_n = len(self.devices)
-        self._build(devices if devices is not None else visible_devices())
+        old_n = self.places
+        if process_group is not None:
+            self.process_group = process_group
+        self._build(devices)
         state = self.restore_latest()
         event = ReformEvent(step=int(state.step), old_devices=old_n,
-                            new_devices=len(self.devices),
+                            new_devices=self.places,
                             seconds=time.perf_counter() - t0)
         self.reform_events.append(event)
         # the step clock skips past the reform, so the gap is not counted

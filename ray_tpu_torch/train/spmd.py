@@ -91,7 +91,13 @@ move back.
   exchange (``regroup`` with ``group=``). The trainer sums the gradient
   of a leaf over every split axis that does not cut it, and
   ``apply_update``'s clip norm counts each index range once across
-  processes.
+  processes. Over a spanned ep each process runs its own experts on the
+  tokens of every data process: the router logits are gathered over the
+  data processes in the batch's row order and routed alike everywhere
+  (``route_logits``), the slot partials summed over them, and every
+  expert's output gathered over ep. Over a spanned pp each process holds
+  one stage and runs its slots of the 1F1B (``parallel.pipeline``), the
+  embedding and head on this process's rows.
 - **The optimizer on chunks** (``apply_update``). AdamW updates each
   distinct chunk in place; the global norm for the clip counts each index
   range once, so replicated chunks are not counted twice, and replicas of
@@ -310,10 +316,6 @@ class RankStep:
             mesh.spans(self.tp) else None
         self.sp_group = mesh.group(sp_axis) if attn_impl == "ring" and \
             mesh.spans(sp_axis) else None
-        if mesh.spanned and family is mixtral:
-            raise NotImplementedError(
-                "Mixtral over a mesh across processes (ep's exchange between "
-                "processes) comes with ROADMAP slice 11")
         if self.tp is None:
             return
         n = mesh.shape[self.tp]
@@ -364,11 +366,13 @@ class RankStep:
         rank's first place."""
         return [placed.chunks[_flat(self.mesh, p[0])] for p in units]
 
-    def cut(self, x: torch.Tensor, units: list) -> list:
-        """``x`` (a pipeline microbatch, a forward's tokens) cut over the
+    def cut(self, x: torch.Tensor, units: list, local: bool = False) -> list:
+        """``x`` (a forward's global tokens, or with ``local`` this
+        process's rows, as a pipeline microbatch holds them) cut over the
         data ranks as ``batch_sharding`` cuts a batch."""
+        mesh = self.mesh.local() if local else self.mesh
         return self.chunks_of(device_put(x, batch_sharding(
-            self.mesh, self.rules, x.dim(), shard_seq=False)), units)
+            mesh, self.rules, x.dim(), shard_seq=False)), units)
 
     def _ring_mesh(self, mesh: Mesh, coords: tuple) -> Mesh | None:
         if self.attn_impl != "ring":
@@ -493,6 +497,22 @@ class RankStep:
         xs = [x + y + p["b_down"] for x, y, p in zip(xs, parts, ps)]
         return [norm(x, p, 2) for x, p in zip(xs, ps)] if post else xs
 
+    def route_logits(self, logits, mesh):
+        """The router's float32 logits of every data rank, in the batch's
+        row order, from this process's (``logits``, its data ranks'
+        rows); and the row of the first of them. Where data axes span
+        processes the logits are gathered over them, the minor axis
+        first (a few kB a layer: [T, E])."""
+        data = [a for a in self.data_axes if mesh.spans(a)]
+        block = int(np.ravel_multi_index(
+            [mesh.layout.index[a] for a in data],
+            [mesh.layout.procs[a] for a in data])) if data else 0
+        first = block * logits.shape[0]
+        for a in reversed(data):
+            logits = all_gather([logits], gather_axis=0,
+                                group=mesh.group(a))[0]
+        return logits, first
+
     def _moe(self, g: _Gathers, layer: dict, mesh, units, xs_units):
         """Mixtral's MoE sublayer over every data rank: global routing,
         each ep place its own experts (see the module docstring).
@@ -508,35 +528,47 @@ class RankStep:
             logits.append(h.float() @ g.local(layer["router"], places[0],
                                               keep).float())
         home = hs[0].device
-        rows = np.cumsum([0] + [h.shape[0] for h in hs])
-        capacity = max(1, int(cfg.capacity_factor * int(rows[-1])
+        every, first = self.route_logits(
+            torch.cat([x.to(home) for x in logits]), mesh)
+        rows = first + np.cumsum([0] + [h.shape[0] for h in hs])
+        capacity = max(1, int(cfg.capacity_factor * every.shape[0]
                               * cfg.top_k / e))
-        dispatch, combine, aux = router_topk(
-            torch.cat([x.to(home) for x in logits]), top_k=cfg.top_k,
-            capacity=capacity)
+        dispatch, combine, aux = router_topk(every, top_k=cfg.top_k,
+                                             capacity=capacity)
         dtype = hs[0].dtype
         # each data rank's tokens into every expert's slots, float32
         partials = [matmul_f32(
             dispatch[a:z].to(h.device, dtype).reshape(z - a, -1).T, h)
             for h, a, z in zip(hs, rows[:-1], rows[1:])]
         groups = self.expert_places(mesh)
-        slots = e // len(groups) * capacity
+        # this process's ep indices: all, or its own where ep spans
+        n_ep = mesh.shape[self.ep] if self.ep else 1
+        ep0 = mesh.offset(self.ep) if self.ep else 0
+        slots = e // n_ep * capacity
         keep = tuple(a for a in (self.ep, self.tp) if a)
+        spanned_data = [a for a in self.data_axes if mesh.spans(a)]
         outs = []
-        for i, group in enumerate(groups):
+        for i, group in enumerate(groups, start=ep0):
             dev = mesh.devices[group[0]]
             total = None
             for part in partials:
                 piece = part[i * slots:(i + 1) * slots].to(dev)
                 total = piece if total is None else total + piece
-            x = total.to(dtype).reshape(-1, capacity, d)
+            # the other data processes' tokens into these experts' slots
+            for a in spanned_data:
+                total = psum([total], group=mesh.group(a))[0]
+            x = self._enter(total.to(dtype).reshape(-1, capacity, d))
             parts = [_expert_ffn(x.to(mesh.devices[c]),
                                  *(g.local(layer[n], c, keep)
                                    for n in _EXPERT_LEAVES))
                      for c in group]
-            outs.append(reduce_mlp(parts)[0].to(dtype))
-        expert_out = gather_experts(outs, gather_axis=0)[0] \
-            .reshape(-1, d)
+            outs.append(self._sum(reduce_mlp, parts)[0].to(dtype))
+        # every expert's outputs, from the ep places (processes) that ran
+        # them, at every data rank
+        expert_out = gather_experts(
+            outs, gather_axis=0, **({"group": mesh.group(self.ep)}
+                                    if self.ep and mesh.spans(self.ep)
+                                    else {}))[0].reshape(-1, d)
         out = []
         for places, xs, a, z in zip(units, xs_units, rows[:-1], rows[1:]):
             x = xs[0]
@@ -700,12 +732,12 @@ class RankStep:
         ``tokens`` [B, S], cut over the data ranks: the global float32
         logits [B, S, vocab] (bert: the hidden states [B, S, d]) on the
         mesh's first device; Mixtral with ``return_aux_loss`` also its
-        weighted aux loss."""
+        weighted aux loss. On a mesh across processes ``tokens`` is the
+        global batch and the result this process's rows of the global
+        logits, its block of the batch as the data axes cut it (the whole
+        batch where no data axis spans processes); Mixtral's aux loss is
+        the global one."""
         mesh = self.mesh
-        if mesh.spanned:
-            raise NotImplementedError(
-                f"the forward over a mesh across processes ({mesh}) comes "
-                "with ROADMAP slice 11")
         units = self.units(mesh)
         g = _Gathers()
         cut = partial(self.cut, units=units)
@@ -739,12 +771,25 @@ class RankStep:
 
     def embed_fn(self, pp_axis: str):
         """(io params, tokens [mb, s]) -> each data rank's embedded
-        microbatch chunk, at the first stage."""
+        microbatch chunk, at the first stage (this process's, where
+        ``pp_axis`` spans processes)."""
         def embed(io, tokens):
             units = self.units(self.mesh, {pp_axis: 0})
-            return self._embed(_Gathers(), io, self.cut(tokens, units),
-                               units, self.mesh)
+            return self._embed(_Gathers(self.split_axes), io,
+                               self.cut(tokens, units, local=True), units,
+                               self.mesh)
         return embed
+
+    def stage_like(self, pp_axis: str, tokens, dtype) -> list:
+        """Empty activations of the microbatch ``tokens`` [mb, s] in the
+        stage functions' form (each data rank's rows at each of its
+        places, one tensor a data rank): the shapes of what a stage
+        receives from another stage's process."""
+        units = self.units(self.mesh, {pp_axis: 0})
+        return [[torch.empty(*tok.shape, self.cfg.d_model, dtype=dtype,
+                             device=_device(self.mesh, places[0]))]
+                * len(places) for places, tok in
+                zip(units, self.cut(tokens, units, local=True))]
 
     def head_fn(self, pp_axis: str):
         """(io params, the last stage's activations, targets, mask) ->
@@ -756,11 +801,12 @@ class RankStep:
         for 2 x 2048 tokens at Llama-3's vocab, beside a 64 GB state)."""
         def head_fn(io, ys, tgt, msk):
             units = self.units(self.mesh,
-                               {pp_axis: self.mesh.shape[pp_axis] - 1})
-            g = _Gathers()
+                               {pp_axis: self.mesh.local_shape[pp_axis] - 1})
+            g = _Gathers(self.split_axes)
             loss = weight = None
-            for places, y, t, mk in zip(units, ys, self.cut(tgt, units),
-                                        self.cut(msk, units)):
+            for places, y, t, mk in zip(units, ys,
+                                        self.cut(tgt, units, local=True),
+                                        self.cut(msk, units, local=True)):
                 dev = _device(self.mesh, places[0])
                 h = self._final_norm(g, io, y[0].to(dev), places[0])
                 mk = mk.to(dev).float()
@@ -788,8 +834,13 @@ def placed_forward(family, cfg, params: dict, tokens, *, mesh: Mesh, rules,
     rank runs its rows of ``tokens`` [B, S] with the per-rank blocks
     (tensor-parallel where the rules cut heads, Mixtral's experts over
     ``ep`` with global routing) and the global output comes back on the
-    mesh's first device. ``kwargs``: ``return_aux_loss`` (mixtral),
-    ``attention_mask`` and ``token_type_ids`` (bert)."""
+    mesh's first device. On a mesh across processes (``parallel.mesh``)
+    each process runs its places, ``tokens`` is the global batch, and the
+    result is this process's rows of the global output, its block of the
+    batch as ``batch_sharding`` cuts it over the data axes that span
+    processes (all rows where none does). ``kwargs``:
+    ``return_aux_loss`` (mixtral), ``attention_mask`` and
+    ``token_type_ids`` (bert)."""
     step = RankStep(family, cfg, mesh, rules, attn_impl=attn_impl)
     return step.forward(params, torch.as_tensor(tokens), **kwargs)
 

@@ -33,11 +33,16 @@ is the tensor itself. As in JAX:
 Across processes (``process_group=``, a ``parallel.process_group``
 ``ProcessGroup``), as JAX across the processes of ``jax.distributed``:
 the global mesh's places are dealt to the processes in row-major order
-(``parallel.mesh.split_axes``): dp, fsdp, tp and sp may span processes,
-one index a process (dp also an equal share of its indices), and each
-process drives its own places, as above, with subgroup collectives along
-the spanned axes (``train.spmd``); pp or ep across processes, or an axis
-cut between them, raise ``NotImplementedError``. ``train_step`` takes the
+(``parallel.mesh.split_axes``): dp, fsdp, tp, sp and pp may span
+processes, one index a process (dp also an equal share of its indices),
+and each process drives its own places, as above, with subgroup
+collectives along the spanned axes (``train.spmd``); an axis cut between
+processes raises ``NotImplementedError``. Over a spanned pp each process
+holds its own stage's layers (and the io parameters, replicated over pp)
+and runs that stage's slots of the 1F1B schedule, the activations and
+gradients sent between the stages' processes
+(``parallel.pipeline``), which sum the io gradients and the loss over
+pp. ``train_step`` takes the
 global batch and keeps this process's rows over the spanned data axes
 (and, under a spanned sp, ``train.spmd`` its chunk of the sequence after
 the shift); the loss is the global masked mean (each process's token
@@ -132,10 +137,23 @@ def _mesh_on(device, mesh_axes: dict, layout=None) -> Mesh:
     return Mesh(mesh.devices, mesh.axis_names, layout)
 
 
-def _local_axes(mesh_axes: dict, world: int) -> dict:
+def _local_axes(mesh_axes: dict, world: int, strategy=None) -> dict:
     """The axes of one process's mesh when ``world`` processes share the
-    global mesh ``mesh_axes`` (``parallel.mesh.split_axes``)."""
-    return split_axes(mesh_axes, world)[0]
+    global mesh ``mesh_axes`` (``parallel.mesh.split_axes``). Raises
+    ``NotImplementedError`` for a layout whose step does not yet run
+    across processes: an axis cut between them (``split_axes``), or the
+    ``strategy``'s sequence axis across processes beside other places in
+    a process (the ring between processes takes one place a process;
+    ROADMAP slice 11b)."""
+    local, procs = split_axes(mesh_axes, world)
+    seq = [a for a in _axes_of(_rules(strategy).seq) if a in procs] \
+        if strategy is not None else []
+    if seq and math.prod(local.values()) > 1:
+        raise NotImplementedError(
+            f"the ring over {seq[0]!r} across processes takes one place a "
+            f"process; {mesh_axes} at world {world} leaves {local} in each "
+            "(ROADMAP slice 11b)")
+    return local
 
 
 def _named_chunks(tree, prefix="") -> list:
@@ -203,6 +221,8 @@ class Trainer:
         self.rules = _rules(cfg.strategy)
         self.process_group = process_group
         if mesh is None and process_group is not None:
+            _local_axes(cfg.mesh_axes, process_group.world_size,
+                        cfg.strategy)
             layout = mesh_layout(process_group, cfg.mesh_axes)
             mesh = _mesh_on(self.device, layout.local, layout)
         self.mesh = mesh if mesh is not None else _mesh_on(
@@ -363,6 +383,9 @@ class Trainer:
         step = self._rank_step()
         n_pp = self.mesh.shape[self.pp_axis]
         m = self.cfg.n_microbatches or n_pp
+        # this process's stages: all of them, or its own where pp spans
+        # processes (the pipeline then runs that stage's slots alone)
+        n_local = self.mesh.local_shape[self.pp_axis]
         batch = batch.unshard()
         inputs, targets = batch[:, :-1], batch[:, 1:]
         mask = (targets != -1).float()
@@ -377,16 +400,19 @@ class Trainer:
         # over pp
         stacked = [{n: st.take(self.pp_axis, i)
                     for n, st in params["blocks"].items()}
-                   for i in range(n_pp)]
+                   for i in range(n_local)]
         stages = [{n: spmd.unbind_layers(st) for n, st in stage.items()}
                   for stage in stacked]
         io = {k: v for k, v in params.items() if k != "blocks"}
         mb = b // m
+        x_micro = inputs.reshape(m, mb, s)
         (loss_sum, weight_sum), (d_sp, d_io, _) = pipeline_value_and_grad(
-            step.stage_fn, step.head_fn(self.pp_axis), stages, io,
-            inputs.reshape(m, mb, s), targets.reshape(m, mb, s),
-            mask.reshape(m, mb, s), mesh=self.mesh, axis=self.pp_axis,
-            embed_fn=step.embed_fn(self.pp_axis))
+            step.stage_fn, step.head_fn(self.pp_axis), stages, io, x_micro,
+            targets.reshape(m, mb, s), mask.reshape(m, mb, s),
+            mesh=self.mesh, axis=self.pp_axis,
+            embed_fn=step.embed_fn(self.pp_axis),
+            like=step.stage_like(self.pp_axis, x_micro[0],
+                                 params["embedding"].dtype))
         count = weight_sum.clamp(min=1.0)
         grads = {}
         for name, st in io.items():
@@ -426,10 +452,12 @@ class Trainer:
     def loss_and_grads(self, params, batch):
         """The loss of ``params`` on ``batch`` and its gradient, in the
         form of ``params``: placed tensors for a placed tree, global
-        tensors for plain ones. No update. Where fsdp or sp split the
+        tensors for plain ones. No update. Where fsdp, sp or pp split the
         loss between processes, each process's part is only summed by
         ``train_step``: this raises there."""
         split = set(self._rank_step().split_axes) - {"dp"}
+        if self.pp_axis and self.mesh.spans(self.pp_axis):
+            split.add(self.pp_axis)
         if split:
             raise NotImplementedError(
                 f"loss_and_grads with {sorted(split)} across processes: "

@@ -473,34 +473,34 @@ def test_mesh_trainer_spans_fsdp_and_tp_over_four_ranks(tmp_path):
 
 
 def test_what_spans_processes_is_refused_before_any_rank_starts(tmp_path):
-    """pp across processes (ROADMAP slice 11), an axis cut between
-    processes, ElasticTrainer's reform across processes, and
-    ``loss_and_grads`` where fsdp splits the loss between processes raise
-    before anything runs; nothing falls back to one process."""
-    from ray_tpu_torch.train.elastic import ElasticTrainer
+    """What does not yet span processes (ROADMAP slice 11b) raises before
+    anything runs: the ring across processes beside other places in a
+    process, and an axis cut between processes; so does
+    ``loss_and_grads`` where fsdp or pp split the loss between processes.
+    Nothing falls back to one process."""
     from ray_tpu_torch.train.trainer import TrainConfig, Trainer
 
     _, tcfg = _configs("llama")
-    for axes, match in (({"pp": 2, "dp": 2}, "axis 'pp' across processes"
-                         ".*slice 11"),
-                        ({"tp": 4}, "axis 'tp' of size 4")):
+    for axes, strategy, match in (
+            ({"sp": 2, "tp": 2}, "fsdp_tp_sp",
+             "ring over 'sp' across processes.*slice 11b"),
+            ({"tp": 4}, "fsdp_tp", "axis 'tp' of size 4.*slice 11b")):
         with pytest.raises(NotImplementedError, match=match):
             dpt.TorchMeshTrainer(
-                tcfg, TrainConfig(mesh_axes=axes),
+                tcfg, TrainConfig(mesh_axes=axes, strategy=strategy),
                 scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
                 run_config=RunConfig(storage_path=str(tmp_path)))
     assert multiprocessing.active_children() == []
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        ElasticTrainer(tcfg, TrainConfig(), checkpoint_dir=str(tmp_path),
-                       devices=["cpu"], process_group=object())
-    # one process of two sharing {fsdp 2}: its loss is a part of the
-    # global one, which only train_step sums
-    tr = Trainer(tcfg, TrainConfig(mesh_axes={"fsdp": 2}), device="cpu",
-                 process_group=_OneOfTwo())
-    assert tr.mesh.spans("fsdp") and tr.mesh.local_shape == {"fsdp": 1}
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        tr.loss_and_grads(tllama.init_params(tcfg, device="cpu"),
-                          _batch("llama", 2, 8, 0))
+    # one process of two sharing {fsdp 2}, or {pp 2}: its loss is a part
+    # of the global one, which only train_step sums
+    for axes, strategy, axis in (({"fsdp": 2}, "fsdp", "fsdp"),
+                                 ({"pp": 2}, "pp_fsdp", "pp")):
+        tr = Trainer(tcfg, TrainConfig(mesh_axes=axes, strategy=strategy),
+                     device="cpu", process_group=_OneOfTwo())
+        assert tr.mesh.spans(axis) and tr.mesh.local_shape == {axis: 1}
+        with pytest.raises(NotImplementedError, match=axis):
+            tr.loss_and_grads(tllama.init_params(tcfg, device="cpu"),
+                              _batch("llama", 2, 8, 0))
 
 
 class _OneOfTwo:

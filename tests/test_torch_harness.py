@@ -426,10 +426,9 @@ def test_mesh_trainer_world_2_declares_each_rank_its_rows(tmp_path):
 
 def test_local_axes_span_dp_only():
     """The global mesh's places dealt to the processes in row-major axis
-    order: dp may split into equal shares; fsdp, tp and sp span the
-    processes one index a process or stay inside each; an axis cut
-    between processes otherwise, and pp or ep across processes, raise
-    naming the axis (the last two naming ROADMAP slice 11)."""
+    order: dp may split into equal shares; pp, fsdp, ep, tp and sp span
+    the processes one index a process or stay inside each; an axis cut
+    between processes otherwise raises naming the axis."""
     assert _local_axes({"dp": 2}, 2) == {"dp": 1}
     assert _local_axes({"dp": 4, "fsdp": 2}, 2) == {"dp": 2, "fsdp": 2}
     assert _local_axes({"dp": -1, "tp": 2}, 3) == {"dp": 1, "tp": 2}
@@ -445,11 +444,10 @@ def test_local_axes_span_dp_only():
                               ({"fsdp": 2, "sp": 4}, 4, "sp")):
         with pytest.raises(NotImplementedError, match=f"axis '{axis}'"):
             _local_axes(axes, world)
-    for axes, axis in (({"pp": 2, "dp": 1}, "pp"),
-                       ({"fsdp": 2, "ep": 2}, "ep")):
-        with pytest.raises(NotImplementedError,
-                           match=f"axis '{axis}' across processes.*slice 11"):
-            _local_axes(axes, 2 if axis == "pp" else 4)
+    assert _local_axes({"pp": 2, "dp": 1}, 2) == {"pp": 1, "dp": 1}
+    assert _local_axes({"pp": 2, "dp": 2}, 2) == {"pp": 1, "dp": 2}
+    assert _local_axes({"fsdp": 2, "ep": 2}, 4) == {"fsdp": 1, "ep": 1}
+    assert _local_axes({"fsdp": 2, "ep": 2}, 2) == {"fsdp": 1, "ep": 2}
 
 
 class _FakeGroup:

@@ -200,10 +200,14 @@ def _controls(control: str, stack):
     process's replica of the sum carries the gradient on, so it is counted
     once a tp process), ``skip_reduce_scatter``
     (the fsdp gathers keep their piece of the gradient, unsummed over the
-    data processes) and ``reversed_ring`` (K/V shifted the wrong way
-    round the ring)."""
+    data processes), ``reversed_ring`` (K/V shifted the wrong way
+    round the ring), ``backward_to_next_stage`` (the 1F1B's gradients
+    sent to stage s+1 in place of s-1), ``io_sum_skipped`` (the io
+    parameters' gradients not summed over the stages' processes) and
+    ``local_routing`` (each process routes its own tokens, with a
+    capacity of its own token count)."""
     from ray_tpu_torch.parallel import collectives as col
-    from ray_tpu_torch.parallel import ring_attention
+    from ray_tpu_torch.parallel import pipeline, ring_attention
     from ray_tpu_torch.train import spmd
 
     def patch(module, name, value):
@@ -224,6 +228,13 @@ def _controls(control: str, stack):
     elif control == "reversed_ring":
         patch(ring_attention, "ring_shift", lambda xs, shift=1, group=None:
               col.ring_shift(xs, shift=-shift, group=group))
+    elif control == "backward_to_next_stage":
+        patch(pipeline, "backward_peer", lambda s, n: (s + 1) % n)
+    elif control == "io_sum_skipped":
+        patch(pipeline, "reduce_io_grads", lambda grads, group: None)
+    elif control == "local_routing":
+        patch(spmd.RankStep, "route_logits",
+              lambda self, logits, mesh: (logits, 0))
     elif control:
         raise ValueError(f"unknown control {control!r}")
 
@@ -411,3 +422,214 @@ def collectives_across_loop(config):
                      buffer_bytes=max((b.numel() * b.element_size()
                                        for b in pg._pinned.values()),
                                       default=0))
+
+
+def ranged_chunks(tree, prefix="") -> dict:
+    """``{"<leaf>|<index range>": chunk}`` for every distinct chunk of this
+    process's places (a plain tensor: its whole range), the range as
+    ``train.checkpoint`` keys it."""
+    from ray_tpu_torch.train.checkpoint import _range_key
+
+    out = {}
+    for name, st in tree.items():
+        if isinstance(st, dict):
+            out.update(ranged_chunks(st, f"{prefix}{name}."))
+        elif hasattr(st, "chunks"):
+            idx = st.sharding.indices(st.shape)
+            for place, c in st.distinct():
+                out[f"{prefix}{name}|{_range_key(idx[place])}"] = \
+                    c.detach().numpy()
+        else:
+            out[f"{prefix}{name}|{_range_key([slice(0, n) for n in st.shape])}"] \
+                = st.detach().numpy()
+    return out
+
+
+def _process_mesh(pg, axes):
+    """This process's part of the global mesh ``axes``, every place on
+    the CPU."""
+    import math
+
+    from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
+    from ray_tpu_torch.parallel.process_group import mesh_layout
+
+    layout = mesh_layout(pg, axes)
+    local = create_mesh(layout.local, devices=["cpu"] * math.prod(
+        layout.local.values()))
+    return Mesh(local.devices, local.axis_names, layout)
+
+
+def _forward_case(ctx, name, c, out):
+    """Mixtral's ``spmd.placed_forward`` under moe on this process's part
+    of the global mesh ``c["axes"]``, from the shared weights: its logit
+    rows, the aux loss, each routing's kept and assigned top-k slots, and
+    the shapes each of its ``_expert_ffn`` calls saw, to
+    ``<out>/<name>_rank<r>.npz``."""
+    import contextlib
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.models import mixtral
+    from ray_tpu_torch.parallel.sharding import PRESETS, shard_tree
+    from ray_tpu_torch.train import spmd
+
+    cfg = c["model_config"]
+    mesh = _process_mesh(ctx.process_group, c["axes"])
+    params = convert.params_from_numpy(cfg, c["params"], device="cpu")
+    placed = shard_tree(params, mixtral.param_logical_axes(cfg), mesh,
+                        PRESETS["moe"])
+    routed, experts = [], []
+    route, ffn = spmd.router_topk, spmd._expert_ffn
+
+    def router_topk(logits, top_k, capacity):
+        dispatch, combine, aux = route(logits, top_k=top_k,
+                                       capacity=capacity)
+        routed.append((float(dispatch.sum()), logits.shape[0] * top_k))
+        return dispatch, combine, aux
+
+    def expert_ffn(x, w_gate, w_up, w_down):
+        experts.append(tuple(x.shape) + tuple(w_gate.shape))
+        return ffn(x, w_gate, w_up, w_down)
+    with contextlib.ExitStack() as stack:
+        _controls(c.get("control"), stack)
+        spmd.router_topk, spmd._expert_ffn = router_topk, expert_ffn
+        stack.callback(setattr, spmd, "router_topk", route)
+        stack.callback(setattr, spmd, "_expert_ffn", ffn)
+        with torch.no_grad():
+            logits, aux = spmd.placed_forward(
+                mixtral, cfg, placed, torch.as_tensor(c["tokens"]),
+                mesh=mesh, rules=PRESETS["moe"], return_aux_loss=True)
+    np.savez(os.path.join(out, f"{name}_rank{ctx.rank}.npz"),
+             logits=logits.numpy(), aux=float(aux),
+             routed=np.array(routed), experts=np.array(experts))
+
+
+def elastic_axes(n: int) -> dict:
+    """The elastic cases' mesh for ``n`` places: {fsdp 2, tp n/2}, or
+    {fsdp n} for two or fewer."""
+    return {"fsdp": 2, "tp": n // 2} if n > 2 else {"fsdp": n}
+
+
+def _elastic_job(ctx, job, out):
+    """``ElasticTrainer(process_group=)`` over this world: ``job["steps"]``
+    steps from the shared weights, a checkpoint at the last (every
+    process its chunks); then the first ``job["survivors"]`` ranks leave
+    this group, join a new one of their own and ``reform`` onto it,
+    restoring that checkpoint, and take the remaining batches. Writes
+    ``saved``, ``restored`` and ``after`` chunks (by index range, and
+    after the last step by place) with the losses, norms and the reform
+    event to ``<out>/<stage>_rank<r>.npz``; the others leave after
+    saving."""
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.parallel.process_group import (free_port,
+                                                      init_process_group)
+    from ray_tpu_torch.parallel.sharding import place_tree
+    from ray_tpu_torch.train.elastic import ElasticTrainer
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.telemetry import run_goodput
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    pg, rank = ctx.process_group, ctx.rank
+    cfg, steps, batches = job["model_config"], job["steps"], job["batches"]
+    run = f"elastic-rank{rank}"
+    et = ElasticTrainer(cfg, TrainConfig(**job["train"]),
+                        checkpoint_dir=job["checkpoint_dir"],
+                        mesh_axes_fn=elastic_axes, devices=["cpu"],
+                        checkpoint_every=steps, run_name=run,
+                        process_group=pg)
+    params = convert.params_from_numpy(cfg, job["params"], device="cpu")
+    state = place_tree(TrainState.create(params, et.trainer.optimizer),
+                       et.trainer.state_shardings())
+    metrics = []
+
+    def dump(stage, state, **extra):
+        trees = {"params": state.params, **{
+            k: state.opt_state[k] for k in ("mu", "nu")}}
+        flat = {**extra, "step": state.step,
+                "count": state.opt_state["count"]}
+        for t, tree in trees.items():
+            flat.update(ranged_chunks(tree, f"{t}."))
+            flat.update(placed_chunks(tree, et.trainer.mesh, f"{t}."))
+        np.savez(os.path.join(out, f"{stage}_rank{rank}.npz"), **flat)
+
+    state = et.fit(state, iter(batches[:steps]), steps=steps,
+                   on_metrics=metrics.append)
+    et.ckpt.wait()
+    dump("saved", state, losses=[m["loss"] for m in metrics],
+         grad_norms=[m["grad_norm"] for m in metrics])
+    port = pg.all_gather_object(free_port() if rank == 0 else None)[0]
+    # every process's file is on disk before any survivor restores
+    pg.all_reduce(torch.zeros(1))
+    if rank >= job["survivors"]:
+        et.close()
+        return
+    pg.destroy()
+    new = init_process_group("gloo", rank, job["survivors"], port,
+                             use_gpu=False)
+    state = et.reform(process_group=new)
+    event = et.reform_events[0]
+    dump("restored", state)
+    metrics.clear()
+    state = et.fit(state, iter(batches[steps:]),
+                   steps=len(batches) - steps, on_metrics=metrics.append)
+    dump("after", state, losses=[m["loss"] for m in metrics],
+         grad_norms=[m["grad_norm"] for m in metrics],
+         event=[event.step, event.old_devices, event.new_devices,
+                event.seconds],
+         restart_s=run_goodput(run)["restart"],
+         mesh=str(et.trainer.mesh.shape))
+    et.close()
+    new.destroy()
+
+
+def _toy_stage(sp, x):
+    return torch.tanh(x @ sp["w"])
+
+
+def _toy_head(io, y, t, m):
+    logits = y @ io["emb"].T          # tied: the embedding is the head
+    lse = torch.logsumexp(logits, -1)
+    tl = logits.gather(-1, t.long()[..., None])[..., 0]
+    return ((lse - tl) * m).sum(), m.sum()
+
+
+def _pipeline_case(ctx, toy, out):
+    """``pipeline_value_and_grad`` on the toy of
+    ``tests/test_torch_pipeline.py`` over {pp world}, this process's stage
+    alone, with and without ``embed_fn``: the sums, its stage's gradient,
+    the io and input gradients to ``<out>/pipeline_<embed>_rank<r>.npz``."""
+    from ray_tpu_torch.parallel.pipeline import pipeline_value_and_grad
+
+    mesh = _process_mesh(ctx.process_group, {"pp": ctx.world_size})
+    t = {k: torch.from_numpy(v) for k, v in toy.items()}
+    for embed in (False, True):
+        xs = t["tok"] if embed else t["x"]
+        (loss, weight), (d_sp, d_io, d_x) = pipeline_value_and_grad(
+            _toy_stage, _toy_head, [{"w": t["w"][ctx.rank]}],
+            {"emb": t["emb"]}, xs, t["tgt"], t["msk"], mesh=mesh,
+            embed_fn=(lambda io, tok: io["emb"][tok.long()]) if embed
+            else None, like=t["x"][0] if embed else None)
+        np.savez(os.path.join(out, f"pipeline_{embed}_rank{ctx.rank}.npz"),
+                 loss=float(loss), weight=float(weight),
+                 d_w=d_sp[0]["w"].numpy(), d_emb=d_io["emb"].numpy(),
+                 **({} if d_x is None else {"d_x": d_x.numpy()}))
+
+
+def spanned_loop(config):
+    """The pp, ep and elastic cases of one world, in order: the 1F1B on
+    a toy (``config["pipeline"]``, ``_pipeline_case``), the trainer
+    cases ``config["train"]`` (``cross_process_loop``'s), the forward
+    cases ``config["forward"]`` (``_forward_case``), then
+    ``config["elastic"]`` (last: its survivors leave this world's group)."""
+    torch.set_num_threads(1)
+    from ray_tpu_torch.train import session
+
+    ctx = session.get_context()
+    if config.get("pipeline"):
+        _pipeline_case(ctx, config["pipeline"], config["out"])
+    if config.get("train"):
+        cross_process_loop({"cases": config["train"], "out": config["out"]})
+    for name, c in config.get("forward", {}).items():
+        _forward_case(ctx, name, c, config["out"])
+        session.report({"case": name})
+    if config.get("elastic"):
+        _elastic_job(ctx, config["elastic"], config["out"])
