@@ -12,7 +12,16 @@ TMA instructions in their SASS, no spill, no ptxas note that setmaxnreg
 was ignored or wgmma serialized), holds each kernel against its plain
 PyTorch version at the shapes the main path gives it (timed by CUDA-graph
 replay, as a wrapper's host work per call can exceed the kernel's time
-on the card), then drives
+on the card) and runs the ring and Ulysses at Llama-3-8B's heads. Then
+RLlib's on-policy algorithms at the JAX package's defaults (a 64-wide
+policy/value MLP; no kernel of the table runs there): PPO on CartPole-v1
+for 3 iterations and on Bandit-v0 for 7, by which it must have learned
+it, IMPALA and APPO for 3 iterations each, each iteration's seconds
+split into sampling and learning, each with the card's update held
+against the CPU's from the same parameters and batch (1e-5 relative; a
+control that changes a clip must miss it), and the learner plane: mode
+"mesh" on 2 places of this card against one learner, mode "actors" on 2
+gloo rank processes of this card against mode "mesh". Then it drives
 the main path at the full width of Llama-3-8B with seeded random weights:
 the full 32-layer forward over 2048 tokens, the paged serving engine
 answering 10 requests, the model's gradient through the flash kernels at
@@ -4590,6 +4599,298 @@ def check_mixtral(torch, peaks) -> dict:
             "placed_forward": placed_counts}
 
 
+# ---------------------------------------------------------------------------
+# RLlib's on-policy algorithms (slice 12). No kernel of the table runs on
+# these paths (a 64-wide MLP's products are plain torch ops, as in JAX);
+# each is driven with the kernel counts zeroed right before it and read
+# right after
+# ---------------------------------------------------------------------------
+
+RL_ITERS = 3
+RL_TOL = 1e-5
+# The card's update against the CPU's from the same parameters and batch:
+# the parameters after RL_ITERS iterations on a batch sampled with the
+# initial ones, so the ratios have left 1 (at the very first update they
+# are 1 and no clip can bite). Each control changes the setting named, on
+# the CPU, and must miss RL_TOL.
+RL_CONTROLS = {"ppo": {"clip_eps": 0.02}, "impala": {"rho_clip": 0.5},
+               "appo": {"clip_param": 0.01}}
+RL_TIMED_UPDATES = 20
+
+
+def rl_rel(got: list, want: list) -> float:
+    """The worst over leaves of max |got - want| / max |want|."""
+    return max(float(np.max(np.abs(np.asarray(g, np.float64) - w))
+                     / max(float(np.max(np.abs(w))), 1e-30))
+               for g, w in zip(got, want))
+
+
+def rl_leaves(tree: dict) -> list:
+    return [tree[k][leaf] for k in tree for leaf in ("w", "b")]
+
+
+def rl_learner(loss_fn, params: dict, device, lr: float):
+    """A learner of CartPole's module at ``params`` on ``device``."""
+    from functools import partial
+
+    from ray_tpu_torch.rllib.learner_group import Learner
+    from ray_tpu_torch.rllib.ppo import adam, init_module
+
+    learner = Learner(init_fn=partial(init_module, obs_dim=4, n_actions=2),
+                      loss_fn=loss_fn, tx=adam(lr), seed=SEED, device=device)
+    learner.set_params(params)
+    return learner
+
+
+def rl_grads(learner, batch: dict) -> tuple:
+    """The learner's loss's gradients (numpy, in the module's parameter
+    order) and stats on ``batch``."""
+    from ray_tpu_torch.rllib.learner_group import _tensors, loss_grads
+
+    grads, stats = loss_grads(learner.loss_fn, learner.module,
+                              _tensors(batch, learner.device))
+    return ([g.cpu().numpy() for g in grads],
+            {k: float(v) for k, v in stats.items()})
+
+
+def rl_card_against_cpu(loss, kw: dict, control: dict, params: dict,
+                        batch: dict, lr: float) -> dict:
+    """One update from ``params`` on ``batch``, the card's against the
+    CPU's: the gradients, the stats and the parameters after one Adam
+    step, each within RL_TOL relative; the control's gradients (on the
+    CPU) must miss it. Also each update's milliseconds: the card's by CUDA
+    events over RL_TIMED_UPDATES after a warm-up (an update reads its
+    stats back, so the host is in the loop), the CPU's by the host
+    clock."""
+    from functools import partial
+
+    fn = partial(loss, **kw)
+    card, cpu = (rl_learner(fn, params, dev, lr) for dev in ("cuda", "cpu"))
+    card_g, card_s = rl_grads(card, batch)
+    cpu_g, cpu_s = rl_grads(cpu, batch)
+    ctl_g, _ = rl_grads(rl_learner(partial(loss, **{**kw, **control}),
+                                   params, "cpu", lr), batch)
+    card.update(batch)
+    cpu.update(batch)
+    errs = {"grads": rl_rel(card_g, cpu_g),
+            "stats": rl_rel([card_s[k] for k in cpu_s],
+                            list(cpu_s.values())),
+            "params": rl_rel(rl_leaves(card.get_params()),
+                             rl_leaves(cpu.get_params()))}
+    out = {"rel_err": errs, "tol": RL_TOL, "control": control,
+           "control_rel_err": rl_rel(ctl_g, cpu_g), "stats": card_s}
+    if max(errs.values()) > RL_TOL or out["control_rel_err"] <= RL_TOL:
+        raise AssertionError(f"card against CPU: {out}")
+    out["update_ms_card_cuda_events"] = cuda_ms(lambda: card.update(batch),
+                                                RL_TIMED_UPDATES)
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED_UPDATES):
+        cpu.update(batch)
+    out["update_ms_cpu_host_clock"] = (time.perf_counter() - t0) * 1e3 \
+        / RL_TIMED_UPDATES
+    return out
+
+
+def rl_iterations(torch, algo, keys: tuple, steps: int) -> dict:
+    """RL_ITERS ``train()`` calls with the kernel counts zeroed right before
+    and read right after: each iteration's seconds (host clock; the
+    learner's last stats are read back), split into sampling and learning,
+    and the environment steps a second (``steps`` consumed an
+    iteration)."""
+    if not all(p.is_cuda for p in algo.learner.module.parameters()):
+        raise AssertionError("the learner's parameters are not on the card")
+    zero_counts()
+    rows = []
+    for _ in range(RL_ITERS):
+        t0 = time.perf_counter()
+        r = algo.train()
+        seconds = time.perf_counter() - t0
+        if not all(np.isfinite(r[k]) for k in keys):
+            raise AssertionError(f"non-finite stats: {r}")
+        rows.append({**{k: r[k] for k in ("training_iteration",
+                                          "episode_return_mean",
+                                          "num_episodes", *keys)},
+                     "seconds": seconds, "sample_s": r["sample_time_s"],
+                     "learn_s": r["learn_time_s"],
+                     "env_steps_per_s": steps / seconds,
+                     "sampled_steps_per_s": steps / r["sample_time_s"]})
+    torch.cuda.synchronize()
+    return {"iterations": rows, "launches": launch_counts()}
+
+
+def rl_normalized(batch: dict, keys: tuple) -> dict:
+    """A rollout's columns ``keys``, advantages normalised as
+    ``PPO.train`` does."""
+    out = {k: batch[k] for k in keys}
+    adv = out["advantages"]
+    out["advantages"] = (adv - adv.mean()) / (adv.std() + 1e-8)
+    return out
+
+
+PPO_KEYS = ("obs", "actions", "logp", "advantages", "returns")
+
+
+def check_rllib_ppo(torch, smi: str) -> dict:
+    """PPO at its defaults on CartPole-v1 (2 workers, fragment 256, 4 SGD
+    passes of minibatch 128, hidden 64) on the card, RL_ITERS iterations;
+    then the card's update against the CPU's."""
+    from ray_tpu_torch.rllib.ppo import PPOConfig, _RolloutWorker, ppo_loss
+
+    algo = PPOConfig().build()
+    cfg = algo.config
+    theta0 = algo.learner.get_params()
+    run = rl_iterations(torch, algo, ("policy_loss", "vf_loss", "entropy"),
+                        cfg.num_rollout_workers * cfg.rollout_fragment_length)
+    batch = rl_normalized(_RolloutWorker(cfg.env, SEED + 1000).sample(
+        theta0, cfg.rollout_fragment_length, cfg.gamma, cfg.lam), PPO_KEYS)
+    check = rl_card_against_cpu(
+        ppo_loss, {"clip_eps": cfg.clip_eps,
+                   "entropy_coeff": cfg.entropy_coeff,
+                   "vf_coeff": cfg.vf_coeff},
+        RL_CONTROLS["ppo"], algo.learner.get_params(),
+        {k: v[:cfg.minibatch_size] for k, v in batch.items()}, cfg.lr)
+    emit("rllib_ppo", card=smi, env=cfg.env,
+         minibatches_per_iteration=cfg.num_sgd_iter * -(
+             -cfg.num_rollout_workers * cfg.rollout_fragment_length
+             // cfg.minibatch_size), **run, card_against_cpu=check)
+    return run["launches"]
+
+
+def check_rllib_bandit(torch, smi: str) -> dict:
+    """PPO learns Bandit-v0 on the card (tests/test_rllib.py's check: the
+    mean return above 0.85 after 7 iterations)."""
+    from ray_tpu_torch.rllib.ppo import PPOConfig
+
+    algo = (PPOConfig().environment("Bandit-v0")
+            .rollouts(num_rollout_workers=2, rollout_fragment_length=256)
+            .training(lr=0.01, num_sgd_iter=4, minibatch_size=128,
+                      entropy_coeff=0.0, gamma=0.0).build())
+    zero_counts()
+    t0 = time.perf_counter()
+    returns = [algo.train()["episode_return_mean"] for _ in range(7)]
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    emit("rllib_bandit", card=smi, returns=returns, seconds=seconds,
+         launches=counts)
+    if returns[-1] <= 0.85:
+        raise AssertionError(f"PPO did not learn the bandit: {returns}")
+    return counts
+
+
+def check_rllib_impala(torch, smi: str, name: str) -> dict:
+    """IMPALA, or APPO, at its defaults on CartPole-v1 (2 workers, unroll
+    64) on the card, RL_ITERS iterations; then the card's update against
+    the CPU's on trajectories sampled with the initial parameters."""
+    from ray_tpu_torch.rllib.appo import APPOConfig
+    from ray_tpu_torch.rllib.impala import (IMPALAConfig, _TrajectoryWorker,
+                                            impala_loss)
+
+    algo = (IMPALAConfig if name == "impala" else APPOConfig)().build()
+    cfg = algo.config
+    theta0 = algo.learner.get_params()
+    run = rl_iterations(
+        torch, algo, ("policy_loss", "vf_loss", "entropy", "mean_rho"),
+        cfg.num_rollout_workers * cfg.num_envs_per_worker
+        * cfg.unroll_length)
+    parts = [_TrajectoryWorker(cfg.env, SEED + 1000 * (i + 1)).sample(
+        theta0, cfg.unroll_length) for i in range(cfg.num_rollout_workers)]
+    batch = {k: np.concatenate([p[k] for p in parts])
+             for k in ("obs", "actions", "behavior_logits", "rewards",
+                       "dones", "bootstrap_obs")}
+    check = rl_card_against_cpu(
+        impala_loss, {
+            "gamma": cfg.gamma, "rho_clip": cfg.rho_clip,
+            "c_clip": cfg.c_clip, "entropy_coeff": cfg.entropy_coeff,
+            "vf_coeff": cfg.vf_coeff, "clip_param": cfg.clip_param},
+        RL_CONTROLS[name], algo.learner.get_params(), batch, cfg.lr)
+    emit(f"rllib_{name}", card=smi, env=cfg.env, clip_param=cfg.clip_param,
+         **run, card_against_cpu=check)
+    return run["launches"]
+
+
+def check_rllib_learners(torch, smi: str) -> dict:
+    """The learner plane on the card, PPO's loss on three CartPole
+    minibatches of 128 rows from the same parameters: mode "mesh" on 2
+    places of this card against one learner, then mode "actors" on 2 gloo
+    rank processes of this card against mode "mesh" (stats and final
+    parameters within RL_TOL; control: one learner on the first half of
+    each minibatch, a rank that skipped the all-reduce)."""
+    from functools import partial
+
+    from ray_tpu_torch.rllib.learner_group import Learner, LearnerGroup
+    from ray_tpu_torch.rllib.ppo import (PPOConfig, _RolloutWorker, adam,
+                                         init_module, ppo_loss)
+
+    cfg = PPOConfig()
+    theta0 = init_module(SEED, 4, 2, device="cpu").numpy_tree()
+    sample = rl_normalized(_RolloutWorker(cfg.env, SEED + 1000).sample(
+        theta0, 3 * cfg.minibatch_size, cfg.gamma, cfg.lam), PPO_KEYS)
+    mb = cfg.minibatch_size
+    batches = [{k: v[i * mb:(i + 1) * mb] for k, v in sample.items()}
+               for i in range(3)]
+    kw = dict(init_fn=partial(init_module, obs_dim=4, n_actions=2),
+              loss_fn=partial(ppo_loss, clip_eps=cfg.clip_eps,
+                              entropy_coeff=cfg.entropy_coeff,
+                              vf_coeff=cfg.vf_coeff),
+              tx=adam(cfg.lr), seed=SEED, device="cuda")
+
+    def run(learner, batches):
+        learner.set_params(theta0)
+        stats, seconds = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            stats.append(learner.update(b))
+            seconds.append(time.perf_counter() - t0)
+        return stats, learner.get_params(), seconds
+
+    def err(a, b):
+        return max(rl_rel(rl_leaves(a[1]), rl_leaves(b[1])),
+                   rl_rel([s[k] for s in a[0] for k in s],
+                          [s[k] for s in b[0] for k in s]))
+
+    zero_counts()
+    single = run(Learner(**kw), batches)
+    mesh_group = LearnerGroup(num_learners=2, mode="mesh", **kw)
+    mesh = run(mesh_group, batches)
+    control = run(Learner(**kw), [{k: v[:mb // 2] for k, v in b.items()}
+                                  for b in batches])
+    t0 = time.perf_counter()
+    actors_group = LearnerGroup(num_learners=2, mode="actors", **kw)
+    spawn_s = time.perf_counter() - t0
+    try:
+        actors = run(actors_group, batches)
+    finally:
+        actors_group.stop()
+    counts = launch_counts()
+    errs = {"mesh_vs_single": err(mesh, single),
+            "actors_vs_mesh": err(actors, mesh)}
+    control_err = err(control, mesh)
+    emit("rllib_learners", card=smi,
+         mesh_places=[str(d) for d in mesh_group._impl.places],
+         actors_backend=actors_group._impl.group.backend, rel_err=errs,
+         tol=RL_TOL, control_half_batch_rel_err=control_err,
+         update_s={"single": single[2], "mesh": mesh[2],
+                   "actors": actors[2]},
+         actors_spawn_s=spawn_s, launches=counts)
+    if max(errs.values()) > RL_TOL or control_err <= RL_TOL:
+        raise AssertionError(f"learner plane: {errs}, control {control_err}")
+    return counts
+
+
+def check_rllib(torch, smi: str) -> dict:
+    """Every RLlib phase, the kernel counts of each."""
+    t0 = time.perf_counter()
+    counts = {"rllib_ppo_3_iterations": check_rllib_ppo(torch, smi),
+              "rllib_bandit_7_iterations": check_rllib_bandit(torch, smi),
+              "rllib_impala_3_iterations":
+                  check_rllib_impala(torch, smi, "impala"),
+              "rllib_appo_3_iterations":
+                  check_rllib_impala(torch, smi, "appo"),
+              "rllib_learners": check_rllib_learners(torch, smi)}
+    emit("rllib_phases", seconds=time.perf_counter() - t0)
+    return counts
+
+
 def build_facts(kernels_mod, name, path, kernel) -> dict:
     """What the card runs for one Hopper kernel, from library ``name``:
     its SASS counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions,
@@ -4680,6 +4981,9 @@ def main() -> int:
     # Ulysses: each with its counts zeroed right before it
     ring_counts = check_ring_kernels(torch, peaks)
     check_ulysses(torch)
+    free_card(torch)
+    # RLlib's on-policy algorithms and their learner plane (slice 12)
+    rl_counts = check_rllib(torch, smi)
     free_card(torch)
 
     cfg = llama.llama3_8b()
@@ -4826,7 +5130,8 @@ def main() -> int:
                    "xproc_ep_rank0_forward_depth16":
                        slice11_counts["xproc_ep"][k],
                    "xproc_elastic_rank0_step_after_reform":
-                       slice11_counts["xproc_elastic"][k]}
+                       slice11_counts["xproc_elastic"][k],
+                   **{path: c[k] for path, c in rl_counts.items()}}
                for k in full_counts}
     kernels = [{
         "name": "flash_fwd", "route": "cuda",

@@ -4,7 +4,9 @@ The one bridge between the two packages' weights: the caller converts the
 JAX pytree with ``np.asarray`` (``jax.tree.map(np.asarray, params)``) and
 hands the numpy tree here. Names and layouts are the same on both sides
 (stacked ``[L, ...]`` blocks, ``x @ W`` orientation) for every model
-family, so the mapping is name for name.
+family, so the mapping is name for name. The RL policy/value module
+(``policy_value_from_numpy``) takes the tree of JAX's
+``rllib.ppo.init_module``, which is also RLlib's checkpoint format.
 """
 
 from __future__ import annotations
@@ -79,3 +81,34 @@ def params_from_numpy(cfg, tree: dict, *, device="cuda",
         return _to_tensor(node, dev, None if dtype is None else want.dtype)
 
     return convert(tree, expected, "")
+
+
+def policy_value_from_numpy(tree: dict, *, device="cuda"):
+    """The port's ``rllib.ppo.PolicyValueMLP`` from the numpy tree of JAX's
+    ``init_module`` (``ray_tpu/rllib/ppo.py:30``): ``{layer: {"w": [fan_in,
+    fan_out], "b": [fan_out]}}`` for the layers torso1, torso2, pi and vf,
+    ``w`` kept in that layout (the module computes ``x @ w + b``). Raises
+    unless the keys are those and the shapes chain: obs -> hidden ->
+    hidden, then hidden -> actions and hidden -> 1."""
+    from ray_tpu_torch.rllib.ppo import LAYERS, PolicyValueMLP
+
+    dev = resolve_device(device)
+    if not isinstance(tree, dict) or set(tree) != set(LAYERS) or any(
+            not isinstance(tree[k], dict) or set(tree[k]) != {"w", "b"}
+            for k in LAYERS):
+        raise ValueError(f"not a policy/value tree: expected {LAYERS}, each "
+                         "with 'w' and 'b'")
+    shapes = {k: (np.shape(tree[k]["w"]), np.shape(tree[k]["b"]))
+              for k in LAYERS}
+    obs, hidden = (shapes["torso1"][0] + (None, None))[:2]
+    n_actions = (shapes["pi"][0] + (None, None))[1]
+    want = {"torso1": ((obs, hidden), (hidden,)),
+            "torso2": ((hidden, hidden), (hidden,)),
+            "pi": ((hidden, n_actions), (n_actions,)),
+            "vf": ((hidden, 1), (1,))}
+    if shapes != want:
+        raise ValueError(f"policy/value tree has shapes {shapes}, expected "
+                         f"{want}")
+    return PolicyValueMLP({k: {leaf: _to_tensor(tree[k][leaf], dev, None)
+                               for leaf in ("w", "b")}
+                           for k in LAYERS})

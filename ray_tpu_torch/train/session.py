@@ -14,7 +14,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 
@@ -32,6 +32,9 @@ class TrainContext:
     # its process group (None outside a harness rank)
     device: str = "cuda"
     process_group: Any = None
+    # what a rank keeps between ``WorkerGroup.execute`` calls (a learner
+    # replica: ``rllib.learner_group``), by name
+    objects: dict = field(default_factory=dict)
 
     def get_world_size(self) -> int:
         return self.world_size

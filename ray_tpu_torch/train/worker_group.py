@@ -24,6 +24,12 @@ is a module-level function, its settings in the config.
   left running after ``shutdown``.
 - The rendezvous port is picked by binding port 0; if it was taken in the
   moment before rank 0 bound it, the group starts once more on a new one.
+- ``execute``/``execute_async``/``healthy`` (``ray_tpu/train/
+  worker_group.py:115-126``): ranks spawned at the first call stay up,
+  each taking ``(fn, args)`` from its own queue and posting the result;
+  what a rank keeps between calls lives in its session context
+  (``session.get_context().objects``). A call that raises ends its rank
+  as a failed loop does, and the calling process kills the others.
 """
 
 from __future__ import annotations
@@ -106,8 +112,45 @@ def _rank_main(rank: int, world_size: int, port: int, backend: str,
             pg.destroy()
 
 
+def _execute_loop(config: dict) -> None:
+    """The loop of a rank that stays up (``WorkerGroup.execute``): run each
+    ``(call, fn, args, kwargs)`` from the rank's own queue and post the
+    result; ``None`` ends it. A call that raises ends the rank
+    (``_rank_main`` posts the traceback)."""
+    from ray_tpu_torch.train import session
+
+    rank = session.get_context().rank
+    while True:
+        item = config["calls"].get()
+        if item is None:
+            return
+        call, fn, args, kwargs = item
+        config["results"].put({"rank": rank, "call": call,
+                               "result": fn(*args, **kwargs)})
+
+
+def _ping() -> int:
+    from ray_tpu_torch.train import session
+
+    return session.get_context().rank
+
+
+class RankCall:
+    """One rank's part of an ``execute_async`` call: ``result(timeout)``
+    waits for it (``TimeoutError`` after ``timeout`` seconds; a
+    ``RuntimeError`` with the traceback if a rank failed)."""
+
+    def __init__(self, group, call: int, rank: int):
+        self.group, self.call, self.rank = group, call, rank
+
+    def result(self, timeout: float | None = None):
+        return self.group._result(self.call, self.rank, timeout)
+
+
 class WorkerGroup:
-    """The rank processes of one run, per ``ScalingConfig``."""
+    """The rank processes of one run, per ``ScalingConfig``: a loop on
+    every rank (``start``), or ranks that stay up and run the functions
+    given to ``execute`` (module docstring)."""
 
     def __init__(self, scaling: ScalingConfig, env: dict | None = None):
         self.scaling = scaling
@@ -121,6 +164,13 @@ class WorkerGroup:
         self._ctx = mp.get_context("spawn")
         self.queue = self._ctx.Queue()
         self.processes: list = []
+        # execute: each rank's call queue, the next call's number, results
+        # taken off the queue before they were asked for, and the failure
+        # that ended the group
+        self._calls: list | None = None
+        self._next_call = 0
+        self._results: dict = {}
+        self._error: str | None = None
 
     def start(self, fn: Callable, configs: list, trial_dir: str,
               restore_checkpoint: str | None = None,
@@ -142,6 +192,80 @@ class WorkerGroup:
         for p in self.processes:
             p.start()
 
+    def execute_async(self, fn: Callable, *args, **kwargs) -> list:
+        """Run ``fn(*args, **kwargs)`` on every rank; one ``RankCall`` a
+        rank, in rank order. The first call spawns the ranks, which stay
+        up until ``shutdown``. ``fn`` and its arguments reach the ranks by
+        plain ``pickle`` (a module-level function or a ``partial`` of
+        one)."""
+        if self._error is not None:
+            raise RuntimeError(self._error)
+        if not self.processes:
+            self._calls = [self._ctx.Queue()
+                           for _ in range(self.scaling.num_workers)]
+            self.start(_execute_loop, [{"calls": q, "results": self.queue}
+                                       for q in self._calls], trial_dir="")
+        elif self._calls is None:
+            raise RuntimeError("this group runs a loop (start); execute "
+                               "needs a WorkerGroup of its own")
+        call = self._next_call
+        self._next_call += 1
+        for q in self._calls:
+            q.put((call, fn, args, kwargs))
+        return [RankCall(self, call, r) for r in range(len(self._calls))]
+
+    def execute(self, fn: Callable, *args, **kwargs) -> list:
+        """``fn(*args, **kwargs)``'s result on every rank, in rank order."""
+        return [c.result() for c in self.execute_async(fn, *args, **kwargs)]
+
+    def healthy(self) -> bool:
+        """Whether every rank answers a ping within 10 s (False once a rank
+        has failed or the group was shut down)."""
+        try:
+            for c in self.execute_async(_ping):
+                c.result(timeout=10.0)
+            return True
+        except (RuntimeError, TimeoutError):
+            return False
+
+    def _fail(self, error: str):
+        self._error = error
+        self.shutdown()
+        raise RuntimeError(error)
+
+    def _take_report(self, rep: dict) -> None:
+        if "error" in rep:
+            self._fail(f"rank {rep['rank']} failed: {rep['error']}")
+        if "call" in rep:
+            self._results[(rep["call"], rep["rank"])] = rep["result"]
+
+    def _result(self, call: int, rank: int, timeout: float | None):
+        end = None if timeout is None else time.monotonic() + timeout
+        while (call, rank) not in self._results:
+            if self._error is not None:
+                raise RuntimeError(self._error)
+            try:
+                self._take_report(self.queue.get(timeout=0.1))
+                continue
+            except queue_mod.Empty:
+                pass
+            lost = [(r, p.exitcode) for r, p in enumerate(self.processes)
+                    if p.exitcode is not None]
+            if lost:
+                # a rank flushes its last puts (its traceback) before it
+                # exits: read them before blaming the exit code
+                try:
+                    while True:
+                        self._take_report(self.queue.get(timeout=0.5))
+                except queue_mod.Empty:
+                    pass
+                self._fail(f"rank {lost[0][0]} exited with code "
+                           f"{lost[0][1]}")
+            if end is not None and time.monotonic() > end:
+                raise TimeoutError(f"rank {rank} did not answer call {call} "
+                                   f"within {timeout} s")
+        return self._results.pop((call, rank))
+
     def shutdown(self) -> None:
         """Kill every rank still running and reap them all."""
         for p in self.processes:
@@ -151,6 +275,11 @@ class WorkerGroup:
             p.join(_JOIN_S)
         self.queue.close()
         self.queue.cancel_join_thread()
+        for q in self._calls or ():
+            q.close()
+            q.cancel_join_thread()
+        if self._error is None:
+            self._error = "the worker group was shut down"
 
 
 class BackendExecutor:

@@ -60,7 +60,10 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "parallel.pipeline", "parallel.sharding",
                  "parallel.process_group", "air.config", "data.iterator",
                  "train.telemetry", "train.session", "train.worker_group",
-                 "train.data_parallel_trainer", "train.elastic"):
+                 "train.data_parallel_trainer", "train.elastic",
+                 "rllib", "rllib.env", "rllib.gym_env", "rllib.ppo",
+                 "rllib.pg", "rllib.impala", "rllib.appo",
+                 "rllib.learner_group"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
