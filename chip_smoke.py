@@ -61,7 +61,14 @@ its single controller run first: Llama-3-8B's width at depth 4 on {pp 4}
 Mixtral 8x7B's depth-16 forward with fsdp and ep across the processes
 (control: the experts' outputs from the wrong ep process), and a save at
 world 4 on {fsdp 2, tp 2} that two survivors restore onto {fsdp 2} bit
-for bit before a step (control: a restore one row off). Every
+for bit before a step (control: a restore one row off). Then Tune: a
+``Tuner`` with population-based training over the learning rate, four
+trials of Llama-3-8B's widths at depth 2, two at a time, each one NCCL
+rank process on this card (an exploited trial's first loss against its
+donor's at that step; control: the restore skipped), the serve body
+``LLMDeployment`` on the full model's weights (its greedy tokens bit for
+bit against the paged engine's, and again under a replica context) and
+the two quickstarts. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -763,11 +770,8 @@ def check_serve(torch, cfg, params):
                                                paged_decode_logits,
                                                paged_prefill_logits)
 
-    rng = np.random.default_rng(SEED + 1)
     new_tokens = 32
-    prompts = [rng.integers(1, cfg.vocab_size, 128) for _ in range(8)]
-    shared = rng.integers(1, cfg.vocab_size, 512)
-    tails = [rng.integers(1, cfg.vocab_size, 40) for _ in range(2)]
+    prompts, shared, tails = serve_prompts(cfg)
     eng = PagedLLMEngine(cfg, params, max_batch=8, max_len=2048,
                          page_size=128, decode_chunk=16)
     eng.warmup(128)
@@ -4891,6 +4895,297 @@ def check_rllib(torch, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Tune (slice 13): PBT trials that train Llama-3-8B's widths on this card,
+# the serve body LLMDeployment with the replica context, the quickstarts
+# ---------------------------------------------------------------------------
+
+# Each PBT trial is llama3_8b() at this depth: 1.49 B parameters, 12 GB of
+# state (parameters, gradients, two moments), so two trials share the card
+TUNE_DEPTH = 2
+# one trial a learning rate, two at a time; the last barely trains, so it
+# is the worst of the four when its wave is ranked against the first
+TUNE_LRS = (3e-5, 1e-4, 3e-4, 1e-8)
+# the batches' tokens come from this many ids: a unigram a few steps learn
+TUNE_TOKEN_RANGE = 1024
+TUNE_TOL = 1e-3
+# the control (the restore skipped) must miss TUNE_TOL by this factor
+TUNE_CONTROL_FACTOR = 10.0
+# LLMDeployment: new tokens a request, one request at a time
+DEPLOY_NEW_TOKENS = 8
+
+
+class TrialClock:
+    """Tune callbacks that stamp each trial process's spawn and first
+    report (a restarted trial is a new process: its ``run``)."""
+
+    def __init__(self):
+        self.spawned: dict = {}
+        self.first_report: dict = {}
+
+    def on_trial_start(self, trial):
+        self.spawned.setdefault(trial.trial_id, []).append(
+            time.perf_counter())
+
+    def on_trial_result(self, trial, result):
+        key = (trial.trial_id, result["run"])
+        if key not in self.first_report:
+            self.first_report[key] = time.perf_counter() - \
+                self.spawned[trial.trial_id][-1]
+
+
+class MemWatch:
+    """The host's least available memory and most shared memory (the
+    trials' checkpoints in /dev/shm) while it runs, from /proc/meminfo
+    every 0.25 s."""
+
+    def __init__(self):
+        import threading
+
+        self.least_available = self.most_shmem = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _read(self) -> dict:
+        with open("/proc/meminfo") as f:
+            return {ln.split(":")[0]: int(ln.split()[1]) * 1024 for ln in f}
+
+    def _run(self):
+        while not self._stop.wait(0.25):
+            m = self._read()
+            avail, shm = m["MemAvailable"], m["Shmem"]
+            if self.least_available is None or avail < self.least_available:
+                self.least_available = avail
+            if self.most_shmem is None or shm > self.most_shmem:
+                self.most_shmem = shm
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def tune_base() -> dict:
+    return {"preset": "llama3_8b", "n_layers": TUNE_DEPTH, "steps": 6,
+            "report_every": 2, "batch_size": 2, "seq_len": 2048,
+            "token_range": TUNE_TOKEN_RANGE, "seed": SEED}
+
+
+def check_tune_pbt(torch, smi: str) -> dict:
+    """``Tuner`` with ``PopulationBasedTraining`` over ``learning_rate``
+    (``ray_tpu_torch/examples/tune_llama.py``): 4 trials of llama3_8b() at
+    TUNE_DEPTH, two at a time, each one NCCL rank on this card training
+    6 steps on [2, 2049] batches keyed by the step, reporting every 2
+    steps with a checkpoint. Held: every trial TERMINATED; at least one
+    exploit; an exploited trial's first loss within TUNE_TOL (relative)
+    of its donor's at that step; the control, the same trial's config
+    started at that step without the restore (here, in the parent, after
+    the trials), misses TUNE_TOL by TUNE_CONTROL_FACTOR; every step of
+    every trial launched K1 2 and the backward 1 a layer (remat "full"),
+    counted in the trial's rank. Returns one step's counts."""
+    import tempfile
+
+    from ray_tpu_torch.examples import tune_llama
+
+    t0 = time.perf_counter()
+    clock = TrialClock()
+    base = tune_base()
+    # the checkpoints (9 GB each; each trial keeps its newest) go to
+    # shared memory: the card's machine takes at most 45 GiB of writes to
+    # its disk in a run, and the rest of this script writes most of that
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    with tempfile.TemporaryDirectory(dir=shm) as d, MemWatch() as mem:
+        grid = tune_llama.pbt_tuner(base, TUNE_LRS, storage_path=d,
+                                    callbacks=[clock]).fit()
+        fit_s = time.perf_counter() - t0
+        found = tune_llama.exploits(grid)
+        controls = []
+        for trial, donor, step, loss, want in found:
+            trainer = tune_llama.trial_trainer(trial.config, "cuda")
+            state = tune_llama.trial_start(trainer, trial.config, None,
+                                           "cuda")
+            _, m = trainer.train_step(state, tune_llama.trial_batch(
+                trial.config, step, "cuda"))
+            controls.append(float(m["loss"]))
+            del trainer, state, m
+            free_card(torch)
+    results = [r for t in grid for r in t.results]
+    step_counts = [{"flash_fwd": f, "flash_bwd": b} for r in results
+                   for f, b in zip(r["launches"]["flash_fwd"],
+                                   r["launches"]["flash_bwd"])]
+    want_counts = {"flash_fwd": 2 * TUNE_DEPTH, "flash_bwd": TUNE_DEPTH}
+    # a process's first step carries its start-up (cuBLAS, allocations)
+    steady = [s for r in results for s in r["step_s"][1:]]
+    exploits = [{"trial": t.trial_id, "donor": donor.trial_id, "step": step,
+                 "first_loss": loss, "donor_loss": want,
+                 "rel_err": abs(loss - want) / abs(want),
+                 "control_loss": c, "control_rel_err": abs(c - want) / abs(want),
+                 "explored_learning_rate": t.config["learning_rate"]}
+                for (t, donor, step, loss, want), c in zip(found, controls)]
+    restores = [r["restore_s"] for r in results if r["restore_s"]]
+    emit("tune_pbt", nvidia_smi=smi, config="llama3_8b", n_layers=TUNE_DEPTH,
+         depth_cut=f"32 -> {TUNE_DEPTH} layers: two trials' states (12 GB "
+                   "each) share the card",
+         tokens=[base["batch_size"], base["seq_len"] + 1],
+         token_range=base["token_range"], learning_rates=list(TUNE_LRS),
+         trials=[{"trial": t.trial_id, "status": t.status,
+                  "learning_rate": t.config["learning_rate"],
+                  "reports": [(r["run"], r["step"], r["losses"])
+                              for r in t.results]} for t in grid],
+         exploits=exploits, tol=TUNE_TOL,
+         control_factor=TUNE_CONTROL_FACTOR,
+         spawn_to_first_report_s={f"{k[0]}@{k[1]}": v
+                                  for k, v in clock.first_report.items()},
+         step_s_median=float(np.median(steady)), step_s=steady,
+         restore_s=restores,
+         save_s=[r["save_s"] for r in results if r["save_s"]],
+         launches_a_step=step_counts[0] if step_counts else None,
+         checkpoint_dir=shm or tempfile.gettempdir(),
+         host_least_available_bytes=mem.least_available,
+         host_most_shmem_bytes=mem.most_shmem,
+         fit_s=fit_s, seconds=time.perf_counter() - t0)
+    bad = [t.trial_id for t in grid if t.status != "TERMINATED"]
+    if bad:
+        errors = {t.trial_id: t.error for t in grid if t.error}
+        raise AssertionError(f"tune_pbt trials {bad} did not terminate: "
+                             f"{errors}")
+    if not exploits:
+        raise AssertionError("tune_pbt: no trial was exploited")
+    for e in exploits:
+        if e["rel_err"] > TUNE_TOL or \
+                e["control_rel_err"] < TUNE_CONTROL_FACTOR * TUNE_TOL:
+            raise AssertionError(
+                f"tune_pbt exploit {e}: the first loss must sit within "
+                f"{TUNE_TOL} of the donor's and the control miss it by "
+                f"{TUNE_CONTROL_FACTOR}x")
+    if not step_counts or any(c != want_counts for c in step_counts):
+        raise AssertionError(f"tune_pbt launches a step {step_counts}, want "
+                             f"{want_counts}")
+    return step_counts[0]
+
+
+def serve_prompts(cfg) -> tuple:
+    """The serve phase's prompts: 8 of 128 tokens, then a shared 512-token
+    prefix with two 40-token tails."""
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(1, cfg.vocab_size, 128) for _ in range(8)]
+    shared = rng.integers(1, cfg.vocab_size, 512)
+    tails = [rng.integers(1, cfg.vocab_size, 40) for _ in range(2)]
+    return prompts, shared, tails
+
+
+def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
+    """``LLMDeployment`` over llama3_8b() at full depth, paged, built from
+    the weights already on the card: the serve phase's prompts one after
+    another, DEPLOY_NEW_TOKENS greedy tokens each, bit for bit against a
+    ``PagedLLMEngine`` of the same settings fed the same way (one request
+    at a time: an engine's batches change its GEMMs' shapes, so only the
+    same arrivals promise the same bits); then a deployment built under
+    ``set_replica_context``, whose engine carries the tags, on the first
+    two prompts. Returns the kernel counts (the engines run no K1)."""
+    from ray_tpu_torch.serve.context import set_replica_context
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    from ray_tpu_torch.serve.paged_llm import PagedLLMEngine
+
+    prompts, shared, tails = serve_prompts(cfg)
+    prompts = prompts + [np.concatenate([shared, t]) for t in tails]
+    kw = {"max_batch": 8, "max_len": 2048, "page_size": 128,
+          "decode_chunk": DEPLOY_NEW_TOKENS}
+    t0 = time.perf_counter()
+    zero_counts()
+    eng = PagedLLMEngine(cfg, params, **kw)
+    eng.start()
+    try:
+        want = [list(eng.submit(p, max_new_tokens=DEPLOY_NEW_TOKENS).tokens())
+                for p in prompts]
+    finally:
+        eng.stop()
+    del eng
+    free_card(torch)
+    engine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dep = LLMDeployment(lambda: (cfg, params), kv_layout="paged", **kw)
+    try:
+        got = [dep(p, max_new_tokens=DEPLOY_NEW_TOKENS) for p in prompts]
+        stats = dep.stats()
+        plain_tags = (dep._engine.deployment_name, dep._engine.replica_tag)
+    finally:
+        dep._engine.stop()
+    del dep
+    free_card(torch)
+    deploy_s = time.perf_counter() - t0
+    set_replica_context("llama3_8b", "llama3_8b#0")
+    try:
+        tagged = LLMDeployment(lambda: (cfg, params), kv_layout="paged", **kw)
+    finally:
+        set_replica_context(None, None)
+    try:
+        got_tagged = [tagged(p, max_new_tokens=DEPLOY_NEW_TOKENS)
+                      for p in prompts[:2]]
+        tags = (tagged._engine.deployment_name, tagged._engine.replica_tag)
+    finally:
+        tagged._engine.stop()
+    del tagged
+    free_card(torch)
+    counts = launch_counts()
+    hits = stats["prefix_cache"]["hit_pages"]
+    emit("llm_deployment", nvidia_smi=smi, config="llama3_8b",
+         n_layers=cfg.n_layers, kv_layout="paged", **kw,
+         requests=len(prompts), new_tokens_each=DEPLOY_NEW_TOKENS,
+         tokens_equal=got == want,
+         first_mismatch=next((i for i, (g, w) in enumerate(zip(got, want))
+                              if g != w), None),
+         tagged_tokens_equal=got_tagged == want[:2], tags=list(tags),
+         untagged_tags=list(plain_tags), prefix_hit_pages=hits,
+         stats_keys=sorted(stats), engine_s=engine_s, deployment_s=deploy_s,
+         launches=counts)
+    if got != want or got_tagged != want[:2]:
+        raise AssertionError("LLMDeployment's greedy tokens differ from "
+                             "PagedLLMEngine's")
+    if tags != ("llama3_8b", "llama3_8b#0") or plain_tags[0] != "-":
+        raise AssertionError(f"engine tags {tags}, untagged {plain_tags}")
+    if hits <= 0:
+        raise AssertionError(f"the deployment's prefix cache never hit: "
+                             f"{stats}")
+    return counts
+
+
+def check_examples(torch, smi: str) -> dict:
+    """Both quickstarts on this card: ``train_llama`` (llama_tiny on
+    {fsdp 2, tp 2} of the card, 30 steps: losses finite and falling) and
+    ``llm_serving`` (its prefix-hit check, 4 streamed requests). Returns
+    each one's kernel counts."""
+    from ray_tpu_torch.examples import llm_serving, train_llama
+
+    t0 = time.perf_counter()
+    zero_counts()
+    history = train_llama.main(device="cuda")
+    train_counts = launch_counts()
+    train_s = time.perf_counter() - t0
+    free_card(torch)
+    t0 = time.perf_counter()
+    zero_counts()
+    served = llm_serving.main(device="cuda")
+    serve_counts = launch_counts()
+    serve_s = time.perf_counter() - t0
+    free_card(torch)
+    losses = [h["loss"] for h in history]
+    emit("examples", nvidia_smi=smi, train_llama_losses=losses,
+         train_llama_s=train_s, train_llama_launches=train_counts,
+         llm_serving_prefix_hit_pages=served["prefix_cache"]["hit_pages"],
+         llm_serving_tokens=[len(t) for t in served["tokens"]],
+         llm_serving_s=serve_s, llm_serving_launches=serve_counts)
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_llama losses {losses}: finite and "
+                             "falling")
+    if [len(t) for t in served["tokens"]] != [12] * 4:
+        raise AssertionError(f"llm_serving streamed {served['tokens']}")
+    return {"train_llama": train_counts, "llm_serving": serve_counts}
+
+
 def build_facts(kernels_mod, name, path, kernel) -> dict:
     """What the card runs for one Hopper kernel, from library ``name``:
     its SASS counts of HGMMA (wgmma) and UTMALDG (TMA load) instructions,
@@ -4999,6 +5294,9 @@ def main() -> int:
     check_lm_head(torch, cfg, params)
     check_serve(torch, cfg, params)
     free_card(torch)   # the engine and its KV pool
+    # the serve body over the same weights (slice 13), counts zeroed in it
+    deploy_counts = check_llm_deployment(torch, cfg, params, smi)
+    free_card(torch)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
                                                          peaks)
@@ -5080,6 +5378,13 @@ def main() -> int:
     slice11_counts = check_xproc_slice11(torch, cfg, peaks)
     free_card(torch)
     emit("xproc_phases", seconds=time.perf_counter() - t0)
+    # Tune (slice 13): PBT trials, each a rank process on this card, then
+    # the quickstarts, each with its counts zeroed right before it
+    t0 = time.perf_counter()
+    tune_counts = check_tune_pbt(torch, smi)
+    free_card(torch)
+    example_counts = check_examples(torch, smi)
+    emit("slice13_phases", seconds=time.perf_counter() - t0)
     # the other families, each at full width, one after another on the
     # card's memory (Mixtral at reduced depth)
     gpt_counts = check_gpt(torch, peaks)
@@ -5131,6 +5436,10 @@ def main() -> int:
                        slice11_counts["xproc_ep"][k],
                    "xproc_elastic_rank0_step_after_reform":
                        slice11_counts["xproc_elastic"][k],
+                   "tune_pbt": tune_counts[k],
+                   "llm_deployment": deploy_counts[k],
+                   "examples_train_llama": example_counts["train_llama"][k],
+                   "examples_llm_serving": example_counts["llm_serving"][k],
                    **{path: c[k] for path, c in rl_counts.items()}}
                for k in full_counts}
     kernels = [{

@@ -6,7 +6,8 @@ iterator reads blocks from its object store; the port's reads an iterable
 of numpy column dicts (``{"tokens": array, ...}``, equal-length columns),
 so a rank's dataset shard is a list of such blocks. ``iter_batches``
 re-batches them to a fixed size with the JAX package's carry and
-``drop_last`` (``:26``).
+``drop_last`` (``:26``); ``iter_rows`` yields a block's rows as dicts, as
+the JAX package's column-dict blocks do (``ray_tpu/data/block.py:41``).
 
 ``iter_torch_batches`` is the counterpart of ``iter_jax_batches``
 (``:58``): where JAX's ``device_put`` is asynchronous, the port copies
@@ -67,6 +68,14 @@ class DataIterator:
                 carry = {k: v[start:] for k, v in batch.items()}
         if carry is not None and not drop_last:
             yield carry
+
+    def iter_rows(self) -> Iterator[dict]:
+        """Each row of each block as ``{column: value}``, in order."""
+        for block in self._blocks:
+            keys = list(block)
+            n = _rows(block) if keys else 0
+            for i in range(n):
+                yield {k: block[k][i] for k in keys}
 
     def iter_torch_batches(self, *, batch_size: int | None = None,
                            drop_last: bool = True,

@@ -20,8 +20,14 @@ and a CUDA event, so the loop keeps a chunk in flight while the previous
 one is read. On the CPU every step runs synchronously and the same loop
 logic holds.
 
-Not ported: the metrics-plane histograms, the trace spans and
-``LLMDeployment``, which belong to the JAX package's host planes.
+``LLMDeployment`` is the serve body that hosts one engine: a plain class
+(the port has no serve controller), built from a zero-argument model
+builder, with ``__call__`` and ``stats``. An engine built while a thread
+holds a replica context (``serve/context.py``) carries its deployment
+name and replica tag.
+
+Not ported: the metrics-plane histograms and the trace spans, which
+belong to the JAX package's host planes.
 
 Threading: one engine thread owns the device loop (prefill/decode);
 callers enqueue requests and read token queues.
@@ -696,3 +702,43 @@ class LLMEngine:
                 out["queue_wait_share"] = (
                     out["ttft_breakdown_s"]["queue_wait_s"] / total)
         return out
+
+
+class LLMDeployment:
+    """Serve deployment body hosting one engine (``ray_tpu/serve/
+    llm.py:906``). ``model_builder`` is a zero-argument callable returning
+    ``(cfg, params)``, the parameters on the engine's device;
+    ``kv_layout`` picks ``PagedLLMEngine`` ("paged") or ``LLMEngine``
+    ("dense"); ``engine_kwargs`` go to the engine (``device="cpu"`` for
+    the CPU: the engines default to the card).
+
+        dep = LLMDeployment(build, max_batch=8, max_len=2048)
+        tokens = dep([1, 2, 3], max_new_tokens=16)
+    """
+
+    def __init__(self, model_builder, *, max_batch: int = 8,
+                 max_len: int = 2048, kv_layout: str = "paged",
+                 **engine_kwargs):
+        cfg, params = model_builder()
+        if kv_layout == "paged":
+            from ray_tpu_torch.serve.paged_llm import PagedLLMEngine
+
+            self._engine = PagedLLMEngine(
+                cfg, params, max_batch=max_batch, max_len=max_len,
+                **engine_kwargs)
+        elif kv_layout == "dense":
+            self._engine = LLMEngine(cfg, params, max_batch=max_batch,
+                                     max_len=max_len, **engine_kwargs)
+        else:
+            raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        self._engine.start()
+
+    def __call__(self, prompt, max_new_tokens: int = 128,
+                 temperature: float = 0.0, eos_id: int | None = None):
+        req = self._engine.submit(
+            prompt, max_new_tokens=max_new_tokens,
+            temperature=temperature, eos_id=eos_id)
+        return list(req.tokens())
+
+    def stats(self) -> dict:
+        return self._engine.stats()

@@ -50,8 +50,11 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    expected = {"ray_tpu_torch." + m.name for m in pkgutil.walk_packages(
-        ray_tpu_torch.__path__)}
+    # walked with the package's prefix: a bare walk would import each
+    # subpackage by its short name (``examples``, ``tune``), which may name
+    # another installed package
+    expected = {m.name for m in pkgutil.walk_packages(
+        ray_tpu_torch.__path__, "ray_tpu_torch.")}
     assert expected <= set(out["modules"])
     assert "ray_tpu_torch.serve.paged_llm" in out["modules"]
     for name in ("train.trainer", "train.state", "train.checkpoint",
@@ -63,7 +66,9 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "train.data_parallel_trainer", "train.elastic",
                  "rllib", "rllib.env", "rllib.gym_env", "rllib.ppo",
                  "rllib.pg", "rllib.impala", "rllib.appo",
-                 "rllib.learner_group"):
+                 "rllib.learner_group", "tune", "tune.tuner",
+                 "tune.schedulers", "tune.search", "examples.train_llama",
+                 "examples.llm_serving", "examples.tune_llama"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
