@@ -21,7 +21,14 @@ split into sampling and learning, each with the card's update held
 against the CPU's from the same parameters and batch (1e-5 relative; a
 control that changes a clip must miss it), and the learner plane: mode
 "mesh" on 2 places of this card against one learner, mode "actors" on 2
-gloo rank processes of this card against mode "mesh". Then it drives
+gloo rank processes of this card against mode "mesh". Then RLlib's
+replay and offline algorithms at their defaults: DQN on CartPole-v1 and
+SAC, TD3 and DDPG on Pendulum-v1 for 3 iterations each (the last two
+update), one update each of double DQN, dueling, C51 and prioritized
+3-step replay, SAC, TD3 and DDPG held against the CPU's (1e-5 relative,
+each with a control), and their learning checks on the bandits; BC, CQL
+and MARWIL from a dataset collected into a temporary directory, each
+update against the CPU's. Then it drives
 the main path at the full width of Llama-3-8B with seeded random weights:
 the full 32-layer forward over 2048 tokens, the paged serving engine
 answering 10 requests, the model's gradient through the flash kernels at
@@ -4881,6 +4888,427 @@ def check_rllib_learners(torch, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# RLlib's replay and offline algorithms (slice 14): DQN with its variants,
+# SAC, TD3 and DDPG, BC, CQL and MARWIL. Their updates are functions that
+# step a tree or module in place; no kernel of the table runs there
+# ---------------------------------------------------------------------------
+
+# Iterations of each replay algorithm at its defaults: 2 workers x 128
+# steps an iteration and learning_starts 500, so the second and third
+# iterations update
+RL_REPLAY_ITERS = 3
+# the device of the card side of ``rl_fn_card_against_cpu``
+RL_CARD = "cuda"
+
+
+def replayed_tanh():
+    """tanh whose values are given, with tanh's gradient at them: SAC's
+    card-against-CPU check runs the CPU's update on the card's squashed
+    actions (``rllib.sac._sample_action``: one ulp of tanh near
+    saturation moves a row's log-prob by up to 0.4 nats, and float32 tanh
+    differs in the last ulp between the card and the CPU). Returns
+    ``apply(x, a)``."""
+    import torch
+
+    class ReplayTanh(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, a):
+            ctx.save_for_backward(a)
+            return a.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            (a,) = ctx.saved_tensors
+            return g * (1 + a) * (1 - a), None
+
+    return ReplayTanh.apply
+
+
+def rl_fn_card_against_cpu(make, control: dict, replay_tanh=False) -> dict:
+    """One functional update, the card's against the CPU's from the same
+    state and batch: ``make(device, **over)`` builds the update's state
+    on ``device`` and returns ``step()`` (one update in place, returning
+    its stats) and ``read(stats)`` (the stats and every stepped leaf as
+    numpy). Each leaf within RL_TOL relative; the control's (the CPU's
+    with ``control``) must miss it. With ``replay_tanh`` (SAC), the CPU's
+    updates take the card's squashing tanh values; the difference with
+    each device's own tanh is reported beside. Also an update's
+    milliseconds: the card's by CUDA events over RL_TIMED_UPDATES after a
+    warm-up, the CPU's by the host clock."""
+    from ray_tpu_torch.rllib import sac
+
+    own = sac._tanh
+    runs = {}
+    try:
+        recorded = []
+        if replay_tanh:
+            def record(x):
+                a = own(x)
+                recorded.append(a.detach().cpu())
+                return a
+            sac._tanh = record
+        card_step, card_read = make(RL_CARD)
+        runs["card"] = card_read(card_step())
+        for name, over in (("cpu", {}), ("control", control)):
+            if replay_tanh:
+                replay, apply = iter(recorded), replayed_tanh()
+                sac._tanh = lambda x: apply(x, next(replay).to(x.device))
+            step, read = make("cpu", **over)
+            runs[name] = read(step())
+        if replay_tanh:
+            sac._tanh = own
+            step, read = make("cpu")
+            runs["cpu_own_tanh"] = read(step())
+    finally:
+        sac._tanh = own
+    out = {"rel_err": rl_rel(runs["card"], runs["cpu"]), "tol": RL_TOL,
+           "control": {k: sorted(v) if k == "batch" else v
+                       for k, v in control.items()},
+           "control_rel_err": rl_rel(runs["control"], runs["cpu"])}
+    if replay_tanh:
+        out["rel_err_own_tanh"] = rl_rel(runs["card"], runs["cpu_own_tanh"])
+    if out["rel_err"] > RL_TOL or out["control_rel_err"] <= RL_TOL:
+        raise AssertionError(f"card against CPU: {out}")
+    out["update_ms_card_cuda_events"] = cuda_ms(card_step, RL_TIMED_UPDATES)
+    step, _ = make("cpu")
+    t0 = time.perf_counter()
+    for _ in range(RL_TIMED_UPDATES):
+        step()
+    out["update_ms_cpu_host_clock"] = (time.perf_counter() - t0) * 1e3 \
+        / RL_TIMED_UPDATES
+    return out
+
+
+def rl_numpy(values) -> list:
+    return [v.detach().cpu().numpy() for v in values]
+
+
+def rl_replay_iterations(torch, algo, leaves: list, keys: tuple,
+                         steps: int) -> dict:
+    """RL_REPLAY_ITERS ``train()`` calls of a replay algorithm with the
+    kernel counts zeroed right before and read right after: each
+    iteration's seconds (host clock; an update reads its loss back),
+    split into sampling and learning, the environment steps a second and
+    the result's ``keys``; at least two iterations must update."""
+    if not all(x.is_cuda for x in leaves):
+        raise AssertionError("the learner's parameters are not on the card")
+    zero_counts()
+    rows = []
+    for _ in range(RL_REPLAY_ITERS):
+        t0 = time.perf_counter()
+        r = algo.train()
+        seconds = time.perf_counter() - t0
+        rows.append({**{k: r.get(k) for k in ("training_iteration",
+                                               "buffer_size", *keys)},
+                     "seconds": seconds, "sample_s": r["sample_time_s"],
+                     "learn_s": r["learn_time_s"],
+                     "env_steps_per_s": steps / seconds})
+    torch.cuda.synchronize()
+    updated = [row for row in rows if row[keys[0]] is not None]
+    if len(updated) < 2 or not all(np.isfinite(row[k]) for row in updated
+                                   for k in keys[:1]):
+        raise AssertionError(f"fewer than two iterations updated: {rows}")
+    return {"iterations": rows, "launches": launch_counts()}
+
+
+def dqn_make(update, online: dict, target: dict, batch: dict, lr: float,
+             kw: dict):
+    """``make`` of ``rl_fn_card_against_cpu`` for a Q-net update
+    (``_dqn_update``, ``_c51_update``); ``over`` may hold a ``batch`` of
+    columns to replace."""
+    from functools import partial
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib.dqn import frozen_copy, to_device
+    from ray_tpu_torch.rllib.ppo import adam
+
+    def make(device, **over):
+        cols = over.pop("batch", {})
+        params = convert.policy_value_from_numpy(online, device=device)
+        tgt = frozen_copy(convert.policy_value_from_numpy(target,
+                                                          device=device))
+        tx = adam(lr)
+        opt = tx.init(dict(params.named_parameters()))
+        b = to_device({**batch, **cols}, device)
+        f = partial(update, tx=tx, **{**kw, **over})
+        return (lambda: f(params, opt, tgt, b),
+                lambda stats: rl_numpy([*stats, *params.parameters()]))
+
+    return make
+
+
+def check_rllib_dqn(torch, smi: str) -> dict:
+    """DQN at its defaults on CartPole-v1 (2 workers x 128 steps, replay
+    50,000, learning_starts 500, 32 updates of 64 an iteration, double Q,
+    hidden 64) on the card, RL_REPLAY_ITERS iterations; then one update
+    each of double DQN, dueling, C51 (51 atoms) and prioritized replay of
+    3-step transitions, the card's against the CPU's from the same
+    parameters, targets and batch; then DQN learns Bandit-v0
+    (tests/test_rllib.py's check)."""
+    from ray_tpu_torch.rllib.dqn import (DQNConfig, _c51_update,
+                                         _dqn_update, _DQNRolloutWorker,
+                                         init_qnet)
+    from ray_tpu_torch.rllib.replay import PrioritizedReplayBuffer, \
+        nstep_batch
+
+    algo = DQNConfig().build()
+    cfg = algo.config
+    theta0 = algo.params.numpy_tree()
+    run = rl_replay_iterations(
+        torch, algo, list(algo.params.parameters()), ("td_loss", "epsilon"),
+        cfg.num_rollout_workers * cfg.rollout_fragment_length)
+    online, target = algo.params.numpy_tree(), algo.target_params.numpy_tree()
+    rng = np.random.default_rng(SEED)
+    batch = algo.buffer.sample(cfg.train_batch_size, rng)
+    batch["weights"] = np.ones(cfg.train_batch_size, np.float32)
+    # prioritized replay of 3-step transitions from one worker's rollout
+    per = PrioritizedReplayBuffer(4096, algo.obs_dim, alpha=cfg.pr_alpha,
+                                  gamma=cfg.gamma)
+    per.add_batch(nstep_batch(_DQNRolloutWorker(cfg.env, SEED + 1000).sample(
+        theta0, 1024, 1.0), 3, cfg.gamma))
+    per.update_priorities(np.arange(512), rng.exponential(size=512))
+    per_batch = per.sample(cfg.train_batch_size, rng, beta=cfg.pr_beta0)
+    per_batch.pop("idx")
+    c51 = [init_qnet(SEED + i, algo.obs_dim, algo.n_actions, cfg.hidden, 51,
+                     device="cpu").numpy_tree() for i in (0, 1)]
+    c51_kw = dict(n_actions=algo.n_actions, num_atoms=51, v_min=cfg.v_min,
+                  v_max=cfg.v_max)
+    checks = {}
+    for name, update, params, b, kw, control in (
+            ("double", _dqn_update, (online, target), batch,
+             {"double_q": True}, {"double_q": False}),
+            ("dueling", _dqn_update, (online, target), batch,
+             {"double_q": True, "dueling": True}, {"dueling": False}),
+            ("c51", _c51_update, c51, batch, {"double_q": True, **c51_kw},
+             {"double_q": False}),
+            ("per_nstep3", _dqn_update, (online, target), per_batch,
+             {"double_q": True},
+             {"batch": {"weights": np.ones(cfg.train_batch_size,
+                                           np.float32)}})):
+        checks[name] = rl_fn_card_against_cpu(
+            dqn_make(update, *params, b, cfg.lr, kw), control)
+    # tests/test_rllib.py's learning check, on the card
+    bandit = (DQNConfig().environment("Bandit-v0")
+              .rollouts(num_rollout_workers=2, rollout_fragment_length=64)
+              .training(learning_starts=64, num_updates_per_iter=16,
+                        epsilon_decay_iters=5, target_update_freq=2).build())
+    t0 = time.perf_counter()
+    returns = [bandit.train()["episode_return_mean"] for _ in range(12)]
+    learned = [bandit.compute_action([1.0, 1.0]),
+               bandit.compute_action([-1.0, 1.0])]
+    emit("rllib_dqn", card=smi, env=cfg.env, **run,
+         per_nstep3_discounts=sorted(set(np.round(
+             per_batch["discounts"], 6).tolist())),
+         card_against_cpu=checks, bandit_returns=returns,
+         bandit_greedy_actions=learned,
+         bandit_s=time.perf_counter() - t0)
+    if learned != [1, 0]:
+        raise AssertionError(f"DQN did not learn the bandit: {learned}")
+    return run["launches"]
+
+
+def continuous_make(update, params: dict, targets: dict, batch: dict,
+                    noise, lr: float, kw: dict, *args):
+    """``make`` of ``rl_fn_card_against_cpu`` for SAC's and TD3's updates
+    (``args``: TD3's ``do_policy``)."""
+    from functools import partial
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib.dqn import init_opt_state, to_device
+    from ray_tpu_torch.rllib.ppo import adam
+    from ray_tpu_torch.rllib.sac import frozen_tree, leaves
+
+    def make(device, **over):
+        import torch
+
+        p = convert.mlp_tree_from_numpy(params, device=device)
+        t = frozen_tree(convert.mlp_tree_from_numpy(targets, device=device))
+        tx = adam(lr)
+        opt = init_opt_state(tx, leaves(p))
+        b = to_device(batch, device)
+        n = torch.from_numpy(noise).to(device)
+        f = partial(update, tx=tx, **{**kw, **over})
+        return (lambda: f(p, t, opt, b, n, *args),
+                lambda m: rl_numpy([*m.values(), *leaves(p), *leaves(t)]))
+
+    return make
+
+
+def check_rllib_continuous(torch, smi: str, name: str) -> dict:
+    """SAC, TD3 or DDPG at its defaults on Pendulum-v1 (2 workers x 128
+    steps, learning_starts 500, 32 updates of 128 an iteration, hidden
+    64) on the card, RL_REPLAY_ITERS iterations; then one update, the
+    card's against the CPU's from the trained parameters and targets on a
+    replay batch with the same noise (TD3 and DDPG: a policy step;
+    control: gamma 0.9); then the learning check on ContinuousBandit-v0
+    (tests/test_rllib.py's: the policy's action within 0.25 of the
+    optimum 0.5 after 12 iterations; DDPG's check is that it is TD3's
+    degenerate config, one critic, trained one iteration)."""
+    from ray_tpu_torch.rllib import sac, td3
+    from ray_tpu_torch.rllib.sac import SACConfig, _sac_update, numpy_tree
+    from ray_tpu_torch.rllib.td3 import DDPGConfig, TD3Config, _td3_update
+
+    config = {"sac": SACConfig, "td3": TD3Config, "ddpg": DDPGConfig}[name]
+    algo = config().build()
+    cfg = algo.config
+    run = rl_replay_iterations(
+        torch, algo, sac.leaves(algo.params),
+        ("critic_loss", "actor_loss"),
+        cfg.num_rollout_workers * cfg.rollout_fragment_length)
+    batch = algo.buffer.sample(cfg.train_batch_size,
+                               np.random.default_rng(SEED))
+    noise = algo._noise(cfg.train_batch_size)
+    if name == "sac":
+        make = continuous_make(
+            _sac_update, numpy_tree(algo.params), numpy_tree(algo.target_q),
+            batch, noise, cfg.lr, dict(gamma=cfg.gamma, tau=cfg.tau,
+                                       target_entropy=-float(
+                                           algo.action_dim)))
+    else:
+        make = continuous_make(
+            _td3_update, numpy_tree(algo.params), numpy_tree(algo.targets),
+            batch, noise, cfg.lr, dict(
+                gamma=cfg.gamma, tau=cfg.tau, target_noise=cfg.target_noise,
+                noise_clip=cfg.noise_clip, twin_q=cfg.twin_q), True)
+    check = rl_fn_card_against_cpu(make, {"gamma": 0.9},
+                                   replay_tanh=name == "sac")
+    t0 = time.perf_counter()
+    bandit_cfg = config().environment("ContinuousBandit-v0").rollouts(
+        num_rollout_workers=2, rollout_fragment_length=64)
+    if name == "ddpg":
+        bandit = bandit_cfg.rollouts(num_rollout_workers=1,
+                                     rollout_fragment_length=32).training(
+            learning_starts=32, num_updates_per_iter=8).build()
+        result = bandit.train()
+        learned = {"degenerate": [cfg.twin_q, cfg.policy_delay,
+                                  cfg.target_noise],
+                   "critics": sorted(bandit.params),
+                   "iteration": result["training_iteration"]}
+        ok = (learned["critics"] == ["actor", "q1"]
+              and learned["degenerate"] == [False, 1, 0.0]
+              and isinstance(bandit, td3.DDPG))
+    else:
+        kw = dict(learning_starts=128, train_batch_size=64,
+                  num_updates_per_iter=64, lr=3e-3, gamma=0.0)
+        if name == "td3":
+            kw["expl_noise"] = 0.3
+        bandit = bandit_cfg.training(**kw).build()
+        for _ in range(12):
+            result = bandit.train()
+        action = float(bandit.compute_single_action(
+            np.zeros(1, np.float32))[0])
+        learned = {"action": action, "optimum": 0.5,
+                   "critic_loss": result["critic_loss"]}
+        ok = abs(action - 0.5) < 0.25
+    emit(f"rllib_{name}", card=smi, env=cfg.env, **run,
+         card_against_cpu=check, bandit=learned,
+         bandit_s=time.perf_counter() - t0)
+    if not ok:
+        raise AssertionError(f"{name} learning check: {learned}")
+    return run["launches"]
+
+
+def offline_make(update, params: dict, batch: dict, lr: float, kw: dict,
+                 target=None):
+    """``make`` of ``rl_fn_card_against_cpu`` for BC's, CQL's and
+    MARWIL's updates (CQL's with a target network)."""
+    from functools import partial
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib.dqn import frozen_copy, to_device
+    from ray_tpu_torch.rllib.ppo import adam
+
+    def make(device, **over):
+        import torch
+
+        cols = over.pop("batch", {})
+        m = convert.policy_value_from_numpy(params, device=device)
+        tx = adam(lr)
+        opt = tx.init(dict(m.named_parameters()))
+        b = to_device({**batch, **cols}, device)
+        f = partial(update, tx=tx, **{**kw, **over})
+        args = () if target is None else (frozen_copy(
+            convert.policy_value_from_numpy(target, device=device)),)
+
+        def step():
+            stats = f(m, opt, *args, b)
+            if isinstance(stats, dict):
+                return list(stats.values())
+            return [stats] if isinstance(stats, torch.Tensor) else stats
+
+        return step, lambda stats: rl_numpy([*stats, *m.parameters()])
+
+    return make
+
+
+def check_rllib_offline(torch, smi: str) -> dict:
+    """Offline RL on the card from a dataset collected into a temporary
+    directory (CartPole-v1, 4,000 random steps, ``collect_dataset``): BC
+    and CQL 2 epochs each (train_batch_size 256), MARWIL 20 iterations
+    (batch 256), at the JAX package's defaults; then one update of each,
+    the card's against the CPU's (controls: the logged actions flipped,
+    cql_alpha 0.5, beta 0.5)."""
+    import tempfile
+
+    from ray_tpu_torch.rllib.marwil import MARWILConfig, _marwil_update
+    from ray_tpu_torch.rllib.offline import (BCConfig, CQLConfig,
+                                             OfflineDataset, _bc_update,
+                                             _cql_update, collect_dataset)
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = collect_dataset("CartPole-v1", d, num_steps=4000, seed=SEED)
+        collect_s = time.perf_counter() - t0
+        algos = {"bc": BCConfig(input_path=path).build(),
+                 "cql": CQLConfig(input_path=path).build(),
+                 "marwil": MARWILConfig(input_path=path).build()}
+        batch = next(OfflineDataset(path).minibatches(
+            256, np.random.default_rng(SEED)))
+    if not all(p.is_cuda for a in algos.values()
+               for p in a.params.parameters()):
+        raise AssertionError("the learners' parameters are not on the card")
+    zero_counts()
+    runs = {}
+    for name, algo in algos.items():
+        rows = []
+        for _ in range(20 if name == "marwil" else 2):
+            t0 = time.perf_counter()
+            r = algo.train()
+            rows.append({**{k: v for k, v in r.items()
+                            if isinstance(v, float)},
+                         "seconds": time.perf_counter() - t0})
+        if not all(np.isfinite(v) for row in rows for v in row.values()):
+            raise AssertionError(f"{name}: non-finite stats {rows}")
+        runs[name] = {"iterations": len(rows), "first": rows[0],
+                      "last": rows[-1],
+                      "median_s": float(np.median([r["seconds"]
+                                                   for r in rows]))}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    marwil = algos["marwil"]
+    mb = {k: v[:256] for k, v in marwil.data.items()}
+    checks = {
+        "bc": rl_fn_card_against_cpu(
+            offline_make(_bc_update, algos["bc"].params.numpy_tree(), batch,
+                         1e-3, {}),
+            {"batch": {"actions": 1 - batch["actions"]}}),
+        "cql": rl_fn_card_against_cpu(
+            offline_make(_cql_update, algos["cql"].params.numpy_tree(),
+                         batch, 1e-3, {"gamma": 0.99, "alpha": 1.0},
+                         target=algos["cql"].target_params.numpy_tree()),
+            {"alpha": 0.5}),
+        "marwil": rl_fn_card_against_cpu(
+            offline_make(_marwil_update, marwil.params.numpy_tree(), mb,
+                         1e-3, {"beta": 1.0, "vf_coeff": 1.0,
+                                "sqd_adv_norm": marwil._sqd_adv_norm}),
+            {"beta": 0.5})}
+    emit("rllib_offline", card=smi, env="CartPole-v1", dataset_rows=4000,
+         collect_s=collect_s, runs=runs, card_against_cpu=checks,
+         launches=counts)
+    return counts
+
+
 def check_rllib(torch, smi: str) -> dict:
     """Every RLlib phase, the kernel counts of each."""
     t0 = time.perf_counter()
@@ -4890,7 +5318,12 @@ def check_rllib(torch, smi: str) -> dict:
                   check_rllib_impala(torch, smi, "impala"),
               "rllib_appo_3_iterations":
                   check_rllib_impala(torch, smi, "appo"),
-              "rllib_learners": check_rllib_learners(torch, smi)}
+              "rllib_learners": check_rllib_learners(torch, smi),
+              "rllib_dqn_3_iterations": check_rllib_dqn(torch, smi),
+              **{f"rllib_{name}_3_iterations":
+                 check_rllib_continuous(torch, smi, name)
+                 for name in ("sac", "td3", "ddpg")},
+              "rllib_offline": check_rllib_offline(torch, smi)}
     emit("rllib_phases", seconds=time.perf_counter() - t0)
     return counts
 

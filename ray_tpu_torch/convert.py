@@ -112,3 +112,61 @@ def policy_value_from_numpy(tree: dict, *, device="cuda"):
     return PolicyValueMLP({k: {leaf: _to_tensor(tree[k][leaf], dev, None)
                                for leaf in ("w", "b")}
                            for k in LAYERS})
+
+
+def mlp_tree_from_numpy(tree: dict, *, device="cuda") -> dict:
+    """The port's SAC or TD3 parameter tree from the numpy tree of JAX's
+    ``init_sac`` (``ray_tpu/rllib/sac.py:49``: ``{"actor", "q1", "q2",
+    "log_alpha"}``; SAC's target critics ``{"q1", "q2"}``) or ``init_td3``
+    (``ray_tpu/rllib/td3.py:28``: ``{"actor", "q1"[, "q2"]}``), each
+    network a list of layers ``{"w": [fan_in, fan_out], "b": [fan_out]}``.
+    The leaves become tensors on ``device`` that take gradients. Raises
+    unless the keys are one of those sets, each network's shapes chain,
+    the critics map one input width to one value and, with an actor, that
+    width is [obs, action] for the actor's action (SAC's: its mean and
+    log-std)."""
+    dev = resolve_device(device)
+    keysets = ({"actor", "q1", "q2", "log_alpha"}, {"actor", "q1", "q2"},
+               {"actor", "q1"}, {"q1", "q2"})
+    if not isinstance(tree, dict) or set(tree) not in keysets:
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"not a SAC or TD3 tree: keys {got}")
+
+    def widths(name):
+        net = tree[name]
+        if not isinstance(net, list) or not net or any(
+                not isinstance(layer, dict) or set(layer) != {"w", "b"}
+                for layer in net):
+            raise ValueError(f"{name} is not a list of {{'w', 'b'}} layers")
+        shapes = [(np.shape(layer["w"]), np.shape(layer["b"]))
+                  for layer in net]
+        if not all(len(w) == 2 and b == (w[1],) for w, b in shapes) or any(
+                a[0][1] != b[0][0] for a, b in zip(shapes, shapes[1:])):
+            raise ValueError(f"{name}'s layers do not chain: {shapes}")
+        return shapes[0][0][0], shapes[-1][0][1]
+
+    critics = sorted(tree.keys() - {"actor", "log_alpha"})
+    q_in = widths("q1")[0]
+    if "actor" in tree:
+        obs_dim, out = widths("actor")
+        sac = "log_alpha" in tree
+        if sac and out % 2:
+            raise ValueError(f"SAC's actor outputs {out}, not a mean and a "
+                             "log-std per action")
+        q_in = obs_dim + (out // 2 if sac else out)
+    for name in critics:
+        if widths(name) != (q_in, 1):
+            raise ValueError(f"{name} maps {widths(name)}, expected "
+                             f"{(q_in, 1)}")
+    if "log_alpha" in tree and np.shape(tree["log_alpha"]) != ():
+        raise ValueError(f"log_alpha has shape {np.shape(tree['log_alpha'])}"
+                         ", expected ()")
+
+    def leaf(a):
+        return _to_tensor(a, dev, None).requires_grad_()
+
+    # the port's order (its optimizer state is positional), not the tree's
+    return {k: (leaf(tree[k]) if k == "log_alpha" else
+                [{"w": leaf(layer["w"]), "b": leaf(layer["b"])}
+                 for layer in tree[k]])
+            for k in ("actor", "q1", "q2", "log_alpha") if k in tree}

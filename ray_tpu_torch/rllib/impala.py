@@ -135,7 +135,7 @@ class IMPALA:
             raise NotImplementedError(
                 f"IMPALAConfig(cell={config.cell!r}): the recurrent core "
                 "(ray_tpu/rllib/recurrent.py) is not ported yet; ROADMAP "
-                "Queue A lists it as slice 19")
+                "Queue A lists it as slice 15")
         self.config = config
         env = make_env(config.env, seed=config.seed)
         self.obs_dim = env.obs_dim

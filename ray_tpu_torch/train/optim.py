@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # elements per slice of the update (float32 temporaries of 256 MB)
@@ -145,8 +146,11 @@ class AdamW:
         clip = not norm_f < self.max_grad_norm
         count = state["count"] + 1
         lr = self.schedule(state["count"])
-        bc1 = 1.0 - self.b1 ** count
-        bc2 = 1.0 - self.b2 ** count
+        # optax's bias correction, 1 - decay**count in float32 (in double,
+        # 1 - 0.999 sits 1.3e-5 from float32's 1 - 0.999, which moves every
+        # first step by 6.4e-6)
+        bc1 = float(np.float32(1) - np.float32(self.b1) ** count)
+        bc2 = float(np.float32(1) - np.float32(self.b2) ** count)
         mus, nus = moments if moments is not None else (
             tree_leaves(state["mu"]), tree_leaves(state["nu"]))
         for p, g, m, v in zip(params, grads, mus, nus, strict=True):

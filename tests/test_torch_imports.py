@@ -66,7 +66,9 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "train.data_parallel_trainer", "train.elastic",
                  "rllib", "rllib.env", "rllib.gym_env", "rllib.ppo",
                  "rllib.pg", "rllib.impala", "rllib.appo",
-                 "rllib.learner_group", "tune", "tune.tuner",
+                 "rllib.learner_group", "rllib.dqn", "rllib.replay",
+                 "rllib.sac", "rllib.td3", "rllib.offline",
+                 "rllib.estimators", "rllib.marwil", "tune", "tune.tuner",
                  "tune.schedulers", "tune.search", "examples.train_llama",
                  "examples.llm_serving", "examples.tune_llama"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
