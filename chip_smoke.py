@@ -4702,13 +4702,17 @@ def rl_card_against_cpu(loss, kw: dict, control: dict, params: dict,
     return out
 
 
-def rl_iterations(torch, algo, keys: tuple, steps: int) -> dict:
+def rl_iterations(torch, algo, keys: tuple, steps: int,
+                  params=None) -> dict:
     """RL_ITERS ``train()`` calls with the kernel counts zeroed right before
     and read right after: each iteration's seconds (host clock; the
     learner's last stats are read back), split into sampling and learning,
     and the environment steps a second (``steps`` consumed an
-    iteration)."""
-    if not all(p.is_cuda for p in algo.learner.module.parameters()):
+    iteration). ``params``: the learner's tensors (default: those of
+    ``algo.learner.module``), which must be on the card."""
+    if params is None:
+        params = list(algo.learner.module.parameters())
+    if not all(p.is_cuda for p in params):
         raise AssertionError("the learner's parameters are not on the card")
     zero_counts()
     rows = []
@@ -5309,6 +5313,266 @@ def check_rllib_offline(torch, smi: str) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The rest of RLlib (slice 15): the recurrent core (RecurrentPPO, IMPALA's
+# cell), multi-agent PPO and DreamerV3. No kernel lies on these paths
+# either (32- to 128-wide MLPs and GRU/LSTM cells are plain torch ops);
+# each is driven with the kernel counts zeroed right before it and read
+# right after
+# ---------------------------------------------------------------------------
+
+def rl_module_make(loss, params: dict, batch: dict, lr: float, kw: dict,
+                   opt_state: dict):
+    """``make`` of ``rl_fn_card_against_cpu`` for an update of one
+    module (``sgd_step`` of ``loss`` with ``adam(lr)``): a recurrent
+    module from its numpy tree (with ``cell_type``), else PPO's module,
+    its Adam state a copy of ``opt_state`` (the trained algorithm's: from
+    a fresh state, Adam's first step turns a gradient's float32 noise
+    where it is near 0 into a step of the learning rate's size); ``over``
+    changes the loss's settings."""
+    from functools import partial
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib.dqn import to_device
+    from ray_tpu_torch.rllib.learner_group import sgd_step
+    from ray_tpu_torch.rllib.ppo import adam
+
+    def make(device, **over):
+        module = (convert.recurrent_from_numpy if "cell" in params else
+                  convert.policy_value_from_numpy)(params, device=device)
+        tx = adam(lr)
+        opt = {"count": opt_state["count"],
+               **{k: {name: t.detach().to(device, copy=True)
+                      for name, t in opt_state[k].items()}
+                  for k in ("mu", "nu")}}
+        b = to_device(batch, device)
+        fn = partial(loss, **{**kw, **over})
+        return (lambda: sgd_step(fn, module, opt, b, tx),
+                lambda stats: rl_numpy([*stats.values(),
+                                        *module.parameters()]))
+
+    return make
+
+
+def check_rllib_recurrent(torch, smi: str) -> dict:
+    """RecurrentPPO with a gru and with an lstm core on MemoryCueEnv at its
+    defaults (fragment 256 in sequences of 16, hidden 32, 4 passes over
+    the whole batch), then IMPALA with ``cell="lstm"`` at its defaults on
+    CartPole-v1 (2 workers, unroll 64, hidden 64), RL_ITERS iterations
+    each on the card; then one update of each, the card's against the
+    CPU's from the trained parameters and Adam state on a batch sampled
+    with the initial ones (controls: clip_eps 0.02, rho_clip 0.5)."""
+    from ray_tpu_torch.rllib.impala import (TRAJECTORY_KEYS, IMPALAConfig,
+                                            _TrajectoryWorker, impala_loss)
+    from ray_tpu_torch.rllib.recurrent import (BATCH_KEYS, MemoryCueEnv,
+                                               RecurrentPPOConfig,
+                                               _RecurrentRolloutWorker,
+                                               normalize_masked, rppo_loss)
+
+    runs, checks, counts = {}, {}, {}
+    for cell in ("gru", "lstm"):
+        algo = RecurrentPPOConfig(cell=cell).environment(MemoryCueEnv).build()
+        cfg = algo.config
+        theta0 = algo._params_np()
+        runs[f"rppo_{cell}"] = rl_iterations(
+            torch, algo, ("policy_loss", "entropy"),
+            cfg.num_rollout_workers * cfg.rollout_fragment_length,
+            params=list(algo.module.parameters()))
+        counts[f"rllib_rppo_{cell}_3_iterations"] = \
+            runs[f"rppo_{cell}"]["launches"]
+        batch = _RecurrentRolloutWorker(cfg.env, SEED + 1000,
+                                        cfg.max_seq_len).sample(
+            theta0, cfg.rollout_fragment_length, cfg.gamma, cfg.lam)
+        batch = normalize_masked({k: batch[k] for k in BATCH_KEYS})
+        checks[f"rppo_{cell}"] = rl_fn_card_against_cpu(rl_module_make(
+            rppo_loss, algo._params_np(), batch, cfg.lr,
+            {"clip_eps": cfg.clip_eps, "entropy_coeff": cfg.entropy_coeff,
+             "vf_coeff": cfg.vf_coeff}, algo.opt_state), {"clip_eps": 0.02})
+    algo = IMPALAConfig(cell="lstm").build()
+    cfg = algo.config
+    theta0 = algo._params_np()
+    runs["impala_lstm"] = rl_iterations(
+        torch, algo, ("policy_loss", "vf_loss", "entropy", "mean_rho"),
+        cfg.num_rollout_workers * cfg.num_envs_per_worker
+        * cfg.unroll_length)
+    counts["rllib_impala_lstm_3_iterations"] = runs["impala_lstm"]["launches"]
+    parts = [_TrajectoryWorker(cfg.env, SEED + 1000 * (i + 1), 1,
+                               "lstm").sample(theta0, cfg.unroll_length)
+             for i in range(cfg.num_rollout_workers)]
+    batch = {k: np.concatenate([p[k] for p in parts])
+             for k in (*TRAJECTORY_KEYS, "h0")}
+    checks["impala_lstm"] = rl_fn_card_against_cpu(rl_module_make(
+        impala_loss, algo._params_np(), batch, cfg.lr,
+        {"gamma": cfg.gamma, "rho_clip": cfg.rho_clip, "c_clip": cfg.c_clip,
+         "entropy_coeff": cfg.entropy_coeff, "vf_coeff": cfg.vf_coeff,
+         "clip_param": cfg.clip_param, "cell": "lstm"},
+        algo.learner.opt_state), {"rho_clip": 0.5})
+    emit("rllib_recurrent", card=smi, runs=runs, card_against_cpu=checks,
+         env={"rppo": "MemoryCueEnv", "impala_lstm": cfg.env})
+    return counts
+
+
+def check_rllib_multi_agent(torch, smi: str) -> dict:
+    """MultiAgentPPO on CoopMatch-v0 at its defaults (fragment 128,
+    minibatch 128, hidden 64), one policy shared by both agents and one
+    policy an agent, 2 iterations each on the card; then each policy's
+    update against the CPU's from its trained parameters and Adam state
+    on its first minibatch of a rollout sampled with the initial ones
+    (control: clip_eps 0.02)."""
+    from ray_tpu_torch.rllib.multi_agent import (MultiAgentPPOConfig,
+                                                 _MultiAgentRolloutWorker)
+    from ray_tpu_torch.rllib.ppo import ppo_loss
+
+    runs, checks, counts = {}, {}, {}
+    for name, policies, mapping in (
+            ("shared", ("shared",), lambda aid: "shared"),
+            ("independent", ("p_a0", "p_a1"), lambda aid: f"p_{aid}")):
+        algo = MultiAgentPPOConfig().multi_agent(
+            policies=policies, policy_mapping_fn=mapping).build()
+        cfg = algo.config
+        theta0 = algo._policies_np()
+        params = [p for pid in policies
+                  for p in algo.policies[pid].parameters()]
+        if not all(p.is_cuda for p in params):
+            raise AssertionError("the policies are not on the card")
+        zero_counts()
+        rows = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            r = algo.train()
+            rows.append({**{k: r[k] for k in (
+                "training_iteration", "episode_return_mean", "num_episodes",
+                "policy_loss", "entropy", "num_env_steps_sampled",
+                "policy_ids")}, "seconds": time.perf_counter() - t0,
+                "sample_s": r["sample_time_s"], "learn_s": r["learn_time_s"]})
+        torch.cuda.synchronize()
+        counts[f"rllib_multi_agent_{name}_2_iterations"] = launch_counts()
+        runs[name] = {"iterations": rows,
+                      "launches": counts[f"rllib_multi_agent_{name}"
+                                         "_2_iterations"]}
+        if not all(np.isfinite(row[k]) for row in rows
+                   for k in ("policy_loss", "entropy")):
+            raise AssertionError(f"non-finite stats: {rows}")
+        # two fragments' worth: normalised as a whole, a policy's first
+        # minibatch is not the whole batch, whose advantages have mean 0
+        # (its policy loss is then a cancellation, ill-posed relatively)
+        out = _MultiAgentRolloutWorker(cfg.env, mapping, SEED + 1000).sample(
+            theta0, 2 * cfg.rollout_fragment_length, cfg.gamma, cfg.lam)
+        trained = algo._policies_np()
+        for pid, b in out["batches"].items():
+            b = rl_normalized(b, tuple(b))
+            checks[f"{name}/{pid}"] = rl_fn_card_against_cpu(rl_module_make(
+                ppo_loss, trained[pid],
+                {k: v[:cfg.minibatch_size] for k, v in b.items()}, cfg.lr,
+                {"clip_eps": cfg.clip_eps,
+                 "entropy_coeff": cfg.entropy_coeff,
+                 "vf_coeff": cfg.vf_coeff}, algo.opt_states[pid]),
+                {"clip_eps": 0.02})
+    emit("rllib_multi_agent", card=smi, env="CoopMatch-v0", runs=runs,
+         card_against_cpu=checks)
+    return counts
+
+
+def dreamer_make(algo, batch: dict, noise: dict, draws: list):
+    """``make`` of ``rl_fn_card_against_cpu`` for ``_dreamer_update`` from
+    ``algo``'s state (parameters, EMA target, the three Adam states, the
+    return scale) on ``batch`` with the Gumbel draws ``noise``; ``over``
+    may hold another ``gamma``. Each made update's first step appends its
+    device, its sampled indices and its smallest sampling margin (the gap
+    between a draw's two largest entries) to ``draws``."""
+    from functools import partial
+
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.rllib.dqn import to_device
+    from ray_tpu_torch.rllib.dreamer import _dreamer_update
+    from ray_tpu_torch.rllib.sac import leaves, numpy_tree
+
+    state = {"params": numpy_tree(algo.params),
+             "target": numpy_tree(algo.target_critic),
+             "opts": [(o["count"], rl_numpy(leaves(o["mu"])),
+                       rl_numpy(leaves(o["nu"])))
+                      for o in (algo.opt_wm, algo.opt_actor,
+                                algo.opt_critic)],
+             "ret_scale": float(algo.ret_scale)}
+    c = algo.config
+    cfg_s = (algo.n_actions, c.n_cats, c.n_classes, c.h_dim, c.horizon,
+             c.gamma, c.lam, c.entropy_coef, c.free_nats, c.kl_dyn, c.kl_rep,
+             c.tau)
+
+    def make(device, gamma=None):
+        import torch
+
+        params = convert.dreamer_from_numpy(state["params"], device=device)
+        target = convert.dreamer_from_numpy({"critic": state["target"]},
+                                            device=device)["critic"]
+        opts = [{"count": count,
+                 "mu": {str(i): torch.tensor(m, device=device)
+                        for i, m in enumerate(mu)},
+                 "nu": {str(i): torch.tensor(v, device=device)
+                        for i, v in enumerate(nu)}}
+                for count, mu, nu in state["opts"]]
+        scale = [torch.tensor(state["ret_scale"], device=device)]
+        b, n = to_device(batch, device), to_device(noise, device)
+        s = cfg_s if gamma is None else cfg_s[:5] + (gamma,) + cfg_s[6:]
+        f = partial(_dreamer_update, cfg_s=s, tx_wm=algo.tx_wm,
+                    tx_actor=algo.tx_actor, tx_critic=algo.tx_critic)
+        first = []
+
+        def step():
+            record = None if first else []
+            scale[0], metrics = f(params, target, *opts, scale[0], b, n,
+                                  record=record)
+            if record is not None:
+                first.append(True)
+                draws.append({
+                    "device": str(device), "gamma": gamma,
+                    "indices": [idx.cpu().numpy() for idx, _ in record],
+                    "margin": min(float(m.min()) for _, m in record)})
+            return [*metrics.values(), scale[0]]
+
+        return step, lambda stats: rl_numpy([*stats, *leaves(params),
+                                             *leaves(target)])
+
+    return make
+
+
+def check_rllib_dreamer(torch, smi: str) -> dict:
+    """DreamerV3 at its defaults on CartPole-v1 (h_dim 128, 8 categoricals
+    of 8, batch 8 of sequences of 16, horizon 8, 128 steps an iteration,
+    learning_starts 256, 4 updates an iteration) on the card,
+    RL_REPLAY_ITERS iterations of which two update; then one update from
+    the trained state on a replay batch with the same Gumbel draws, the
+    card's against the CPU's (every leaf, the target, the return scale
+    and the metrics; control: gamma 0.9), the sampled indices equal and
+    the smallest sampling margin reported."""
+    from ray_tpu_torch.rllib.dreamer import DreamerV3Config
+    from ray_tpu_torch.rllib.sac import leaves
+
+    algo = DreamerV3Config().build()
+    cfg = algo.config
+    run = rl_replay_iterations(
+        torch, algo, leaves(algo.params),
+        ("wm_loss", "actor_loss", "critic_loss", "imag_return_mean"),
+        cfg.num_rollout_workers * cfg.rollout_fragment_length)
+    batch = algo.buffer.sample(cfg.batch_size, cfg.seq_len,
+                               np.random.default_rng(SEED))
+    draws = []
+    check = rl_fn_card_against_cpu(
+        dreamer_make(algo, batch, algo._noise(), draws), {"gamma": 0.9})
+    # the made updates in order: the card's, the CPU's, the control's
+    card, cpu = draws[0], draws[1]
+    same = all(np.array_equal(a, b) for a, b in zip(
+        card["indices"], cpu["indices"], strict=True))
+    check["sampled_indices_equal"] = same
+    check["smallest_sampling_margin"] = {
+        "card": card["margin"], "cpu": cpu["margin"]}
+    emit("rllib_dreamer", card=smi, env=cfg.env, **run,
+         card_against_cpu=check)
+    if not same:
+        raise AssertionError(f"a sampled index differs: {check}")
+    return run["launches"]
+
+
 def check_rllib(torch, smi: str) -> dict:
     """Every RLlib phase, the kernel counts of each."""
     t0 = time.perf_counter()
@@ -5323,7 +5587,11 @@ def check_rllib(torch, smi: str) -> dict:
               **{f"rllib_{name}_3_iterations":
                  check_rllib_continuous(torch, smi, name)
                  for name in ("sac", "td3", "ddpg")},
-              "rllib_offline": check_rllib_offline(torch, smi)}
+              "rllib_offline": check_rllib_offline(torch, smi),
+              # slice 15, each phase with its counts zeroed in it
+              **check_rllib_recurrent(torch, smi),
+              **check_rllib_multi_agent(torch, smi),
+              "rllib_dreamer_3_iterations": check_rllib_dreamer(torch, smi)}
     emit("rllib_phases", seconds=time.perf_counter() - t0)
     return counts
 
@@ -5587,11 +5855,13 @@ def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
 
 
 def check_examples(torch, smi: str) -> dict:
-    """Both quickstarts on this card: ``train_llama`` (llama_tiny on
-    {fsdp 2, tp 2} of the card, 30 steps: losses finite and falling) and
-    ``llm_serving`` (its prefix-hit check, 4 streamed requests). Returns
-    each one's kernel counts."""
-    from ray_tpu_torch.examples import llm_serving, train_llama
+    """The quickstarts on this card: ``train_llama`` (llama_tiny on
+    {fsdp 2, tp 2} of the card, 30 steps: losses finite and falling),
+    ``llm_serving`` (its prefix-hit check, 4 streamed requests) and
+    ``rllib_quickstart`` (PPO on CartPole-v1, 10 iterations: stats
+    finite). Returns each one's kernel counts."""
+    from ray_tpu_torch.examples import (llm_serving, rllib_quickstart,
+                                        train_llama)
 
     t0 = time.perf_counter()
     zero_counts()
@@ -5605,18 +5875,31 @@ def check_examples(torch, smi: str) -> dict:
     serve_counts = launch_counts()
     serve_s = time.perf_counter() - t0
     free_card(torch)
+    t0 = time.perf_counter()
+    zero_counts()
+    rl_results = rllib_quickstart.main(device="cuda")
+    rl_counts = launch_counts()
+    rl_s = time.perf_counter() - t0
+    rl_returns = [r["episode_return_mean"] for r in rl_results]
     losses = [h["loss"] for h in history]
     emit("examples", nvidia_smi=smi, train_llama_losses=losses,
          train_llama_s=train_s, train_llama_launches=train_counts,
          llm_serving_prefix_hit_pages=served["prefix_cache"]["hit_pages"],
          llm_serving_tokens=[len(t) for t in served["tokens"]],
-         llm_serving_s=serve_s, llm_serving_launches=serve_counts)
+         llm_serving_s=serve_s, llm_serving_launches=serve_counts,
+         rllib_quickstart_returns=rl_returns, rllib_quickstart_s=rl_s,
+         rllib_quickstart_launches=rl_counts)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train_llama losses {losses}: finite and "
                              "falling")
     if [len(t) for t in served["tokens"]] != [12] * 4:
         raise AssertionError(f"llm_serving streamed {served['tokens']}")
-    return {"train_llama": train_counts, "llm_serving": serve_counts}
+    if len(rl_results) != 10 or not all(
+            np.isfinite(r[k]) for r in rl_results
+            for k in ("policy_loss", "vf_loss", "entropy")):
+        raise AssertionError(f"rllib_quickstart: {rl_results}")
+    return {"train_llama": train_counts, "llm_serving": serve_counts,
+            "rllib_quickstart": rl_counts}
 
 
 def build_facts(kernels_mod, name, path, kernel) -> dict:
@@ -5873,6 +6156,8 @@ def main() -> int:
                    "llm_deployment": deploy_counts[k],
                    "examples_train_llama": example_counts["train_llama"][k],
                    "examples_llm_serving": example_counts["llm_serving"][k],
+                   "examples_rllib_quickstart":
+                       example_counts["rllib_quickstart"][k],
                    **{path: c[k] for path, c in rl_counts.items()}}
                for k in full_counts}
     kernels = [{

@@ -6,7 +6,11 @@ hands the numpy tree here. Names and layouts are the same on both sides
 (stacked ``[L, ...]`` blocks, ``x @ W`` orientation) for every model
 family, so the mapping is name for name. The RL policy/value module
 (``policy_value_from_numpy``) takes the tree of JAX's
-``rllib.ppo.init_module``, which is also RLlib's checkpoint format.
+``rllib.ppo.init_module``, which is also RLlib's checkpoint format; SAC's
+and TD3's trees (``mlp_tree_from_numpy``), the recurrent core's
+(``recurrent_from_numpy``) and DreamerV3's (``dreamer_from_numpy``) map
+the same way, and so do their Adam moments, which have the parameters'
+structure.
 """
 
 from __future__ import annotations
@@ -170,3 +174,129 @@ def mlp_tree_from_numpy(tree: dict, *, device="cuda") -> dict:
                 [{"w": leaf(layer["w"]), "b": leaf(layer["b"])}
                  for layer in tree[k]])
             for k in ("actor", "q1", "q2", "log_alpha") if k in tree}
+
+
+def recurrent_from_numpy(tree: dict, *, cell_type: str | None = None,
+                         device="cuda"):
+    """The port's ``rllib.recurrent.RecurrentModule`` from the numpy tree
+    of JAX's ``init_recurrent_module`` (``ray_tpu/rllib/recurrent.py:44``):
+    ``{"cell_type", "enc", "cell", "pi", "vf"}``, each layer ``{"w":
+    [fan_in, fan_out], "b": [fan_out]}``. ``cell_type`` may come as the
+    keyword instead (JAX's learners and Adam moments hold the tree
+    without it). Raises unless the layers are those and the shapes chain:
+    obs -> hidden, [2*hidden] -> gates*hidden (3 for gru, 4 for lstm),
+    then hidden -> actions and hidden -> 1."""
+    from ray_tpu_torch.rllib.recurrent import LAYERS, RecurrentModule
+
+    dev = resolve_device(device)
+    if not isinstance(tree, dict):
+        raise ValueError(f"not a recurrent tree: {type(tree)}")
+    cell = tree.get("cell_type", cell_type)
+    if cell_type is not None and cell != cell_type:
+        raise ValueError(f"the tree's cell_type {cell!r} is not "
+                         f"{cell_type!r}")
+    if cell not in ("gru", "lstm"):
+        raise ValueError(f"cell_type must be 'gru' or 'lstm', got {cell!r}")
+    layers = {k: v for k, v in tree.items() if k != "cell_type"}
+    if set(layers) != set(LAYERS) or any(
+            not isinstance(layers[k], dict) or set(layers[k]) != {"w", "b"}
+            for k in LAYERS):
+        raise ValueError(f"not a recurrent tree: expected {LAYERS}, each "
+                         "with 'w' and 'b'")
+    shapes = {k: (np.shape(layers[k]["w"]), np.shape(layers[k]["b"]))
+              for k in LAYERS}
+    obs, hidden = (shapes["enc"][0] + (None, None))[:2]
+    n_actions = (shapes["pi"][0] + (None, None))[1]
+    gates = 3 if cell == "gru" else 4
+    want = {"enc": ((obs, hidden), (hidden,)),
+            "cell": ((2 * hidden, gates * hidden), (gates * hidden,)),
+            "pi": ((hidden, n_actions), (n_actions,)),
+            "vf": ((hidden, 1), (1,))}
+    if shapes != want:
+        raise ValueError(f"{cell} tree has shapes {shapes}, expected {want}")
+    return RecurrentModule({k: {leaf: _to_tensor(layers[k][leaf], dev, None)
+                                for leaf in ("w", "b")} for k in LAYERS},
+                           cell).to(dev)
+
+
+DREAMER_WM = ("encoder", "gru", "prior", "post", "decoder", "reward", "cont")
+
+
+def dreamer_from_numpy(tree: dict, *, device="cuda") -> dict:
+    """The port's DreamerV3 tree from the numpy tree of JAX's
+    ``init_dreamer`` (``ray_tpu/rllib/dreamer.py:110``): ``{"wm",
+    "actor", "critic"}`` (or a part of it: an EMA target critic comes as
+    ``{"critic": ...}``, Adam moments of one part as that part), the
+    world model ``{"encoder", "gru", "prior", "post", "decoder",
+    "reward", "cont"}`` with ``gru`` as ``{"wx": [x, 3h], "wh": [h, 3h],
+    "b": [3h]}`` and every other network a list of layers ``{"w":
+    [fan_in, fan_out], "b": [fan_out]}``. The leaves become tensors on
+    ``device`` that take gradients, in the port's order (its optimizer
+    states are positional). Raises unless the keys are those, each
+    network's layers chain and the widths agree across networks."""
+    dev = resolve_device(device)
+    if not isinstance(tree, dict) or not tree or \
+            not set(tree) <= {"wm", "actor", "critic"}:
+        got = sorted(tree) if isinstance(tree, dict) else type(tree)
+        raise ValueError(f"not a DreamerV3 tree: keys {got}")
+
+    def mlp(name, net):
+        if not isinstance(net, list) or not net or any(
+                not isinstance(layer, dict) or set(layer) != {"w", "b"}
+                for layer in net):
+            raise ValueError(f"{name} is not a list of {{'w', 'b'}} layers")
+        shapes = [(np.shape(layer["w"]), np.shape(layer["b"]))
+                  for layer in net]
+        if not all(len(w) == 2 and b == (w[1],) for w, b in shapes) or any(
+                a[0][1] != b[0][0] for a, b in zip(shapes, shapes[1:])):
+            raise ValueError(f"{name}'s layers do not chain: {shapes}")
+        return shapes[0][0][0], shapes[-1][0][1]
+
+    dims = {}
+    if "wm" in tree:
+        wm = tree["wm"]
+        if not isinstance(wm, dict) or set(wm) != set(DREAMER_WM):
+            raise ValueError(f"the world model's keys are not {DREAMER_WM}")
+        io = {k: mlp(f"wm.{k}", wm[k]) for k in DREAMER_WM if k != "gru"}
+        gru = wm["gru"]
+        if not isinstance(gru, dict) or set(gru) != {"wx", "wh", "b"}:
+            raise ValueError("wm.gru is not {'wx', 'wh', 'b'}")
+        (x_dim, g3), (h_dim, g3h), (gb,) = (np.shape(gru["wx"]),
+                                           np.shape(gru["wh"]),
+                                           np.shape(gru["b"]))
+        obs_dim, embed = io["encoder"]
+        z_dim = io["prior"][1]
+        f_dim = h_dim + z_dim
+        want = {"encoder": (obs_dim, embed), "prior": (h_dim, z_dim),
+                "post": (h_dim + embed, z_dim), "decoder": (f_dim, obs_dim),
+                "reward": (f_dim, 1), "cont": (f_dim, 1)}
+        if io != want or not g3 == g3h == gb == 3 * h_dim or \
+                x_dim <= z_dim:
+            raise ValueError(
+                f"the world model's widths do not agree: {io}, gru "
+                f"{np.shape(gru['wx'])} {np.shape(gru['wh'])} "
+                f"{np.shape(gru['b'])}")
+        dims = {"f_dim": f_dim, "n_actions": x_dim - z_dim}
+    for name, out in (("actor", dims.get("n_actions")), ("critic", 1)):
+        if name in tree:
+            f_in, f_out = mlp(name, tree[name])
+            if f_in != dims.get("f_dim", f_in) or f_out != (out or f_out):
+                raise ValueError(f"{name} maps {(f_in, f_out)}, expected "
+                                 f"{(dims.get('f_dim'), out)}")
+
+    def leaf(a):
+        return _to_tensor(a, dev, None).requires_grad_()
+
+    def layers(net):
+        return [{"w": leaf(layer["w"]), "b": leaf(layer["b"])}
+                for layer in net]
+
+    out = {}
+    if "wm" in tree:
+        out["wm"] = {k: ({g: leaf(tree["wm"]["gru"][g])
+                          for g in ("wx", "wh", "b")} if k == "gru"
+                         else layers(tree["wm"][k])) for k in DREAMER_WM}
+    for name in ("actor", "critic"):
+        if name in tree:
+            out[name] = layers(tree[name])
+    return out

@@ -2,7 +2,8 @@
 
 Port of ``ray_tpu/rllib/learner_group.py`` (reference:
 ``rllib/core/learner/learner_group.py:61,145``). An algorithm plugs in
-``init_fn(seed, device=) -> module`` (``rllib.ppo.init_module``),
+``init_fn(seed, device=) -> module`` (``rllib.ppo.init_module``,
+``rllib.recurrent.init_recurrent_module``),
 ``loss_fn(module, batch) -> (total, stats)`` (``ppo_loss``,
 ``impala_loss``; the learner differentiates it, where JAX's ``grad_fn``
 returns the gradients) and ``tx``, the port's ``AdamW``. These reach rank
@@ -72,6 +73,17 @@ def loss_grads(loss_fn: Callable, module: torch.nn.Module,
             {k: v.detach() for k, v in stats.items()})
 
 
+def sgd_step(loss_fn: Callable, module: torch.nn.Module, opt_state: dict,
+             batch: dict, tx) -> dict:
+    """One step of ``tx`` on ``module`` in place from ``loss_fn``'s
+    gradients on a batch of tensors; returns the stats (detached tensors)
+    of the parameters before the step (JAX's fused update, without its
+    jit)."""
+    grads, stats = loss_grads(loss_fn, module, batch)
+    tx.update(list(module.parameters()), grads, opt_state)
+    return stats
+
+
 def _floats(stats: dict) -> dict:
     """Stats as Python floats, read from the device at once."""
     return dict(zip(stats, torch.stack(list(stats.values())).tolist()))
@@ -106,10 +118,18 @@ class Learner:
         return self.module.numpy_tree()
 
     def set_params(self, params: dict) -> None:
+        """``params`` a numpy tree of JAX's ``init_module`` or, with a
+        ``"cell"`` layer, of ``init_recurrent_module`` (its ``cell_type``
+        optional; a tree of another cell than the module's raises)."""
         from ray_tpu_torch import convert
 
-        self.module = convert.policy_value_from_numpy(params,
-                                                      device=self.device)
+        if "cell" in params:
+            self.module = convert.recurrent_from_numpy(
+                params, cell_type=getattr(self.module, "cell_type", None),
+                device=self.device)
+        else:
+            self.module = convert.policy_value_from_numpy(
+                params, device=self.device)
 
     def stop(self) -> None:
         pass

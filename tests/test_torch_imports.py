@@ -68,7 +68,10 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "rllib.pg", "rllib.impala", "rllib.appo",
                  "rllib.learner_group", "rllib.dqn", "rllib.replay",
                  "rllib.sac", "rllib.td3", "rllib.offline",
-                 "rllib.estimators", "rllib.marwil", "tune", "tune.tuner",
+                 "rllib.estimators", "rllib.marwil", "rllib.recurrent",
+                 "rllib.multi_agent", "rllib.dreamer", "rllib.bandit",
+                 "rllib.es", "rllib.connectors", "examples.rllib_quickstart",
+                 "tune", "tune.tuner",
                  "tune.schedulers", "tune.search", "examples.train_llama",
                  "examples.llm_serving", "examples.tune_llama"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
@@ -201,3 +204,59 @@ def test_harness_modules_and_a_spawned_rank_load_no_jax():
     assert out["error"] is None
     assert out["rank"] == {"jax": [], "ray_tpu": [],
                            "cuda_initialized": False}
+
+
+RLLIB_PROBE = r"""
+import json, sys
+import ray_tpu_torch.rllib
+import torch
+print(json.dumps({
+    "loaded": sorted(m for m in sys.modules
+                     if m.startswith("ray_tpu_torch.rllib.")),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cloudpickle": sorted(m for m in sys.modules
+                          if m.split(".")[0] == "cloudpickle"),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+
+def test_rllib_loads_no_jax_no_ray_tpu_no_cloudpickle_no_cuda():
+    """A fresh ``import ray_tpu_torch.rllib``, nothing imported first,
+    loads every RLlib module of the port and no jax, no ray_tpu module, no
+    cloudpickle (the card's machine has none: the multi-agent mapping
+    reaches the in-process workers as it is) and no CUDA."""
+    proc = subprocess.run([sys.executable, "-c", RLLIB_PROBE], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("recurrent", "multi_agent", "dreamer", "bandit", "es",
+                 "connectors", "impala", "ppo"):
+        assert f"ray_tpu_torch.rllib.{name}" in out["loaded"]
+    assert out["jax"] == [] and out["ray_tpu"] == []
+    assert out["cloudpickle"] == []
+    assert out["cuda_initialized"] is False
+
+
+def test_rllib_exports_every_name_of_the_jax_package():
+    """``ray_tpu_torch.rllib`` exports the names ``ray_tpu.rllib`` imports
+    (its public attributes other than modules), and its ``__all__`` is
+    exactly those."""
+    import inspect
+
+    import ray_tpu.rllib as jax_rllib
+
+    import ray_tpu_torch.rllib as port_rllib
+
+    def names(mod) -> set:
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and not inspect.ismodule(v)}
+
+    want = names(jax_rllib)
+    assert {"ConnectorEnv", "MultiAgentReplay", "PolicyMap", "MemoryCueEnv",
+            "StatelessCartPole", "DreamerV3", "ES", "BanditLinTS"} <= want
+    assert names(port_rllib) == want
+    assert set(port_rllib.__all__) == want

@@ -24,8 +24,9 @@ setting that must miss the check's tolerance:
   bit, the stats and the updated parameters within 1e-5 (control: the
   port at another ``gamma``).
 
-Then the learning checks of ``tests/test_rllib.py`` on the port, and its
-entry points' device rules. The JAX runtime (rollout actors) starts once,
+Then the learning checks of ``tests/test_rllib.py`` on the port, its
+entry points' device rules and IMPALA's recurrent save files across the
+packages. The JAX runtime (rollout actors) starts once,
 for the module.
 """
 
@@ -50,6 +51,7 @@ from ray_tpu_torch.rllib import impala as timpala
 from ray_tpu_torch.rllib import pg as tpg
 from ray_tpu_torch.rllib import ppo as tppo
 from ray_tpu_torch.rllib.learner_group import Learner, loss_grads
+from torch_rl_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 LAYERS = ("torso1", "torso2", "pi", "vf")
@@ -496,16 +498,62 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
     """The algorithms default to device "cuda" and raise without a card."""
     if torch.cuda.is_available():
         pytest.skip("this host has a card")
-    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, IMPALAConfig,
-                                     PGConfig, PPOConfig)
+    from ray_tpu_torch.rllib import (A2CConfig, APPOConfig, DreamerV3Config,
+                                     IMPALAConfig, MultiAgentPPOConfig,
+                                     PGConfig, PPOConfig, RecurrentPPOConfig)
 
     for cfg in (PPOConfig(), A2CConfig(), PGConfig(), IMPALAConfig(),
-                APPOConfig()):
+                APPOConfig(), IMPALAConfig(cell="gru"),
+                APPOConfig(cell="lstm"), RecurrentPPOConfig(),
+                MultiAgentPPOConfig(), DreamerV3Config()):
         assert cfg.device == "cuda"
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             cfg.build()
 
 
-def test_recurrent_core_raises_before_any_worker():
-    with pytest.raises(NotImplementedError, match="recurrent core"):
-        timpala.IMPALAConfig(cell="gru", device="cpu").build()
+def test_impala_cell_save_files_read_by_both_packages(rt, tmp_path):
+    """IMPALA with a recurrent core: the port's save file (the numpy tree
+    with ``cell_type``) restored into JAX's IMPALA, and JAX's into the
+    port's, the parameters bit for bit and the greedy actions and carried
+    states equal over an episode's steps (control: the port's file read
+    into an IMPALA of the other cell, which refuses it)."""
+    from ray_tpu.rllib.recurrent import MemoryCueEnv as JaxCue
+    from ray_tpu_torch.rllib.recurrent import MemoryCueEnv
+
+    def same_params(a: dict, b: dict) -> bool:
+        return set(a) == set(b) and a["cell_type"] == b["cell_type"] and all(
+            np.array_equal(a[k][leaf], b[k][leaf]) for k in a
+            if k != "cell_type" for leaf in ("w", "b"))
+
+    algo = (timpala.IMPALAConfig(device="cpu").environment(MemoryCueEnv)
+            .rollouts(num_rollout_workers=1, num_envs_per_worker=4)
+            .training(cell="gru", unroll_length=16, hidden=16).build())
+    algo.train()
+    path = str(tmp_path / "port.pkl")
+    algo.save(path)
+    jalgo = (jimpala.IMPALAConfig().environment(JaxCue)
+             .rollouts(num_rollout_workers=1)
+             .training(cell="gru", hidden=16).build())
+    try:
+        jalgo.restore(path)
+        saved = jalgo._params_np()
+        assert saved["cell_type"] == "gru"
+        assert same_params(saved, algo._params_np())
+        state_j = state_t = None
+        for obs in ([1.0, 0.0], [0.0, 2 / 3], [0.0, 1 / 3], [-1.0, 0.0]):
+            a_j, state_j = jalgo.compute_action(obs, state_j)
+            a_t, state_t = algo.compute_action(obs, state_t)
+            assert a_j == a_t and np.array_equal(state_j, state_t)
+        jpath = str(tmp_path / "jax.pkl")
+        jalgo.save(jpath)
+    finally:
+        jalgo.stop()
+    fresh = timpala.IMPALAConfig(device="cpu").training(
+        cell="gru", hidden=16).environment(MemoryCueEnv).build()
+    fresh.restore(jpath)
+    assert same_params(fresh._params_np(), algo._params_np())
+    # control: a file of a gru core read into an lstm IMPALA
+    with pytest.raises(ValueError, match="cell_type"):
+        timpala.IMPALAConfig(device="cpu").training(
+            cell="lstm", hidden=16).environment(MemoryCueEnv).build(
+        ).restore(path)

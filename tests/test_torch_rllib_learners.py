@@ -11,7 +11,8 @@ the harness calls it runs on (``WorkerGroup.execute``, ``execute_async``,
   learners, as ``tests/test_learner_group.py:67`` holds JAX's planes
   (control: one learner on rank 0's shard alone, as a rank that skipped
   the all-reduce would step); and PPO built with actors mode against PPO
-  built with mesh mode over one iteration.
+  built with mesh mode over one iteration, and IMPALA with an lstm core
+  likewise over two.
 - ``WorkerGroup``: results in rank order, ``execute_async``'s calls read
   in any order, ``healthy``, and a rank that raises: the call raises with
   its traceback, the other rank is killed, ``healthy`` turns False.
@@ -188,6 +189,45 @@ def test_ppo_actors_mode_matches_mesh_mode():
     assert got[0]["episode_return_mean"] == want[0]["episode_return_mean"]
     assert run_err(([got[0]], got[1]), ([{k: want[0][k] for k in (
         "policy_loss", "vf_loss", "entropy")}], want[1])) < TOL
+
+
+def test_impala_cell_actors_mode_matches_mesh_mode():
+    """IMPALA with an lstm core: its recurrent ``init_fn`` and loss reach
+    the rank processes by plain pickle, and two ranks' iterations match
+    mesh mode's (control: one learner on rank 0's shard alone, the first
+    trajectory, as a rank that skipped the all-reduce would step)."""
+    from ray_tpu_torch.rllib import impala as timpala
+
+    cfg = timpala.IMPALAConfig(device="cpu", num_learners=2, cell="lstm",
+                               hidden=16, unroll_length=16)
+    mesh = timpala.IMPALA(cfg)
+    want = [mesh.train() for _ in range(2)], mesh.learner.get_params()
+
+    def actors():
+        algo = timpala.IMPALA(cfg.training(learner_mode="actors"))
+        try:
+            return [algo.train() for _ in range(2)], \
+                algo.learner.get_params()
+        finally:
+            algo.stop()
+
+    def err(got) -> float:
+        return max([rel_err(got[1][k][leaf], want[1][k][leaf])
+                    for k in want[1] for leaf in ("w", "b")] + [
+            rel_err(g[k], w[k]) for g, w in zip(got[0], want[0])
+            for k in ("policy_loss", "vf_loss", "entropy", "mean_rho")])
+
+    got = within_limit(actors)
+    assert set(got[1]) == {"enc", "cell", "pi", "vf"}
+    assert got[1]["cell"]["w"].shape == (32, 64)    # lstm: 4 gate blocks
+    assert err(got) < TOL
+    # control: rank 0's shard alone (no all-reduce)
+    alone = timpala.IMPALA(cfg.training(num_learners=0))
+    half = alone.learner.loss_fn
+    alone.learner.loss_fn = lambda module, batch: half(
+        module, {k: v[:1] for k, v in batch.items()})
+    assert err(([alone.train() for _ in range(2)],
+                alone.learner.get_params())) > TOL
 
 
 def _rank_plus(x):

@@ -42,6 +42,7 @@ from ray_tpu_torch.rllib import marwil as tmarwil
 from ray_tpu_torch.rllib import offline as toff
 from ray_tpu_torch.rllib.dqn import frozen_copy, to_device
 from ray_tpu_torch.rllib.ppo import adam
+from torch_rl_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

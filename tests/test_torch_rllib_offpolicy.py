@@ -69,6 +69,7 @@ from ray_tpu_torch.rllib import replay as treplay
 from ray_tpu_torch.rllib import sac as tsac
 from ray_tpu_torch.rllib import td3 as ttd3
 from ray_tpu_torch.rllib.ppo import adam
+from torch_rl_threads import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 
