@@ -89,6 +89,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -328,6 +329,19 @@ def check_flash(torch, peaks):
         # a tp-2 rank's attention at fsdp 2: one row, 16 q and 4 kv heads
         ("llama3_8b_tp2", 1, 16, 4, 2048, 2048, 128, torch.bfloat16, True,
          True),
+        # slice 16: a tp-4 place of xproc_tp4 (two rows, 8 q and 2 kv
+        # heads); the ring of xproc_sp2_tp2 (a process's 4096-token chunk
+        # of 8K, its two tp places' heads in one ring: all 32 and 8) on
+        # the diagonal and off it; a tp-2 place of Mixtral's {ep 4, tp 2}
+        # forward (two rows, 16 and 4 heads, no lse)
+        ("llama3_8b_tp4", 2, 8, 2, 2048, 2048, 128, torch.bfloat16, True,
+         True),
+        ("sp2_chunk_causal_lse", 1, 32, 8, 4096, 4096, 128, torch.bfloat16,
+         True, True),
+        ("sp2_chunk_noncausal_lse", 1, 32, 8, 4096, 4096, 128,
+         torch.bfloat16, False, True),
+        ("mixtral_ep4_tp2", 2, 16, 4, 2048, 2048, 128, torch.bfloat16, True,
+         False),
         ("d64_gqa1", 2, 8, 8, 1024, 1024, 64, torch.bfloat16, True, True),
         # GPT-2 XL's training step: an odd head count, a group of one
         ("gpt2_xl_train", 8, 25, 25, 1024, 1024, 64, torch.bfloat16, True,
@@ -542,6 +556,10 @@ def check_flash_bwd(torch, peaks):
         ("llama3_8b_train", 2, 32, 8, 2048, 128, torch.bfloat16, True),
         ("llama3_8b_noncausal", 1, 32, 8, 2048, 128, torch.bfloat16, False),
         ("llama3_8b_tp2", 1, 16, 4, 2048, 128, torch.bfloat16, True),
+        # slice 16: xproc_tp4's place, xproc_sp2_tp2's ring chunk
+        ("llama3_8b_tp4", 2, 8, 2, 2048, 128, torch.bfloat16, True),
+        ("sp2_chunk_causal", 1, 32, 8, 4096, 128, torch.bfloat16, True),
+        ("sp2_chunk_noncausal", 1, 32, 8, 4096, 128, torch.bfloat16, False),
         ("d64_gqa1", 2, 8, 8, 1024, 64, torch.bfloat16, True),
         ("gpt2_xl_train", 8, 25, 25, 1024, 64, torch.bfloat16, True),
         ("gpt2_xl_tp2_13", 4, 13, 13, 1024, 64, torch.bfloat16, True),
@@ -581,7 +599,8 @@ def check_flash_bwd(torch, peaks):
         with_controls = name in ("llama3_8b_train", "gpt2_xl_train")
         is_timed = with_controls or name in (
             "llama3_8b_noncausal", "llama3_8b_tp2", "gpt2_xl_tp2_13",
-            "gpt2_xl_tp2_12")
+            "gpt2_xl_tp2_12", "llama3_8b_tp4", "sp2_chunk_causal",
+            "sp2_chunk_noncausal")
         if with_controls:
             check_flash_bwd_controls(torch, name, qt, kt, vt, dot, lse,
                                      delta, want, row_tol[dt])
@@ -2327,11 +2346,25 @@ XPROC_LIMIT_S = 240.0
 XPROC_CASES = {"xproc_fsdp_tp": ("real", "psum_backward",
                                  "skip_reduce_scatter", "norm_unreduced"),
                "xproc_sp4": ("real",),
-               "xproc_pp": ("real", "backward_to_next_stage")}
+               "xproc_pp": ("real", "backward_to_next_stage"),
+               # slice 16, two processes: an axis cut at the boundary
+               "xproc_fsdp4": ("real", "local_split_reversed"),
+               "xproc_tp4": ("real", "local_sum_skipped"),
+               "xproc_sp2_tp2": ("real",),
+               "xproc_sp4_w2": ("real",),
+               "xproc_pp4_w2": ("real", "backward_to_next_stage")}
 XPROC_CONTROL_BREAKS = {"psum_backward": "grad_norm",
                         "skip_reduce_scatter": "grad_norm",
                         "norm_unreduced": "first_moment",
-                        "backward_to_next_stage": "grad_norm"}
+                        "backward_to_next_stage": "grad_norm",
+                        # a permutation of gradient pieces keeps the norm
+                        "local_split_reversed": "first_moment",
+                        "local_sum_skipped": "first_moment"}
+# the phases whose ranks run the ring alone first (``xproc_ring_check``):
+# phase -> (the global mesh, the control that must fail the output bound)
+XPROC_RING = {"xproc_sp4": ({"sp": 4}, "reversed_ring"),
+              "xproc_sp2_tp2": ({"sp": 2, "tp": 2}, "ring_held"),
+              "xproc_sp4_w2": ({"sp": 4}, "boundary_reversed")}
 # Each leaf's first moment (the gradients' running mean, bf16) after the
 # ranks' steps against the single controller's: the RMS of the difference
 # over the RMS of the reference, leaf by leaf. The norm weights' bf16
@@ -2355,7 +2388,14 @@ def xproc_control(case: str):
     of 1-d pieces), ``reversed_ring`` (K/V shifted the wrong way
     round), ``backward_to_next_stage`` (the 1F1B's gradients sent to
     stage s+1 in place of s-1) and ``experts_from_wrong_ep`` (the
-    experts' outputs taken from the other ep process)."""
+    experts' outputs taken from the other ep process); over an axis cut
+    at the process boundary (slice 16) ``local_sum_skipped`` (a
+    process's first chunk alone in the subgroup's all-reduce),
+    ``local_split_reversed`` (a process's block of a reduce-scatter
+    handed to its places in reverse order), ``boundary_reversed`` (the
+    ring's K/V sent across each process boundary the wrong way, the
+    moves inside a process as they are) and ``ring_held`` (K/V kept in
+    their process: no ring step crosses a process)."""
     import torch
 
     from ray_tpu_torch.parallel import collectives as col
@@ -2366,7 +2406,9 @@ def xproc_control(case: str):
              (spmd, "all_gather"): spmd.all_gather,
              (spmd, "gather_experts"): spmd.gather_experts,
              (pipeline, "backward_peer"): pipeline.backward_peer,
-             (ring_attention, "ring_shift"): ring_attention.ring_shift}
+             (ring_attention, "ring_shift"): ring_attention.ring_shift,
+             (col, "local_sum"): col.local_sum,
+             (col, "local_split"): col.local_split}
     if case == "psum_backward":
         spmd.tp_exit = lambda xs, group: col.psum(xs, group=group)
     elif case in ("skip_reduce_scatter", "norm_unreduced"):
@@ -2391,6 +2433,21 @@ def xproc_control(case: str):
             n = kw["group"].size if "group" in kw else len(xs)
             return [torch.cat(out.chunk(n)[::-1])]
         spmd.gather_experts = wrong_ep
+    elif case == "local_sum_skipped":
+        col.local_sum = lambda xs: xs[0]
+    elif case == "local_split_reversed":
+        split = col.local_split
+        col.local_split = lambda x, k, dim, tiled: \
+            split(x, k, dim, tiled)[::-1]
+    elif case == "boundary_reversed":
+        def shift(xs, shift=1, group=None):
+            n, k = col.axis_size(xs, group=group), len(xs)
+            perm = [(i, (i + shift) % n) for i in range(n)]
+            return col.ppermute(xs, [(d, s) if s // k != d // k else (s, d)
+                                     for s, d in perm], group=group)
+        ring_attention.ring_shift = shift
+    elif case == "ring_held":
+        ring_attention.ring_shift = lambda xs, shift=1, group=None: xs
     try:
         yield
     finally:
@@ -2408,23 +2465,30 @@ def ring_seeded(torch):
                                               (b, s, hk, d), (b, s, h, d))]
 
 
-def xproc_ring_check(torch, pg, out_dir):
-    """A rank of xproc_sp4: ``ring_attention(impl="flash")`` across the
-    four processes on this rank's chunk of the seeded RING_SHAPE inputs,
-    causal, and its gradients; then the same with the ring shifted the
-    wrong way (the control). Saves both to ``<out>/ring_rank<r>.pt``;
-    returns the launches of the real one, causal and not."""
+def xproc_ring_check(torch, pg, out_dir, axes: dict, control: str):
+    """A rank of a ring phase (``XPROC_RING``): ``ring_attention(impl=
+    "flash")`` across the processes of the global mesh ``axes`` on this
+    rank's chunk of the seeded RING_SHAPE inputs (its ring ranks' run of
+    the sequence, all heads: the rings of its other places run as one),
+    causal, and its gradients; then the same under ``control``. Saves
+    both to ``<out>/ring_rank<r>.pt``; returns the launches of the real
+    one, causal and not."""
+    import math
+
     from ray_tpu_torch.parallel import ring_attention as ra
-    from ray_tpu_torch.parallel.mesh import Mesh
+    from ray_tpu_torch.parallel.mesh import Mesh, create_mesh
     from ray_tpu_torch.parallel.process_group import mesh_layout
 
-    grid = np.empty(1, dtype=object)
-    grid[0] = pg.device
-    mesh = Mesh(grid, ("sp",), mesh_layout(pg, {"sp": RING_SP}))
-    q, k, v, do = (x.chunk(RING_SP, dim=1)[pg.rank] for x in
-                   ring_seeded(torch))
+    layout = mesh_layout(pg, axes)
+    local = create_mesh(layout.local, devices=[pg.device] * math.prod(
+        layout.local.values()))
+    mesh = Mesh(local.devices, local.axis_names, layout)
+    chunk = RING_SHAPE[1] // axes["sp"]
+    lo = mesh.offset("sp") * chunk
+    hi = lo + mesh.local_shape["sp"] * chunk
+    q, k, v, do = (x[:, lo:hi] for x in ring_seeded(torch))
     saved = {}
-    for case in ("real", "reversed_ring"):
+    for case in ("real", control):
         leaves = tuple(x.detach().clone().requires_grad_() for x in (q, k, v))
         with xproc_control(case):
             zero_counts()
@@ -2439,6 +2503,32 @@ def xproc_ring_check(torch, pg, out_dir):
             real_counts = counts
     torch.save(saved, os.path.join(out_dir, f"ring_rank{pg.rank}.pt"))
     return real_counts
+
+
+def xproc_ring_errs(torch, d: str, world: int, control: str) -> dict:
+    """The ranks' ring outputs and gradients (``xproc_ring_check``'s
+    files in ``d``, joined along the sequence in rank order) against the
+    whole-sequence kernels on the same seeded inputs, row by row: the
+    real ring's and the control's."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention
+
+    rings = [torch.load(os.path.join(d, f"ring_rank{r}.pt"),
+                        weights_only=True) for r in range(world)]
+    q, k, v, do = ring_seeded(torch)
+    leaves = tuple(x.requires_grad_() for x in (q, k, v))
+    want = flash_attention(*leaves, causal=True)
+    want_grads = torch.autograd.grad(want, leaves, do)
+    errs = {}
+    for case in ("real", control):
+        got = {n: torch.cat([r[case][n] for r in rings], dim=1).cuda()
+               for n in ("out", "dq", "dk", "dv")}
+        errs[case] = {"out": row_rel_err(got["out"], want.detach()),
+                      **{f"d{n}": grad_row_err(got[f"d{n}"], w)
+                         for n, w in zip("qkv", want_grads)}}
+        del got
+    del q, k, v, do, leaves, want, want_grads, rings
+    free_card(torch)
+    return errs
 
 
 def xproc_chunks(tree) -> dict:
@@ -2493,7 +2583,7 @@ def xproc_rank_loop(config):
     first moment its chunks of that (XPROC_CONTROL_BREAKS): each
     range by the lowest rank that holds it, once the real case's replicas
     of a range are checked equal across processes (``check_same``).
-    Under xproc_sp4 the ring check runs first."""
+    Under a ring phase (``XPROC_RING``) the ring check runs first."""
     import torch
 
     from ray_tpu_torch.train import session
@@ -2507,8 +2597,8 @@ def xproc_rank_loop(config):
     phase = config["phase"]
     batch = torch.from_numpy(config["batch"]).to(ctx.device)
     session.set_flops_per_step(config["rank_flops"])
-    ring = xproc_ring_check(torch, pg, config["out"]) \
-        if phase == "xproc_sp4" else None
+    ring = xproc_ring_check(torch, pg, config["out"], *XPROC_RING[phase]) \
+        if phase in XPROC_RING else None
     reports = []
     for case in XPROC_CASES[phase]:
         with xproc_control(case):
@@ -2687,11 +2777,14 @@ def worst_moment(fields: dict) -> float:
 
 
 def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out,
-                loop=None, **extra):
-    """The phase's ranks: XPROC_WORLD gloo processes on this card running
+                loop=None, world=XPROC_WORLD, limit_s=XPROC_LIMIT_S,
+                while_running=None, **extra):
+    """The phase's ranks: ``world`` gloo processes on this card running
     ``loop`` (default ``xproc_rank_loop``) on the phase's config (and
-    ``extra``), joined within XPROC_LIMIT_S (on expiry every rank is
-    killed and the phase fails); their result."""
+    ``extra``), joined within ``limit_s`` (on expiry every rank is
+    killed and the phase fails); their result. ``while_running(fit,
+    deadline)`` runs here while they do (``fit``: the thread that joins
+    them); if it raises, every rank is killed."""
     import multiprocessing
     import threading
 
@@ -2707,19 +2800,26 @@ def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out,
                            "batch": None if batch is None else
                            batch.cpu().numpy(),
                            "rank_flops": rank_flops, "out": out, **extra},
-        scaling_config=ScalingConfig(num_workers=XPROC_WORLD, use_gpu=True,
+        scaling_config=ScalingConfig(num_workers=world, use_gpu=True,
                                      backend="gloo"),
         run_config=RunConfig(storage_path=out))
     box = {}
     fit = threading.Thread(target=lambda: box.update(result=trainer.fit()),
                            daemon=True)
     fit.start()
-    fit.join(XPROC_LIMIT_S)
+    if while_running is not None:
+        try:
+            while_running(fit, t0 + limit_s)
+        except BaseException:
+            for child in multiprocessing.active_children():
+                child.kill()
+            raise
+    fit.join(max(0.0, t0 + limit_s - time.perf_counter()))
     if fit.is_alive():
         for child in multiprocessing.active_children():
             child.kill()
         raise AssertionError(f"{phase}: the ranks did not finish within "
-                             f"{XPROC_LIMIT_S} s; killed")
+                             f"{limit_s} s; killed")
     if "result" not in box:
         raise AssertionError(f"{phase}: fit() raised (see above)")
     result = box["result"]
@@ -2893,7 +2993,6 @@ def check_xproc_sp4(torch, cfg, peaks):
     import dataclasses
     import tempfile
 
-    from ray_tpu_torch.ops.flash_attention import flash_attention
     from ray_tpu_torch.train.trainer import TrainConfig
 
     b, s, L = 1, RING_SHAPE[1], XPROC_SP_DEPTH
@@ -2913,26 +3012,10 @@ def check_xproc_sp4(torch, cfg, peaks):
                                     batch, flops / XPROC_WORLD, d)
         t0 = time.perf_counter()
         cmp = xproc_compare(torch, d, "xproc_sp4", single)
-        rings = [torch.load(os.path.join(d, f"ring_rank{r}.pt"),
-                            weights_only=True)
-                 for r in range(XPROC_WORLD)]
         compare_s = time.perf_counter() - t0
         steps = xproc_steps(d)
-    # the ring against the whole-sequence kernels on the same inputs
-    q, k, v, do = ring_seeded(torch)
-    leaves = tuple(x.requires_grad_() for x in (q, k, v))
-    want = flash_attention(*leaves, causal=True)
-    want_grads = torch.autograd.grad(want, leaves, do)
-    ring_errs = {}
-    for case in ("real", "reversed_ring"):
-        got = {n: torch.cat([r[case][n] for r in rings], dim=1).cuda()
-               for n in ("out", "dq", "dk", "dv")}
-        ring_errs[case] = {
-            "out": row_rel_err(got["out"], want.detach()),
-            **{f"d{n}": grad_row_err(got[f"d{n}"], w)
-               for n, w in zip("qkv", want_grads)}}
-    del q, k, v, do, leaves, want, want_grads, rings, got
-    free_card(torch)
+        # the ring against the whole-sequence kernels on the same inputs
+        ring_errs = xproc_ring_errs(torch, d, XPROC_WORLD, "reversed_ring")
     out_tol, grad_tol = 1e-2, 2e-2
     per_rank = xproc_summary(steps)
     update_rel_err = cmp["update"]["rel_err"]
@@ -2999,9 +3082,11 @@ def check_xproc_sp4(torch, cfg, peaks):
 
 XPROC_PP_DEPTH = PP_STAGES       # one layer a stage
 XPROC_PP_MICRO = 4
-# Mixtral 8x7B's width at ep_placed_forward's depth, EP_AXES dealt to the
-# four processes: fsdp and ep across them, tp inside each
-XPROC_EP_DEPTH = 16
+# Mixtral 8x7B's width, EP_AXES dealt to the four processes: fsdp and ep
+# across them, tp inside each; depth 8 since slice 16 (16 before, as
+# ep_placed_forward), to keep the script inside its time limit as the
+# slice's phases join it
+XPROC_EP_DEPTH = 8
 # the wrong-ep control's depth: the fault shows in the first layer
 XPROC_EP_CONTROL_DEPTH = 2
 XPROC_ELASTIC_DEPTH = 2
@@ -3219,8 +3304,9 @@ def placed_first_layers(tree: dict, depth: int) -> dict:
 
 
 def xproc_ep_loop(config):
-    """A rank of xproc_ep: this process's places of EP_AXES (one fsdp and
-    one ep index, both tp places), its chunks of the layerwise Mixtral
+    """A rank of xproc_ep (or xproc_ep4_w2): this process's places of
+    ``config["axes"]`` (EP_AXES at world 4: one fsdp and one ep index,
+    both tp places), its chunks of the layerwise Mixtral
     (``mixtral_placed_layerwise``), and ``spmd.placed_forward`` across the
     processes on the global [2, 2048] with the routing replayed from the
     single controller's run; then the control, the first
@@ -3243,7 +3329,7 @@ def xproc_ep_loop(config):
     ctx = session.get_context()
     pg = ctx.process_group
     cfg = config["model_config"]
-    layout = mesh_layout(pg, EP_AXES)
+    layout = mesh_layout(pg, config["axes"])
     local = create_mesh(layout.local, devices=[torch.device(ctx.device)]
                         * math.prod(layout.local.values()))
     mesh = Mesh(local.devices, local.axis_names, layout)
@@ -3254,8 +3340,11 @@ def xproc_ep_loop(config):
     init_s = time.perf_counter() - t0
     ref = torch.load(config["reference"], map_location="cpu",
                      weights_only=True, mmap=True)
-    rows = mesh.offset("fsdp"), mesh.offset("fsdp") + 1
     tokens = torch.from_numpy(config["tokens"]).to(ctx.device)
+    # this process's block of the rows: its run of fsdp's pieces
+    per = tokens.shape[0] // mesh.shape.get("fsdp", 1)
+    lo = mesh.offset("fsdp") * per
+    rows = lo, lo + per * mesh.local_shape.get("fsdp", 1)
     replay = Routing()
     replay.choice = {i: torch.from_numpy(c).to(ctx.device)
                      for i, c in enumerate(config["routing"])}
@@ -3282,6 +3371,8 @@ def xproc_ep_loop(config):
             "n_layers": depth, "shape": list(got.shape),
             "finite": bool(torch.isfinite(got).all()),
             "logits_rel_rms_err": rel_rms(got, want),
+            "bit_equal": bool(torch.equal(got, want)),
+            "logits_max_abs_err": float((got - want).abs().max()),
             "aux_loss": float(aux),
             "aux_rel_err": abs(float(aux) / ref[f"aux_depth{depth}"] - 1),
             "forward_s": forward_s, "init_s": init_s, "launches": counts,
@@ -3294,7 +3385,7 @@ def xproc_ep_loop(config):
         json.dump(reports, f)
 
 
-def xproc_ep_setup(torch) -> dict:
+def xproc_ep_setup(torch, axes=None, depth=XPROC_EP_DEPTH) -> dict:
     """Mixtral 8x7B at full width and depth XPROC_EP_DEPTH (its layers
     drawn one at a time from seeds of their own), the forward over a tree
     placed by ``moe`` on EP_AXES {fsdp 2, ep 2, tp 2} dealt to four gloo
@@ -3309,12 +3400,14 @@ def xproc_ep_setup(torch) -> dict:
     process's logit rows and the aux loss within FAMILY_FORWARD_TOL.
     Control: the experts' outputs taken from the wrong ep process, which
     must break the bound, over the first XPROC_EP_CONTROL_DEPTH layers
-    against the single process's forward of those. K1 32 a process's
-    forward (2 tp places, 16 layers) at [1, 16, 4, 2048, 128]. This
+    against the single process's forward of those. K1 2·XPROC_EP_DEPTH a
+    process's forward (2 tp places) at [1, 16, 4, 2048, 128]. This
     part runs the single process's forwards and returns their logits
     (host) and routing, with the ranks' config; ``check_xproc_ep`` reads
-    the ranks' results."""
+    the ranks' results. ``axes`` and ``depth``: another layout and depth
+    (xproc_ep4_w2's)."""
     import dataclasses
+    import math
 
     from ray_tpu_torch.models import mixtral
     from ray_tpu_torch.parallel.mesh import create_mesh
@@ -3322,13 +3415,14 @@ def xproc_ep_setup(torch) -> dict:
     from ray_tpu_torch.train import spmd
 
     t_start = time.perf_counter()
-    cfg = dataclasses.replace(mixtral.mixtral_8x7b(), n_layers=XPROC_EP_DEPTH)
+    axes = axes or EP_AXES
+    cfg = dataclasses.replace(mixtral.mixtral_8x7b(), n_layers=depth)
     card = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
     params = mixtral_layerwise(torch, cfg, card)
     torch.cuda.synchronize()
     single_init_s = time.perf_counter() - t0
-    mesh = create_mesh(EP_AXES, devices=[card] * 8)
+    mesh = create_mesh(axes, devices=[card] * math.prod(axes.values()))
     placed = shard_tree(params, mixtral.param_logical_axes(cfg), mesh,
                         MOE_RULES)
     tokens = train_batch(cfg, 2, 2047, SEED + 41)    # [2, 2048]
@@ -3358,17 +3452,24 @@ def xproc_ep_setup(torch) -> dict:
     del params, placed, want, want_c, recorded
     return {"cfg": cfg, "reference": reference, "dropped": dropped,
             "single_s": single_s, "single_init_s": single_init_s,
-            "seconds": time.perf_counter() - t_start,
+            "seconds": time.perf_counter() - t_start, "axes": axes,
             "rank": {"model_config": cfg, "tokens": tokens.cpu().numpy(),
-                     "routing": routing}}
+                     "routing": routing, "axes": axes}}
 
 
-def check_xproc_ep(torch, setup: dict, d: str, spawn: dict) -> dict:
+def check_xproc_ep(torch, setup: dict, d: str, spawn: dict,
+                   phase: str = "xproc_ep", world: int = XPROC_WORLD,
+                   bit_equal: bool = False) -> dict:
     """``xproc_ep_setup``'s phase held, from its ranks' results in ``d``
-    (``spawn``: the shared spawn's times). Returns rank 0's launches."""
-    cfg, dropped = setup["cfg"], setup["dropped"]
+    (``spawn``: the shared spawn's times); with ``bit_equal`` each
+    process's logit rows must equal the single process's bit for bit (no
+    data axis spans the processes, so no sum runs in another order).
+    Returns rank 0's launches."""
+    from ray_tpu_torch.parallel.mesh import split_axes
+
+    cfg, dropped, axes = setup["cfg"], setup["dropped"], setup["axes"]
     tol = FAMILY_FORWARD_TOL
-    steps = xproc_steps(d)
+    steps = xproc_steps(d, world)
     real = [r for r in steps if r["case"] == "real"]
     control = [r for r in steps if r["case"] != "real"]
     err = max(r["logits_rel_rms_err"] for r in real)
@@ -3379,22 +3480,24 @@ def check_xproc_ep(torch, setup: dict, d: str, spawn: dict) -> dict:
                    "flash_fwd_noncausal": 0}
     launches = {r["rank"]: r["launches"] for r in real}
     ranks = {r["rank"]: {k: r[k] for k in (
-        "rows", "logits_rel_rms_err", "aux_loss", "aux_rel_err",
-        "forward_s", "init_s", "launches", "peak_memory_bytes")} | {
+        "rows", "logits_rel_rms_err", "bit_equal", "logits_max_abs_err",
+        "aux_loss", "aux_rel_err", "forward_s", "init_s", "launches",
+        "peak_memory_bytes")} | {
         "collectives": {k: {"calls": r["collectives"][f"{k}_calls"],
                             "s": r["collectives"][f"{k}_s"],
                             "bytes": r["collectives"][f"{k}_bytes"]}
                         for k in ("all_gather", "all_reduce")},
         "staging_s": r["collectives"]["staging_s"]} for r in real}
     forward_s = max(r["forward_s"] for r in real)
-    emit("xproc_ep", config="mixtral_8x7b", n_layers=cfg.n_layers,
-         depth_cut=f"{cfg.n_layers} of 32 layers (ep_placed_forward's)",
-         tokens=[2, 2048], backend="gloo", world_size=XPROC_WORLD,
-         mesh=EP_AXES, spanned=["fsdp", "ep"], strategy="moe",
+    equal = all(r["bit_equal"] for r in real)
+    emit(phase, config="mixtral_8x7b", n_layers=cfg.n_layers,
+         depth_cut=f"{cfg.n_layers} of 32 layers, drawn a layer at a time",
+         tokens=[2, 2048], backend="gloo", world_size=world, mesh=axes,
+         local=split_axes(axes, world)[0], strategy="moe",
          routing="fixed (the single controller's)",
          capacity_dropped_share=dropped, logits_rel_rms_err=err,
-         aux_rel_err=aux_err, single_controller_aux_loss=setup[
-             "reference"][f"aux_depth{cfg.n_layers}"],
+         bit_equal=equal, aux_rel_err=aux_err, single_controller_aux_loss=(
+             setup["reference"][f"aux_depth{cfg.n_layers}"]),
          tol=tol, controls={"experts_from_wrong_ep": {
              "n_layers": XPROC_EP_CONTROL_DEPTH,
              "logits_rel_rms_err": bad, "broke": bad > tol}},
@@ -3405,16 +3508,19 @@ def check_xproc_ep(torch, setup: dict, d: str, spawn: dict) -> dict:
          single_controller_forward_s=setup["single_s"],
          single_controller_init_s=setup["single_init_s"], ranks=ranks,
          want_launches=want_counts, single_controller_phase_s=setup[
-             "seconds"], ranks_s=spawn["xproc_ep"],
-         seconds=setup["seconds"] + spawn["xproc_ep"])
+             "seconds"], ranks_s=spawn[phase],
+         seconds=setup["seconds"] + spawn[phase])
+    rows = 2 // split_axes(axes, world)[1].get("fsdp", 1)
     if not (err <= tol < bad and aux_err <= tol) or \
-            not all(r["finite"] and r["shape"] == [1, 2048, cfg.vocab_size]
+            (bit_equal and not equal) or \
+            not all(r["finite"] and r["shape"] == [rows, 2048, cfg.vocab_size]
                     for r in steps):
         raise AssertionError(
-            f"xproc_ep: logits rel err {err}, aux rel err {aux_err} (tol "
-            f"{tol}); the wrong-ep control must exceed it: {bad}")
+            f"{phase}: logits rel err {err}, aux rel err {aux_err} (tol "
+            f"{tol}), bit for bit {equal} (wanted: {bit_equal}); the "
+            f"wrong-ep control must exceed the tol: {bad}")
     if any(c != want_counts for c in launches.values()):
-        raise AssertionError(f"xproc_ep launches {launches}, want "
+        raise AssertionError(f"{phase} launches {launches}, want "
                              f"{want_counts}")
     return launches[0]
 
@@ -3813,7 +3919,8 @@ def check_xproc_slice11(torch, cfg, peaks) -> dict:
     each), then one spawn of four gloo ranks runs the three phases in
     turn (a spawn costs 24-27 s of start-up), then each phase is held
     (``check_xproc_pp``, ``check_xproc_ep``, ``check_xproc_elastic``).
-    Returns each phase's launches."""
+    Returns each phase's launches, and xproc_pp's setup (its single
+    controller serves xproc_pp4_w2, the same {pp 4} at world 2)."""
     import tempfile
 
     t_start = time.perf_counter()
@@ -3852,6 +3959,322 @@ def check_xproc_slice11(torch, cfg, peaks) -> dict:
                 torch, cfg, setups["xproc_elastic"],
                 os.path.join(d, "xproc_elastic"), spawn)}
     emit("xproc_slice11", setup_s=setup_s, fit_s=fit_s,
+         spawn_to_first_report_s=result.first_report_s,
+         ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
+    return counts, setups["xproc_pp"]
+
+
+# ---------------------------------------------------------------------------
+# Layouts whose process boundary cuts an axis, and the ring beside other
+# places in a process (slice 16): two gloo rank processes on this card,
+# each holding a run of consecutive indices of the cut axis (or, under
+# {sp 2, tp 2}, its sp index with both tp places), each phase held
+# against its single-controller counterpart run here first
+# ---------------------------------------------------------------------------
+
+XPROC_CUT_WORLD = 2
+# the shared spawn's ranks are killed after this long
+XPROC_CUT_LIMIT_S = 600.0
+XPROC_EP_CUT_AXES = {"ep": 4, "tp": 2}
+XPROC_EP_CUT_DEPTH = 8
+# trainer phase -> (global mesh, strategy, batch rows, sequence, depth,
+# TrainConfig keywords)
+XPROC_CUT_TRAIN = {
+    "xproc_fsdp4": ({"fsdp": 4}, "fsdp", 4, 2048, 2,
+                    {"fused_loss": True, "loss_chunk": 1024}),
+    "xproc_tp4": ({"tp": 4}, "fsdp_tp", 2, 2048, 2,
+                  {"fused_loss": True, "loss_chunk": 1024}),
+    "xproc_sp2_tp2": ({"sp": 2, "tp": 2}, "fsdp_tp_sp", 1, RING_SHAPE[1], 2,
+                      {"fused_loss": True, "loss_chunk": 1024}),
+    "xproc_sp4_w2": ({"sp": 4}, "fsdp_tp_sp", 1, RING_SHAPE[1], 2,
+                     {"fused_loss": True, "loss_chunk": 1024}),
+    "xproc_pp4_w2": ({"pp": PP_STAGES}, "pp_fsdp", 8, 2048, PP_STAGES,
+                     {"n_microbatches": XPROC_PP_MICRO}),
+}
+XPROC_CUT = (*XPROC_CUT_TRAIN, "xproc_ep4_w2")
+
+
+def xproc_cut_want(phase: str, rank: int, L: int) -> dict:
+    """The launches of a rank's step in a trainer phase of XPROC_CUT (K1
+    runs twice a layer, the forward and its recompute under full remat;
+    the ring's diagonal is causal, the steps off it not):
+    - fsdp4: two data ranks a process, each K1 2L and the backward L;
+    - tp4: two tp places a process, each as one data rank;
+    - sp2_tp2: one ring over both tp places' heads, this process ring
+      rank ``rank``: K1 2L causal and 2L·rank not, the backward
+      L·(rank + 1);
+    - sp4_w2: ring ranks 2·rank and 2·rank + 1: K1 4L causal and
+      2L·(4·rank + 1) not, the backward L·(4·rank + 3);
+    - pp4_w2: two stages of one layer a process, each K1 3 and the
+      backward 1 a microbatch."""
+    m = XPROC_PP_MICRO
+    causal, noncausal, bwd = {
+        "xproc_fsdp4": (4 * L, 0, 2 * L),
+        "xproc_tp4": (4 * L, 0, 2 * L),
+        "xproc_sp2_tp2": (2 * L, 2 * L * rank, L * (rank + 1)),
+        "xproc_sp4_w2": (4 * L, 2 * L * (4 * rank + 1), L * (4 * rank + 3)),
+        "xproc_pp4_w2": (3 * m * 2, 0, m * 2),
+    }[phase]
+    return {"flash_fwd": causal + noncausal, "flash_bwd": bwd,
+            "flash_fwd_causal": causal, "flash_fwd_noncausal": noncausal}
+
+
+def xproc_cut_setup(torch, cfg, phase: str) -> dict:
+    """A trainer phase of XPROC_CUT: ``llama3_8b()`` at full width and the
+    phase's depth on its global mesh (``XPROC_CUT_TRAIN``), its single
+    controller on this card first (``xproc_single_controller``: that
+    mesh, every place here, run twice); returns it with the ranks'
+    config."""
+    import dataclasses
+
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    t_start = time.perf_counter()
+    axes, strategy, b, s, L, kw = XPROC_CUT_TRAIN[phase]
+    cfg_l = dataclasses.replace(cfg, n_layers=L)
+    train_cfg = TrainConfig(mesh_axes=dict(axes), strategy=strategy,
+                            warmup_steps=1, **kw)
+    batch = train_batch(cfg, b, s, SEED + 43 + len(phase))
+    single = xproc_single_controller(torch, cfg_l, train_cfg, batch)
+    n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
+                   ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
+        + single["init"]["lm_head"].numel()
+    flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
+    return {"single": single, "flops": flops, "shape": (b, s, L),
+            "seconds": time.perf_counter() - t_start,
+            "rank": {"model_config": cfg_l, "train_config": train_cfg,
+                     "batch": batch.cpu().numpy(),
+                     "rank_flops": flops / XPROC_CUT_WORLD}}
+
+
+def check_xproc_cut_train(torch, cfg, peaks, phase: str, setup: dict,
+                          d: str, spawn: dict) -> dict:
+    """A trainer phase of XPROC_CUT held, from its ranks' results in
+    ``d``: every rank's chunks within HARNESS_PARAM_TOL of the single
+    controller's update, every leaf's first moment within
+    XPROC_MOMENT_TOL of its own, the losses within HARNESS_LOSS_TOL and
+    every rank's gradient norms within HARNESS_NORM_TOL; each control must
+    break its bound (XPROC_CONTROL_BREAKS) in its one step, and under a
+    ring phase the ring alone must hold the whole-sequence kernels (the
+    output within 1e-2 a row, the gradients 2e-2) while its control fails
+    the output bound. Every real step's launches: ``xproc_cut_want``.
+    Returns the phase's summary and the last rank's launches of one real
+    step."""
+    from ray_tpu_torch.parallel.mesh import split_axes
+
+    single, flops = setup["single"], setup["flops"]
+    b, s, L = setup["shape"]
+    axes = XPROC_CUT_TRAIN[phase][0]
+    world = XPROC_CUT_WORLD
+    t0 = time.perf_counter()
+    cmp = xproc_compare(torch, d, phase, single, world=world)
+    ring_errs = xproc_ring_errs(torch, d, world, XPROC_RING[phase][1]) \
+        if phase in XPROC_RING else None
+    compare_s = time.perf_counter() - t0
+    steps = xproc_steps(d, world)
+    update_rel_err = cmp["update"]["rel_err"]
+    moment_err = worst_moment(cmp["first_moment"])
+    norm_errs = xproc_norm_errs(steps, single["grad_norms"])
+    per_rank = xproc_summary(steps)
+    losses = [st["loss"] for st in per_rank[0]]
+    loss_err = max(abs(a - w) for a, w in zip(losses, single["losses"]))
+    controls = {}
+    for c in XPROC_CASES[phase][1:]:
+        controls[c] = {"grad_norm_rel_err": norm_errs[c],
+                       "must_break": XPROC_CONTROL_BREAKS[c]}
+        if XPROC_CONTROL_BREAKS[c] == "grad_norm":
+            controls[c]["broke"] = norm_errs[c] > HARNESS_NORM_TOL
+        else:
+            fields = cmp["controls_first_moment"][c]
+            controls[c].update(
+                first_moment_worst_leaf_rel_err=worst_moment(fields),
+                worst_leaf=fields["worst_leaf"],
+                broke=worst_moment(fields) > XPROC_MOMENT_TOL)
+    out_tol, grad_tol = 1e-2, 2e-2
+    if ring_errs is not None:
+        control = XPROC_RING[phase][1]
+        real = ring_errs["real"]
+        controls[control] = {"ring_row_rel_err": ring_errs[control],
+                             "must_break": "ring output",
+                             "broke": ring_errs[control]["out"] > out_tol}
+        ring_ok = real["out"] <= out_tol and \
+            max(real[f"d{n}"] for n in "qkv") <= grad_tol
+    else:
+        ring_ok = True
+    wants = {r: xproc_cut_want(phase, r, L) for r in range(world)}
+    launches = {r: [st["launches"] for st in rs]
+                for r, rs in per_rank.items()}
+    step_s = max(st["step_s"] for rs in per_rank.values()
+                 for st in rs[1:])
+    ok = update_rel_err <= HARNESS_PARAM_TOL and \
+        moment_err <= XPROC_MOMENT_TOL and \
+        norm_errs["real"] <= HARNESS_NORM_TOL and \
+        loss_err <= HARNESS_LOSS_TOL and ring_ok
+    emit(phase, config="llama3_8b", n_layers=L,
+         depth_cut=f"{L} of {cfg.n_layers} layers (two processes' states "
+                   "and the single controller's on one card)",
+         tokens=[b, s + 1], steps=XPROC_STEPS, backend="gloo",
+         world_size=world, mesh=axes, local=split_axes(axes, world)[0],
+         strategy=XPROC_CUT_TRAIN[phase][1],
+         single_controller_losses=single["losses"],
+         single_controller_grad_norms=single["grad_norms"],
+         single_controller_step_s=single["step_s"], losses=losses,
+         loss_max_abs_err=loss_err, loss_tol=HARNESS_LOSS_TOL,
+         update_rel_err=update_rel_err, tol=HARNESS_PARAM_TOL,
+         update=cmp["update"], first_moment_worst_leaf_rel_err=moment_err,
+         moment_tol=XPROC_MOMENT_TOL, first_moment=cmp["first_moment"],
+         single_controller_rerun=cmp["single_controller_rerun"],
+         grad_norm_rel_err=norm_errs["real"], norm_tol=HARNESS_NORM_TOL,
+         ring_row_rel_err=None if ring_errs is None else ring_errs["real"],
+         ring_out_tol=out_tol, ring_grad_tol=grad_tol,
+         ring_launches=None if ring_errs is None else {
+             r: next(x["ring_launches"] for x in steps if x["rank"] == r)
+             for r in range(world)},
+         controls=controls, step_s=step_s, tokens_per_s=b * s / step_s,
+         collective_share={r: [collective_share(st) for st in rs]
+                           for r, rs in per_rank.items()},
+         rank_flops_per_step=flops / world,
+         mfu_of_the_card=flops / step_s / peaks[0], ranks=per_rank,
+         want_launches=wants, single_controller_s=single["seconds"],
+         ranks_s=spawn[phase], compare_s=compare_s,
+         seconds=setup["seconds"] + spawn[phase] + compare_s)
+    if not ok or not all(c["broke"] for c in controls.values()):
+        raise AssertionError(
+            f"{phase}: update error {update_rel_err} (tol "
+            f"{HARNESS_PARAM_TOL}), worst leaf's first moment {moment_err} "
+            f"(tol {XPROC_MOMENT_TOL}), loss error {loss_err} (tol "
+            f"{HARNESS_LOSS_TOL}), norm errors {norm_errs} (tol "
+            f"{HARNESS_NORM_TOL}), ring {ring_errs}; each control must "
+            f"break its bound: {controls}")
+    if any(c != wants[r] for r, cs in launches.items() for c in cs):
+        raise AssertionError(f"{phase} launches {launches}, want {wants} "
+                             "a rank's step")
+    return {"update_rel_err": update_rel_err,
+            "first_moment_worst_leaf_rel_err": moment_err,
+            "loss_max_abs_err": loss_err, "grad_norm_rel_err":
+                norm_errs["real"], "ring_ok": ring_ok,
+            "controls_broke": {c: v["broke"] for c, v in controls.items()},
+            "step_s": step_s,
+            "peak_memory_bytes": max(st["peak_memory_bytes"]
+                                     for rs in per_rank.values()
+                                     for st in rs),
+            "launches": launches[world - 1][-1]}
+
+
+def xproc_cut_loop(config):
+    """A rank of slice 16's shared spawn: ``xproc_rank_loop`` on each
+    trainer phase of XPROC_CUT, then ``xproc_ep_loop`` on xproc_ep4_w2,
+    each on its config and in a directory of its own, the card freed
+    after each; then its seconds to ``<out>/done_<phase>_rank<r>``."""
+    import torch
+
+    from ray_tpu_torch.train import session
+
+    rank = session.get_context().rank
+    for phase in XPROC_CUT:
+        t0 = time.perf_counter()
+        loop = xproc_ep_loop if phase == "xproc_ep4_w2" else xproc_rank_loop
+        loop({**config["phases"][phase], "phase": phase,
+              "out": os.path.join(config["out"], phase)})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the parent checks this phase (and deletes its files) while the
+        # next one runs
+        mark = os.path.join(config["out"], f"done_{phase}_rank{rank}")
+        with open(mark + ".tmp", "w") as f:
+            json.dump({"seconds": time.perf_counter() - t0}, f)
+        os.replace(mark + ".tmp", mark)
+
+
+def check_xproc_cut(torch, cfg, peaks, pp_setup=None) -> dict:
+    """Every layout that JAX runs across processes (slice 16): the axis
+    cut at the process boundary ({fsdp 4}, {tp 4}, {sp 4}, {pp 4} and
+    Mixtral's {ep 4, tp 2} at world 2) and the ring between processes
+    beside other places in a process ({sp 2, tp 2}). Each phase's single
+    controller on this card first (``xproc_cut_setup``,
+    ``xproc_ep_setup``, the card freed after each), then one spawn of two
+    gloo ranks runs the phases in turn (NCCL refuses two ranks on one
+    GPU), then each phase is held (``check_xproc_cut_train``,
+    ``check_xproc_ep`` with the logits bit for bit), each as soon as the
+    ranks are done with it, while they run the next. ``pp_setup``:
+    xproc_pp's (``xproc_pp_setup``), whose single controller on {pp 4}
+    xproc_pp4_w2 shares. Returns each phase's launches."""
+    import tempfile
+
+    t_start = time.perf_counter()
+    setups = {}
+    for phase in XPROC_CUT_TRAIN:
+        if phase == "xproc_pp4_w2" and pp_setup is not None:
+            setups[phase] = {**pp_setup, "shape": pp_setup["shape"][:3],
+                             "seconds": 0.0, "rank": {
+                                 **pp_setup["rank"], "rank_flops":
+                                 pp_setup["flops"] / XPROC_CUT_WORLD}}
+            continue
+        setups[phase] = xproc_cut_setup(torch, cfg, phase)
+        free_card(torch)
+    setups["xproc_ep4_w2"] = xproc_ep_setup(
+        torch, axes=XPROC_EP_CUT_AXES, depth=XPROC_EP_CUT_DEPTH)
+    free_card(torch)
+    setup_s = time.perf_counter() - t_start
+    summary, counts, spawn = {}, {}, {}
+
+    def check(phase, d):
+        """Phase ``phase`` held from its ranks' files, which then go."""
+        out = os.path.join(d, phase)
+        if phase == "xproc_ep4_w2":
+            counts[phase] = check_xproc_ep(
+                torch, setups[phase], out, spawn, phase=phase,
+                world=XPROC_CUT_WORLD, bit_equal=True)
+            summary[phase] = {"bit_equal": True, "controls_broke": {
+                "experts_from_wrong_ep": True}}
+        else:
+            summary[phase] = check_xproc_cut_train(
+                torch, cfg, peaks, phase, setups[phase], out, spawn)
+            counts[phase] = summary[phase].pop("launches")
+        shutil.rmtree(out)
+        del setups[phase]
+        free_card(torch)
+
+    def check_each(fit, deadline):
+        """Each phase checked as soon as both ranks are done with it,
+        while they run the next (the files of at most two phases exist
+        at once)."""
+        for phase in XPROC_CUT:
+            marks = [os.path.join(d, f"done_{phase}_rank{r}")
+                     for r in range(XPROC_CUT_WORLD)]
+            while not all(os.path.exists(m) for m in marks):
+                if not fit.is_alive():
+                    return   # the join reports the ranks' error
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"xproc_cut: {phase} not done "
+                                         f"within {XPROC_CUT_LIMIT_S} s")
+                time.sleep(0.5)
+            for m in marks:
+                with open(m) as f:
+                    spawn[phase] = max(spawn.get(phase, 0.0),
+                                       json.load(f)["seconds"])
+            check(phase, d)
+
+    # in memory, not on disk: the card's machine takes at most 45 GiB of
+    # disk writes a run, and the ranks write about 9 GB a phase
+    shm = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    with tempfile.TemporaryDirectory(dir=shm) as d:
+        for phase in XPROC_CUT:
+            os.makedirs(os.path.join(d, phase))
+        reference = os.path.join(d, "ep_reference.pt")
+        torch.save(setups["xproc_ep4_w2"]["reference"], reference)
+        phases = {p: dict(setups[p]["rank"]) for p in XPROC_CUT}
+        phases["xproc_ep4_w2"]["reference"] = reference
+        result, fit_s = xproc_spawn(torch, "xproc_cut", None, None, None,
+                                    None, d, loop=xproc_cut_loop,
+                                    world=XPROC_CUT_WORLD,
+                                    limit_s=XPROC_CUT_LIMIT_S,
+                                    while_running=check_each, phases=phases)
+        if set(summary) != set(XPROC_CUT):
+            raise AssertionError(f"xproc_cut: checked {sorted(summary)} of "
+                                 f"{XPROC_CUT}")
+    emit("xproc_cut", phases=summary, world_size=XPROC_CUT_WORLD,
+         checked_while_the_ranks_ran=True, setup_s=setup_s, fit_s=fit_s,
          spawn_to_first_report_s=result.first_report_s,
          ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
     return counts
@@ -6091,7 +6514,12 @@ def main() -> int:
     free_card(torch)
     # pp and ep across processes and the elastic reform to a new world
     # (slice 11), the same way
-    slice11_counts = check_xproc_slice11(torch, cfg, peaks)
+    slice11_counts, pp_setup = check_xproc_slice11(torch, cfg, peaks)
+    free_card(torch)
+    # the layouts whose process boundary cuts an axis, and the ring beside
+    # other places in a process (slice 16): two gloo ranks the same way
+    cut_counts = check_xproc_cut(torch, cfg, peaks, pp_setup)
+    del pp_setup
     free_card(torch)
     emit("xproc_phases", seconds=time.perf_counter() - t0)
     # Tune (slice 13): PBT trials, each a rank process on this card, then
@@ -6148,10 +6576,14 @@ def main() -> int:
                    "xproc_fsdp_tp_rank0_step": xproc_fsdp_tp_counts[k],
                    "xproc_sp4_rank3_step": xproc_sp4_counts[k],
                    "xproc_pp_rank0_step": slice11_counts["xproc_pp"][k],
-                   "xproc_ep_rank0_forward_depth16":
+                   "xproc_ep_rank0_forward_depth8":
                        slice11_counts["xproc_ep"][k],
                    "xproc_elastic_rank0_step_after_reform":
                        slice11_counts["xproc_elastic"][k],
+                   **{f"{phase}_rank1_step": cut_counts[phase][k]
+                      for phase in XPROC_CUT_TRAIN},
+                   "xproc_ep4_w2_rank0_forward":
+                       cut_counts["xproc_ep4_w2"][k],
                    "tune_pbt": tune_counts[k],
                    "llm_deployment": deploy_counts[k],
                    "examples_train_llama": example_counts["train_llama"][k],
@@ -6190,7 +6622,9 @@ def main() -> int:
             "bound_by", "tflops", "max_err", "row_rel_err", "lse_err")}
            for case in ("ring_chunk_noncausal_lse", "d256_gqa2",
                         "llama3_8b_tp2", "gpt2_xl_tp2_13",
-                        "gpt2_xl_tp2_12")},
+                        "gpt2_xl_tp2_12", "llama3_8b_tp4",
+                        "sp2_chunk_causal_lse", "sp2_chunk_noncausal_lse",
+                        "mixtral_ep4_tp2")},
         "sass": {k: facts["flash_fwd"][k] for k in ("HGMMA", "UTMALDG")},
     }]
     # K2 and K3 are one fused kernel: each TPU kernel keeps its entry,
@@ -6227,7 +6661,12 @@ def main() -> int:
                                   ("gpt2_xl_tp2_13",
                                    bwd_rows["gpt2_xl_tp2_13"]),
                                   ("gpt2_xl_tp2_12",
-                                   bwd_rows["gpt2_xl_tp2_12"]))},
+                                   bwd_rows["gpt2_xl_tp2_12"]),
+                                  ("tp4_place", bwd_rows["llama3_8b_tp4"]),
+                                  ("sp2_chunk_causal",
+                                   bwd_rows["sp2_chunk_causal"]),
+                                  ("sp2_chunk_noncausal",
+                                   bwd_rows["sp2_chunk_noncausal"]))},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
     emit("done", seconds=time.perf_counter() - t_start)

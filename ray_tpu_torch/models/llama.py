@@ -249,6 +249,19 @@ def attention_sublayer(cfg, x, p, sin, cos, segment_ids, attn_impl,
                              mesh=mesh, sp_axis=sp_axis)
 
 
+def attention_qkv(cfg, x, p, sin, cos, enter=None):
+    """The attention sublayer's q [b, s, n_heads, head_dim] and k, v
+    [b, s, n_kv_heads, head_dim], roped (``enter`` as ``attention_out``'s)."""
+    b, s, _ = x.shape
+    h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
+    if enter is not None:
+        h = enter(h)
+    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+
+
 def attention_out(cfg, x, p, sin, cos, segment_ids, attn_impl, mesh=None,
                   sp_axis="sp", enter=None):
     """The attention sublayer's output before the residual add, over
@@ -259,14 +272,7 @@ def attention_out(cfg, x, p, sin, cos, segment_ids, attn_impl, mesh=None,
     whose ``sp_axis`` spans processes, ``x`` is this process's chunk of
     the sequence (``sin`` and ``cos`` at its positions)."""
     b, s, _ = x.shape
-    h = rms_norm(x, p["attn_norm"], eps=cfg.rms_eps)
-    if enter is not None:
-        h = enter(h)
-    q = (h @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ p["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (h @ p["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
+    q, k, v = attention_qkv(cfg, x, p, sin, cos, enter=enter)
     if attn_impl == "ring":
         if mesh is None:
             raise ValueError(
@@ -379,9 +385,9 @@ def _target_reduce(reduce, group):
 
 def _offsets(heads, group=None) -> list:
     """The first vocab column of each head piece (across processes, this
-    process's one piece at its index of ``group``)."""
+    process's pieces, the run of ``group``'s ranks at its index)."""
     widths = [h.shape[-1] for h in heads]
-    base = 0 if group is None else group.index * widths[0]
+    base = 0 if group is None else group.index * len(widths) * widths[0]
     return [base + sum(widths[:i]) for i in range(len(widths))]
 
 
@@ -391,7 +397,7 @@ class _FusedCrossEntropy(torch.autograd.Function):
     ``pieces`` is (x, head piece) pairs, piece ``i`` on its own device
     holding the next columns, and the log-sum-exp combines the pieces'
     with ``reduce`` (``collectives.logsumexp``; across processes the
-    pieces are those of ``group``'s processes, one here), so no piece is
+    pieces are those of ``group``'s processes, a run here), so no piece is
     gathered.
     The forward keeps each row's log-sum-exp (n floats a piece) and no
     logits; the backward recomputes a chunk's logits, turns them into
@@ -485,8 +491,8 @@ def vocab_parallel_cross_entropy(hiddens: list, heads: list, targets, *,
     the whole logits under autograd with ``chunk=None``. targets [b, s]
     int (-1 = padding); mask as ``fused_cross_entropy``'s. The loss is on
     the first rank's device. Across processes (``group``: the tp axis'
-    ``AxisGroup``) each process holds one piece, at its index of the
-    group, and ``reduce`` sums over the group."""
+    ``AxisGroup``) each process holds its run of the pieces, at its index
+    of the group, and ``reduce`` sums over them and the group."""
     n = targets.numel()
     flat = targets.reshape(n)
     mk = ((flat >= 0) if mask is None else mask.reshape(n)).float()

@@ -16,22 +16,38 @@ Port of ``ray_tpu/parallel/collectives.py``. Two planes:
 
    **Across processes** (``group=``, the ``process_group.AxisGroup`` of
    an axis whose places lie in different processes: ``Mesh.group``) the
-   list holds this process's one chunk and the collective runs on the
-   subgroup. Each is a ``torch.autograd.Function`` with its conjugate
+   list holds this process's ``k`` chunks along the axis, global indices
+   ``group.index·k`` to ``group.index·k + k - 1`` of the ``n = k·size``
+   (``k = 1`` where the axis spans the processes one index each; more
+   where the process boundary cuts it, ``parallel.mesh``), and the
+   collective runs on those chunks and on the subgroup: ``psum`` and
+   ``pmax`` reduce the chunks here (``local_sum``), run one subgroup
+   collective and give each place the result (a sum of 16-bit floats
+   runs in float32 and is rounded once, here as on one process, so that
+   the sums across processes hold the rank list's however the processes
+   group the ranks); ``all_gather`` joins them
+   here and gathers the processes' blocks (process-major, local-minor:
+   the global index); ``reduce_scatter`` sums here, reduce-scatters the
+   processes' blocks and splits this one (``local_split``); ``ppermute``
+   moves between the chunks here and posts one exchange to each other
+   process; ``all_to_all`` and ``regroup`` exchange with every process
+   at once. Each is a ``torch.autograd.Function`` with its conjugate
    backward: ``all_gather`` and ``reduce_scatter`` each other's, a
-   ``ppermute`` (a ring shift) the reverse permutation, ``all_to_all`` and
-   ``regroup`` the inverse exchange, and ``psum`` a ``psum``, its exact
-   VJP. That last is right only where the processes' results flow on
-   into different work. Where each process carries its own replica of
+   ``ppermute`` (a ring shift) the reverse permutation, ``all_to_all``
+   and ``regroup`` the inverse exchange, and ``psum`` a ``psum``, its
+   exact VJP. That last is right only where the processes' results flow
+   on into different work. Where each process carries its own replica of
    the sum into replicated work (the residual stream of a
    tensor-parallel block, whose loss every tp process computes alike), a
    ``psum`` backward counts each gradient once a process. Megatron's
    conjugate pair is the answer there: ``reduce_from_group`` (``g``:
-   all-reduce forward, the identity backward) at the exit of a tp region
-   and ``copy_to_group`` (``f``: the identity forward, all-reduce
-   backward) where a replicated activation enters one; likewise
-   ``gather_from_group`` gathers forward and keeps this process's piece
-   of the gradient backward.
+   all-reduce forward, the identity across processes backward) at the
+   exit of a tp region and ``copy_to_group`` (``f``: the identity
+   forward, all-reduce backward) where a replicated activation enters
+   one; likewise ``gather_from_group`` gathers forward and keeps this
+   process's block of the gradient backward. Within a process the ``k``
+   chunks' parts are the rank-list collective's, differentiated as it
+   is.
 
 2. **Host plane (numpy arrays and CPU tensors, control data).** A copy of
    the JAX package's actor-group collectives with the surface of the
@@ -72,38 +88,75 @@ def unshard(xs: list, dim: int, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Across processes: one chunk a process, the collective on a subgroup
+# Across processes: this process's k chunks, the collective on a subgroup
 # ---------------------------------------------------------------------------
 
 
-def _one(xs: list, group) -> torch.Tensor:
-    if len(xs) != 1:
-        raise ValueError(f"a collective on {group} takes this process's one "
-                         f"chunk, got {len(xs)}")
-    return xs[0]
+def _accumulator(dtype: torch.dtype) -> torch.dtype:
+    """The dtype a sum accumulates in: float32 for 16-bit floats."""
+    return torch.float32 if dtype in (torch.float16, torch.bfloat16) \
+        else dtype
 
 
-def _gather(x: torch.Tensor, group, dim: int, tiled: bool) -> torch.Tensor:
-    pieces = group.pg.all_gather_flat(x, group).view(group.size, *x.shape)
+def _sum(xs: list) -> torch.Tensor:
+    """The sum of ``xs`` on the first one's device, 16-bit floats added
+    in float32 and rounded once: the rank-list sum and the sum across
+    processes then differ only in float32's last bits, whatever the
+    processes' grouping of the ranks."""
+    acc = _accumulator(xs[0].dtype)
+    return _reduce([x.to(acc) for x in xs], torch.add).to(xs[0].dtype)
+
+
+def local_sum(xs: list) -> torch.Tensor:
+    """The sum of this process's chunks on the first one's device, in the
+    accumulator's dtype (``_sum``), before the subgroup's all-reduce or
+    reduce-scatter (a module attribute, so that a fault check can skip
+    it)."""
+    acc = _accumulator(xs[0].dtype)
+    return _reduce([x.to(acc) for x in xs], torch.add)
+
+
+def local_split(x: torch.Tensor, k: int, dim: int, tiled: bool) -> list:
+    """This process's block of a reduce-scatter's result as its ``k``
+    places' pieces, in order: ``k`` chunks along ``dim``, or its ``k``
+    slices there when not ``tiled`` (a module attribute, so that a fault
+    check can reorder them)."""
+    return list(x.chunk(k, dim=dim)) if tiled else list(x.unbind(dim))
+
+
+def _join(xs, dim: int, tiled: bool) -> torch.Tensor:
+    """This process's chunks as one block: joined along ``dim``, or
+    stacked on a new axis there when not ``tiled``."""
+    home = xs[0].device
+    xs = [x.to(home) for x in xs]
     if not tiled:
-        return pieces.movedim(0, dim).contiguous()
+        return torch.stack(xs, dim=dim)
+    return xs[0] if len(xs) == 1 else torch.cat(xs, dim=dim)
+
+
+def _grads_home(g, xs_devices) -> tuple:
+    return tuple(g.to(d) for d in xs_devices)
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The processes' blocks ``x`` joined along ``dim`` in group order."""
+    pieces = group.pg.all_gather_flat(x, group).view(group.size, *x.shape)
     return torch.cat(pieces.unbind(0), dim=dim)
 
 
-def _scatter_sum(x: torch.Tensor, group, dim: int,
-                 tiled: bool) -> torch.Tensor:
+def _scatter_sum(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """``x`` summed over the processes, this one keeping its block along
+    ``dim``."""
     n = group.size
-    if tiled and x.shape[dim] % n:
+    if x.shape[dim] % n:
         raise ValueError(f"scatter axis of size {x.shape[dim]} not "
-                         f"divisible by {n} ranks")
-    pieces = x.chunk(n, dim=dim) if tiled else x.unbind(dim)
+                         f"divisible by {n} processes")
+    pieces = x.chunk(n, dim=dim)
     out = group.pg.reduce_scatter_flat(torch.stack(pieces), group)
     return out.view(pieces[0].shape)
 
 
-def _own_piece(x: torch.Tensor, group, dim: int, tiled: bool):
-    if not tiled:
-        return x.select(dim, group.index).contiguous()
+def _own_block(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x.chunk(group.size, dim=dim)[group.index].contiguous()
 
 
@@ -111,92 +164,67 @@ def _all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     return group.pg.all_reduce(x.detach().clone(), op, group=group)
 
 
-def _all_to_all(x: torch.Tensor, group, split: int,
-                concat: int) -> torch.Tensor:
-    n = group.size
-    pieces = x.chunk(n, dim=split)
-    count = pieces[0].numel()
-    got = group.pg.all_to_all_flat(
-        torch.cat([p.reshape(-1) for p in pieces]), [count] * n,
-        [count] * n, group)
-    return torch.cat(got.view(n, *pieces[0].shape).unbind(0), dim=concat)
-
-
-def _permute(x: torch.Tensor, group, perm) -> torch.Tensor:
-    me = group.index
-    sends = {d: x for s, d in perm if s == me}
-    recvs = {s: (x.shape, x.dtype, x.device) for s, d in perm if d == me}
-    got = group.pg.exchange(sends, recvs, group)
-    return next(iter(got.values())) if got else torch.zeros_like(x)
-
-
-def _exchange(x: torch.Tensor, group, dim: int, send: list, recv: list,
-              width: int) -> torch.Tensor:
-    """Ranges of ``x`` along ``dim`` to the processes of ``group`` in one
-    ``all_to_all``: ``send[j]`` the (offset, width) pieces of ``x`` for
-    process ``j``, ``recv[i]`` where in the result (``width`` along
-    ``dim``, zero elsewhere) what process ``i`` sends lands, in the same
-    order."""
-    x = x.movedim(dim, -1)
-    rest = x.shape[:-1]
-    n_rest = math.prod(rest)
-    pieces = [x[..., a:a + w].reshape(-1) for to in send for a, w in to]
-    got = group.pg.all_to_all_flat(
-        torch.cat(pieces) if pieces else x.new_empty(0),
-        [n_rest * sum(w for _, w in to) for to in send],
-        [n_rest * sum(w for _, w in frm) for frm in recv], group)
-    out = x.new_zeros(*rest, width)
-    at = 0
-    for frm in recv:
-        for a, w in frm:
-            out[..., a:a + w] = got[at:at + n_rest * w].view(*rest, w)
-            at += n_rest * w
-    return out.movedim(-1, dim)
-
-
 class _AllGather(torch.autograd.Function):
-    """All-gather along ``dim``; the backward sums the gradient over the
-    processes and keeps this one's piece (a reduce-scatter), or, with
-    ``keep_piece``, keeps its piece alone (``gather_from_group``)."""
+    """This process's chunks joined and gathered over the processes along
+    ``dim``; the backward sums the gradient over the processes and keeps
+    this one's block (a reduce-scatter), or, with ``keep_piece``, keeps
+    its block alone (``gather_from_group``), then splits it into the
+    chunks' pieces (``local_split``)."""
 
     @staticmethod
-    def forward(ctx, x, group, dim, tiled, keep_piece):
-        ctx.args = (group, dim, tiled, keep_piece)
-        return _gather(x, group, dim, tiled)
+    def forward(ctx, group, dim, tiled, keep_piece, *xs):
+        ctx.args = (group, dim, tiled, keep_piece, [x.device for x in xs])
+        return _gather(_join(xs, dim, tiled), group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        group, dim, tiled, keep_piece = ctx.args
-        back = _own_piece if keep_piece else _scatter_sum
-        return back(g, group, dim, tiled), None, None, None, None
+        group, dim, tiled, keep_piece, devices = ctx.args
+        block = (_own_block if keep_piece else _scatter_sum)(g, group, dim)
+        pieces = local_split(block, len(devices), dim, tiled)
+        return (None,) * 4 + tuple(p.contiguous().to(d)
+                                   for p, d in zip(pieces, devices))
 
 
 class _ReduceScatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, dim, tiled):
-        ctx.args = (group, dim, tiled)
-        return _scatter_sum(x, group, dim, tiled)
+    """The chunks summed here and over the processes, each place keeping
+    its piece along ``dim``; the backward gathers the gradient."""
 
     @staticmethod
-    def backward(ctx, g):
-        group, dim, tiled = ctx.args
-        return _gather(g, group, dim, tiled), None, None, None
+    def forward(ctx, group, dim, tiled, *xs):
+        ctx.args = (group, dim, tiled, [x.device for x in xs])
+        n = len(xs) * group.size
+        total = local_sum(xs)
+        if tiled and total.shape[dim] % n or \
+                not tiled and total.shape[dim] != n:
+            raise ValueError(f"scatter axis of size {total.shape[dim]} does "
+                             f"not divide over {n} ranks")
+        block = _scatter_sum(total, group, dim).to(xs[0].dtype)
+        return tuple(p.contiguous().to(d) for p, d in zip(
+            local_split(block, len(xs), dim, tiled), ctx.args[3]))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        group, dim, tiled, devices = ctx.args
+        full = _gather(_join(gs, dim, tiled), group, dim)
+        return (None,) * 3 + _grads_home(full, devices)
 
 
 class _AllReduce(torch.autograd.Function):
-    """The sum over the processes; the backward is the same sum
-    (``psum``'s VJP) or, with ``identity_backward``, the identity
-    (``reduce_from_group``)."""
+    """The sum of the chunks here and over the processes; the backward is
+    the same sum (``psum``'s VJP) or, with ``identity_backward``, the
+    identity across processes (``reduce_from_group``), each chunk taking
+    the gradient of the sum."""
 
     @staticmethod
-    def forward(ctx, x, group, identity_backward):
-        ctx.args = (group, identity_backward)
-        return _all_reduce(x, group)
+    def forward(ctx, group, identity_backward, *xs):
+        ctx.args = (group, identity_backward, [x.device for x in xs])
+        return _all_reduce(local_sum(xs), group).to(xs[0].dtype)
 
     @staticmethod
     def backward(ctx, g):
-        group, identity = ctx.args
-        return (g if identity else _all_reduce(g, group)), None, None
+        group, identity, devices = ctx.args
+        return (None, None) + _grads_home(
+            g if identity else _all_reduce(g, group), devices)
 
 
 class _Copy(torch.autograd.Function):
@@ -213,33 +241,111 @@ class _Copy(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+def _permute(xs: list, group, perm) -> list:
+    """``ppermute`` over the global indices of this process's chunks:
+    moves between them here, and one exchange carrying every chunk bound
+    for each other process (the pairs in ``perm``'s order, which sender
+    and receiver read alike)."""
+    k, me = len(xs), group.index
+    out = [None] * k
+    sends, recvs = {}, {}
+    for s, d in perm:
+        src, dst = divmod(s, k), divmod(d, k)
+        if src[0] == me and dst[0] == me:
+            out[dst[1]] = xs[src[1]].to(xs[dst[1]].device)
+        elif src[0] == me:
+            sends.setdefault(dst[0], []).append(xs[src[1]])
+        elif dst[0] == me:
+            recvs.setdefault(src[0], []).append(dst[1])
+    if not sends and not recvs:
+        return [torch.zeros_like(x) if o is None else o
+                for o, x in zip(out, xs)]
+    like = xs[0]
+    got = group.pg.exchange(
+        {q: torch.cat([t.reshape(-1) for t in ts])
+         for q, ts in sends.items()},
+        {q: ((len(js) * like.numel(),), like.dtype, like.device)
+         for q, js in recvs.items()}, group)
+    for q, js in recvs.items():
+        for j, piece in zip(js, got[q].split(like.numel())):
+            out[j] = piece.view(like.shape).to(xs[j].device)
+    return [torch.zeros_like(x) if o is None else o for o, x in zip(out, xs)]
+
+
 class _Permute(torch.autograd.Function):
     """``ppermute`` across processes; the backward sends the gradient
     back along the reversed pairs."""
 
     @staticmethod
-    def forward(ctx, x, group, perm):
+    def forward(ctx, group, perm, *xs):
         ctx.args = (group, perm)
-        return _permute(x, group, perm)
+        return tuple(_permute(list(xs), group, perm))
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         group, perm = ctx.args
-        return _permute(g, group, [(d, s) for s, d in perm]), None, None
+        return (None, None) + tuple(
+            _permute(list(gs), group, [(d, s) for s, d in perm]))
+
+
+def _all_to_all(xs: list, group, split: int, concat: int) -> list:
+    """The tiled ``all_to_all`` over the ``n = k·size`` global ranks:
+    every chunk cut into ``n`` pieces along ``split``; piece ``j`` of
+    every chunk, joined in global order along ``concat``, to rank ``j``.
+    One exchange: to each process the pieces of its ``k`` ranks from
+    each chunk here."""
+    k, m = len(xs), group.size
+    n = k * m
+    home = xs[0].device
+    pieces = [x.to(home).chunk(n, dim=split) for x in xs]
+    shape = pieces[0][0].shape
+    send = torch.stack([pieces[i][q * k + j] for q in range(m)
+                        for i in range(k) for j in range(k)])
+    count = k * k * math.prod(shape)
+    got = group.pg.all_to_all_flat(send, [count] * m, [count] * m, group)
+    got = got.view(m, k, k, *shape)
+    return [torch.cat([got[q, i, j] for q in range(m) for i in range(k)],
+                      dim=concat).to(xs[j].device) for j in range(k)]
 
 
 class _AllToAll(torch.autograd.Function):
     """The tiled ``all_to_all``; the backward is the inverse one."""
 
     @staticmethod
-    def forward(ctx, x, group, split, concat):
+    def forward(ctx, group, split, concat, *xs):
         ctx.args = (group, split, concat)
-        return _all_to_all(x, group, split, concat)
+        return tuple(_all_to_all(list(xs), group, split, concat))
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, *gs):
         group, split, concat = ctx.args
-        return _all_to_all(g, group, concat, split), None, None, None
+        return (None,) * 3 + tuple(_all_to_all(list(gs), group, concat,
+                                               split))
+
+
+def _exchange(x: torch.Tensor, group, dim: int, send: list, recv: list,
+              width: int) -> torch.Tensor:
+    """Ranges of ``x`` along ``dim`` to the processes of ``group`` in one
+    ``all_to_all``: ``send[j]`` the (offset, width) pieces of ``x`` for
+    process ``j``, ``recv[i]`` where in the result (``width`` along
+    ``dim``, zero elsewhere) what process ``i`` sends lands, in the same
+    order, added up where pieces land on one range (the backward of
+    ranges that several ranks want)."""
+    x = x.movedim(dim, -1)
+    rest = x.shape[:-1]
+    n_rest = math.prod(rest)
+    pieces = [x[..., a:a + w].reshape(-1) for to in send for a, w in to]
+    got = group.pg.all_to_all_flat(
+        torch.cat(pieces) if pieces else x.new_empty(0),
+        [n_rest * sum(w for _, w in to) for to in send],
+        [n_rest * sum(w for _, w in frm) for frm in recv], group)
+    out = x.new_zeros(*rest, width)
+    at = 0
+    for frm in recv:
+        for a, w in frm:
+            out[..., a:a + w] += got[at:at + n_rest * w].view(*rest, w)
+            at += n_rest * w
+    return out.movedim(-1, dim)
 
 
 class _Exchange(torch.autograd.Function):
@@ -257,10 +363,15 @@ class _Exchange(torch.autograd.Function):
                 None, None, None, None, None)
 
 
+def _on_places(y: torch.Tensor, xs: list) -> list:
+    return [y.to(x.device) for x in xs]
+
+
 def reduce_from_group(xs: list, group) -> list:
-    """Megatron's ``g``: the sum over ``group``'s processes forward, the
-    identity backward (module docstring)."""
-    return [_AllReduce.apply(_one(xs, group), group, True)]
+    """Megatron's ``g``: the sum over this process's chunks and
+    ``group``'s processes forward, the identity across processes
+    backward (module docstring)."""
+    return _on_places(_AllReduce.apply(group, True, *xs), xs)
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
@@ -271,11 +382,12 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_group(xs: list, *, gather_axis: int = 0, tiled: bool = True,
                       group) -> list:
-    """All-gather over ``group`` whose backward keeps this process's piece
-    of the gradient: for a tensor whose consumers every process of the
-    group runs alike (module docstring)."""
-    return [_AllGather.apply(_one(xs, group), group, gather_axis, tiled,
-                             True)]
+    """All-gather over this process's chunks and ``group``'s processes
+    whose backward keeps this process's block of the gradient: for a
+    tensor whose consumers every process of the group runs alike (module
+    docstring)."""
+    return _on_places(_AllGather.apply(group, gather_axis, tiled, True, *xs),
+                      xs)
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +409,8 @@ def _reduce(xs: list, op) -> torch.Tensor:
 
 def psum(xs: list, *, group=None) -> list:
     if group is not None:
-        return [_AllReduce.apply(_one(xs, group), group, False)]
-    total = _reduce(xs, torch.add)
+        return _on_places(_AllReduce.apply(group, False, *xs), xs)
+    total = _sum(xs)
     return _on_ranks([total] * len(xs), xs)
 
 
@@ -310,7 +422,8 @@ def pmean(xs: list) -> list:
 def pmax(xs: list, *, group=None) -> list:
     """The maximum over the ranks (across processes, no gradient)."""
     if group is not None:
-        return [_all_reduce(_one(xs, group), group, "max")]
+        top = _reduce([x.detach() for x in xs], torch.maximum)
+        return _on_places(_all_reduce(top, group, "max"), xs)
     top = _reduce(xs, torch.maximum)
     return _on_ranks([top] * len(xs), xs)
 
@@ -320,8 +433,8 @@ def all_gather(xs: list, *, gather_axis: int = 0, tiled: bool = True,
     """Every rank gets all chunks joined along ``gather_axis`` (stacked on
     a new axis there when not ``tiled``)."""
     if group is not None:
-        return [_AllGather.apply(_one(xs, group), group, gather_axis, tiled,
-                                 False)]
+        return _on_places(_AllGather.apply(group, gather_axis, tiled, False,
+                                           *xs), xs)
     join = torch.cat if tiled else torch.stack
     home = xs[0].device
     full = join([x.to(home) for x in xs], dim=gather_axis)
@@ -334,10 +447,9 @@ def reduce_scatter(xs: list, *, scatter_axis: int = 0,
     ``scatter_axis`` (an axis of size n that is dropped, when not
     ``tiled``)."""
     if group is not None:
-        return [_ReduceScatter.apply(_one(xs, group), group, scatter_axis,
-                                     tiled)]
+        return list(_ReduceScatter.apply(group, scatter_axis, tiled, *xs))
     n = len(xs)
-    total = _reduce(xs, torch.add)
+    total = _sum(xs)
     if tiled:
         if total.shape[scatter_axis] % n:
             raise ValueError(f"scatter axis of size "
@@ -355,8 +467,7 @@ def ppermute(xs: list, perm, *, group=None) -> list:
     ``lax.ppermute``. Across processes a process's sends and receives are
     posted at once (no pair deadlocks on their order)."""
     if group is not None:
-        return [_Permute.apply(_one(xs, group), group,
-                               tuple(map(tuple, perm)))]
+        return list(_Permute.apply(group, tuple(map(tuple, perm)), *xs))
     out = [None] * len(xs)
     for src, dst in perm:
         out[dst] = xs[src].to(xs[dst].device)
@@ -366,7 +477,7 @@ def ppermute(xs: list, perm, *, group=None) -> list:
 def ring_shift(xs: list, *, shift: int = 1, group=None) -> list:
     """Shift values around the ring: rank ``(i + shift) % n`` receives rank
     ``i``'s chunk (the building block of ring attention)."""
-    n = len(xs) if group is None else group.size
+    n = axis_size(xs, group=group)
     return ppermute(xs, [(i, (i + shift) % n) for i in range(n)],
                     group=group)
 
@@ -378,14 +489,13 @@ def all_to_all(xs: list, *, split_axis: int, concat_axis: int,
     ``concat_axis`` (tiled; only the tiled form is ported)."""
     if not tiled:
         raise NotImplementedError("all_to_all: only tiled=True is ported")
-    n = len(xs) if group is None else group.size
+    n = axis_size(xs, group=group)
     for x in xs:
         if x.shape[split_axis] % n:
             raise ValueError(f"split axis of size {x.shape[split_axis]} not "
                              f"divisible by {n} ranks")
     if group is not None:
-        return [_AllToAll.apply(_one(xs, group), group, split_axis,
-                                concat_axis)]
+        return list(_AllToAll.apply(group, split_axis, concat_axis, *xs))
     pieces = [x.chunk(n, dim=split_axis) for x in xs]
     return [torch.cat([p[j].to(xs[j].device) for p in pieces],
                       dim=concat_axis) for j in range(n)]
@@ -398,10 +508,20 @@ def _overlaps(have: list, lo: int, hi: int) -> list:
             if max(lo, a) < min(hi, b)]
 
 
-def _regroup_across(x, have, want, dim, group):
-    """``regroup`` of this process's chunk over ``group``: one exchange,
-    each process sending every other the parts of its range they want."""
-    me = group.index
+def _regroup_across(xs, have, want, dim, group):
+    """``regroup`` of this process's ``k`` chunks over ``group``: joined
+    into the process's one range (the chunks' ranges must be adjacent),
+    one exchange, each process sending every other the parts of its range
+    they want, and the result split into the ``k`` places' wants."""
+    k, me = len(xs), group.index
+    mine = have[me * k:(me + 1) * k]
+    if any(a[1] != b[0] for a, b in zip(mine, mine[1:])):
+        raise ValueError(f"the ranges {mine} of one process are not "
+                         "adjacent")
+    have = [(have[p * k][0], have[p * k + k - 1][1])
+            for p in range(group.size)]
+    wants = [want[p * k:(p + 1) * k] for p in range(group.size)]
+    want = [[r for ranges in w for r in ranges] for w in wants]
     a0 = have[me][0]
     send = [[(a - a0, b - a) for lo, hi in ranges
              for i, a, b in _overlaps(have, lo, hi) if i == me]
@@ -414,8 +534,10 @@ def _regroup_across(x, have, want, dim, group):
         for i, a, b in parts:
             recv[i].append((at, b - a))
             at += b - a
-    dim = dim % x.dim()
-    return _Exchange.apply(x, group, dim, send, recv, at)
+    dim = dim % xs[0].dim()
+    out = _Exchange.apply(_join(xs, dim, True), group, dim, send, recv, at)
+    widths = [sum(hi - lo for lo, hi in ranges) for ranges in wants[me]]
+    return [p.to(x.device) for p, x in zip(out.split(widths, dim=dim), xs)]
 
 
 def regroup(xs: list, have: list, want: list, *, dim: int = -1,
@@ -426,10 +548,11 @@ def regroup(xs: list, have: list, want: list, *, dim: int = -1,
     assembled from the pieces of the chunks that overlap them, on rank
     ``j``'s device. The uneven counterpart of a tiled ``all_to_all``
     (GSPMD's reshard between two cuts of one dimension). Across processes
-    (``have`` and ``want`` still list every rank's) the backward moves
-    the gradient's pieces back."""
+    (``have`` and ``want`` still list every global rank's; this process's
+    chunks the adjacent ranges of its ranks) the backward moves the
+    gradient's pieces back."""
     if group is not None:
-        return [_regroup_across(_one(xs, group), have, want, dim, group)]
+        return _regroup_across(xs, have, want, dim, group)
     out = []
     for j, ranges in enumerate(want):
         pieces = []
@@ -466,7 +589,9 @@ def axis_index(xs: list) -> list:
 
 
 def axis_size(xs: list, *, group=None) -> int:
-    return group.size if group is not None else len(xs)
+    """The number of ranks along the axis: the chunks here, times the
+    processes of ``group``."""
+    return len(xs) * (group.size if group is not None else 1)
 
 
 # ---------------------------------------------------------------------------

@@ -22,32 +22,36 @@ rank's backward deadlocks).
 the counterpart of ``jax.distributed.initialize``
 (``ray_tpu/train/worker_group.py``), comes with the port's training
 harness (``parallel.process_group``). Then the global mesh's places are
-dealt to the ``world`` processes as JAX orders processes along a mesh's
-leading axes: in row-major ``AXIS_ORDER``, rank ``p`` owns places
-``[p·n/world, (p+1)·n/world)`` of the ``n``. The axes the processes span
-are therefore a prefix (``split_axes``). Every axis but ``dp`` lies
-either wholly inside one process or wholly across processes, one index a
-process; ``dp`` may also be split, an equal share of its indices a
-process. Any other cut raises ``NotImplementedError`` naming the axis.
-On ``{fsdp 2, tp 2}``, world 4 gives one place a process and world 2
-lets fsdp span the processes while each drives its two tp places as
-above. ``pp`` across processes runs each process's own stage of the 1F1B
-schedule, activations and gradients moving between the stages'
-processes by point-to-point sends (``parallel.pipeline``); ``ep`` across
-processes runs each process's own experts, their inputs summed from
-every data process and their outputs gathered to every one
-(``train.spmd``).
+dealt to the ``world`` processes as JAX deals them: its mesh is
+row-major over ``jax.devices()``, which are ordered by process
+(``ray_tpu/parallel/mesh.py``), so in row-major ``AXIS_ORDER`` rank ``p``
+owns places ``[p·n/world, (p+1)·n/world)`` of the ``n``, an equal
+contiguous block (``split_axes``). The axes before the one where the
+process boundary falls are spanned one index a process; that axis is
+*cut*: each process holds ``k`` consecutive indices of its ``n`` and
+``n/k`` processes span it (``k = 1``: spanned wholly); the axes after it
+lie wholly inside each process. On ``{fsdp 2, tp 2}``, world 4 gives one
+place a process and world 2 lets fsdp span the processes while each
+drives its two tp places; ``{tp 4}`` at world 2 gives each process tp
+indices ``[2p, 2p + 2)``. ``pp`` across processes runs each process's
+own stages of the 1F1B schedule, activations and gradients moving
+between processes by point-to-point sends (``parallel.pipeline``); ``ep``
+across processes runs each process's own experts, their inputs summed
+from every data process and their outputs gathered to every one
+(``train.spmd``). A block that is not such a grid, or a mesh that does
+not divide into equal blocks, raises before any process starts.
 
 Such a process's ``Mesh`` carries a ``ProcessLayout``: ``shape`` and
 ``size`` are the global mesh's, ``devices`` (and ``local_shape``) the
-grid of this process's places, one index along each spanned axis, and
-``group(axis)`` this process's line of a spanned axis, the subgroup of
-the processes along it (``process_group.AxisGroup``; every process makes
-the subgroup of every line, in one order, as ``dist.new_group``
-requires). The rank-list collectives then take the list of this
-process's chunks along an axis: as above on a local axis, a list of one
-chunk and a collective on the subgroup on a spanned one. A rank's device
-is ``process_group.rank_device``: on one card every rank is on it, over
+grid of this process's places, ``offset(axis)`` the global index of its
+first place along an axis, and ``group(axis)`` this process's line of a
+spanned axis, the subgroup of the processes along it
+(``process_group.AxisGroup``; every process makes the subgroup of every
+line, in one order, as ``dist.new_group`` requires). The rank-list
+collectives then take the list of this process's ``k`` chunks along an
+axis and, with ``group=``, run on the subgroup as well: global index
+``offset + i`` for local chunk ``i``. A rank's device is
+``process_group.rank_device``: on one card every rank is on it, over
 gloo (NCCL refuses two ranks on one GPU). A mesh of one process has no
 layout and is the mesh above, unchanged.
 
@@ -115,12 +119,21 @@ def _ordered(axes: dict) -> list:
 def split_axes(axes: dict, world: int) -> tuple[dict, dict]:
     """The global mesh ``axes`` dealt to ``world`` processes (module
     docstring): (this process's local axes, the number of processes along
-    each spanned axis). ``dp=-1`` takes one index a process; any other -1
-    axis size 1."""
+    each spanned axis). An axis cut at the process boundary is in both:
+    ``k`` local indices, ``n/k`` processes. ``dp=-1`` takes one index a
+    process; any other -1 axis size 1. Raises before any process starts
+    where the places do not divide into equal blocks (JAX gives every
+    process the same number of devices) or a block is not a grid of
+    whole lines past the cut."""
     axes = {a: (world if a == "dp" else 1) if n == -1 else n
             for a, n in axes.items()}
     if world == 1:
         return axes, {}
+    total = math.prod(axes.values())
+    if total % world:
+        raise ValueError(f"{world} processes for the {total} places of "
+                         f"{axes}: JAX deals every process an equal block "
+                         "of the mesh")
     local, procs, left = {}, {}, world
     for a in _ordered(axes):
         n = axes[a]
@@ -129,28 +142,25 @@ def split_axes(axes: dict, world: int) -> tuple[dict, dict]:
         elif left % n == 0:
             procs[a], local[a] = n, 1
             left //= n
-        elif a == "dp" and n % left == 0:
+        elif n % left == 0:
             procs[a], local[a] = left, n // left
             left = 1
         else:
             raise NotImplementedError(
-                f"axis {a!r} of size {n} in {axes} would be cut between "
-                f"{world} processes: an axis other than dp lies wholly in "
-                "one process or wholly across processes, one index a "
-                "process, and dp splits into equal shares (other cuts: "
-                "ROADMAP slice 11b)")
-    if left != 1:
-        raise ValueError(f"{world} processes for the "
-                         f"{math.prod(axes.values())} places of {axes}")
+                f"axis {a!r} of size {n} in {axes} meets {left} processes: "
+                f"a block of {total // world} places would hold part of a "
+                "line of it at one index of the axes before it; the port "
+                "deals each process a grid, the axis where the process "
+                "boundary falls cut into equal runs of consecutive indices")
     return local, procs
 
 
 @dataclass(frozen=True)
 class ProcessLayout:
     """This process's part of a global mesh (``split_axes``): ``local``
-    axes, ``procs`` (processes along each spanned axis), ``index`` (this
-    process's index along each), ``groups`` (its
-    ``process_group.AxisGroup`` on each)."""
+    axes (``k`` indices of a cut axis), ``procs`` (processes along each
+    spanned axis), ``index`` (this process's index along each),
+    ``groups`` (its ``process_group.AxisGroup`` on each)."""
 
     rank: int
     world: int
@@ -215,8 +225,8 @@ class Mesh:
         return self.layout.groups[axis]
 
     def offset(self, axis: str) -> int:
-        """The global index along ``axis`` of this process's first
-        place."""
+        """The global index along ``axis`` of this process's first place
+        (its process index times its ``k`` local indices)."""
         if not self.spans(axis):
             return 0
         return self.layout.index[axis] * self.local_shape[axis]
@@ -233,7 +243,7 @@ class Mesh:
     def line(self, axis: str, at: dict | None = None) -> "Mesh":
         """The one-axis mesh of the places along ``axis`` at the local
         index ``at`` of the other axes, spanning processes where ``axis``
-        does."""
+        does (its ``offset`` the global index of its first place)."""
         devs = self.axis_devices(axis, at)
         grid = np.empty(len(devs), dtype=object)
         for i, d in enumerate(devs):
@@ -244,7 +254,8 @@ class Mesh:
     def axis_devices(self, axis: str, at: dict | None = None) -> list:
         """The devices along ``axis``, in order, at the index ``at[name]``
         of every other axis (0 where ``at`` names none): the ranks of one
-        ring (this process's places only, local indices)."""
+        ring (this process's places only, at local indices; the first at
+        global index ``offset(axis)``)."""
         at = at or {}
         index = tuple(slice(None) if name == axis else at.get(name, 0)
                       for name in self.axis_names)

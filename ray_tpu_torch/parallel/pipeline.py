@@ -26,22 +26,25 @@ results are the same; the slots that run, and their order within a tick
 (forward, loss, backward), are JAX's.
 
 Across processes. Where the ``pp`` axis spans processes
-(``parallel.mesh``), each process holds its own stage and runs only that
-stage's slots of the same schedule: the forward slot f = t - s, the
-backward slot b = t - 2(S-1) + s, T = M + 2(S-1) ticks, a stash of 2·S
-stage inputs. At the end of each tick the activations move on to stage
-s+1 and the gradients back to stage s-1 (JAX's ``perm_f`` and
-``perm_b``), each move one ``ProcessGroup.exchange`` (a
-``batch_isend_irecv``: no pair deadlocks on the order of its sends).
-Every process derives the tick's sends from the same (t, s) formulas for
-every stage, and posts its own and the receives addressed to it, so that
-a send is always its peer's receive of the same tick and an idle slot
-posts nothing. The head and its vjp run only on the last stage, the
-embedding and its vjp only on stage 0 (JAX runs both masked on every
-stage: the sums below make the results the same). The io parameters'
-gradients, ``loss_sum`` and ``weight_sum`` are then summed over the
-stages' processes, as JAX sums them over ``pp``, so that the replicas of
-the io parameters stay equal in every process.
+(``parallel.mesh``), each process holds its ``k`` consecutive stages (one
+where pp spans the processes one stage each, more where the process
+boundary cuts it) and runs only their slots of the same schedule: the
+forward slot f = t - s, the backward slot b = t - 2(S-1) + s, T = M +
+2(S-1) ticks, a stash of 2·S stage inputs a stage. At the end of each
+tick the activations move on to stage s+1 and the gradients back to
+stage s-1 (JAX's ``perm_f`` and ``perm_b``): between this process's own
+stages as they are, to another process's stage by one
+``ProcessGroup.exchange`` a direction (a ``batch_isend_irecv``: no pair
+deadlocks on the order of its sends). Every process derives the tick's
+sends from the same (t, s) formulas for every stage, and posts its own
+and the receives addressed to it, so that a send is always its peer's
+receive of the same tick and an idle slot posts nothing. The head and
+its vjp run only on the last stage, the embedding and its vjp only on
+stage 0 (JAX runs both masked on every stage: the sums below make the
+results the same). The io parameters' gradients, ``loss_sum`` and
+``weight_sum`` are then summed over the stages' processes, as JAX sums
+them over ``pp``, so that the replicas of the io parameters stay equal
+in every process.
 
 Devices. A stage function receives its inputs where the previous stage
 left them and moves what it needs to its own places (``Tensor.to`` is a
@@ -299,8 +302,9 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
     contributions land in one leaf.
 
     Where ``axis`` spans processes (module docstring), ``stage_params``
-    is this process's stage (a list of one tree, or [1, ...] tensors) and
-    so is ``d_stage_params``; ``like``, a tree of tensors with the
+    is this process's stages (a list of one tree each, or [k, ...]
+    tensors) and so is ``d_stage_params``; ``like``, a tree of tensors
+    with the
     activations' structure, shapes, dtypes and devices (default:
     ``x_micro[0]``), gives the shapes of what a stage receives; the
     losses and ``d_io_params`` (``d_x_micro`` too) are the sums over the
@@ -309,8 +313,8 @@ def pipeline_value_and_grad(stage_fn, head_fn, stage_params, io_params,
     if mesh.spans(axis):
         return _stage_value_and_grad(
             stage_fn, head_fn, stage_params, io_params, x_micro, tgt_micro,
-            msk_micro, group=mesh.group(axis), embed_fn=embed_fn,
-            like=x_micro[0] if like is None else like)
+            msk_micro, group=mesh.group(axis), k=mesh.local_shape[axis],
+            embed_fn=embed_fn, like=x_micro[0] if like is None else like)
     n_stages = mesh.shape[axis]
     m = x_micro.shape[0]
     window = 2 * n_stages
@@ -442,93 +446,115 @@ def _tick_posts(t: int, n: int, m: int) -> tuple:
     return fwd, bwd
 
 
-def _move(group, posts: list, out, like, wire: list, repeats: bool):
-    """One exchange of a tick along the stages' ``group``: this stage's
-    ``out`` to the receiver named by its post, and what a post addresses
-    to this stage, as ``like``'s tree (None: nothing addressed here)."""
+def _move(group, k: int, posts: list, outs: list, like, wire: list,
+          repeats: bool) -> list:
+    """The moves of a tick along the stages' ``group`` (``k`` stages a
+    process): each post's output of this process's stage ``outs[j]`` to
+    its receiver, kept here when that is one of this process's stages,
+    else in one exchange with each other process (the posts in order,
+    which sender and receiver read alike). Returns what reaches each of
+    this process's stages, as ``like``'s tree (None: nothing)."""
     me = group.index
-    sends = {d: _flat_wire(out, wire) for src, d in posts if src == me}
-    srcs = [src for src, d in posts if d == me]
+    got = [None] * k
+    sends, srcs = {}, {}
+    for src, dst in posts:
+        (p_src, j_src), (p_dst, j_dst) = divmod(src, k), divmod(dst, k)
+        if p_src == me and p_dst == me:
+            got[j_dst] = outs[j_src]
+        elif p_src == me:
+            sends.setdefault(p_dst, []).append(_flat_wire(outs[j_src], wire))
+        elif p_dst == me:
+            srcs.setdefault(p_src, []).append(j_dst)
     if not sends and not srcs:
-        return None
+        return got
     first = _positions(like)[wire[0]]
     numel = sum(_positions(like)[i].numel() for i in wire)
-    got = group.pg.exchange(sends, {src: ((numel,), first.dtype,
-                                          first.device) for src in srcs},
-                            group)
-    if not srcs:
-        return None
-    return _unflat_wire(got[srcs[0]], like, wire, repeats)
+    recv = group.pg.exchange(
+        {q: torch.cat(ts) for q, ts in sends.items()},
+        {q: ((len(js) * numel,), first.dtype, first.device)
+         for q, js in srcs.items()}, group)
+    for q, js in srcs.items():
+        for j, flat in zip(js, recv[q].split(numel)):
+            got[j] = _unflat_wire(flat, like, wire, repeats)
+    return got
 
 
 def _stage_value_and_grad(stage_fn, head_fn, stage_params, io_params,
-                          x_micro, tgt_micro, msk_micro, *, group,
+                          x_micro, tgt_micro, msk_micro, *, group, k,
                           embed_fn, like):
-    """``pipeline_value_and_grad`` where the stages are the processes of
-    ``group``: this process runs stage ``group.index``'s slots of the
-    schedule (module docstring)."""
-    n, s = group.size, group.index
+    """``pipeline_value_and_grad`` where the stages are dealt to the
+    processes of ``group``, ``k`` consecutive stages a process: this
+    process runs stages ``group.index·k`` to ``group.index·k + k - 1``'s
+    slots of the schedule (module docstring)."""
+    n = k * group.size
+    mine = range(group.index * k, (group.index + 1) * k)
     m = x_micro.shape[0]
     window = 2 * n
-    last, first = s == n - 1, s == 0
     stacked = not isinstance(stage_params, list)
-    if stacked:
-        mine = _map_tensors(lambda a: a[0], stage_params)
-    elif len(stage_params) == 1:
-        mine = stage_params[0]
-    else:
-        raise ValueError(f"{len(stage_params)} stage trees for this "
-                         "process's one stage")
-    stage, stage_leaves = _aliases(mine)
+    per_stage = ([_map_tensors(lambda a, j=j: a[j], stage_params)
+                  for j in range(k)] if stacked else stage_params)
+    if len(per_stage) != k:
+        raise ValueError(f"{len(per_stage)} stage trees for this process's "
+                         f"{k} stages")
+    stages, stage_leaves = zip(*(_aliases(sp) for sp in per_stage))
     io, io_leaves = _aliases(io_params)
     wire = _wire_positions(like)
-    d_stage, d_io = {}, {}
+    d_stage, d_io = [{} for _ in range(k)], {}
     loss = weight = None
-    fbuf = bbuf = None
-    stash = [None] * window
+    fbuf, bbuf = [None] * k, [None] * k
+    stash = [[None] * window for _ in range(k)]
     d_x = [None] * m
     for t in range(m + 2 * (n - 1)):
-        y = dx = dy = None
-        # --- forward slot ---
-        f = t - s
-        if 0 <= f < m:
-            with torch.no_grad():
-                if not first:
-                    inp = fbuf if fbuf is not None else \
-                        _unflat_wire(None, like, wire, True)
-                elif embed_fn is None:
-                    inp = x_micro[f]
+        ys, dxs = [None] * k, [None] * k
+        for j, s in enumerate(mine):
+            last, first = s == n - 1, s == 0
+            dy = None
+            # --- forward slot ---
+            f = t - s
+            if 0 <= f < m:
+                with torch.no_grad():
+                    if not first:
+                        inp = fbuf[j] if fbuf[j] is not None else \
+                            _unflat_wire(None, like, wire, True)
+                    elif embed_fn is None:
+                        inp = x_micro[f]
+                    else:
+                        inp = embed_fn(io, x_micro[f])
+                    stash[j][f % window] = inp
+                    y = stage_fn(stages[j], inp)
+                if last:
+                    # --- loss slot ---
+                    dy, l_mb, w_mb = _loss_slot(head_fn, io, io_leaves, y,
+                                                tgt_micro[f], msk_micro[f],
+                                                d_io)
+                    loss = l_mb if loss is None else loss + l_mb
+                    weight = w_mb if weight is None else weight + w_mb
                 else:
-                    inp = embed_fn(io, x_micro[f])
-                stash[f % window] = inp
-                y = stage_fn(stage, inp)
-            if last:
-                # --- loss slot ---
-                dy, l_mb, w_mb = _loss_slot(head_fn, io, io_leaves, y,
-                                            tgt_micro[f], msk_micro[f], d_io)
-                y = None
-                loss = l_mb if loss is None else loss + l_mb
-                weight = w_mb if weight is None else weight + w_mb
-        # --- backward slot ---
-        b = t - 2 * (n - 1) + s
-        if 0 <= b < m:
-            g_in = dy if last else (bbuf if bbuf is not None else
-                                    _unflat_wire(None, like, wire, False))
-            dx = _backward_slot(stage_fn, stage, stage_leaves,
-                                stash[_read_slot(b, window)], g_in, d_stage)
-            if first:
-                if embed_fn is None:
+                    ys[j] = y
+            # --- backward slot ---
+            b = t - 2 * (n - 1) + s
+            if 0 <= b < m:
+                g_in = dy if last else (
+                    bbuf[j] if bbuf[j] is not None else
+                    _unflat_wire(None, like, wire, False))
+                dx = _backward_slot(stage_fn, stages[j], stage_leaves[j],
+                                    stash[j][_read_slot(b, window)], g_in,
+                                    d_stage[j])
+                if not first:
+                    dxs[j] = dx
+                elif embed_fn is None:
                     d_x[b] = dx
                 else:
                     _embed_backward(embed_fn, io, io_leaves, x_micro[b], dx,
                                     d_io)
-                dx = None
         # --- the tick's moves: activations on, gradients back ---
         fwd, bwd = _tick_posts(t, n, m)
-        fbuf = _move(group, fwd, y, like, wire, True)
-        bbuf = _move(group, bwd, dx, like, wire, False)
-    d_sp = _param_grads(stage, stage_leaves, d_stage)
-    d_sp = _stack_trees([d_sp]) if stacked else [d_sp]
+        fbuf = _move(group, k, fwd, ys, like, wire, True)
+        bbuf = _move(group, k, bwd, dxs, like, wire, False)
+    d_sp = [_param_grads(st, leaves, acc) for st, leaves, acc in
+            zip(stages, stage_leaves, d_stage)]
+    if stacked:
+        d_sp = _stack_trees(d_sp)
     io_grads = [d_io[id(a)] if id(a) in d_io else torch.zeros_like(a)
                 for a in io_leaves]
     reduce_io_grads(io_grads, group)
@@ -541,7 +567,7 @@ def _stage_value_and_grad(stage_fn, head_fn, stage_params, io_params,
     group.pg.all_reduce(sums, group=group)
     if embed_fn is None:
         d_x = torch.stack([g if g is not None else torch.zeros_like(like)
-                           for g in d_x]) if first else \
+                           for g in d_x]) if group.index == 0 else \
             torch.zeros_like(x_micro)
         group.pg.all_reduce(d_x, group=group)
     else:

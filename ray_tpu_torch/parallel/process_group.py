@@ -13,7 +13,8 @@ different processes (``AxisGroup``, made by ``mesh_layout``):
 - ``all_gather_flat`` and ``reduce_scatter_flat`` into and out of flat
   tensors, ``exchange`` (point-to-point sends and receives posted as one
   ``batch_isend_irecv``, so that no pair of ranks deadlocks on the order
-  of blocking sends; a ring shift is one of them) and ``all_to_all_flat``
+  of blocking sends; a ring shift is one of them; under NCCL every line
+  has run a first collective before, ``mesh_layout``) and ``all_to_all_flat``
   (uneven splits), each counted by kind in ``stats``;
 - ``all_reduce_grads``: the gradients in flat buckets, one collective per
   bucket rather than one per leaf (a leaf at least a bucket's size is
@@ -55,8 +56,10 @@ BUCKET_BYTES = 1 << 28
 # the collectives on flat tensors, each counted in ``stats`` under its name
 KINDS = ("all_gather", "reduce_scatter", "all_reduce", "send_recv",
          "all_to_all")
-# subgroups by their ranks, made once per process group (dist.new_group)
+# subgroups by their ranks, made once per process group (dist.new_group),
+# and the lines whose communicator a first collective has built (NCCL)
 _LINES: dict = {}
+_WARM: set = set()
 
 
 def free_port() -> int:
@@ -459,6 +462,7 @@ class ProcessGroup:
 
     def destroy(self) -> None:
         _LINES.clear()
+        _WARM.clear()
         if dist.is_initialized():
             dist.destroy_process_group()
 
@@ -493,19 +497,36 @@ def _line(ranks: tuple, world: int):
     return _LINES[ranks]
 
 
+def _warm(pg, ranks: tuple, handle) -> None:
+    """Under NCCL, one small all-reduce on the line ``ranks`` the first
+    time this process meets it. NCCL builds a group's communicator at
+    its first collective, and a ``batch_isend_irecv`` that comes first
+    must be posted by every rank of the group, which the 1F1B's first
+    ticks are not (on three or more stages only stages 0 and 1 post).
+    Every process warms its lines in the order every process made them,
+    so no two processes wait on each other's lines in turn. gloo needs
+    none."""
+    if getattr(pg, "backend", None) != "nccl" or ranks in _WARM:
+        return
+    dist.all_reduce(torch.zeros(1, device=pg.device), group=handle)
+    _WARM.add(ranks)
+
+
 def mesh_layout(pg, axes: dict) -> ProcessLayout:
     """This process's part of the global mesh ``axes`` when ``pg``'s
     ranks share it (``parallel.mesh.split_axes``): its index along each
-    spanned axis (the rank unravelled over the spanned axes, row-major)
-    and its ``AxisGroup`` on each. Every process makes the subgroups of
-    every line, in the same order."""
+    spanned axis, a cut one too (the rank unravelled over the spanned
+    axes, row-major) and its ``AxisGroup`` on each. Every process makes
+    the subgroups of every line, in the same order, then (under NCCL)
+    runs a first collective on each of its own lines, in that order
+    (``_warm``)."""
     local, procs = split_axes(axes, pg.world_size)
     names = list(procs)
     sizes = [procs[a] for a in names]
     grid = np.arange(pg.world_size).reshape(sizes) if names else None
     coords = dict(zip(names, map(int, np.unravel_index(pg.rank, sizes)))) \
         if names else {}
-    groups = {}
+    groups, mine = {}, []
     for i, axis in enumerate(names):
         others = [range(n) for j, n in enumerate(sizes) if j != i]
         for at in itertools.product(*others):
@@ -515,7 +536,10 @@ def mesh_layout(pg, axes: dict) -> ProcessLayout:
             handle = _line(ranks, pg.world_size)
             if pg.rank in ranks:
                 groups[axis] = AxisGroup(pg, axis, ranks, handle)
+                mine.append((ranks, handle))
     assert math.prod(sizes) == pg.world_size
+    for ranks, handle in mine:
+        _warm(pg, ranks, handle)
     return ProcessLayout(rank=pg.rank, world=pg.world_size, local=local,
                          procs=procs, index=coords, groups=groups)
 

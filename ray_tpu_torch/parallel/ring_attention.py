@@ -39,15 +39,22 @@ the kernels do not take here (fewer than 256 tokens, not a multiple of
 reference body. On a CPU tensor the flash body runs the kernels' plain
 versions.
 
-**Across processes.** When ``axis`` spans processes (``Mesh.spans``:
-one sp index a process), q, k and v are this process's chunk of the
-sequence and both bodies run this one index: K/V ride the ring by the
-subgroup's sends and receives (``collectives.ring_shift`` with
-``group=``, every shift posted as one ``batch_isend_irecv``), the causal
-skips are decided per process (rank ``idx`` runs the diagonal and the
-``idx`` steps after it), and in the flash body's backward dK and dV ride
-the ring home in float32, as on one card. Every process makes every
-shift, skipped step or not, so that the ring's sends pair up.
+**Across processes.** When ``axis`` spans processes (``Mesh.spans``),
+q, k and v are this process's block, its chunk of the sequence, and
+this process walks its ``k`` consecutive ring ranks (one where the axis
+spans the processes one index each, more where the process boundary cuts
+it; ``parallel.mesh``): K/V move between them here and by the subgroup's
+sends and receives at each process boundary (``collectives.ring_shift``
+with ``group=``, K and V stacked, every shift posted as one
+``batch_isend_irecv``), the causal skips are decided per global rank
+(rank ``idx`` runs the diagonal and the ``idx`` steps after it), and in
+the flash body's backward dK and dV ride the ring home in float32, as on
+one card. Every process makes every shift, skipped step or not, so that
+the ring's sends pair up. The rings of the mesh's other places in this
+process (its indices of the batch and head axes, every place of a
+process on its rank's device) run as one: their rows and heads are one
+batch of the same kernels, and their K/V blocks move in one exchange a
+step.
 
 Under the ``attn`` and ``dots_attn`` remat policies of ``models/llama.py``
 the ring recomputes its forward in the backward, as JAX's ring does: its
@@ -106,70 +113,61 @@ def _skipped(causal: bool, r: int, idx: int) -> bool:
 
 class _Ring:
     """The ranks of one ring this process walks: ``idxs`` (all ``n`` on
-    one mesh, this process's one index across processes) and the shift
-    of their chunks one rank on."""
+    one mesh; this process's ``k`` consecutive global indices from
+    ``first`` across processes) and the shift of their chunks one rank
+    on."""
 
-    def __init__(self, n: int, group=None):
+    def __init__(self, n: int, k: int | None = None, group=None,
+                 first: int = 0):
         self.n, self.group = n, group
-        self.idxs = range(n) if group is None else [group.index]
+        self.idxs = range(first, first + (n if k is None else k))
 
     def shift(self, xs: list) -> list:
         return ring_shift(xs) if self.group is None else \
             ring_shift(xs, group=self.group)
 
+    def shift_pair(self, ks: list, vs: list) -> tuple:
+        """K and V one rank on; across processes in one exchange."""
+        if self.group is None:
+            return self.shift(ks), self.shift(vs)
+        kvs = self.shift([torch.stack([k, v]) for k, v in zip(ks, vs)])
+        return [kv[0] for kv in kvs], [kv[1] for kv in kvs]
+
 
 def _ring_reference(qs, ks, vs, ring, scale, causal):
-    """The reference body over per-rank chunks [b, sc, h|hk, d] (every
-    rank of the ring): per rank the output in q's dtype."""
+    """The reference body over the ring ranks' chunks [b, sc, h|hk, d]
+    that this process walks: per rank the output in q's dtype,
+    differentiated by autograd through the shifts. K and V ride the ring
+    stacked, one chain of shifts, so that across processes the backward's
+    reverse shifts come in one order in every process; a chain link whose
+    step a rank skips still reaches that rank's output (times zero), so
+    that every process runs every link's backward, which its ring
+    neighbours wait for."""
     sc = qs[0].shape[1]
+    kvs = [torch.stack([k, v]) for k, v in zip(ks, vs)]
     os_, lses = [None] * len(qs), [None] * len(qs)
+    idle = [[] for _ in qs]
     for r in range(ring.n):
         for j, idx in enumerate(ring.idxs):
             if _skipped(causal, r, idx):
+                idle[j].append(kvs[j])
                 continue
             mask = None
             if causal and r == 0:
                 mask = torch.ones(sc, sc, dtype=torch.bool,
                                   device=qs[j].device).tril()
-            o_r, lse_r = _chunk_attention(qs[j], ks[j], vs[j],
+            o_r, lse_r = _chunk_attention(qs[j], kvs[j][0], kvs[j][1],
                                           scale=scale, mask=mask)
             if r == 0:
                 os_[j], lses[j] = o_r, lse_r
             else:
                 os_[j], lses[j] = _merge(os_[j], lses[j], o_r, lse_r)
         if r < ring.n - 1:
-            ks, vs = ring.shift(ks), ring.shift(vs)
+            kvs = ring.shift(kvs)
+    for j, xs in enumerate(idle):
+        for x in xs:
+            os_[j] = os_[j] + 0.0 * x.sum()
     return [o.to(q.dtype) for o, q in zip(os_, qs)]
-
-
-def _ring_reference_across(q, k, v, ring, scale, causal):
-    """The reference body on this process's chunks, the ring's index
-    ``ring.group.index``, differentiated by autograd through the shifts.
-    K and V ride the ring stacked, one chain of shifts, so that the
-    backward's reverse shifts come in one order in every process; a
-    chain link whose step this process skips still reaches the output
-    (times zero), so that every process runs every link's backward, which
-    its ring neighbours wait for."""
-    sc, idx = q.shape[1], ring.group.index
-    kv = torch.stack([k, v])
-    out = lse = None
-    idle = []
-    for r in range(ring.n):
-        if _skipped(causal, r, idx):
-            idle.append(kv)
-        else:
-            mask = torch.ones(sc, sc, dtype=torch.bool,
-                              device=q.device).tril() \
-                if causal and r == 0 else None
-            o_r, lse_r = _chunk_attention(q, kv[0], kv[1], scale=scale,
-                                          mask=mask)
-            out, lse = (o_r, lse_r) if out is None else \
-                _merge(out, lse, o_r, lse_r)
-        if r < ring.n - 1:
-            kv = ring.shift([kv])[0]
-    for x in idle:
-        out = out + 0.0 * x.sum()
-    return out.to(q.dtype)
 
 
 def _ring_flash_fwd(qs, ks, vs, ring, scale, causal):
@@ -187,7 +185,7 @@ def _ring_flash_fwd(qs, ks, vs, ring, scale, causal):
             else:
                 os_[j], lses[j] = _merge(os_[j], lses[j], o_r.float(), lse_r)
         if r < ring.n - 1:
-            ks, vs = ring.shift(ks), ring.shift(vs)
+            ks, vs = ring.shift_pair(ks, vs)
     return [o.to(q.dtype) for o, q in zip(os_, qs)], lses
 
 
@@ -210,9 +208,9 @@ def _ring_flash_bwd(qs, ks, vs, os_, lses, dos, ring, scale, causal):
                 dqs[j] = dqs[j] + dq.float()
                 dks[j] = dks[j] + dk.float()
                 dvs[j] = dvs[j] + dv.float()
-        dks, dvs = ring.shift(dks), ring.shift(dvs)
+        dks, dvs = ring.shift_pair(dks, dvs)
         if r < ring.n - 1:
-            ks, vs = ring.shift(ks), ring.shift(vs)
+            ks, vs = ring.shift_pair(ks, vs)
     return ([x.to(qs[0].dtype) for x in dqs], [x.to(ks[0].dtype) for x in dks],
             [x.to(vs[0].dtype) for x in dvs])
 
@@ -230,12 +228,12 @@ def _global(xs, device):
 
 class _RingFlash(torch.autograd.Function):
     """The flash body over one ring, on global [b, s, h|hk, d] tensors
-    cut over ``devices`` (or, with ``group``, this process's chunk of
-    them); both passes walk the ring (module docstring)."""
+    cut over ``devices`` (across processes, this process's chunk of them,
+    cut over its ring ranks' devices); both passes walk the ``ring``
+    (module docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, devices, group, scale, causal):
-        ring = _Ring(len(devices) if group is None else group.size, group)
+    def forward(ctx, q, k, v, devices, ring, scale, causal):
         os_, lses = _ring_flash_fwd(_kernel_chunks(q, devices),
                                     _kernel_chunks(k, devices),
                                     _kernel_chunks(v, devices), ring, scale,
@@ -292,8 +290,9 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
     signature and ignored: the kernels pick their own tiles.
 
     When ``axis`` spans processes (module docstring), q, k and v are this
-    process's chunk of the sequence and the output is its chunk; the
-    mesh's other axes must then be one place wide here.
+    process's block (its chunk of the sequence) and the output is its
+    block; its ring ranks, and the rings of its other places, run
+    together.
     """
     del block_q, block_k
     if mesh is None:
@@ -308,18 +307,17 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
             f"got {impl!r}")
     use_flash = impl == "flash" or (impl == "auto" and q.is_cuda)
     if mesh.spans(axis):
-        if any(mesh.local_shape[a] > 1 for a in mesh.axis_names):
-            raise NotImplementedError(
-                f"ring_attention over the processes of {axis!r} takes a mesh "
-                f"of one place a process, got {mesh} (more places a "
-                "process: ROADMAP slice 11b)")
-        group = mesh.group(axis)
-        devices = [q.device]
+        devices = mesh.axis_devices(axis)
+        if s % len(devices):
+            raise ValueError(f"seq {s} not divisible by this process's "
+                             f"{len(devices)} {axis} ranks")
+        ring = _Ring(n, len(devices), mesh.group(axis), mesh.offset(axis))
         if use_flash:
-            _check_flash_chunk(s, d)
-            return _RingFlash.apply(q, k, v, devices, group, scale, causal)
-        return _ring_reference_across(q, k, v, _Ring(n, group), scale,
-                                      causal)
+            _check_flash_chunk(s // len(devices), d)
+            return _RingFlash.apply(q, k, v, devices, ring, scale, causal)
+        qs, ks, vs = (col.shard(x, devices, 1) for x in (q, k, v))
+        return col.unshard(_ring_reference(qs, ks, vs, ring, scale, causal),
+                           1, q.device)
     if s % n:
         raise ValueError(f"seq {s} not divisible by {axis} size {n}")
 
@@ -337,7 +335,8 @@ def ring_attention(q, k, v, *, mesh, axis: str = "sp", causal: bool = True,
 
     def body(qh, kh, vh, devices):
         if use_flash:
-            return _RingFlash.apply(qh, kh, vh, devices, None, scale, causal)
+            return _RingFlash.apply(qh, kh, vh, devices, _Ring(n), scale,
+                                    causal)
         qs, ks, vs = (col.shard(x, devices, 1) for x in (qh, kh, vh))
         return col.unshard(_ring_reference(qs, ks, vs, _Ring(n), scale,
                                            causal), 1, qh.device)

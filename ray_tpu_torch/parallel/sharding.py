@@ -46,8 +46,9 @@ a process holds the chunks of its own places only, in the order of its
 coordinates; ``distinct()`` lists them. ``device_put`` of a tensor cut over a
 spanned axis copies each chunk (a view would keep the global tensor
 alive in every process), and ``unshard`` of a tensor cut over a spanned
-axis is an explicit all-gather over that axis' subgroup, a collective
-every process of the line must make.
+axis (wholly or cut at the process boundary) is an explicit all-gather
+over that axis' subgroup, a collective every process of the line must
+make.
 """
 
 from __future__ import annotations
@@ -345,40 +346,43 @@ class ShardedTensor:
         """The global tensor, assembled on ``device`` (default: the first
         chunk's) from one chunk of each index range. Cut over an axis that
         spans processes, this process's block is all-gathered over each
-        such axis' subgroup, the minor axis of a dimension first (a
-        collective: every process of the line calls it)."""
+        such axis' subgroup (a collective: every process of the line
+        calls it): a dimension cut over axes ``(a, b, ...)`` is this
+        process's ``k_a × k_b × ...`` pieces, each axis' run of local
+        indices gathered to the whole axis along its own place in the
+        piece index, so that local axes may come before a spanned one."""
         device = device if device is not None else self.chunks[0].device
-        indices = self.sharding.indices(self.shape)
-        lo = [min(idx[d].start for idx in indices)
-              for d in range(len(self.shape))]
-        hi = [max(idx[d].stop for idx in indices)
-              for d in range(len(self.shape))]
-        out = torch.empty([b - a for a, b in zip(lo, hi)], dtype=self.dtype,
-                          device=device)
+        mesh, chunk = self.mesh, self.sharding.shard_shape(self.shape)
+        local = mesh.local_shape
+        # the block: per dimension, the axes' local runs, then the chunk
+        entries = [_axes_of(self.spec[d]) if d < len(self.spec) else ()
+                   for d in range(len(self.shape))]
+        runs = [[local[a] for a in axes] for axes in entries]
+        out = torch.empty([x for r, c in zip(runs, chunk) for x in (*r, c)],
+                          dtype=self.dtype, device=device)
         done = set()
-        for idx, chunk in zip(indices, self.chunks):
-            key = tuple((s.start, s.stop) for s in idx)
-            if key not in done:
-                done.add(key)
-                out[tuple(slice(s.start - a, s.stop - a)
-                          for s, a in zip(idx, lo))] = \
-                    chunk.detach().to(device)
-        mesh = self.mesh
-        for d, entry in enumerate(self.spec):
-            axes = _axes_of(entry)
-            for k, ax in reversed(list(enumerate(axes))):
-                if not mesh.spans(ax):
-                    continue
-                if any(not mesh.spans(a) and mesh.local_shape[a] > 1
-                       for a in axes[:k]):
-                    raise NotImplementedError(
-                        f"unshard of {self}: the local axes before {ax!r} "
-                        f"leave this process's block of dim {d} in pieces")
-                from ray_tpu_torch.parallel.collectives import all_gather
+        for flat, c in enumerate(self.chunks):
+            coords = dict(zip(mesh.axis_names, np.unravel_index(
+                flat, mesh.devices.shape)))
+            at = tuple(int(coords[a]) for axes in entries for a in axes)
+            if at in done:
+                continue
+            done.add(at)
+            index, i = [], 0
+            for axes in entries:
+                index += [*at[i:i + len(axes)], slice(None)]
+                i += len(axes)
+            out[tuple(index)] = c.detach().to(device)
+        at = 0
+        for d, axes in enumerate(entries):
+            for j, ax in enumerate(axes):
+                if mesh.spans(ax):
+                    from ray_tpu_torch.parallel.collectives import all_gather
 
-                out = all_gather([out], gather_axis=d,
-                                 group=mesh.group(ax))[0]
-        return out
+                    out = all_gather([out], gather_axis=at + j,
+                                     group=mesh.group(ax))[0]
+            at += len(axes) + 1
+        return out.reshape(self.shape)
 
 
 def device_put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:

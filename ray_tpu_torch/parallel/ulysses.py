@@ -19,8 +19,10 @@ takes the ranks' sequence chunks as one list in mesh order and returns
 the list of output chunks; ``ulysses_attention_sharded`` cuts global
 inputs over the mesh axis and joins the result. Across processes
 (``group=``, the sp axis' ``AxisGroup``) the lists hold this process's
-chunk and both all-to-alls run on the subgroup, each differentiable
-through the inverse exchange (``parallel.collectives``).
+chunks, one for each of its sp ranks (the run of consecutive ranks of a
+cut axis, ``parallel.mesh``), and both all-to-alls run over them and the
+subgroup, each differentiable through the inverse exchange
+(``parallel.collectives``).
 """
 
 from __future__ import annotations
@@ -64,8 +66,11 @@ def ulysses_attention_sharded(mesh, q, k, v, *, axis: str = "sp",
     """Top-level entry: cuts [B, S, H, D] inputs along the sequence
     over ``axis`` of ``mesh`` (the devices along it, at index 0 of any
     other axis), runs ``ulysses_attention`` and joins the output on q's
-    device."""
+    device. Where ``axis`` spans processes the inputs and the output are
+    this process's chunk of the sequence."""
     devices = mesh.axis_devices(axis)
+    group = mesh.group(axis) if mesh.spans(axis) else None
     qs, ks, vs = (col.shard(x, devices, 1) for x in (q, k, v))
-    out = ulysses_attention(qs, ks, vs, causal=causal, scale=scale)
+    out = ulysses_attention(qs, ks, vs, causal=causal, scale=scale,
+                            group=group)
     return col.unshard(out, 1, q.device)

@@ -242,10 +242,11 @@ class TorchMeshTrainer(DataParallelTrainer):
     ``train_config.mesh_axes``, each running the mesh ``Trainer`` step on
     its places over its process group (the counterpart of
     ``JaxMeshTrainer``; reference: TorchTrainer). The world is the product
-    of the spanned axes' sizes (dp's share of processes for dp): the
-    layout is checked before any rank starts (an axis cut between
-    processes, or the ring across processes beside other places in a
-    process, raises ``NotImplementedError``). The
+    of the processes along each spanned axis (an axis cut at the process
+    boundary counts its processes, a run of its indices each): the
+    layout is checked before any rank starts (``Trainer``'s
+    ``_local_axes``: a mesh that does not deal into equal grid blocks
+    raises). The
     configs travel in ``train_loop_config`` (``model_config``,
     ``train_config``, and ``seed``, ``steps``, ``batch_size``,
     ``seq_len``). With a dataset every rank reads the whole of it as

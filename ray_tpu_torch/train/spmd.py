@@ -71,8 +71,11 @@ move back.
 - **Across processes** (a mesh with a ``ProcessLayout``,
   ``parallel.mesh``): the step runs this process's places only, and an
   axis whose places lie in other processes moves its data by the
-  subgroup collectives of ``parallel.collectives``. Each process does
-  its own copy of replicated work, as every device does under GSPMD. The
+  subgroup collectives of ``parallel.collectives``, which take this
+  process's run of places along it (one, or ``k`` where the process
+  boundary cuts the axis) and combine them with the other processes'.
+  Each process does its own copy of replicated work, as every device
+  does under GSPMD. The
   processes along a spanned axis either compute different parts of the
   loss (``split_axes``: dp and fsdp, each its rows, and sp, each its
   chunk of the sequence, on the ring between processes with the rope
@@ -81,7 +84,8 @@ move back.
   ``loss_fn`` hook every axis but dp). The fsdp gathers over a split
   axis reduce-scatter their gradient back; over an alike axis they keep
   their piece of it (``gather_from_group``). A tp block across processes
-  is Megatron's: ``tp_enter`` (``f``, the identity forward and an
+  is Megatron's (over a cut tp, the local places' partial sums first):
+  ``tp_enter`` (``f``, the identity forward and an
   all-reduce backward) where the normed activation enters the
   column-parallel products and the vocab-parallel head, ``tp_exit``
   (``g``, an all-reduce forward and the identity backward) after ``wo``,
@@ -96,8 +100,10 @@ move back.
   data processes in the batch's row order and routed alike everywhere
   (``route_logits``), the slot partials summed over them, and every
   expert's output gathered over ep. Over a spanned pp each process holds
-  one stage and runs its slots of the 1F1B (``parallel.pipeline``), the
-  embedding and head on this process's rows.
+  its stages and runs their slots of the 1F1B (``parallel.pipeline``),
+  the embedding and head on this process's rows. Where the ring runs
+  between processes and a process holds several tp places of a data
+  rank, their heads ride one ring (``_ring_across``).
 - **The optimizer on chunks** (``apply_update``). AdamW updates each
   distinct chunk in place; the global norm for the clip counts each index
   range once, so replicated chunks are not counted twice, and replicas of
@@ -185,11 +191,11 @@ class _Gathers:
     """All-gathers of placed tensors over every axis of their spec but the
     kept ones (``parallel.collectives.all_gather``, one per group of
     ranks). Within one ``_Gathers`` a group gathers once and its ranks
-    share the result. Over an axis that spans processes the gather runs
-    on its subgroup: a reduce-scatter backward over the ``split`` axes,
-    whose processes compute different parts of the loss, and this
-    process's piece of the gradient over the others
-    (``gather_from_group``)."""
+    share the result. Over an axis that spans processes the gather takes
+    this process's places along it and runs on its subgroup too: a
+    reduce-scatter backward over the ``split`` axes, whose processes
+    compute different parts of the loss, and this process's block of the
+    gradient over the others (``gather_from_group``)."""
 
     def __init__(self, split=()):
         self._memo = {}
@@ -207,23 +213,19 @@ class _Gathers:
         if level == 0:
             return st.chunks[_flat(st.mesh, coords)]
         d, ax = steps[level - 1]
-        if st.mesh.spans(ax):
-            x = self._at(st, steps, level - 1, coords)
-            key = (id(x), d, ax)
-            if key not in self._memo:
-                gather = all_gather if ax in self.split else \
-                    gather_from_group
-                self._memo[key] = (gather([x], gather_axis=d,
-                                          group=st.mesh.group(ax))[0], x)
-            return self._memo[key][0]
         i = st.mesh.axis_names.index(ax)
         ring = [coords[:i] + (k,) + coords[i + 1:]
                 for k in range(st.mesh.local_shape[ax])]
         xs = [self._at(st, steps, level - 1, c) for c in ring]
-        key = (tuple(map(id, xs)), d)
+        key = (tuple(map(id, xs)), d, ax)
         if key not in self._memo:
+            kw, gather = {}, all_gather
+            if st.mesh.spans(ax):
+                kw["group"] = st.mesh.group(ax)
+                if ax not in self.split:
+                    gather = gather_from_group
             # the inputs stay referenced, so their ids stay theirs
-            self._memo[key] = (all_gather(xs, gather_axis=d), xs)
+            self._memo[key] = (gather(xs, gather_axis=d, **kw), xs)
         return self._memo[key][0][coords[i]]
 
 
@@ -334,8 +336,9 @@ class RankStep:
     def units(self, mesh: Mesh, base: dict | None = None) -> list:
         """The data ranks of ``mesh`` in this process, each as the
         coordinates of its tp ranks here (one place when there is no tp
-        axis, or when tp spans processes). ``base`` fixes other axes (a
-        pipeline stage); the rest sit at 0."""
+        axis; this process's run of tp indices where tp spans processes).
+        ``base`` fixes other axes (a pipeline stage); the rest sit at
+        0."""
         names = mesh.axis_names
         data = [a for a in self.data_axes if a in names]
         sizes = [mesh.local_shape[a] for a in data]
@@ -448,15 +451,35 @@ class RankStep:
             return [block(self.cfg, xs[0], ps[0], *sc[0], None,
                           self.attn_impl, **ring[0])]
         enter = None if self.tp_group is None else self._enter
-        parts = [llama.attention_out(self.tp_cfg, x, p, *sin_cos, None,
-                                     self.attn_impl, enter=enter, **r)
-                 for x, p, sin_cos, r in zip(xs, ps, sc, ring)]
+        if self.sp_group is not None and len(places) > 1:
+            parts = self._ring_across(xs, ps, sc, ring[0], enter)
+        else:
+            parts = [llama.attention_out(self.tp_cfg, x, p, *sin_cos, None,
+                                         self.attn_impl, enter=enter, **r)
+                     for x, p, sin_cos, r in zip(xs, ps, sc, ring)]
         xs = [x + y for x, y in zip(xs, self._sum(reduce_attention, parts))]
         if moe:
             return xs
         parts = [llama.mlp_out(self.cfg, x, p, enter=enter)
                  for x, p in zip(xs, ps)]
         return [x + y for x, y in zip(xs, self._sum(reduce_mlp, parts))]
+
+    def _ring_across(self, xs, ps, sc, ring, enter):
+        """The attention of one data rank's tp places when the ring runs
+        between processes: each place's q, k and v, their heads joined
+        into one ring (one exchange of K/V a step for all of them, the
+        kernels launched on all their heads), the output split back to
+        the places' ``wo``."""
+        qkv = [llama.attention_qkv(self.tp_cfg, x, p, *sin_cos, enter=enter)
+               for x, p, sin_cos in zip(xs, ps, sc)]
+        home = xs[0].device
+        q, k, v = (torch.cat([t[i].to(home) for t in qkv], dim=2)
+                   for i in range(3))
+        out = llama.ring_attention(q, k, v, mesh=ring["mesh"],
+                                   axis=ring["sp_axis"], causal=True)
+        b, s = xs[0].shape[:2]
+        return [o.reshape(b, s, -1).to(x.device) @ p["wo"]
+                for o, x, p in zip(out.chunk(len(xs), dim=2), xs, ps)]
 
     def _fused_qkv_block(self, xs, ps, seg):
         """GPT's pre-LN or BERT's post-LN block on one data rank's tp
@@ -616,8 +639,7 @@ class RankStep:
         for k, (places, tok) in enumerate(zip(units, tokens)):
             if self.vocab_tp:
                 pieces = [g.local(emb, c, (self.tp,)) for c in places]
-                first = 0 if self.tp_group is None else \
-                    self.tp_group.index * pieces[0].shape[0]
+                first = mesh.offset(self.tp) * pieces[0].shape[0]
                 x = self._sum(reduce_embed, _lookup(pieces, tok, first))[0]
             else:
                 table = g.local(emb, places[0])

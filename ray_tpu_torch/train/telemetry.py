@@ -44,6 +44,8 @@ import time
 
 GOODPUT_BUCKETS = ("init", "compile", "productive", "checkpoint",
                    "stall", "restart")
+STEP_STAGES = ("data_wait", "compute", "collective_sync", "checkpoint",
+               "compile")
 # step stage -> goodput bucket
 _STAGE_TO_BUCKET = {"data_wait": "stall", "collective_sync": "stall",
                     "compute": "productive", "checkpoint": "checkpoint",

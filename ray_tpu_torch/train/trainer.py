@@ -32,15 +32,15 @@ is the tensor itself. As in JAX:
 
 Across processes (``process_group=``, a ``parallel.process_group``
 ``ProcessGroup``), as JAX across the processes of ``jax.distributed``:
-the global mesh's places are dealt to the processes in row-major order
-(``parallel.mesh.split_axes``): dp, fsdp, tp, sp and pp may span
-processes, one index a process (dp also an equal share of its indices),
-and each process drives its own places, as above, with subgroup
-collectives along the spanned axes (``train.spmd``); an axis cut between
-processes raises ``NotImplementedError``. Over a spanned pp each process
-holds its own stage's layers (and the io parameters, replicated over pp)
-and runs that stage's slots of the 1F1B schedule, the activations and
-gradients sent between the stages' processes
+the global mesh's places are dealt to the processes in row-major order,
+an equal contiguous block each (``parallel.mesh.split_axes``): any axis
+may span processes, one index a process, or be cut at the process
+boundary, a run of consecutive indices a process, and each process
+drives its own places, as above, with subgroup collectives along the
+spanned axes (``train.spmd``). Over a spanned pp each process holds its
+own stages' layers (and the io parameters, replicated over pp) and runs
+those stages' slots of the 1F1B schedule, the activations and gradients
+sent between the stages' processes
 (``parallel.pipeline``), which sum the io gradients and the loss over
 pp. ``train_step`` takes the
 global batch and keeps this process's rows over the spanned data axes
@@ -139,21 +139,13 @@ def _mesh_on(device, mesh_axes: dict, layout=None) -> Mesh:
 
 def _local_axes(mesh_axes: dict, world: int, strategy=None) -> dict:
     """The axes of one process's mesh when ``world`` processes share the
-    global mesh ``mesh_axes`` (``parallel.mesh.split_axes``). Raises
-    ``NotImplementedError`` for a layout whose step does not yet run
-    across processes: an axis cut between them (``split_axes``), or the
-    ``strategy``'s sequence axis across processes beside other places in
-    a process (the ring between processes takes one place a process;
-    ROADMAP slice 11b)."""
-    local, procs = split_axes(mesh_axes, world)
-    seq = [a for a in _axes_of(_rules(strategy).seq) if a in procs] \
-        if strategy is not None else []
-    if seq and math.prod(local.values()) > 1:
-        raise NotImplementedError(
-            f"the ring over {seq[0]!r} across processes takes one place a "
-            f"process; {mesh_axes} at world {world} leaves {local} in each "
-            "(ROADMAP slice 11b)")
-    return local
+    global mesh ``mesh_axes`` (``parallel.mesh.split_axes``), checked
+    before any process starts: a mesh that does not deal into equal grid
+    blocks raises, as ``split_axes`` says why. ``strategy`` is checked
+    to be a known preset or rules."""
+    if strategy is not None:
+        _rules(strategy)
+    return split_axes(mesh_axes, world)[0]
 
 
 def _named_chunks(tree, prefix="") -> list:

@@ -473,23 +473,31 @@ def test_mesh_trainer_spans_fsdp_and_tp_over_four_ranks(tmp_path):
 
 
 def test_what_spans_processes_is_refused_before_any_rank_starts(tmp_path):
-    """What does not yet span processes (ROADMAP slice 11b) raises before
-    anything runs: the ring across processes beside other places in a
-    process, and an axis cut between processes; so does
-    ``loss_and_grads`` where fsdp or pp split the loss between processes.
-    Nothing falls back to one process."""
-    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+    """What JAX cannot form raises before anything runs: a mesh that does
+    not deal into equal blocks ({dp 3} at world 2; JAX gives every
+    process as many devices). The layouts an earlier slice refused are
+    checked before any rank starts and split as JAX splits them: the
+    ring across processes beside other places in a process ({sp 2, tp
+    2}: sp across, tp 2 in each) and an axis cut between processes ({tp
+    4}: tp 2 in each). ``loss_and_grads`` still raises where fsdp or pp
+    split the loss between processes. Nothing falls back to one
+    process."""
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer, _local_axes
 
     _, tcfg = _configs("llama")
-    for axes, strategy, match in (
-            ({"sp": 2, "tp": 2}, "fsdp_tp_sp",
-             "ring over 'sp' across processes.*slice 11b"),
-            ({"tp": 4}, "fsdp_tp", "axis 'tp' of size 4.*slice 11b")):
-        with pytest.raises(NotImplementedError, match=match):
-            dpt.TorchMeshTrainer(
-                tcfg, TrainConfig(mesh_axes=axes, strategy=strategy),
-                scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
-                run_config=RunConfig(storage_path=str(tmp_path)))
+    with pytest.raises(ValueError, match="equal block"):
+        dpt.TorchMeshTrainer(
+            tcfg, TrainConfig(mesh_axes={"dp": 3}, strategy="fsdp"),
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+            run_config=RunConfig(storage_path=str(tmp_path)))
+    for axes, strategy, local in (
+            ({"sp": 2, "tp": 2}, "fsdp_tp_sp", {"sp": 1, "tp": 2}),
+            ({"tp": 4}, "fsdp_tp", {"tp": 2})):
+        dpt.TorchMeshTrainer(
+            tcfg, TrainConfig(mesh_axes=axes, strategy=strategy),
+            scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+            run_config=RunConfig(storage_path=str(tmp_path)))
+        assert _local_axes(axes, 2, strategy) == local
     assert multiprocessing.active_children() == []
     # one process of two sharing {fsdp 2}, or {pp 2}: its loss is a part
     # of the global one, which only train_step sums

@@ -426,9 +426,12 @@ def test_mesh_trainer_world_2_declares_each_rank_its_rows(tmp_path):
 
 def test_local_axes_span_dp_only():
     """The global mesh's places dealt to the processes in row-major axis
-    order: dp may split into equal shares; pp, fsdp, ep, tp and sp span
-    the processes one index a process or stay inside each; an axis cut
-    between processes otherwise raises naming the axis."""
+    order, an equal contiguous block each, as JAX deals them: the axes
+    before the process boundary span the processes one index a process,
+    the axis it falls in is cut into equal runs (dp, tp, sp alike: {tp
+    4} at world 2 leaves {tp 2} in each), the axes after it stay inside
+    each; a mesh that does not divide into equal blocks raises, and so
+    does a block that is not a grid, naming the axis."""
     assert _local_axes({"dp": 2}, 2) == {"dp": 1}
     assert _local_axes({"dp": 4, "fsdp": 2}, 2) == {"dp": 2, "fsdp": 2}
     assert _local_axes({"dp": -1, "tp": 2}, 3) == {"dp": 1, "tp": 2}
@@ -438,12 +441,14 @@ def test_local_axes_span_dp_only():
     assert _local_axes({"sp": 4}, 4) == {"sp": 1}
     assert _local_axes({"dp": 2, "fsdp": 2, "tp": 2}, 4) == {
         "dp": 1, "fsdp": 1, "tp": 2}
-    for axes, world, axis in (({"dp": 3}, 2, "dp"),
-                              ({"tp": 4}, 2, "tp"),
-                              ({"dp": 2, "tp": 3}, 4, "tp"),
-                              ({"fsdp": 2, "sp": 4}, 4, "sp")):
-        with pytest.raises(NotImplementedError, match=f"axis '{axis}'"):
+    assert _local_axes({"tp": 4}, 2) == {"tp": 2}
+    assert _local_axes({"fsdp": 2, "sp": 4}, 4) == {"fsdp": 1, "sp": 2}
+    assert _local_axes({"pp": 4, "fsdp": 2}, 2) == {"pp": 2, "fsdp": 2}
+    for axes, world in (({"dp": 3}, 2), ({"dp": 2, "tp": 3}, 4)):
+        with pytest.raises(ValueError, match="equal block"):
             _local_axes(axes, world)
+    with pytest.raises(NotImplementedError, match="axis 'dp'"):
+        _local_axes({"dp": 6, "tp": 4}, 4)
     assert _local_axes({"pp": 2, "dp": 1}, 2) == {"pp": 1, "dp": 1}
     assert _local_axes({"pp": 2, "dp": 2}, 2) == {"pp": 1, "dp": 2}
     assert _local_axes({"fsdp": 2, "ep": 2}, 4) == {"fsdp": 1, "ep": 1}

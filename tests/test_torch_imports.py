@@ -260,3 +260,58 @@ def test_rllib_exports_every_name_of_the_jax_package():
             "StatelessCartPole", "DreamerV3", "ES", "BanditLinTS"} <= want
     assert names(port_rllib) == want
     assert set(port_rllib.__all__) == want
+
+
+TRAIN_PROBE = r"""
+import json, sys
+from ray_tpu_torch.train import DataParallelTrainer, ScalingConfig, report, Trainer
+import torch
+print(json.dumps({
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+# ray_tpu.train's names for integrations of other frameworks, which the
+# port does not carry (no device plane of their own), and its renames
+TRAIN_NOT_PORTED = {"AccelerateTrainer", "GBTModel", "LightGBMTrainer",
+                    "LightningTrainer", "TorchConfig", "TorchTrainer",
+                    "TransformersTrainer", "XGBoostTrainer"}
+TRAIN_RENAMES = {"JaxTrainer": "Trainer", "JaxMeshTrainer": "TorchMeshTrainer"}
+
+
+def test_train_air_data_export_the_jax_packages_names():
+    """``ray_tpu_torch.train`` exports every device-plane name that
+    ``ray_tpu.train`` exports (``JaxTrainer`` as ``Trainer``,
+    ``JaxMeshTrainer`` as ``TorchMeshTrainer``), ``ray_tpu_torch.air``
+    its four configs, ``ray_tpu_torch.data`` its ``DataIterator``, and
+    ``train.telemetry`` JAX's ``STEP_STAGES``; each package's
+    ``__all__`` is exactly those. A fresh ``from ray_tpu_torch.train
+    import ...`` loads no jax, no ray_tpu module and no CUDA."""
+    import ray_tpu.air as jax_air
+    import ray_tpu.train as jax_train
+    import ray_tpu.train.telemetry as jax_telemetry
+
+    import ray_tpu_torch.air as port_air
+    import ray_tpu_torch.data as port_data
+    import ray_tpu_torch.train as port_train
+    from ray_tpu_torch.train import telemetry
+
+    want = {TRAIN_RENAMES.get(n, n) for n in jax_train.__all__} - \
+        TRAIN_NOT_PORTED
+    assert {"Trainer", "TorchMeshTrainer", "DataParallelTrainer",
+            "ScalingConfig", "report", "ElasticTrainer"} <= want
+    assert set(port_train.__all__) == want
+    assert all(hasattr(port_train, n) for n in want)
+    assert set(port_air.__all__) == set(jax_air.__all__)
+    assert all(hasattr(port_air, n) for n in jax_air.__all__)
+    assert port_data.__all__ == ["DataIterator"]
+    assert telemetry.STEP_STAGES == jax_telemetry.STEP_STAGES
+    proc = subprocess.run([sys.executable, "-c", TRAIN_PROBE], cwd=REPO,
+                          env=_clean_env(), capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"jax": [], "ray_tpu": [], "cuda_initialized": False}

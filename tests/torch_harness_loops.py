@@ -205,7 +205,12 @@ def _controls(control: str, stack):
     sent to stage s+1 in place of s-1), ``io_sum_skipped`` (the io
     parameters' gradients not summed over the stages' processes) and
     ``local_routing`` (each process routes its own tokens, with a
-    capacity of its own token count)."""
+    capacity of its own token count); over an axis cut at the process
+    boundary ``local_sum_skipped`` (a process's first chunk alone in
+    the subgroup's all-reduce), ``boundary_reversed`` (the ring's K/V
+    sent across each process boundary the wrong way, the moves inside a
+    process as they are) and ``local_split_reversed`` (a process's block
+    of a reduce-scatter handed to its places in reverse order)."""
     from ray_tpu_torch.parallel import collectives as col
     from ray_tpu_torch.parallel import pipeline, ring_attention
     from ray_tpu_torch.train import spmd
@@ -235,6 +240,19 @@ def _controls(control: str, stack):
     elif control == "local_routing":
         patch(spmd.RankStep, "route_logits",
               lambda self, logits, mesh: (logits, 0))
+    elif control == "local_sum_skipped":
+        patch(col, "local_sum", lambda xs: xs[0])
+    elif control == "boundary_reversed":
+        def shift(xs, shift=1, group=None):
+            n, k = col.axis_size(xs, group=group), len(xs)
+            perm = [(i, (i + shift) % n) for i in range(n)]
+            return col.ppermute(xs, [(d, s) if s // k != d // k else (s, d)
+                                     for s, d in perm], group=group)
+        patch(ring_attention, "ring_shift", shift)
+    elif control == "local_split_reversed":
+        split = col.local_split
+        patch(col, "local_split",
+              lambda x, k, dim, tiled: split(x, k, dim, tiled)[::-1])
     elif control:
         raise ValueError(f"unknown control {control!r}")
 
@@ -264,7 +282,9 @@ def cross_process_loop(config):
     ``ring_impl``), from the weights through
     ``convert.params_from_numpy``, placed by ``place_tree``. Each case's
     losses, gradient norms and every chunk of this process's places of
-    the final parameters and moments go to ``<out>/<case>_rank<r>.npz``."""
+    the final parameters and moments go to ``<out>/<case>_rank<r>.npz``;
+    with ``save``, a directory, the final state is saved there first
+    (every process its own chunks)."""
     import contextlib
     from functools import partial
 
@@ -300,6 +320,11 @@ def cross_process_loop(config):
                 state, m = tr.train_step(state, batch)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
+        if c.get("save"):
+            from ray_tpu_torch.train.checkpoint import CheckpointManager
+
+            CheckpointManager(c["save"], async_save=False).save(
+                state.step, state)
         flat = {"losses": np.array(losses), "grad_norms": np.array(norms)}
         for tree in ("params", "mu", "nu"):
             node = state.params if tree == "params" else \
@@ -633,3 +658,123 @@ def spanned_loop(config):
         session.report({"case": name})
     if config.get("elastic"):
         _elastic_job(ctx, config["elastic"], config["out"])
+
+
+def _cut_collectives(ctx, c, out):
+    """Each collective of ``parallel.collectives`` over the axis
+    ``c["axis"]`` of ``c["axes"]``, cut at the process boundary: this
+    process's ``k`` chunks, each seeded by its global index, forward and
+    backward against seeded cotangents; every chunk's output and input
+    gradient, and the axis' size, to ``<out>/cut_<op>_rank<r>.npz``."""
+    from functools import partial
+
+    from ray_tpu_torch.parallel import collectives as col
+    from ray_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = _process_mesh(ctx.process_group, c["axes"])
+    axis = c["axis"]
+    group, k, first = mesh.group(axis), mesh.local_shape[axis], \
+        mesh.offset(axis)
+
+    def seeded(seed, shape):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            shape).astype(np.float32))
+    for op, (shape, (fn, kw)) in c["ops"].items():
+        xs = [seeded(100 + first + i, shape).requires_grad_(True)
+              for i in range(k)]
+        if fn == "copy_to_group":
+            ys = [col.copy_to_group(x, group) for x in xs]
+        elif fn == "ulysses_attention":
+            ys = ulysses_attention(*([x[i] for x in xs] for i in range(3)),
+                                   group=group)
+        elif fn == "logsumexp":
+            ys = col.logsumexp(xs, reduce=partial(col.psum, group=group),
+                               group=group)
+        else:
+            ys = getattr(col, fn)(xs, group=group, **kw)
+        cots = [seeded(200 + first + i, tuple(y.shape))
+                for i, y in enumerate(ys)]
+        grads = torch.autograd.grad(ys, xs, cots) if ys[0].requires_grad \
+            else [torch.zeros_like(x) for x in xs]
+        np.savez(os.path.join(out, f"cut_{op}_rank{ctx.rank}.npz"),
+                 size=col.axis_size(xs, group=group), first=first,
+                 **{f"y{i}": y.detach().numpy() for i, y in enumerate(ys)},
+                 **{f"grad{i}": g.numpy() for i, g in enumerate(grads)})
+
+
+def tp_axes(n: int) -> dict:
+    """The cut elastic job's mesh for ``n`` places: {tp n}."""
+    return {"tp": n}
+
+
+def _cut_elastic_job(ctx, job, out):
+    """``ElasticTrainer(process_group=)`` over this world, its places
+    each process's ``job["devices"][0]``, one step a stage, a checkpoint
+    after each (every process its chunks); before each later stage every
+    process reforms onto its next devices (``job["devices"][i]``: one
+    place a process {tp 2}, two {tp 4}, whose process boundary cuts tp),
+    restoring the last checkpoint. Writes the chunks (by index range) it
+    saved before and restored after each reform to
+    ``<out>/cut_elastic_rank<r>.npz`` (``saved<i>.``, ``restored<i>.``),
+    with the final chunks by place, the losses and the norms."""
+    from ray_tpu_torch import convert
+    from ray_tpu_torch.parallel.sharding import place_tree
+    from ray_tpu_torch.train.elastic import ElasticTrainer
+    from ray_tpu_torch.train.state import TrainState
+    from ray_tpu_torch.train.trainer import TrainConfig
+
+    pg, rank = ctx.process_group, ctx.rank
+    cfg = job["model_config"]
+    et = ElasticTrainer(cfg, TrainConfig(**job["train"]),
+                        checkpoint_dir=job["checkpoint_dir"],
+                        mesh_axes_fn=tp_axes, devices=job["devices"][0],
+                        checkpoint_every=1, run_name=f"cut-elastic-{rank}",
+                        process_group=pg)
+    params = convert.params_from_numpy(cfg, job["params"], device="cpu")
+    state = place_tree(TrainState.create(params, et.trainer.optimizer),
+                       et.trainer.state_shardings())
+    flat, metrics = {}, []
+
+    def dump(state, prefix):
+        # copies: the steps after update the chunks in place
+        for t in ("params", "mu", "nu"):
+            tree = state.params if t == "params" else state.opt_state[t]
+            flat.update({k: v.copy() for k, v in ranged_chunks(
+                tree, f"{prefix}.{t}.").items()})
+    for i, devices in enumerate(job["devices"]):
+        if i:
+            et.ckpt.wait()
+            dump(state, f"saved{i}")
+            # every process's file is on disk before any restores
+            pg.all_reduce(torch.zeros(1))
+            state = et.reform(devices=devices, process_group=pg)
+            dump(state, f"restored{i}")
+        state = et.fit(state, iter(job["batches"][i:i + 1]), steps=1,
+                       on_metrics=metrics.append)
+    for t in ("params", "mu", "nu"):
+        tree = state.params if t == "params" else state.opt_state[t]
+        flat.update(placed_chunks(tree, et.trainer.mesh, f"{t}."))
+    np.savez(os.path.join(out, f"cut_elastic_rank{rank}.npz"), **flat,
+             losses=[m["loss"] for m in metrics],
+             grad_norms=[m["grad_norm"] for m in metrics],
+             mesh=str(et.trainer.mesh.shape))
+    et.close()
+
+
+def cut_loop(config):
+    """The cases of layouts with an axis cut at the process boundary, in
+    order: the trainer cases ``config["train"]``
+    (``cross_process_loop``'s), the forward cases ``config["forward"]``
+    (``_forward_case``), the collectives ``config["collectives"]``
+    (``_cut_collectives``), then the elastic job ``config["elastic"]``
+    (``_cut_elastic_job``)."""
+    torch.set_num_threads(1)
+    from ray_tpu_torch.train import session
+
+    ctx = session.get_context()
+    cross_process_loop({"cases": config["train"], "out": config["out"]})
+    for name, c in config["forward"].items():
+        _forward_case(ctx, name, c, config["out"])
+        session.report({"case": name})
+    _cut_collectives(ctx, config["collectives"], config["out"])
+    _cut_elastic_job(ctx, config["elastic"], config["out"])
