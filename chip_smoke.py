@@ -74,8 +74,14 @@ trials of Llama-3-8B's widths at depth 2, two at a time, each one NCCL
 rank process on this card (an exploited trial's first loss against its
 donor's at that step; control: the restore skipped), the serve body
 ``LLMDeployment`` on the full model's weights (its greedy tokens bit for
-bit against the paged engine's, and again under a replica context) and
-the two quickstarts. Every
+bit against the paged engine's, and again under a replica context; a
+burst of 16 requests on its one engine), then Serve on the port's
+in-process runtime: ``serve.run`` of two ``LLMDeployment`` replicas over
+those weights behind an ingress deployment, the ten prompts through the
+handle and one through the HTTP proxy bit for bit the engine's, prefix
+affinity (the holder of a shared prefix takes every request carrying it;
+control: a first page changed), the burst across the replicas, and the
+card's memory back after the phase; and the quickstarts. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -6037,6 +6043,16 @@ TUNE_TOL = 1e-3
 TUNE_CONTROL_FACTOR = 10.0
 # LLMDeployment: new tokens a request, one request at a time
 DEPLOY_NEW_TOKENS = 8
+# serve_run: two replicas of Llama-3-8B on the card, half its GPU resource
+# each; the burst (also run on llm_deployment's single engine), and the
+# prefix-affinity requests after the first one that makes a holder
+SERVE_REPLICAS = 2
+SERVE_BURST = 16
+SERVE_BURST_PROMPT = 128
+SERVE_BURST_TOKENS = 32
+SERVE_AFFINITY_REQUESTS = 6
+# the card's memory after the phase against before it
+SERVE_MEMORY_TOL = 1 << 30
 
 
 class TrialClock:
@@ -6201,15 +6217,34 @@ def serve_prompts(cfg) -> tuple:
     return prompts, shared, tails
 
 
-def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
+def burst_prompts(cfg) -> list:
+    """The burst's prompts: SERVE_BURST of SERVE_BURST_PROMPT tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    return [rng.integers(1, cfg.vocab_size, SERVE_BURST_PROMPT)
+            for _ in range(SERVE_BURST)]
+
+
+def check_burst(outs, vocab_size: int):
+    """Every burst request got SERVE_BURST_TOKENS ids inside the
+    vocabulary."""
+    if [len(o) for o in outs] != [SERVE_BURST_TOKENS] * SERVE_BURST:
+        raise AssertionError(f"burst token counts {[len(o) for o in outs]}")
+    if not all(0 <= t < vocab_size for o in outs for t in o):
+        raise AssertionError("burst token id out of range")
+
+
+def check_llm_deployment(torch, cfg, params, smi: str) -> tuple:
     """``LLMDeployment`` over llama3_8b() at full depth, paged, built from
     the weights already on the card: the serve phase's prompts one after
     another, DEPLOY_NEW_TOKENS greedy tokens each, bit for bit against a
     ``PagedLLMEngine`` of the same settings fed the same way (one request
     at a time: an engine's batches change its GEMMs' shapes, so only the
-    same arrivals promise the same bits); then a deployment built under
+    same arrivals promise the same bits); then the burst (SERVE_BURST
+    requests at once) on the same engine, the single-engine numbers
+    ``serve_run`` compares with; then a deployment built under
     ``set_replica_context``, whose engine carries the tags, on the first
-    two prompts. Returns the kernel counts (the engines run no K1)."""
+    two prompts. Returns the kernel counts (the engines run no K1), the
+    reference tokens and the burst's numbers."""
     from ray_tpu_torch.serve.context import set_replica_context
     from ray_tpu_torch.serve.llm import LLMDeployment
     from ray_tpu_torch.serve.paged_llm import PagedLLMEngine
@@ -6236,8 +6271,21 @@ def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
         got = [dep(p, max_new_tokens=DEPLOY_NEW_TOKENS) for p in prompts]
         stats = dep.stats()
         plain_tags = (dep._engine.deployment_name, dep._engine.replica_tag)
+        t1 = time.perf_counter()
+        reqs = [dep._engine.submit(p, max_new_tokens=SERVE_BURST_TOKENS)
+                for p in burst_prompts(cfg)]
+        outs = [list(r.tokens()) for r in reqs]
+        burst_wall = time.perf_counter() - t1
+        chunk_period = dep._engine._chunk_period
     finally:
         dep._engine.stop()
+    check_burst(outs, cfg.vocab_size)
+    burst = {"requests": SERVE_BURST, "prompt_tokens": SERVE_BURST_PROMPT,
+             "new_tokens_each": SERVE_BURST_TOKENS, "wall_s": burst_wall,
+             "tokens_per_s": SERVE_BURST * SERVE_BURST_TOKENS / burst_wall,
+             "p50_ttft_s": float(np.median([r.ttft for r in reqs])),
+             "max_ttft_s": float(max(r.ttft for r in reqs)),
+             "chunk_period_s": chunk_period}
     del dep
     free_card(torch)
     deploy_s = time.perf_counter() - t0
@@ -6265,7 +6313,7 @@ def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
          tagged_tokens_equal=got_tagged == want[:2], tags=list(tags),
          untagged_tags=list(plain_tags), prefix_hit_pages=hits,
          stats_keys=sorted(stats), engine_s=engine_s, deployment_s=deploy_s,
-         launches=counts)
+         burst=burst, launches=counts)
     if got != want or got_tagged != want[:2]:
         raise AssertionError("LLMDeployment's greedy tokens differ from "
                              "PagedLLMEngine's")
@@ -6274,17 +6322,334 @@ def check_llm_deployment(torch, cfg, params, smi: str) -> dict:
     if hits <= 0:
         raise AssertionError(f"the deployment's prefix cache never hit: "
                              f"{stats}")
+    return counts, want, burst
+
+
+_SERVE_MODEL: dict = {}
+
+
+def serve_model():
+    """serve_run's model builder, a module-level function: the weights
+    already on the card. The in-process runtime hands the builder to each
+    replica by reference, so both engines hold the one set of weights and
+    nothing is pickled or copied."""
+    return _SERVE_MODEL["cfg"], _SERVE_MODEL["params"]
+
+
+class LLMIngress:
+    """serve_run's HTTP face, composed over the LLM deployment: the proxy
+    hands a deployment its JSON body as one argument, so a body
+    ``{"prompt": [...], "max_new_tokens": n}`` becomes one call of the
+    deployment's handle, routed by the prompt's prefix."""
+
+    def __init__(self, llm):
+        self.llm = llm
+
+    def __call__(self, payload):
+        prompt = [int(t) for t in payload["prompt"]]
+        return self.llm.call(prompt,
+                             max_new_tokens=int(payload["max_new_tokens"]),
+                             _prefix_tokens=prompt)
+
+
+def replica_engines(core, live=True) -> dict:
+    """The engines of the runtime's LLM replicas (only the live ones with
+    ``live``), by replica tag: the in-process runtime holds each replica's
+    instance."""
+    out = {}
+    for state in list(core.get_runtime()._actors.values()):
+        body = getattr(state.instance, "_instance", None)
+        if hasattr(body, "_engine") and not (live and state.dead):
+            out[state.instance._tag] = body._engine
+    return out
+
+
+def stop_replica_engines(core, timeout: float = 120.0) -> int:
+    """Stop the engine of every LLM replica the runtime holds, live or
+    killed, after any replica still building its engine (a replacement
+    the controller spawned) has built it: a killed replica's engine keeps
+    running in the in-process runtime, as in JAX. Returns how many."""
+    deadline = time.monotonic() + timeout
+    while any(s.instance is None and s.creation_spec is not None
+              and s.creation_spec.function_name == "_Replica.__init__"
+              and not s.death_reason.startswith("__init__ failed")
+              for s in list(core.get_runtime()._actors.values())):
+        if time.monotonic() > deadline:
+            raise AssertionError("a replica never finished building")
+        time.sleep(0.05)
+    engines = replica_engines(core, live=False)
+    for eng in engines.values():
+        eng.stop()
+    return len(engines)
+
+
+class EngineLoad:
+    """The most requests the engines held at once (active and waiting),
+    sampled every 10 ms while it runs."""
+
+    def __init__(self, engines: dict):
+        import threading
+
+        self.engines, self.most = engines, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            held = sum(sum(r is not None for r in e._active)
+                       + e._waiting.qsize() for e in self.engines.values())
+            self.most = max(self.most, held)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.engines = None   # the card's memory goes with the engines
+
+
+def hit_pages(engines: dict) -> dict:
+    return {t: e.stats()["prefix_cache"]["hit_pages"]
+            for t, e in engines.items()}
+
+
+def check_serve_run(torch, cfg, params, smi: str, want: list,
+                    single_burst: dict) -> dict:
+    """Serve on the port's in-process runtime: ``serve.run`` of two
+    ``LLMDeployment`` replicas of llama3_8b() at full depth on this card
+    (half its GPU resource each, one set of weights), behind an ingress
+    deployment. The serve phase's ten prompts through the handle one at a
+    time, bit for bit ``check_llm_deployment``'s reference tokens; one
+    through the HTTP proxy; prefix affinity (a fresh 512-token prefix,
+    then SERVE_AFFINITY_REQUESTS requests carrying it: the holder's hit
+    pages grow by the prefix's 4 pages each, the other's not at all; a
+    control whose first page differs scores 0 at ``PrefixRouter`` and
+    fails that check); the burst across the replicas beside the single
+    engine's. A killed replica's engine keeps running in the in-process
+    runtime (as in JAX), so the phase stops the engines through the
+    replicas' instances before it shuts Serve down, and the card's memory
+    must come back within SERVE_MEMORY_TOL. Returns the kernel counts."""
+    import urllib.request
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.runtime import annex, core
+    from ray_tpu_torch.serve.llm import LLMDeployment
+    from ray_tpu_torch.serve.prefix_router import (DIGEST_PREFIX,
+                                                   PrefixRouter,
+                                                   digest_hashes)
+    from ray_tpu_torch.utils.config import get_config
+
+    t_phase = time.perf_counter()
+    prompts, shared, tails = serve_prompts(cfg)
+    prompts = prompts + [np.concatenate([shared, t]) for t in tails]
+    kw = {"max_batch": 8, "max_len": 2048, "page_size": 128,
+          "decode_chunk": DEPLOY_NEW_TOKENS, "device": "cuda:0"}
+    free_card(torch)
+    mem_before = torch.cuda.memory_allocated()
+    weights_bytes = storage_bytes([t for _, t in named_leaves(params)])
+    _SERVE_MODEL.update(cfg=cfg, params=params)
+    zero_counts()
+    ray_tpu_torch.init()
+    out = {"memory_before": mem_before, "weights_bytes": weights_bytes}
+    try:
+        out["cluster_gpus"] = ray_tpu_torch.cluster_resources()["GPU"]
+        llm = serve.deployment(
+            LLMDeployment, num_replicas=SERVE_REPLICAS,
+            resources_per_replica={"GPU": 1 / SERVE_REPLICAS}).bind(
+                serve_model, **kw)
+        t0 = time.perf_counter()
+        serve.run(serve.deployment(LLMIngress).bind(llm))
+        deadline = time.monotonic() + 300
+        while len(replica_engines(core)) < SERVE_REPLICAS:
+            if time.monotonic() > deadline:
+                raise AssertionError("the LLM replicas never came up")
+            time.sleep(0.05)
+        engines = replica_engines(core)
+        torch.cuda.synchronize()
+        out["up_s"] = time.perf_counter() - t0
+        out["memory_up"] = torch.cuda.memory_allocated()
+        out["pool_bytes"] = sum(x.numel() * x.element_size()
+                                for e in engines.values()
+                                for x in e._pools)
+        out["gpu_available_up"] = ray_tpu_torch.available_resources()["GPU"]
+        out["tags"] = sorted(engines)
+        handle = serve.get_deployment_handle("LLMDeployment")
+
+        # sequential: the reference engine's arrivals, one at a time;
+        # _prefix_tokens sends the second shared-prefix prompt where the
+        # first left its pages, as it was on the reference engine
+        fin0 = {t: e.total_finished for t, e in engines.items()}
+        t0 = time.perf_counter()
+        got = [handle.call(p, max_new_tokens=DEPLOY_NEW_TOKENS,
+                           _prefix_tokens=[int(x) for x in p])
+               for p in prompts]
+        out["sequential"] = {
+            "requests": len(prompts), "seconds": time.perf_counter() - t0,
+            "tokens_equal": got == want,
+            "first_mismatch": next((i for i, (g, w) in enumerate(
+                zip(got, want)) if g != w), None),
+            "share": {t: e.total_finished - fin0[t]
+                      for t, e in engines.items()}}
+
+        server, (host, port) = serve.start_http_proxy()
+        try:
+            t0 = time.perf_counter()
+            body = json.dumps({"prompt": [int(x) for x in prompts[0]],
+                               "max_new_tokens": DEPLOY_NEW_TOKENS}).encode()
+            req = urllib.request.Request(
+                f"http://{host}:{port}/LLMIngress", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                http = json.load(resp)["result"]
+            out["http"] = {"tokens_equal": http == want[0],
+                           "seconds": time.perf_counter() - t0}
+        finally:
+            server.shutdown()
+            server.server_close()
+
+        # prefix affinity on a prefix no replica holds yet: its first
+        # request goes by power-of-two choices and makes the holder
+        rng = np.random.default_rng(SEED + 2)
+        prefix = rng.integers(1, cfg.vocab_size, 512)
+        aff = [np.concatenate([prefix, rng.integers(1, cfg.vocab_size, 40)])
+               for _ in range(SERVE_AFFINITY_REQUESTS + 1)]
+        t0 = time.perf_counter()
+        handle.call(aff[0], max_new_tokens=DEPLOY_NEW_TOKENS)
+        time.sleep(get_config().serve_digest_publish_interval_s)
+        chain = set(digest_hashes(prefix, kw["page_size"]))
+        holders = sorted(
+            r["payload"]["tag"]
+            for r in annex.cluster_metric_annexes(DIGEST_PREFIX)
+            if chain <= set(r["payload"]["hashes"]))
+        if len(holders) != 1:
+            raise AssertionError(f"prefix holders {holders}")
+        holder = holders[0]
+        other = next(t for t in engines if t != holder)
+        hits = hit_pages(engines)
+        grew = []
+        for p in aff[1:]:
+            handle.call(p, max_new_tokens=DEPLOY_NEW_TOKENS,
+                        _prefix_tokens=[int(x) for x in p])
+            now = hit_pages(engines)
+            grew.append({t: now[t] - hits[t] for t in (holder, other)})
+            hits = now
+        pages = len(chain)
+
+        def affine(d):
+            return d[holder] >= pages and d[other] == 0
+
+        # control: one token of the first page changed
+        control = aff[1].copy()
+        control[0] = control[0] % (cfg.vocab_size - 1) + 1
+        router = PrefixRouter()
+        router.ingest(annex.cluster_metric_annexes(DIGEST_PREFIX))
+        ctl = [int(x) for x in control]
+        handle.call(control, max_new_tokens=DEPLOY_NEW_TOKENS,
+                    _prefix_tokens=ctl)
+        now = hit_pages(engines)
+        control_grew = {t: now[t] - hits[t] for t in (holder, other)}
+        out["affinity"] = {
+            "holder": holder, "prefix_pages": pages, "hit_pages_grew": grew,
+            "holder_only": all(affine(d) for d in grew),
+            "score_at_holder": router.score([int(x) for x in aff[1]],
+                                            holder),
+            "control_score_at_holder": router.score(ctl, holder),
+            "control_pick": router.pick(ctl, {holder: 0, other: 0}),
+            "control_hit_pages_grew": control_grew,
+            "control_passes": affine(control_grew),
+            "seconds": time.perf_counter() - t0}
+
+        # the burst: every request at once, across the replicas
+        bprompts = burst_prompts(cfg)
+        fin0 = {t: e.total_finished for t, e in engines.items()}
+        n_ttft = {t: len(e.ttfts) for t, e in engines.items()}
+        t0 = time.perf_counter()
+        refs = [handle.remote(p, max_new_tokens=SERVE_BURST_TOKENS)
+                for p in bprompts]
+        latency, pending = [], list(refs)
+        with EngineLoad(engines) as load:
+            while pending:
+                ready, pending = ray_tpu_torch.wait(pending, num_returns=1,
+                                                    timeout=300)
+                if not ready:
+                    raise AssertionError("the burst stalled")
+                latency.append(time.perf_counter() - t0)
+        wall = time.perf_counter() - t0
+        outs = ray_tpu_torch.get(refs)
+        check_burst(outs, cfg.vocab_size)
+        ttfts = [x for t, e in engines.items()
+                 for x in list(e.ttfts)[n_ttft[t]:]]
+        tps = SERVE_BURST * SERVE_BURST_TOKENS / wall
+        out["burst"] = {
+            "requests": SERVE_BURST, "prompt_tokens": SERVE_BURST_PROMPT,
+            "new_tokens_each": SERVE_BURST_TOKENS, "wall_s": wall,
+            "tokens_per_s": tps, "p50_ttft_s": float(np.median(ttfts)),
+            "max_ttft_s": float(max(ttfts)),
+            "p50_latency_s": float(np.median(latency)),
+            "share": {t: e.total_finished - fin0[t]
+                      for t, e in engines.items()},
+            "in_engines_most": load.most,
+            "chunk_period_s": {t: e._chunk_period
+                               for t, e in engines.items()},
+            "single_engine": single_burst,
+            "tokens_per_s_over_single": tps / single_burst["tokens_per_s"]}
+        out["failover"] = ray_tpu_torch.get(ray_tpu_torch.get_actor(
+            serve.api.CONTROLLER_NAME).failover_stats.remote())
+    finally:
+        engines = handle = None
+        serve.shutdown()
+        time.sleep(0.2)   # the control loop ends its last pass
+        out["engines_stopped"] = stop_replica_engines(core)
+        ray_tpu_torch.shutdown()
+        _SERVE_MODEL.clear()
+        free_card(torch)
+    out["memory_after"] = torch.cuda.memory_allocated()
+    counts = launch_counts()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("serve_run", nvidia_smi=smi, config="llama3_8b",
+         n_layers=cfg.n_layers, replicas=SERVE_REPLICAS,
+         gpu_per_replica=1 / SERVE_REPLICAS,
+         **{k: v for k, v in kw.items() if k != "device"}, **out,
+         launches=counts)
+    if not out["sequential"]["tokens_equal"] or not out["http"][
+            "tokens_equal"]:
+        raise AssertionError("tokens through Serve differ from the "
+                             "reference engine's")
+    a = out["affinity"]
+    if not a["holder_only"] or a["score_at_holder"] != a["prefix_pages"]:
+        raise AssertionError(f"prefix affinity: {a}")
+    if a["control_score_at_holder"] != 0 or a["control_pick"] is not None \
+            or a["control_passes"]:
+        raise AssertionError(f"the affinity control did not fail: {a}")
+    if sorted(out["burst"]["share"].values()) == [0, SERVE_BURST] or \
+            sum(out["burst"]["share"].values()) != SERVE_BURST:
+        raise AssertionError(f"burst shares {out['burst']['share']}")
+    if out["memory_up"] - mem_before > out["pool_bytes"] + SERVE_MEMORY_TOL:
+        raise AssertionError(
+            f"serve.run took {out['memory_up'] - mem_before} bytes of the "
+            f"card for {out['pool_bytes']} bytes of KV pools: the weights "
+            "were copied")
+    if abs(out["memory_after"] - mem_before) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"the card held {mem_before} bytes before the "
+                             f"phase and {out['memory_after']} after")
+    if counts != {"flash_fwd": 0, "flash_bwd": 0}:
+        raise AssertionError(f"the serve engines launched {counts}")
     return counts
 
 
 def check_examples(torch, smi: str) -> dict:
     """The quickstarts on this card: ``train_llama`` (llama_tiny on
     {fsdp 2, tp 2} of the card, 30 steps: losses finite and falling),
-    ``llm_serving`` (its prefix-hit check, 4 streamed requests) and
+    ``llm_serving`` (its prefix-hit check, 4 streamed requests),
     ``rllib_quickstart`` (PPO on CartPole-v1, 10 iterations: stats
-    finite). Returns each one's kernel counts."""
+    finite) and ``serve_quickstart`` (a deployment graph on the in-process
+    runtime, called directly and over HTTP: JAX's answers). Returns each
+    one's kernel counts."""
     from ray_tpu_torch.examples import (llm_serving, rllib_quickstart,
-                                        train_llama)
+                                        serve_quickstart, train_llama)
 
     t0 = time.perf_counter()
     zero_counts()
@@ -6304,6 +6669,11 @@ def check_examples(torch, smi: str) -> dict:
     rl_counts = launch_counts()
     rl_s = time.perf_counter() - t0
     rl_returns = [r["episode_return_mean"] for r in rl_results]
+    t0 = time.perf_counter()
+    zero_counts()
+    graph = serve_quickstart.main()
+    graph_counts = launch_counts()
+    graph_s = time.perf_counter() - t0
     losses = [h["loss"] for h in history]
     emit("examples", nvidia_smi=smi, train_llama_losses=losses,
          train_llama_s=train_s, train_llama_launches=train_counts,
@@ -6311,7 +6681,8 @@ def check_examples(torch, smi: str) -> dict:
          llm_serving_tokens=[len(t) for t in served["tokens"]],
          llm_serving_s=serve_s, llm_serving_launches=serve_counts,
          rllib_quickstart_returns=rl_returns, rllib_quickstart_s=rl_s,
-         rllib_quickstart_launches=rl_counts)
+         rllib_quickstart_launches=rl_counts, serve_quickstart=graph,
+         serve_quickstart_s=graph_s, serve_quickstart_launches=graph_counts)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train_llama losses {losses}: finite and "
                              "falling")
@@ -6321,8 +6692,10 @@ def check_examples(torch, smi: str) -> dict:
             np.isfinite(r[k]) for r in rl_results
             for k in ("policy_loss", "vf_loss", "entropy")):
         raise AssertionError(f"rllib_quickstart: {rl_results}")
+    if graph != {"direct": {"sum": 12.0}, "http": {"result": {"sum": 18.0}}}:
+        raise AssertionError(f"serve_quickstart answered {graph}")
     return {"train_llama": train_counts, "llm_serving": serve_counts,
-            "rllib_quickstart": rl_counts}
+            "rllib_quickstart": rl_counts, "serve_quickstart": graph_counts}
 
 
 def build_facts(kernels_mod, name, path, kernel) -> dict:
@@ -6434,7 +6807,13 @@ def main() -> int:
     check_serve(torch, cfg, params)
     free_card(torch)   # the engine and its KV pool
     # the serve body over the same weights (slice 13), counts zeroed in it
-    deploy_counts = check_llm_deployment(torch, cfg, params, smi)
+    deploy_counts, deploy_want, single_burst = check_llm_deployment(
+        torch, cfg, params, smi)
+    free_card(torch)
+    # Serve on the in-process runtime (slice 17): two replicas over the
+    # same weights, counts zeroed in it
+    serve_run_counts = check_serve_run(torch, cfg, params, smi, deploy_want,
+                                       single_burst)
     free_card(torch)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
@@ -6586,10 +6965,13 @@ def main() -> int:
                        cut_counts["xproc_ep4_w2"][k],
                    "tune_pbt": tune_counts[k],
                    "llm_deployment": deploy_counts[k],
+                   "serve_run": serve_run_counts[k],
                    "examples_train_llama": example_counts["train_llama"][k],
                    "examples_llm_serving": example_counts["llm_serving"][k],
                    "examples_rllib_quickstart":
                        example_counts["rllib_quickstart"][k],
+                   "examples_serve_quickstart":
+                       example_counts["serve_quickstart"][k],
                    **{path: c[k] for path, c in rl_counts.items()}}
                for k in full_counts}
     kernels = [{

@@ -6,8 +6,8 @@ A host of deployment bodies sets the context on its own thread before it
 constructs the body, so engine code (``serve/llm.py``) can tag itself
 with the deployment name and a stable replica tag. Thread-local: several
 replicas may share one process, each constructing its body on its own
-thread. The port has no serve controller; whoever hosts an
-``LLMDeployment`` calls ``set_replica_context``."""
+thread. A Serve replica (``serve/controller.py`` ``_Replica``) sets it
+before it constructs its body."""
 
 from __future__ import annotations
 

@@ -20,11 +20,11 @@ and a CUDA event, so the loop keeps a chunk in flight while the previous
 one is read. On the CPU every step runs synchronously and the same loop
 logic holds.
 
-``LLMDeployment`` is the serve body that hosts one engine: a plain class
-(the port has no serve controller), built from a zero-argument model
-builder, with ``__call__`` and ``stats``. An engine built while a thread
-holds a replica context (``serve/context.py``) carries its deployment
-name and replica tag.
+``LLMDeployment`` is the serve body that hosts one engine, deployed with
+``serve.run`` (``serve/api.py``) or built directly, from a zero-argument
+model builder, with ``__call__`` and ``stats``. An engine built while a
+thread holds a replica context (``serve/context.py``; a Serve replica
+sets it) carries its deployment name and replica tag.
 
 Not ported: the metrics-plane histograms and the trace spans, which
 belong to the JAX package's host planes.
@@ -210,10 +210,13 @@ class LLMEngine:
         # ready watcher (card only): stamps Request.ready_t when a prefill
         # batch's device work completes, off the loop thread
         self._ready_q: "queue.Queue | None" = None
+        self._watcher: threading.Thread | None = None
         if self.device.type == "cuda":
             self._ready_q = queue.Queue()
-            threading.Thread(target=self._ready_watcher, daemon=True,
-                             name="llm-ready-watcher").start()
+            self._watcher = threading.Thread(
+                target=self._ready_watcher, daemon=True,
+                name="llm-ready-watcher")
+            self._watcher.start()
         self._dev_inputs: dict | None = None
         self._dev_dirty = True
         # device-resident last-token vector, chained through decode
@@ -320,11 +323,15 @@ class LLMEngine:
         self._thread.start()
 
     def stop(self):
+        """Stop the loop and the ready watcher and wait for both: once
+        ``stop`` returns, no thread of the engine holds it, so dropping
+        the engine frees its KV pool."""
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=30)
-        if self._ready_q is not None:
+        if self._watcher is not None:
             self._ready_q.put(None)
+            self._watcher.join(timeout=30)
 
     def _ready_watcher(self):
         """Stamp ready_t per prefill batch in dispatch order (stream
@@ -710,10 +717,13 @@ class LLMDeployment:
     ``(cfg, params)``, the parameters on the engine's device;
     ``kv_layout`` picks ``PagedLLMEngine`` ("paged") or ``LLMEngine``
     ("dense"); ``engine_kwargs`` go to the engine (``device="cpu"`` for
-    the CPU: the engines default to the card).
+    the CPU: the engines default to the card). Under ``serve.run`` each
+    replica builds its own engine in this process; the model builder is
+    passed by reference, so replicas can share one set of weights.
 
-        dep = LLMDeployment(build, max_batch=8, max_len=2048)
-        tokens = dep([1, 2, 3], max_new_tokens=16)
+        dep = serve.deployment(LLMDeployment).bind(build, max_len=2048)
+        handle = serve.run(dep)
+        tokens = handle.call([1, 2, 3], max_new_tokens=16)
     """
 
     def __init__(self, model_builder, *, max_batch: int = 8,

@@ -15,6 +15,13 @@ device memory scales with tokens in flight, not ``max_batch * max_len``.
 - With ``prefix_cache=True`` full prompt pages form a content-addressed
   prefix cache (chained page hashes): a request whose prompt starts with
   cached pages maps them read-only and prefills only its suffix.
+- The engine publishes a digest of its prefix cache (8-byte truncations
+  of the cached pages' chained hashes, and the pool's free and total
+  pages) into the process's annex registry (``runtime/annex.py``) under
+  its replica tag, at most every ``serve_digest_publish_interval_s`` as
+  chunks are emitted and on every ``stats()``; serve handles route a
+  prompt to the replica that holds its prefix
+  (``serve/prefix_router.py``).
 
 Out-of-range writes: JAX drops a scatter to page ``num_pages``; PyTorch
 would fault on the device. The pool therefore holds one extra SINK page
@@ -30,6 +37,8 @@ logits, callable on their own.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -184,6 +193,10 @@ class PagedLLMEngine(LLMEngine):
         self._prefix_enabled = prefix_cache
         super().__init__(cfg, params, max_batch=max_batch, max_len=max_len,
                          decode_chunk=decode_chunk, device=device)
+        self._digest_enabled = (self._prefix_enabled
+                                and _cfg.serve_prefix_routing_enabled)
+        self._digest_interval = float(_cfg.serve_digest_publish_interval_s)
+        self._digest_t = 0.0
 
     # -- device state ------------------------------------------------------
 
@@ -372,6 +385,28 @@ class PagedLLMEngine(LLMEngine):
             shared.append(page)
             self._prefix.ref(page)
 
+    def _publish_digest(self, force: bool = False):
+        """Drop this replica's prefix-cache digest into the process annex
+        registry (throttled). Engine-thread only — ``_by_hash`` has a
+        single mutator."""
+        if not self._digest_enabled:
+            return
+        now = time.monotonic()
+        if not force and now - self._digest_t < self._digest_interval:
+            return
+        self._digest_t = now
+        from ray_tpu_torch.runtime import annex
+        hashes = [int.from_bytes(h[:8], "little")
+                  for h in list(self._prefix._by_hash)]
+        annex.set_annex(f"serve/prefix_digest/{self.replica_tag}", {
+            "tag": self.replica_tag,
+            "deployment": self.deployment_name,
+            "page_size": self.page_size,
+            "hashes": hashes,
+            "kv_free": len(self._alloc.free),
+            "kv_total": self.num_pages,
+        })
+
     def _on_slot_retired(self, slot: int):
         super()._on_slot_retired(slot)   # marks device inputs dirty
         # a chunk dispatched before this retirement was observed may still
@@ -400,6 +435,7 @@ class PagedLLMEngine(LLMEngine):
     def _emit_chunk(self, toks_np, active_idx, gens):
         super()._emit_chunk(toks_np, active_idx, gens)
         self._age_deferred_frees()   # one chunk sync elapsed
+        self._publish_digest()
 
     def _on_idle(self):
         # nothing in flight: deferred frees cannot race anything
@@ -462,6 +498,7 @@ class PagedLLMEngine(LLMEngine):
         out = super().stats()
         out["kv_pages_total"] = self.num_pages
         out["kv_pages_free"] = len(self._alloc.free)
+        self._publish_digest(force=True)
         out["prefix_cache"] = {
             "enabled": self._prefix_enabled,
             "hit_pages": self._prefix.hit_pages,

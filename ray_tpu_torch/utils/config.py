@@ -1,7 +1,10 @@
-"""The serve flags the port's engines read.
+"""The flags the port's runtime, Serve and engines read.
 
-A copy of the serve-engine part of ``ray_tpu/utils/config.py``, with the
-same names, defaults and environment overrides (``RAY_TPU_<NAME>``).
+A copy of the parts of ``ray_tpu/utils/config.py`` that the in-process
+runtime, the Serve plane and the serve engines read, with the same names,
+defaults and environment overrides (``RAY_TPU_<NAME>``), and the same
+process-wide instance: ``init(system_config=...)`` resets it and applies
+the overrides (``reset_config``, ``Config.apply_overrides``).
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ def _env_override(name: str, default: Any) -> Any:
 
 @dataclass
 class Config:
+    # --- in-process runtime ---
+    # Per-process counts of live ObjectRefs; a value whose count drops to
+    # zero is freed from the store.
+    ref_counting_enabled: bool = True
+    # Threads of the task pool (0 = the CPU resource).
+    num_workers: int = 0
+
+    # --- serve engines ---
     # Steady-state decode steps per dispatched chunk: large chunks cut
     # per-dispatch overhead, small chunks bound how long a new request
     # waits behind in-flight work.
@@ -43,17 +54,55 @@ class Config:
     serve_continuous_admission: bool = True
     # Fraction of the average chunk period the admission window may wait.
     serve_admission_window_frac: float = 0.75
-    # Read by the prefix-affinity router of the JAX package's serve plane;
-    # kept so the two flag sets stay in step.
+
+    # --- serve plane ---
+    # Prefix-affinity routing: handles score replicas by the longest
+    # cached prefix in their published page-hash digests and fall back to
+    # power-of-two-choices when nothing matches.
     serve_prefix_routing_enabled: bool = True
+    # Min interval between a replica's prefix-digest publishes.
     serve_digest_publish_interval_s: float = 0.2
+    # A digest older than this is ignored by the router.
+    serve_digest_ttl_s: float = 5.0
+    # The controller pings every replica on this period and replaces ones
+    # that stop answering.
+    serve_health_probing_enabled: bool = True
+    serve_health_probe_period_s: float = 0.5
+    serve_health_probe_timeout_s: float = 1.0
+    # Consecutive probe timeouts before a replica is declared dead (a
+    # typed actor-death error is immediate).
+    serve_health_probe_failures: int = 3
+    # Scale-down grace: a draining replica keeps serving its in-flight
+    # requests up to this long before the controller kills it anyway.
+    serve_drain_timeout_s: float = 5.0
 
     def __post_init__(self):
         for f in fields(self):
             setattr(self, f.name, _env_override(f.name,
                                                 getattr(self, f.name)))
 
+    def apply_overrides(self, overrides: dict | None):
+        if not overrides:
+            return self
+        for k, v in overrides.items():
+            if not hasattr(self, k):
+                raise ValueError(f"Unknown config flag: {k!r}")
+            setattr(self, k, v)
+        return self
+
+
+_global_config: Config | None = None
+
 
 def get_config() -> Config:
-    """The flags as the environment sets them now."""
-    return Config()
+    """The process's flags, read from the environment at first use (or at
+    the last ``reset_config``)."""
+    global _global_config
+    if _global_config is None:
+        _global_config = Config()
+    return _global_config
+
+
+def reset_config():
+    global _global_config
+    _global_config = None

@@ -73,7 +73,14 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "rllib.es", "rllib.connectors", "examples.rllib_quickstart",
                  "tune", "tune.tuner",
                  "tune.schedulers", "tune.search", "examples.train_llama",
-                 "examples.llm_serving", "examples.tune_llama"):
+                 "examples.llm_serving", "examples.tune_llama", "api",
+                 "runtime_context", "runtime.core", "runtime.task_spec",
+                 "runtime.refcount", "runtime.object_ref",
+                 "runtime.object_store", "runtime.streaming",
+                 "runtime.annex", "utils.ids", "utils.exceptions",
+                 "serve.config", "serve.multiplex", "serve.prefix_router",
+                 "serve.controller", "serve.handle", "serve.api",
+                 "examples.serve_quickstart"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -315,3 +322,63 @@ def test_train_air_data_export_the_jax_packages_names():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out == {"jax": [], "ray_tpu": [], "cuda_initialized": False}
+
+
+CORE_SERVE_PROBE = r"""
+import json, sys
+import ray_tpu_torch, ray_tpu_torch.api, ray_tpu_torch.serve
+import torch
+
+
+def loaded(name):
+    return sorted(m for m in sys.modules
+                  if m == name or m.startswith(name + "."))
+
+
+print(json.dumps({
+    "jax": loaded("jax"), "ray_tpu": loaded("ray_tpu"),
+    "cloudpickle": loaded("cloudpickle"), "yaml": loaded("yaml"),
+    "cuda_initialized": torch.cuda.is_initialized(),
+}))
+"""
+
+# ray_tpu.serve's names that wait for serve/ingress.py and serve/schema.py
+SERVE_WAITING = {"ingress", "grpc_call", "start_grpc_proxy", "apply_config",
+                 "apply_config_file"}
+# ray_tpu's names that wait for their planes: the task timeline
+# (observability) and RuntimeEnv (the cluster runtime's worker processes)
+CORE_WAITING = {"timeline", "RuntimeEnv"}
+
+
+def test_core_api_and_serve_load_no_jax_cloudpickle_yaml_or_cuda():
+    """A fresh ``import ray_tpu_torch`` (with ``.api`` and ``.serve``)
+    loads no jax, no ray_tpu module, no cloudpickle, no yaml (the card's
+    machine has neither) and no CUDA."""
+    proc = subprocess.run([sys.executable, "-c", CORE_SERVE_PROBE],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out == {"jax": [], "ray_tpu": [], "cloudpickle": [], "yaml": [],
+                   "cuda_initialized": False}
+
+
+def test_core_api_and_serve_export_the_jax_packages_names():
+    """``ray_tpu_torch`` exports ``ray_tpu``'s core API, and
+    ``ray_tpu_torch.serve`` exports ``ray_tpu.serve``'s names, but for
+    those listed as waiting; each ``__all__`` is exactly those."""
+    import ray_tpu
+    import ray_tpu.serve as jax_serve
+
+    import ray_tpu_torch
+    import ray_tpu_torch.serve as port_serve
+
+    want = set(ray_tpu.__all__) - CORE_WAITING
+    assert {"init", "remote", "get", "put", "wait", "kill", "get_actor",
+            "ObjectRef", "ObjectRefGenerator"} <= want
+    assert set(ray_tpu_torch.__all__) == want
+    assert all(hasattr(ray_tpu_torch, n) for n in want)
+    want = set(jax_serve.__all__) - SERVE_WAITING
+    assert {"run", "deployment", "start_http_proxy", "batch"} <= want
+    assert set(port_serve.__all__) == want
+    assert all(hasattr(port_serve, n) for n in want)
