@@ -51,21 +51,20 @@ harness, each phase spawning rank
 processes over torch.distributed: Llama-3-8B at full depth through
 TorchMeshTrainer on one NCCL rank fed by the device feed (its losses
 against the one-process trainer's), two ranks on this card over gloo at
-depth 4 (their parameters and gradient norms against the
+depth 2 (their parameters and gradient norms against the
 single-controller trainer on {dp 2}, with controls that skip the
 gradient all-reduce and that average in place of the sum), and
 ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Then
-fsdp, tp and sp across processes, four gloo rank processes on this card
-sharing one global mesh: Llama-3-8B's width at depth 2 on {fsdp 2, tp 2}
+one spawn of four gloo rank processes on this card, each phase against
+its single controller run first: fsdp, tp and sp across processes
+sharing one global mesh, Llama-3-8B's width at depth 2 on {fsdp 2, tp 2}
 (one place a process) and at depth 2 on {sp 4} (the ring between the
-processes), each held against its single-controller counterpart run
-first in the same script, with controls (the rank-list psum backward in
-place of Megatron's g, a skipped fsdp reduce-scatter, the ring shifted
-the wrong way). Then pp and ep across processes and the elastic reform
-to a new world, the three in one spawn of four gloo ranks, each against
-its single controller run first: Llama-3-8B's width at depth 4 on {pp 4}
+processes), with controls (the rank-list psum backward in place of
+Megatron's g, a skipped fsdp reduce-scatter, the ring shifted the wrong
+way); then pp and ep across processes and the elastic reform to a new
+world: Llama-3-8B's width at depth 4 on {pp 4}
 (a stage a process; control: gradients sent to the next stage),
-Mixtral 8x7B's depth-16 forward with fsdp and ep across the processes
+Mixtral 8x7B's depth-8 forward with fsdp and ep across the processes
 (control: the experts' outputs from the wrong ep process), and a save at
 world 4 on {fsdp 2, tp 2} that two survivors restore onto {fsdp 2} bit
 for bit before a step (control: a restore one row off). Then Tune: a
@@ -81,7 +80,16 @@ those weights behind an ingress deployment, the ten prompts through the
 handle and one through the HTTP proxy bit for bit the engine's, prefix
 affinity (the holder of a shared prefix takes every request carrying it;
 control: a first page changed), the burst across the replicas, and the
-card's memory back after the phase; and the quickstarts. Every
+card's memory back after the phase; then the cluster runtime, a
+``Cluster`` of one node {CPU 8, GPU 1} with this process attached by
+``init(address=)``: K1 in a worker process bit for bit this process's
+(control: the non-causal output), a 1 GiB bf16 tensor of the card through
+``put`` and a worker's ``get`` and back, two full-depth Llama-3-8B
+``LLMDeployment`` replicas, each in its own process and building its own
+weights from the seed (checksums against this process's), the ten
+prompts bit for bit through the handle and over HTTP, the burst across
+the two processes, and after shutdown no worker left and the card's free
+memory back; and the quickstarts. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -120,8 +128,13 @@ CARD_RATES = {
 }
 
 
+# this process's start: every phase line carries its seconds since then
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def peaks_for(name: str):
@@ -1947,7 +1960,9 @@ HARNESS_NORM_TOL = 1e-2
 # the cases of a gloo rank: the real one, then the controls (the gradient
 # all-reduce made a no-op; the summed gradients divided by the world size)
 GLOO_CASES = ("all_reduce", "skip_all_reduce", "mean_all_reduce")
-GLOO_DEPTH = 4
+# depth 2 since slice 18 (4 before), to keep the script inside its time
+# limit as the cluster group joins it
+GLOO_DEPTH = 2
 ELASTIC_DEPTH = 2
 
 
@@ -2338,8 +2353,8 @@ def check_elastic(torch, cfg):
 # ---------------------------------------------------------------------------
 
 XPROC_WORLD = 4
-# depth 2 since slice 11 (4 before), so that the script stays near half its
-# time limit as slice 11's phases join it
+# depth 2 since slice 11 (4 before), so that the script stays inside its
+# time limit as the later slices' phases join it
 XPROC_FSDP_TP_DEPTH = 2
 XPROC_SP_DEPTH = 2
 XPROC_STEPS = 2
@@ -2882,24 +2897,10 @@ def xproc_norm_errs(steps: list, ref_norms: list) -> dict:
     return errs
 
 
-def check_xproc_fsdp_tp(torch, cfg, peaks):
-    """``llama3_8b()`` at full width and depth XPROC_FSDP_TP_DEPTH on the
-    global mesh {fsdp 2, tp 2} under fsdp_tp, dealt to four gloo rank
-    processes on this card, one place each: each rank its data row of
-    the global [2, 2049] batch, 16 q and 4 kv heads, half the vocabulary
-    through the fused vocab-parallel loss. Held after XPROC_STEPS steps:
-    every rank's chunks against the single-controller trainer's on the
-    same mesh of this card (PR 7's path), run first, within
-    HARNESS_PARAM_TOL of its update, every leaf's first moment within
-    XPROC_MOMENT_TOL of its own, and every rank's gradient norms within
-    HARNESS_NORM_TOL. In its one step each control must break its bound
-    (XPROC_CONTROL_BREAKS): the norm's for the rank-list psum backward in
-    place of the f/g pair and for the fsdp gathers' reduce-scatter
-    skipped, a leaf's first moment's for that skip on the norm weights
-    alone. Every real step's launches per rank: K1 2·L (all causal) and the
-    backward L. Returns rank 0's launches of one real step."""
+def xproc_fsdp_tp_setup(torch, cfg) -> dict:
+    """xproc_fsdp_tp's single controller (``check_xproc_fsdp_tp``) and
+    its ranks' config for the shared spawn."""
     import dataclasses
-    import tempfile
 
     from ray_tpu_torch.train.trainer import TrainConfig
 
@@ -2913,13 +2914,37 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
                    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
         + single["init"]["lm_head"].numel()
     flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
-    with tempfile.TemporaryDirectory() as d:
-        result, fit_s = xproc_spawn(torch, "xproc_fsdp_tp", cfg4, train_cfg,
-                                    batch, flops / XPROC_WORLD, d)
-        t0 = time.perf_counter()
-        cmp = xproc_compare(torch, d, "xproc_fsdp_tp", single)
-        compare_s = time.perf_counter() - t0
-        steps = xproc_steps(d)
+    return {"b": b, "s": s, "L": L, "single": single, "flops": flops,
+            "rank": {"model_config": cfg4, "train_config": train_cfg,
+                     "batch": batch.cpu().numpy(),
+                     "rank_flops": flops / XPROC_WORLD}}
+
+
+def check_xproc_fsdp_tp(torch, cfg, peaks, setup: dict, d: str,
+                        spawn: dict):
+    """``llama3_8b()`` at full width and depth XPROC_FSDP_TP_DEPTH on the
+    global mesh {fsdp 2, tp 2} under fsdp_tp, dealt to four gloo rank
+    processes on this card, one place each: each rank its data row of
+    the global [2, 2049] batch, 16 q and 4 kv heads, half the vocabulary
+    through the fused vocab-parallel loss. Held after XPROC_STEPS steps:
+    every rank's chunks against the single-controller trainer's on the
+    same mesh of this card (slice 7's path), run first, within
+    HARNESS_PARAM_TOL of its update, every leaf's first moment within
+    XPROC_MOMENT_TOL of its own, and every rank's gradient norms within
+    HARNESS_NORM_TOL. In its one step each control must break its bound
+    (XPROC_CONTROL_BREAKS): the norm's for the rank-list psum backward in
+    place of the f/g pair and for the fsdp gathers' reduce-scatter
+    skipped, a leaf's first moment's for that skip on the norm weights
+    alone. Every real step's launches per rank: K1 2·L (all causal) and the
+    backward L. Its ranks run in the shared spawn (``check_xproc_world4``,
+    ``spawn``: each phase's seconds in the ranks), their files in ``d``.
+    Returns rank 0's launches of one real step."""
+    b, s, L = setup["b"], setup["s"], setup["L"]
+    single, flops = setup["single"], setup["flops"]
+    t0 = time.perf_counter()
+    cmp = xproc_compare(torch, d, "xproc_fsdp_tp", single)
+    compare_s = time.perf_counter() - t0
+    steps = xproc_steps(d)
     update_rel_err = cmp["update"]["rel_err"]
     moment_err = worst_moment(cmp["first_moment"])
     norm_errs = xproc_norm_errs(steps, single["grad_norms"])
@@ -2962,7 +2987,7 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
          rank_flops_per_step=flops / XPROC_WORLD,
          mfu_of_the_card=flops / step_s / peaks[0],
          ranks=per_rank, want_launches=want,
-         spawn_to_first_report_s=result.first_report_s, fit_s=fit_s,
+         ranks_s=spawn["xproc_fsdp_tp"],
          single_controller_s=single["seconds"], compare_s=compare_s)
     if update_rel_err > HARNESS_PARAM_TOL or \
             moment_err > XPROC_MOMENT_TOL or \
@@ -2980,24 +3005,10 @@ def check_xproc_fsdp_tp(torch, cfg, peaks):
     return launches[0][-1]
 
 
-def check_xproc_sp4(torch, cfg, peaks):
-    """``llama3_8b()`` at full width and depth XPROC_SP_DEPTH on the
-    global mesh {sp 4} under fsdp_tp_sp, dealt to four gloo rank
-    processes on this card: each its 2048-token chunk of [1, 8193], the
-    ring between the processes (K/V by subgroup sends), the whole state
-    replicated over sp and its gradient all-reduced over it. First the
-    ring alone at RING_SHAPE, each rank its chunk: the output within 1e-2
-    a row and the gradients within 2e-2 a row of the whole-sequence
-    kernels (as ring_kernels), and the ring shifted the wrong way must
-    fail the output bound. Then XPROC_STEPS trainer steps against the
-    single-controller sp-4 ring trainer on this card (PR 6's path): the
-    losses within HARNESS_LOSS_TOL, the update within HARNESS_PARAM_TOL,
-    every leaf's first moment within XPROC_MOMENT_TOL.
-    Launches a rank's step: K1 causal 2·L (the diagonal, the forward and
-    its recompute) and non-causal 2·L·rank, the backward L·(rank + 1).
-    Returns rank 3's launches of one real step."""
+def xproc_sp4_setup(torch, cfg) -> dict:
+    """xproc_sp4's single controller (``check_xproc_sp4``) and its ranks'
+    config for the shared spawn."""
     import dataclasses
-    import tempfile
 
     from ray_tpu_torch.train.trainer import TrainConfig
 
@@ -3013,15 +3024,37 @@ def check_xproc_sp4(torch, cfg, peaks):
                    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")) \
         + single["init"]["lm_head"].numel()
     flops = step_flops(n_matmul, b, s, L, cfg.n_heads, cfg.head_dim)
-    with tempfile.TemporaryDirectory() as d:
-        result, fit_s = xproc_spawn(torch, "xproc_sp4", cfg2, train_cfg,
-                                    batch, flops / XPROC_WORLD, d)
-        t0 = time.perf_counter()
-        cmp = xproc_compare(torch, d, "xproc_sp4", single)
-        compare_s = time.perf_counter() - t0
-        steps = xproc_steps(d)
-        # the ring against the whole-sequence kernels on the same inputs
-        ring_errs = xproc_ring_errs(torch, d, XPROC_WORLD, "reversed_ring")
+    return {"b": b, "s": s, "L": L, "single": single, "flops": flops,
+            "rank": {"model_config": cfg2, "train_config": train_cfg,
+                     "batch": batch.cpu().numpy(),
+                     "rank_flops": flops / XPROC_WORLD}}
+
+
+def check_xproc_sp4(torch, cfg, peaks, setup: dict, d: str, spawn: dict):
+    """``llama3_8b()`` at full width and depth XPROC_SP_DEPTH on the
+    global mesh {sp 4} under fsdp_tp_sp, dealt to four gloo rank
+    processes on this card: each its 2048-token chunk of [1, 8193], the
+    ring between the processes (K/V by subgroup sends), the whole state
+    replicated over sp and its gradient all-reduced over it. First the
+    ring alone at RING_SHAPE, each rank its chunk: the output within 1e-2
+    a row and the gradients within 2e-2 a row of the whole-sequence
+    kernels (as ring_kernels), and the ring shifted the wrong way must
+    fail the output bound. Then XPROC_STEPS trainer steps against the
+    single-controller sp-4 ring trainer on this card (slice 6's path): the
+    losses within HARNESS_LOSS_TOL, the update within HARNESS_PARAM_TOL,
+    every leaf's first moment within XPROC_MOMENT_TOL.
+    Launches a rank's step: K1 causal 2·L (the diagonal, the forward and
+    its recompute) and non-causal 2·L·rank, the backward L·(rank + 1). Its
+    ranks run in the shared spawn (``check_xproc_world4``), their files in
+    ``d``. Returns rank 3's launches of one real step."""
+    b, s, L = setup["b"], setup["s"], setup["L"]
+    single, flops = setup["single"], setup["flops"]
+    t0 = time.perf_counter()
+    cmp = xproc_compare(torch, d, "xproc_sp4", single)
+    compare_s = time.perf_counter() - t0
+    steps = xproc_steps(d)
+    # the ring against the whole-sequence kernels on the same inputs
+    ring_errs = xproc_ring_errs(torch, d, XPROC_WORLD, "reversed_ring")
     out_tol, grad_tol = 1e-2, 2e-2
     per_rank = xproc_summary(steps)
     update_rel_err = cmp["update"]["rel_err"]
@@ -3059,9 +3092,8 @@ def check_xproc_sp4(torch, cfg, peaks):
          step_s=step_s, tokens_per_s=b * s / step_s,
          rank_flops_per_step=flops / XPROC_WORLD,
          mfu_of_the_card=flops / step_s / peaks[0], ranks=per_rank,
-         want_launches=wants, spawn_to_first_report_s=result.first_report_s,
-         fit_s=fit_s, single_controller_s=single["seconds"],
-         compare_s=compare_s)
+         want_launches=wants, ranks_s=spawn["xproc_sp4"],
+         single_controller_s=single["seconds"], compare_s=compare_s)
     real = ring_errs["real"]
     if real["out"] > out_tol or max(real[f"d{n}"] for n in "qkv") > \
             grad_tol or ring_errs["reversed_ring"]["out"] <= out_tol:
@@ -3090,8 +3122,8 @@ XPROC_PP_DEPTH = PP_STAGES       # one layer a stage
 XPROC_PP_MICRO = 4
 # Mixtral 8x7B's width, EP_AXES dealt to the four processes: fsdp and ep
 # across them, tp inside each; depth 8 since slice 16 (16 before, as
-# ep_placed_forward), to keep the script inside its time limit as the
-# slice's phases join it
+# ep_placed_forward), to keep the script inside its time limit as the later
+# slices' phases join it
 XPROC_EP_DEPTH = 8
 # the wrong-ep control's depth: the fault shows in the first layer
 XPROC_EP_CONTROL_DEPTH = 2
@@ -3889,82 +3921,129 @@ def check_xproc_elastic(torch, cfg, setup: dict, d: str,
     return launches[0]
 
 
-XPROC_SLICE11 = ("xproc_pp", "xproc_ep", "xproc_elastic")
+# the four-rank phases of slices 10 and 11, in one spawn since slice 18 (a
+# spawn's start-up, 24-39 s, paid once), the elastic reform last: its
+# survivors leave the group
+XPROC_WORLD4 = ("xproc_fsdp_tp", "xproc_sp4", "xproc_pp", "xproc_ep",
+                "xproc_elastic")
+# the shared spawn's ranks are killed after this long
+XPROC_WORLD4_LIMIT_S = 600.0
 
 
-def xproc_slice11_loop(config):
-    """A rank of slice 11's shared spawn: ``xproc_rank_loop`` on xproc_pp,
-    ``xproc_ep_loop`` and ``xproc_elastic_loop`` in turn (the elastic
-    reform last: its survivors leave this group), each on its config and
-    in a directory of its own, the card freed after each; each one's
-    seconds to ``<out>/phase_seconds_rank<r>.json``."""
+def xproc_world4_loop(config):
+    """A rank of the shared spawn: ``xproc_rank_loop`` on xproc_fsdp_tp,
+    xproc_sp4 and xproc_pp, ``xproc_ep_loop`` and ``xproc_elastic_loop``
+    in turn, each on its config and in a directory of its own, the card
+    freed after each; then its seconds to ``<out>/done_<phase>_rank<r>``
+    (the parent checks a phase while the ranks run the next)."""
     import torch
 
     from ray_tpu_torch.train import session
 
-    loops = {"xproc_pp": xproc_rank_loop, "xproc_ep": xproc_ep_loop,
+    loops = {"xproc_fsdp_tp": xproc_rank_loop, "xproc_sp4": xproc_rank_loop,
+             "xproc_pp": xproc_rank_loop, "xproc_ep": xproc_ep_loop,
              "xproc_elastic": xproc_elastic_loop}
     rank = session.get_context().rank
-    seconds = {}
-    for phase in XPROC_SLICE11:
+    for phase in XPROC_WORLD4:
         t0 = time.perf_counter()
         loops[phase]({**config["phases"][phase], "phase": phase,
                       "out": os.path.join(config["out"], phase)})
         gc.collect()
         torch.cuda.empty_cache()
-        seconds[phase] = time.perf_counter() - t0
-    with open(os.path.join(config["out"], f"phase_seconds_rank{rank}.json"),
-              "w") as f:
-        json.dump(seconds, f)
+        mark = os.path.join(config["out"], f"done_{phase}_rank{rank}")
+        with open(mark + ".tmp", "w") as f:
+            json.dump({"seconds": time.perf_counter() - t0}, f)
+        os.replace(mark + ".tmp", mark)
 
 
-def check_xproc_slice11(torch, cfg, peaks) -> dict:
-    """pp and ep across processes and the elastic reform (slice 11): each
-    phase's single controller on this card first (``xproc_pp_setup``,
-    ``xproc_ep_setup``, ``xproc_elastic_setup``, the card freed after
-    each), then one spawn of four gloo ranks runs the three phases in
-    turn (a spawn costs 24-27 s of start-up), then each phase is held
-    (``check_xproc_pp``, ``check_xproc_ep``, ``check_xproc_elastic``).
-    Returns each phase's launches, and xproc_pp's setup (its single
-    controller serves xproc_pp4_w2, the same {pp 4} at world 2)."""
+def check_xproc_world4(torch, cfg, peaks) -> dict:
+    """fsdp, tp and sp across processes (slice 10), pp and ep across them
+    and the elastic reform (slice 11): each phase's single controller on
+    this card first (``xproc_fsdp_tp_setup``, ``xproc_sp4_setup``,
+    ``xproc_pp_setup``, ``xproc_ep_setup``, ``xproc_elastic_setup``, the
+    card freed after each), then one spawn of four gloo ranks runs the
+    five phases in turn (a spawn costs 24-39 s of start-up), and each
+    phase is held (``check_xproc_fsdp_tp``, ``check_xproc_sp4``,
+    ``check_xproc_pp``, ``check_xproc_ep``) as soon as every rank is done
+    with it, while they run the next; the elastic reform, whose survivors
+    leave the group, after they end (``check_xproc_elastic``). Returns
+    each phase's launches, and xproc_pp's setup (its single controller
+    serves xproc_pp4_w2, the same {pp 4} at world 2)."""
     import tempfile
 
     t_start = time.perf_counter()
     setups = {}
-    for phase, setup in (("xproc_pp", lambda: xproc_pp_setup(torch, cfg)),
+    for phase, setup in (("xproc_fsdp_tp",
+                          lambda: xproc_fsdp_tp_setup(torch, cfg)),
+                         ("xproc_sp4", lambda: xproc_sp4_setup(torch, cfg)),
+                         ("xproc_pp", lambda: xproc_pp_setup(torch, cfg)),
                          ("xproc_ep", lambda: xproc_ep_setup(torch)),
                          ("xproc_elastic",
                           lambda: xproc_elastic_setup(torch, cfg))):
         setups[phase] = setup()
         free_card(torch)
     setup_s = time.perf_counter() - t_start
+    checks = {
+        "xproc_fsdp_tp": lambda out: check_xproc_fsdp_tp(
+            torch, cfg, peaks, setups["xproc_fsdp_tp"], out, spawn),
+        "xproc_sp4": lambda out: check_xproc_sp4(
+            torch, cfg, peaks, setups["xproc_sp4"], out, spawn),
+        "xproc_pp": lambda out: check_xproc_pp(
+            torch, cfg, peaks, setups["xproc_pp"], out, spawn),
+        "xproc_ep": lambda out: check_xproc_ep(
+            torch, setups["xproc_ep"], out, spawn),
+        "xproc_elastic": lambda out: check_xproc_elastic(
+            torch, cfg, setups["xproc_elastic"], out, spawn)}
+    counts, spawn = {}, {}
+
+    def marks_of(phase):
+        return [os.path.join(d, f"done_{phase}_rank{r}")
+                for r in range(XPROC_WORLD)]
+
+    def check(phase):
+        """Phase ``phase`` held from its ranks' files, which then go."""
+        for m in marks_of(phase):
+            if os.path.exists(m):
+                with open(m) as f:
+                    spawn[phase] = max(spawn.get(phase, 0.0),
+                                       json.load(f)["seconds"])
+        out = os.path.join(d, phase)
+        counts[phase] = checks[phase](out)
+        shutil.rmtree(out)
+        free_card(torch)
+
+    def check_each(fit, deadline):
+        """Each phase but the reform checked as soon as every rank is done
+        with it, while they run the next."""
+        for phase in XPROC_WORLD4[:-1]:
+            while not all(os.path.exists(m) for m in marks_of(phase)):
+                if not fit.is_alive():
+                    return   # the join reports the ranks' error
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"xproc_world4: {phase} not done "
+                                         f"within {XPROC_WORLD4_LIMIT_S} s")
+                time.sleep(0.5)
+            check(phase)
+
     with tempfile.TemporaryDirectory() as d:
-        for phase in XPROC_SLICE11:
+        for phase in XPROC_WORLD4:
             os.makedirs(os.path.join(d, phase))
         reference = os.path.join(d, "xproc_ep", "reference.pt")
         torch.save(setups["xproc_ep"]["reference"], reference)
-        phases = {p: dict(setups[p]["rank"]) for p in XPROC_SLICE11}
+        phases = {p: dict(setups[p]["rank"]) for p in XPROC_WORLD4}
         phases["xproc_ep"]["reference"] = reference
         phases["xproc_elastic"]["checkpoint_dir"] = os.path.join(
             d, "xproc_elastic", "checkpoints")
-        result, fit_s = xproc_spawn(torch, "slice11", None, None, None,
-                                    None, d, loop=xproc_slice11_loop,
-                                    phases=phases)
-        spawn = {p: 0.0 for p in XPROC_SLICE11}
-        for r in range(XPROC_WORLD):
-            with open(os.path.join(d, f"phase_seconds_rank{r}.json")) as f:
-                for p, sec in json.load(f).items():
-                    spawn[p] = max(spawn[p], sec)
-        counts = {
-            "xproc_pp": check_xproc_pp(torch, cfg, peaks,
-                                       setups["xproc_pp"],
-                                       os.path.join(d, "xproc_pp"), spawn),
-            "xproc_ep": check_xproc_ep(torch, setups["xproc_ep"],
-                                       os.path.join(d, "xproc_ep"), spawn),
-            "xproc_elastic": check_xproc_elastic(
-                torch, cfg, setups["xproc_elastic"],
-                os.path.join(d, "xproc_elastic"), spawn)}
-    emit("xproc_slice11", setup_s=setup_s, fit_s=fit_s,
+        result, fit_s = xproc_spawn(torch, "world4", None, None, None,
+                                    None, d, loop=xproc_world4_loop,
+                                    limit_s=XPROC_WORLD4_LIMIT_S,
+                                    while_running=check_each, phases=phases)
+        check("xproc_elastic")
+        if set(counts) != set(XPROC_WORLD4):
+            raise AssertionError(f"xproc_world4: checked {sorted(counts)} "
+                                 f"of {XPROC_WORLD4}")
+    emit("xproc_world4", checked_while_the_ranks_ran=True,
+         setup_s=setup_s, fit_s=fit_s,
          spawn_to_first_report_s=result.first_report_s,
          ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
     return counts, setups["xproc_pp"]
@@ -6030,9 +6109,11 @@ def check_rllib(torch, smi: str) -> dict:
 # the serve body LLMDeployment with the replica context, the quickstarts
 # ---------------------------------------------------------------------------
 
-# Each PBT trial is llama3_8b() at this depth: 1.49 B parameters, 12 GB of
-# state (parameters, gradients, two moments), so two trials share the card
-TUNE_DEPTH = 2
+# Each PBT trial is llama3_8b() at this depth: 1.27 B parameters, 10 GB of
+# state (parameters, gradients, two moments), so two trials share the card;
+# depth 1 since slice 18 (2 before), to keep the script inside its time
+# limit as the cluster group joins it
+TUNE_DEPTH = 1
 # one trial a learning rate, two at a time; the last barely trains, so it
 # is the worst of the four when its wave is ranked against the first
 TUNE_LRS = (3e-5, 1e-4, 3e-4, 1e-8)
@@ -6167,7 +6248,7 @@ def check_tune_pbt(torch, smi: str) -> dict:
                 for (t, donor, step, loss, want), c in zip(found, controls)]
     restores = [r["restore_s"] for r in results if r["restore_s"]]
     emit("tune_pbt", nvidia_smi=smi, config="llama3_8b", n_layers=TUNE_DEPTH,
-         depth_cut=f"32 -> {TUNE_DEPTH} layers: two trials' states (12 GB "
+         depth_cut=f"32 -> {TUNE_DEPTH} layers: two trials' states (10 GB "
                    "each) share the card",
          tokens=[base["batch_size"], base["seq_len"] + 1],
          token_range=base["token_range"], learning_rates=list(TUNE_LRS),
@@ -6343,6 +6424,11 @@ class LLMIngress:
     deployment's handle, routed by the prompt's prefix."""
 
     def __init__(self, llm):
+        # the handle's prefix router imports torch: in a worker process of
+        # the cluster, here while the LLM replicas start, not in the first
+        # request
+        from ray_tpu_torch.serve import prefix_router  # noqa: F401
+
         self.llm = llm
 
     def __call__(self, payload):
@@ -6430,7 +6516,8 @@ def check_serve_run(torch, cfg, params, smi: str, want: list,
     engine's. A killed replica's engine keeps running in the in-process
     runtime (as in JAX), so the phase stops the engines through the
     replicas' instances before it shuts Serve down, and the card's memory
-    must come back within SERVE_MEMORY_TOL. Returns the kernel counts."""
+    must come back within SERVE_MEMORY_TOL. Returns the kernel counts and
+    the burst's numbers."""
     import urllib.request
 
     import ray_tpu_torch
@@ -6637,7 +6724,459 @@ def check_serve_run(torch, cfg, params, smi: str, want: list,
                              f"phase and {out['memory_after']} after")
     if counts != {"flash_fwd": 0, "flash_bwd": 0}:
         raise AssertionError(f"the serve engines launched {counts}")
-    return counts
+    return counts, out["burst"]
+
+
+# ---------------------------------------------------------------------------
+# the cluster runtime on one host (slice 18): the port's own GCS and raylet
+# in this process, tasks and actors in worker processes on this card
+# ---------------------------------------------------------------------------
+
+# K1's inputs in the worker: b, h, hk, s, d (Llama-3-8B's attention)
+CLUSTER_K1_SHAPE = (1, 32, 8, 2048, 128)
+# the tensor that goes through put and get across the process boundary
+CLUSTER_PUT_BYTES = 1 << 30
+# the node's shared-memory store: the tensor in, its copy back, headroom
+CLUSTER_STORE_BYTES = 4 << 30
+# a request that holds one replica while the shared-prefix pair goes to
+# the other by power-of-two choices
+CLUSTER_HOLD_TOKENS = 128
+
+
+def cluster_k1_inputs(torch) -> tuple:
+    """The seeded K1 inputs of cluster_task, on this process's card, in
+    the kernel layout: q [b, h, s, d], k and v [b, hk, s, d], bf16."""
+    b, h, hk, s, d = CLUSTER_K1_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+    return randn(b, h, s, d), randn(b, hk, s, d), randn(b, hk, s, d)
+
+
+def process_report() -> dict:
+    """This process's pid and whether it loaded JAX, the JAX package or
+    cloudpickle."""
+    mods = list(sys.modules)
+    return {"pid": os.getpid(),
+            "jax": sorted(m for m in mods
+                          if m == "jax" or m.startswith("jax.")),
+            "ray_tpu": sorted(m for m in mods
+                              if m == "ray_tpu" or m.startswith("ray_tpu.")),
+            "cloudpickle": "cloudpickle" in sys.modules}
+
+
+def cluster_k1_task() -> dict:
+    """cluster_task's task, run in a worker process: K1 on the seeded
+    inputs, its output returned as a CUDA tensor, the process's report
+    and its K1 launches."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import flash_fwd
+
+    zero_counts()
+    q, k, v = cluster_k1_inputs(torch)
+    out, _ = flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launch_counts(), **process_report(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def cluster_echo_task(refs: list) -> dict:
+    """The 1 GiB tensor's trip: ``get`` of the driver's put in this worker
+    process (timed here), then the tensor back as the task's return."""
+    import torch
+
+    import ray_tpu_torch
+
+    t0 = time.perf_counter()
+    x = ray_tpu_torch.get(refs[0])
+    torch.cuda.synchronize()
+    return {"x": x, "get_s": time.perf_counter() - t0,
+            "device": str(x.device), "pid": os.getpid()}
+
+
+def leaf_checksums(params, chunk: int = 1 << 26) -> dict:
+    """Per leaf: the sum and the sum of squares of its bf16 bit patterns
+    as int64 (equal sums for equal bits), a chunk of elements at a time
+    (a whole block stack in int64 would take 15 GB)."""
+    import torch
+
+    out = {}
+    for name, t in named_leaves(params):
+        flat = t.detach().reshape(-1).view(torch.int16)
+        s = q = 0
+        for i in range(0, flat.numel(), chunk):
+            bits = flat[i:i + chunk].to(torch.int64)
+            s += int(bits.sum())
+            q += int((bits * bits).sum())
+        out[name] = [s, q]
+    return out
+
+
+def cluster_serve_model():
+    """cluster_serve's model builder, reached by each replica by
+    reference: Llama-3-8B at full width and depth, its weights built in
+    the replica's own process from the serve phase's seed."""
+    from ray_tpu_torch.models import llama
+
+    cfg = llama.llama3_8b()
+    return cfg, llama.init_params(cfg, seed=SEED, device="cuda")
+
+
+def _cluster_llm_class():
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    class ClusterLLM(LLMDeployment):
+        """``LLMDeployment`` that also reports its process: pid, the
+        modules it loaded, its weights' checksums and its engine's
+        numbers."""
+
+        def replica_info(self, checksums: bool = False) -> dict:
+            e = self._engine
+            return {**process_report(),
+                    "checksums": leaf_checksums(e.params) if checksums
+                    else None,
+                    "total_finished": e.total_finished,
+                    "ttfts": list(e.ttfts),
+                    "chunk_period_s": e._chunk_period,
+                    "hit_pages": e.stats()["prefix_cache"]["hit_pages"]}
+
+    ClusterLLM.__module__ = __name__
+    ClusterLLM.__qualname__ = "ClusterLLM"
+    return ClusterLLM
+
+
+def __getattr__(name):
+    # ClusterLLM subclasses the port's LLMDeployment, so it is made at
+    # first use: this file imports nothing of the port at import time.
+    # Made once a process, under its module name, so pickle carries it by
+    # reference to the replicas (which import this file as __mp_main__).
+    if name == "ClusterLLM":
+        globals()[name] = cls = _cluster_llm_class()
+        return cls
+    raise AttributeError(name)
+
+
+def smi_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory``'s rows. In a
+    container the pid and memory columns may not be the process's own (a
+    sealed machine printed pid 1 and the card's total on every row), so
+    the rows are counted, one a process with a context on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def pid_alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def check_cluster_task(torch, ray_tpu_torch, smi: str) -> dict:
+    """cluster_task: a ``num_gpus=1`` task in a worker process launches K1
+    on the seeded inputs and returns its output as a CUDA tensor, held bit
+    for bit against this process's K1 on the same inputs (control: the
+    non-causal output must fail); the worker reports its pid, its modules
+    and one launch. Then a 1 GiB bf16 tensor of this card through ``put``,
+    a worker's ``get`` and the task's return, bit for bit."""
+    from ray_tpu_torch.ops.flash_attention import flash_fwd
+
+    t_phase = time.perf_counter()
+    k1 = ray_tpu_torch.remote(num_gpus=1)(cluster_k1_task)
+    t0 = time.perf_counter()
+    rep = ray_tpu_torch.get(k1.remote(), timeout=300)
+    task_s = time.perf_counter() - t0
+    q, k, v = cluster_k1_inputs(torch)
+    want, _ = flash_fwd(q, k, v, causal=True)
+    control, _ = flash_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    got = rep.pop("out")
+    out = {"task_s": task_s, "worker": rep, "driver_pid": os.getpid(),
+           "out_device": str(got.device), "out_shape": list(got.shape),
+           "bits_equal": bool(torch.equal(got, want)),
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "control_bits_equal": bool(torch.equal(got, control))}
+    del q, k, v, want, control, got
+    # the 1 GiB trip
+    x = torch.randn(CLUSTER_PUT_BYTES // 2, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED + 19)).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = ray_tpu_torch.put(x)
+    put_s = time.perf_counter() - t0
+    echo = ray_tpu_torch.remote(num_gpus=1)(cluster_echo_task)
+    t0 = time.perf_counter()
+    back_ref = echo.remote([ref])
+    ray_tpu_torch.wait([back_ref], timeout=300)
+    task_done_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = ray_tpu_torch.get(back_ref)
+    torch.cuda.synchronize()
+    get_s = time.perf_counter() - t0
+    y = back.pop("x")
+    out["transfer"] = {
+        "bytes": x.numel() * x.element_size(), "dtype": str(x.dtype),
+        "put_s": put_s, "worker_get_s": back["get_s"],
+        "worker_device": back["device"], "worker_pid": back["pid"],
+        "task_s": task_done_s, "driver_get_s": get_s,
+        "bits_equal": bool(torch.equal(x, y)), "device": str(y.device)}
+    del x, y, ref, back_ref
+    free_card(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("cluster_task", nvidia_smi=smi, shape=list(CLUSTER_K1_SHAPE), **out)
+    w = out["worker"]
+    if not out["bits_equal"] or out["control_bits_equal"]:
+        raise AssertionError(f"the worker's K1 output: bits equal "
+                             f"{out['bits_equal']}, control equal "
+                             f"{out['control_bits_equal']}")
+    if w["pid"] == os.getpid() or w["jax"] or w["ray_tpu"] or \
+            w["cloudpickle"]:
+        raise AssertionError(f"the worker process: {w}")
+    if w["launches"] != {"flash_fwd": 1, "flash_bwd": 0}:
+        raise AssertionError(f"the worker launched {w['launches']}")
+    t = out["transfer"]
+    if not t["bits_equal"] or t["worker_pid"] == os.getpid() or \
+            not t["device"].startswith("cuda") or \
+            not t["worker_device"].startswith("cuda"):
+        raise AssertionError(f"the 1 GiB tensor's trip: {t}")
+    return w["launches"]
+
+
+def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
+                        want: list, in_process_burst: dict) -> dict:
+    """cluster_serve: ``serve.run`` of two ``LLMDeployment`` replicas of
+    llama3_8b() at full width and depth behind the ingress deployment on
+    the cluster, each replica an actor in its own worker process that
+    builds its own weights from the seed (``cluster_serve_model``),
+    ``resources_per_replica={"GPU": 0.5}``. Each replica's per-leaf
+    checksums against this process's weights; the ten prompts through the
+    handle bit for bit ``check_llm_deployment``'s reference tokens (the
+    shared-prefix pair on one replica, as on the reference engine, by
+    power-of-two choices while a long request holds the other: prefix
+    digests stay in the replicas' processes), a one-token-changed control
+    that must fail; one request over HTTP; the burst across the two
+    processes beside serve_run's in-process figures."""
+    import urllib.request
+
+    from ray_tpu_torch import serve
+
+    t_phase = time.perf_counter()
+    prompts, shared, tails = serve_prompts(cfg)
+    prompts = prompts + [np.concatenate([shared, t]) for t in tails]
+    kw = {"max_batch": 8, "max_len": 2048, "page_size": 128,
+          "decode_chunk": DEPLOY_NEW_TOKENS, "device": "cuda:0"}
+    out = {}
+    cls = getattr(sys.modules[__name__], "ClusterLLM")
+    llm = serve.deployment(
+        cls, name="LLMDeployment", num_replicas=SERVE_REPLICAS,
+        resources_per_replica={"GPU": 1 / SERVE_REPLICAS}).bind(
+            cluster_serve_model, **kw)
+    t0 = time.perf_counter()
+    serve.run(serve.deployment(LLMIngress).bind(llm))
+    handle = serve.get_deployment_handle("LLMDeployment")
+    controller = ray_tpu_torch.get_actor(serve.api.CONTROLLER_NAME)
+
+    def replicas() -> list:
+        _, table = ray_tpu_torch.get(
+            controller.get_routing_table.remote("LLMDeployment"))
+        return table
+
+    def infos(checksums: bool = False) -> dict:
+        return {e["tag"]: ray_tpu_torch.get(
+                    e["replica"].handle_request.remote(
+                        "replica_info", (checksums,), {}), timeout=600)
+                for e in replicas()}
+
+    info = infos(checksums=True)
+    out["up_s"] = time.perf_counter() - t0
+    want_sums = leaf_checksums(params)
+    out["replica_processes"] = {t: {"pid": i["pid"], "jax": i["jax"],
+                           "ray_tpu": i["ray_tpu"],
+                           "cloudpickle": i["cloudpickle"],
+                           "checksums_equal": i["checksums"] == want_sums}
+                       for t, i in info.items()}
+    out["gpu_available_up"] = ray_tpu_torch.available_resources()["GPU"]
+    mem_up = torch.cuda.mem_get_info()[0]
+    out["smi_apps_up"] = smi_apps()
+
+    # sequential: prompts 1-8 one at a time; then a long request holds one
+    # replica while the shared-prefix pair goes to the other, where the
+    # second hits the first's pages as on the reference engine
+    got = [handle.call(p, max_new_tokens=DEPLOY_NEW_TOKENS)
+           for p in prompts[:8]]
+    rng = np.random.default_rng(SEED + 4)
+    hold = handle.remote(rng.integers(1, cfg.vocab_size, 128),
+                         max_new_tokens=CLUSTER_HOLD_TOKENS)
+    before = infos()
+    got += [handle.call(p, max_new_tokens=DEPLOY_NEW_TOKENS)
+            for p in prompts[8:]]
+    after = infos()
+    ready, _ = ray_tpu_torch.wait([hold], timeout=0)
+    ray_tpu_torch.get(hold, timeout=600)
+    pair = {t: after[t]["total_finished"] - before[t]["total_finished"]
+            for t in after}
+    ctl = [list(x) for x in want]
+    ctl[0][0] = (ctl[0][0] + 1) % cfg.vocab_size
+    out["sequential"] = {
+        "requests": len(prompts), "tokens_equal": got == want,
+        "first_mismatch": next((i for i, (g, w) in enumerate(
+            zip(got, want)) if g != w), None),
+        "pair_share": pair, "hold_done_before_pair_ended": bool(ready),
+        "pair_hit_pages": {t: after[t]["hit_pages"] - before[t]["hit_pages"]
+                           for t in after},
+        "control_tokens_equal": got == ctl}
+
+    server, (host, port) = serve.start_http_proxy()
+    try:
+        t0 = time.perf_counter()
+        body = json.dumps({"prompt": [int(x) for x in prompts[0]],
+                           "max_new_tokens": DEPLOY_NEW_TOKENS}).encode()
+        req = urllib.request.Request(
+            f"http://{host}:{port}/LLMIngress", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            http = json.load(resp)["result"]
+        out["http"] = {"tokens_equal": http == want[0],
+                       "seconds": time.perf_counter() - t0}
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # the burst: every request at once, across the two processes
+    bprompts = burst_prompts(cfg)
+    before = infos()
+    t0 = time.perf_counter()
+    refs = [handle.remote(p, max_new_tokens=SERVE_BURST_TOKENS)
+            for p in bprompts]
+    latency, pending = [], list(refs)
+    while pending:
+        ready, pending = ray_tpu_torch.wait(pending, num_returns=1,
+                                            timeout=300)
+        if not ready:
+            raise AssertionError("the burst stalled")
+        latency.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t0
+    outs = ray_tpu_torch.get(refs)
+    check_burst(outs, cfg.vocab_size)
+    after = infos()
+    ttfts = [x for t in after
+             for x in after[t]["ttfts"][len(before[t]["ttfts"]):]]
+    tps = SERVE_BURST * SERVE_BURST_TOKENS / wall
+    out["burst"] = {
+        "requests": SERVE_BURST, "prompt_tokens": SERVE_BURST_PROMPT,
+        "new_tokens_each": SERVE_BURST_TOKENS, "wall_s": wall,
+        "tokens_per_s": tps, "p50_ttft_s": float(np.median(ttfts)),
+        "max_ttft_s": float(max(ttfts)),
+        "p50_latency_s": float(np.median(latency)),
+        "share": {t: after[t]["total_finished"] - before[t]["total_finished"]
+                  for t in after},
+        "chunk_period_s": {t: after[t]["chunk_period_s"] for t in after},
+        "in_process": {k: in_process_burst[k] for k in (
+            "tokens_per_s", "p50_ttft_s", "chunk_period_s")},
+        "single_engine": in_process_burst["single_engine"]["tokens_per_s"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, mem_up
+
+
+def check_cluster(torch, cfg, params, smi: str, want: list,
+                  in_process_burst: dict) -> dict:
+    """The cluster group: a ``Cluster`` of one node {CPU: 8, GPU: 1}, the
+    driver attached with ``init(address=cluster.gcs_address)``; then
+    cluster_task and cluster_serve on it. After ``serve.shutdown()`` and
+    ``cluster.shutdown()`` no worker process is alive, nvidia-smi lists as
+    many processes on the card as before the group (and at least
+    SERVE_REPLICAS more while the replicas were up), and the card's free
+    memory is back within SERVE_MEMORY_TOL of its value before the group:
+    the engines stop with their processes. Returns the worker's K1
+    launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    t_group = time.perf_counter()
+    free_card(torch)
+    free_before = torch.cuda.mem_get_info()[0]
+    apps_before = smi_apps()
+    cluster = Cluster()
+    pids = set()
+    ok = False
+    try:
+        node = cluster.add_node(num_cpus=8, num_gpus=1,
+                                store_capacity=CLUSTER_STORE_BYTES)
+        ray_tpu_torch.init(address=cluster.gcs_address)
+        resources = ray_tpu_torch.cluster_resources()
+        k1_launches = check_cluster_task(torch, ray_tpu_torch, smi)
+        # the task's lease returns its GPU before the replicas ask
+        deadline = time.monotonic() + 60
+        while ray_tpu_torch.available_resources().get("GPU") != 1.0:
+            if time.monotonic() > deadline:
+                raise AssertionError("the task's GPU never came back")
+            time.sleep(0.05)
+        try:
+            serve_out, mem_up = check_cluster_serve(
+                torch, ray_tpu_torch, cfg, params, smi, want,
+                in_process_burst)
+        finally:
+            with node.raylet.workers.lock:
+                pids |= {w.proc.pid for w in
+                         node.raylet.workers.workers.values() if w.proc}
+            serve.shutdown()
+        ok = True
+    finally:
+        ray_tpu_torch.shutdown()
+        cluster.shutdown()
+    free_card(torch)
+    time.sleep(1.0)   # the card's driver returns the processes' memory
+    apps = smi_apps()
+    out = {"resources": resources, "free_before": free_before,
+           "free_up": mem_up, "free_after": torch.cuda.mem_get_info()[0],
+           "worker_pids": sorted(pids),
+           "alive_after": sorted(p for p in pids if pid_alive(p)),
+           "smi_apps_before": apps_before, "smi_apps_after": apps,
+           **serve_out, "seconds": time.perf_counter() - t_group}
+    emit("cluster_serve", nvidia_smi=smi, config="llama3_8b",
+         n_layers=cfg.n_layers, replicas=SERVE_REPLICAS,
+         gpu_per_replica=1 / SERVE_REPLICAS,
+         **{k: v for k, v in out.items() if k != "seconds"},
+         group_seconds=out["seconds"])
+    reps = out["replica_processes"]
+    rep_pids = {r["pid"] for r in reps.values()}
+    if not ok or len(reps) != SERVE_REPLICAS or len(rep_pids) != \
+            SERVE_REPLICAS or os.getpid() in rep_pids:
+        raise AssertionError(f"replica processes {reps}")
+    if not all(r["checksums_equal"] and not r["jax"] and not r["ray_tpu"]
+               and not r["cloudpickle"] for r in reps.values()):
+        raise AssertionError(f"replica weights or modules: {reps}")
+    s = out["sequential"]
+    if not s["tokens_equal"] or s["control_tokens_equal"] or \
+            not out["http"]["tokens_equal"]:
+        raise AssertionError(f"tokens through Serve on the cluster: {s}, "
+                             f"http {out['http']}")
+    if sum(out["burst"]["share"].values()) != SERVE_BURST:
+        raise AssertionError(f"burst shares {out['burst']['share']}")
+    if len(out["smi_apps_up"]) < len(apps_before) + SERVE_REPLICAS:
+        raise AssertionError(f"nvidia-smi did not list the replicas: "
+                             f"{apps_before} before the group, "
+                             f"{out['smi_apps_up']} while up")
+    if out["alive_after"] or len(apps) != len(apps_before):
+        raise AssertionError(f"worker processes left: alive "
+                             f"{out['alive_after']}, on nvidia-smi {apps} "
+                             f"against {apps_before} before the group")
+    if abs(out["free_after"] - free_before) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"the card had {free_before} bytes free "
+                             f"before the group and {out['free_after']} "
+                             "after")
+    return k1_launches
 
 
 def check_examples(torch, smi: str) -> dict:
@@ -6739,8 +7278,12 @@ def build_facts(kernels_mod, name, path, kernel) -> dict:
 
 
 def main() -> int:
+    import faulthandler
+
     import torch
 
+    # a fatal signal in any thread prints every thread's stack
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -6812,9 +7355,18 @@ def main() -> int:
     free_card(torch)
     # Serve on the in-process runtime (slice 17): two replicas over the
     # same weights, counts zeroed in it
-    serve_run_counts = check_serve_run(torch, cfg, params, smi, deploy_want,
-                                       single_burst)
+    serve_run_counts, serve_run_burst = check_serve_run(
+        torch, cfg, params, smi, deploy_want, single_burst)
     free_card(torch)
+    # the cluster runtime (slice 18): K1 in a worker process, then two
+    # replicas in their own processes, each building its own weights (this
+    # process's are held for their checksums); the worker reports its
+    # launches
+    t0 = time.perf_counter()
+    cluster_counts = check_cluster(torch, cfg, params, smi, deploy_want,
+                                   serve_run_burst)
+    free_card(torch)
+    emit("cluster_phases", seconds=time.perf_counter() - t0)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
                                                          peaks)
@@ -6882,18 +7434,13 @@ def main() -> int:
     free_card(torch)
     elastic_counts = check_elastic(torch, cfg)
     emit("harness_phases", seconds=time.perf_counter() - t0)
-    # fsdp, tp and sp across processes (slice 10): four gloo ranks on this
-    # card, each phase beside its single-controller counterpart, the card
-    # freed before each
+    # fsdp, tp and sp across processes (slice 10), pp and ep across them
+    # and the elastic reform to a new world (slice 11): one spawn of four
+    # gloo ranks on this card, each phase beside its single-controller
+    # counterpart, the card freed before each
     t0 = time.perf_counter()
     free_card(torch)
-    xproc_fsdp_tp_counts = check_xproc_fsdp_tp(torch, cfg, peaks)
-    free_card(torch)
-    xproc_sp4_counts = check_xproc_sp4(torch, cfg, peaks)
-    free_card(torch)
-    # pp and ep across processes and the elastic reform to a new world
-    # (slice 11), the same way
-    slice11_counts, pp_setup = check_xproc_slice11(torch, cfg, peaks)
+    world4_counts, pp_setup = check_xproc_world4(torch, cfg, peaks)
     free_card(torch)
     # the layouts whose process boundary cuts an axis, and the ring beside
     # other places in a process (slice 16): two gloo ranks the same way
@@ -6952,13 +7499,14 @@ def main() -> int:
                    "harness_nccl_rank_3_steps": harness_nccl_counts[k],
                    "harness_gloo_dp2_rank0_6_steps": harness_gloo_counts[k],
                    "elastic_step_after_reform": elastic_counts[k],
-                   "xproc_fsdp_tp_rank0_step": xproc_fsdp_tp_counts[k],
-                   "xproc_sp4_rank3_step": xproc_sp4_counts[k],
-                   "xproc_pp_rank0_step": slice11_counts["xproc_pp"][k],
-                   "xproc_ep_rank0_forward_depth8":
-                       slice11_counts["xproc_ep"][k],
+                   "xproc_fsdp_tp_rank0_step":
+                       world4_counts["xproc_fsdp_tp"][k],
+                   "xproc_sp4_rank3_step": world4_counts["xproc_sp4"][k],
+                   "xproc_pp_rank0_step": world4_counts["xproc_pp"][k],
+                   "xproc_ep_rank0_forward":
+                       world4_counts["xproc_ep"][k],
                    "xproc_elastic_rank0_step_after_reform":
-                       slice11_counts["xproc_elastic"][k],
+                       world4_counts["xproc_elastic"][k],
                    **{f"{phase}_rank1_step": cut_counts[phase][k]
                       for phase in XPROC_CUT_TRAIN},
                    "xproc_ep4_w2_rank0_forward":
@@ -6966,6 +7514,7 @@ def main() -> int:
                    "tune_pbt": tune_counts[k],
                    "llm_deployment": deploy_counts[k],
                    "serve_run": serve_run_counts[k],
+                   "cluster_task_worker": cluster_counts[k],
                    "examples_train_llama": example_counts["train_llama"][k],
                    "examples_llm_serving": example_counts["llm_serving"][k],
                    "examples_rllib_quickstart":

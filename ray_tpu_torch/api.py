@@ -13,9 +13,12 @@ Port of ``ray_tpu/api.py`` on the in-process runtime (reference:
   task body runs.
 
 The card is the ``GPU`` resource (JAX's ``TPU``), asked for with
-``num_gpus=`` (JAX's ``num_tpus=``). Waiting for later slices:
-``init(address=...)`` (the cluster runtime), ``runtime_env`` (worker
-processes per environment), ``timeline`` (the observability planes) and
+``num_gpus=`` (JAX's ``num_tpus=``). ``init()`` starts the in-process
+runtime; ``init(address=...)`` connects to a running cluster of the port's
+own GCS and raylets (``cluster_utils.Cluster``), whose tasks and actors run
+in worker processes. Waiting for later slices: the Ray client
+(``ray_tpu://`` addresses, ``client/``), ``runtime_env`` (worker processes
+per environment), ``timeline`` (the observability planes) and
 ``RemoteFunction.bind`` (``dag/``).
 """
 
@@ -50,18 +53,35 @@ def init(
     ignore_reinit_error: bool = True,
     namespace: str | None = None,
 ):
-    """Start the in-process runtime (reference: ``ray.init``,
-    ``worker.py:1139``). The CUDA cards torch sees are registered as a
-    ``GPU`` resource unless ``num_gpus`` says otherwise."""
+    """Start the runtime (reference: ``ray.init``, ``worker.py:1139``).
+
+    In-process by default: the CUDA cards torch sees are registered as a
+    ``GPU`` resource unless ``num_gpus`` says otherwise. Pass
+    ``address=(host, port)`` (a GCS address, e.g.
+    ``cluster_utils.Cluster().gcs_address``) or ``"host:port"`` to connect
+    to a running cluster instead."""
     if _core.is_initialized():
         if ignore_reinit_error:
             return _core.get_runtime()
         raise RuntimeError("ray_tpu_torch.init() called twice")
     if address is not None:
-        raise NotImplementedError(
-            "init(address=...) connects to a running cluster; the port's "
-            "cluster runtime (GCS, raylet, worker pool, object manager) "
-            "is a later slice. Call init() for the in-process runtime.")
+        if isinstance(address, str) and address.startswith("ray_tpu://"):
+            raise NotImplementedError(
+                f"init(address={address!r}): the Ray client (client/) is "
+                "a later slice of the port; pass a GCS address "
+                "'host:port' to connect as a driver")
+        if isinstance(address, str):
+            host, sep, port = address.rpartition(":")
+            if not sep or not port.isdigit():
+                raise ValueError(
+                    f"address must be 'host:port' or a (host, port) tuple, "
+                    f"got {address!r}")
+            address = (host or "127.0.0.1", int(port))
+        from ray_tpu_torch.runtime.driver import ClusterRuntime
+
+        rt = ClusterRuntime(address, namespace=namespace)
+        _core.install_runtime(rt)
+        return rt
     reset_config()
     config = get_config().apply_overrides(system_config)
     res = dict(resources or {})
@@ -94,7 +114,22 @@ def is_initialized() -> bool:
 
 def _runtime() -> _core.Runtime:
     if not _core.is_initialized():
-        init()
+        import os
+
+        gcs_host = os.environ.get("RAY_TPU_TORCH_GCS_HOST")
+        if gcs_host:
+            # inside a cluster worker: connect to this node's raylet
+            # (nested task/actor submission from tasks)
+            from ray_tpu_torch.runtime.driver import ClusterRuntime
+
+            rt = ClusterRuntime(
+                (gcs_host, int(os.environ["RAY_TPU_TORCH_GCS_PORT"])),
+                raylet_address=(
+                    os.environ["RAY_TPU_TORCH_RAYLET_HOST"],
+                    int(os.environ["RAY_TPU_TORCH_RAYLET_PORT"])))
+            _core.install_runtime(rt)
+        else:
+            init()
     return _core.get_runtime()
 
 
@@ -390,8 +425,10 @@ def get_actor(name: str, namespace: str | None = None) -> ActorHandle:
 # ---------------------------------------------------------------------------
 
 # ``lifetime``: owner-scoped actor lifetime (reference: actor.py:524 +
-# gcs_actor_manager.cc:632). In the in-process runtime the owner is this
-# process, so every actor dies with it either way.
+# gcs_actor_manager.cc:632). On a cluster an actor dies when its owning
+# client disconnects or misses heartbeats, and ``lifetime="detached"`` opts
+# it out; in the in-process runtime the owner is this process, so every
+# actor dies with it either way.
 _ACTOR_OPTION_KEYS = {
     "name", "namespace", "max_concurrency", "max_restarts", "num_cpus",
     "num_gpus", "memory", "resources", "lifetime", "runtime_env",
@@ -405,12 +442,13 @@ _TASK_OPTION_KEYS = {
 def _refuse_runtime_env(env):
     """Runtime environments (pip, conda, containers, env vars, working
     dirs) need worker processes per environment: any non-empty one
-    raises until the cluster runtime is ported."""
+    raises until a later slice ports them (``runtime_env.py`` has only
+    the worker-cache key of the empty environment)."""
     if env:
         raise NotImplementedError(
-            f"runtime_env={env!r}: runtime environments need the cluster "
-            "runtime's worker processes, a later slice of the port; the "
-            "in-process runtime runs every task in this process as it is")
+            f"runtime_env={env!r}: runtime environments are a later slice "
+            "of the port; tasks and actors run in the empty environment, "
+            "in this process or in the cluster's worker processes")
 
 
 def remote(*args, **kwargs):

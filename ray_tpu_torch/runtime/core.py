@@ -11,10 +11,11 @@ their coroutines on one shared event loop, and failures flow through retry
 bookkeeping (reference ``TaskManager::RetryTaskIfPossible``,
 ``task_manager.h:369``).
 
-Everything runs in this process, on threads. Not ported here: runtime
-environments (``api`` refuses them), the task timeline and counters and the
-trace spans (the observability planes), and the cluster backend that swaps
-the executors for worker processes; each waits for its slice.
+Everything runs in this process, on threads. The cluster backend, which
+runs tasks and actors in worker processes, is ``runtime/driver.py``'s
+``ClusterRuntime`` (``init(address=...)``). Not ported here: runtime
+environments (``api`` refuses them), and the task timeline and counters and
+the trace spans (the observability planes); each waits for its slice.
 """
 
 from __future__ import annotations
@@ -866,6 +867,16 @@ def init_runtime(config: Config | None = None,
             _runtime = Runtime(config=config, resources=resources,
                                namespace=namespace)
         return _runtime
+
+
+def install_runtime(runtime) -> None:
+    """Install an externally constructed runtime (cluster mode: the
+    ``driver.ClusterRuntime`` duck-types ``Runtime``)."""
+    global _runtime
+    with _runtime_lock:
+        if _runtime is not None:
+            raise RuntimeError("a runtime is already initialized")
+        _runtime = runtime
 
 
 def shutdown_runtime():

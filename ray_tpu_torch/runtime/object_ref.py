@@ -54,6 +54,10 @@ class ObjectRef:
     def __reduce__(self):
         if not self._tracked:
             return (_untracked_ref, (self._id, self._owner_hint))
+        # a ref pickled inside a put value or a task arg escapes this
+        # process: the active capture scope (refcount.RefCounter.capture)
+        # records it for contains-edge and task-pin reporting
+        _refs.note_serialized(self._hex)
         return (ObjectRef, (self._id, self._owner_hint))
 
     # Convenience: ref.get() / await-ability via the runtime.

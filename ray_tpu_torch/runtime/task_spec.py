@@ -51,11 +51,13 @@ class ResourceSet:
 @dataclass
 class SchedulingStrategy:
     """Placement policy for one task (reference:
-    ``util/scheduling_strategies.py``): DEFAULT (hybrid) or SPREAD. The
-    in-process runtime has one node, so both place alike; node affinity
-    and placement-group bundles wait for the cluster runtime."""
+    ``util/scheduling_strategies.py``): DEFAULT (hybrid), SPREAD, or node
+    affinity. The in-process runtime has one node, so all place alike;
+    the cluster runtime routes NODE_AFFINITY to ``node_id``'s raylet.
+    Placement-group bundles wait for ``util/placement_group``'s slice."""
 
-    kind: str = "DEFAULT"  # DEFAULT | SPREAD
+    kind: str = "DEFAULT"  # DEFAULT | SPREAD | NODE_AFFINITY
+    node_id: Any = None
 
 
 @dataclass

@@ -1,6 +1,9 @@
 """Serve public API: @deployment / run / batch / HTTP proxy.
 
-Port of ``ray_tpu/serve/api.py`` on the port's in-process runtime.
+Port of ``ray_tpu/serve/api.py`` on the port's runtimes: in-process, or a
+cluster (``init(address=...)``), where the controller is a detached actor
+and each replica an actor in its own worker process, while handles and the
+HTTP proxy stay in the driver.
 Reference analog: ``serve/api.py`` (``@serve.deployment:256``,
 ``serve.run:463``), ``serve/batching.py`` (``@serve.batch:65`` dynamic
 batching), and the per-node HTTP proxy (``_private/proxy.py:759`` — here a
@@ -9,8 +12,9 @@ keeping the data path dependency-free).
 
 The deployment body reaches the controller and its replicas as stdlib
 ``pickle`` bytes (``dump_body``), where the JAX package uses cloudpickle:
-the replicas live in this process, so pickle carries a class or function
-by its qualified name (``__main__`` included). A class that
+pickle carries a class or function by its qualified name, and one of the
+driver's ``__main__`` by its file path (``runtime/serialization.py``),
+which a worker process imports as ``__mp_main__``. A class that
 ``@serve.deployment`` replaced by its ``Deployment`` in its module is
 carried by the name it was bound under. A body that pickle cannot carry (a
 class or closure defined inside a function) raises with that message. The
@@ -29,6 +33,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ray_tpu_torch import api
+from ray_tpu_torch.runtime import serialization
 from ray_tpu_torch.serve.config import AutoscalingConfig, DeploymentConfig
 from ray_tpu_torch.serve.controller import ServeController
 from ray_tpu_torch.serve.handle import DeploymentHandle
@@ -52,12 +57,15 @@ def _get_or_start_controller():
         return api.get_actor(CONTROLLER_NAME)
 
 
-def _bound_body(module: str, qualname: str):
-    """The class a module bound under ``qualname`` as a ``Deployment``."""
-    return _lookup(importlib.import_module(module), qualname)._cls
+def _bound_body(module: str, qualname: str, main_path: str | None = None):
+    """The class a module bound under ``qualname`` as a ``Deployment``
+    (``main_path``: the module is the driver's main file)."""
+    mod = (serialization.import_main(main_path) if main_path
+           else importlib.import_module(module))
+    return _lookup(mod, qualname)._cls
 
 
-class _BodyPickler(pickle.Pickler):
+class _BodyPickler(serialization.Pickler):
     def reducer_override(self, obj):
         # a class or function whose module name now holds its Deployment
         # (``@serve.deployment`` at module level) goes by that name
@@ -67,10 +75,11 @@ class _BodyPickler(pickle.Pickler):
             try:
                 bound = _lookup(importlib.import_module(mod), qualname)
             except (ImportError, AttributeError):
-                return NotImplemented
+                bound = None
             if isinstance(bound, Deployment) and bound._cls is obj:
-                return _bound_body, (mod, qualname)
-        return NotImplemented
+                return _bound_body, (mod, qualname,
+                                     serialization.main_module_path(mod))
+        return super().reducer_override(obj)
 
 
 def _lookup(module, qualname: str):

@@ -1,7 +1,8 @@
 """The flags the port's runtime, Serve and engines read.
 
 A copy of the parts of ``ray_tpu/utils/config.py`` that the in-process
-runtime, the Serve plane and the serve engines read, with the same names,
+runtime, the cluster runtime (GCS, raylets, workers, the object store),
+the Serve plane and the serve engines read, with the same names,
 defaults and environment overrides (``RAY_TPU_<NAME>``), and the same
 process-wide instance: ``init(system_config=...)`` resets it and applies
 the overrides (``reset_config``, ``Config.apply_overrides``).
@@ -36,6 +37,120 @@ class Config:
     ref_counting_enabled: bool = True
     # Threads of the task pool (0 = the CPU resource).
     num_workers: int = 0
+
+    # --- cluster runtime: object store ---
+    # Objects smaller than this stay in the owner's in-process memory store.
+    max_direct_call_object_size: int = 100 * 1024
+    # Enable automatic spilling to disk under memory pressure.
+    object_spilling_enabled: bool = True
+    # Spill loop thresholds: start spilling above `high`, stop below `low`
+    # (fractions of store capacity).
+    object_spilling_high_fraction: float = 0.8
+    object_spilling_low_fraction: float = 0.5
+    # Directory for spilled object files ("" = a per-raylet temp dir).
+    object_spilling_directory: str = ""
+    # Node-to-node transfer chunk size, and the cap on bytes in flight
+    # across all pulls as a fraction of the destination store's capacity.
+    object_transfer_chunk_bytes: int = 5 << 20
+    object_transfer_inflight_fraction: float = 0.25
+    # Max ids per C call into the shm store (bounds the process-shared
+    # mutex hold; ShmObjectStore.BATCH_WINDOW).
+    store_batch_window: int = 4096
+
+    # --- cluster runtime: memory monitor ---
+    # Host memory-used fraction above which the raylet kills a worker to
+    # relieve pressure. <= 0 disables.
+    memory_usage_threshold: float = 0.95
+    memory_monitor_refresh_ms: int = 250
+    # OOM kills draw from their own per-task budget.
+    task_oom_retries: int = 3
+
+    # --- cluster runtime: reference counting across processes ---
+    # How often each process flushes its ref-count deltas.
+    ref_flush_interval_s: float = 0.1
+    # A client missing heartbeats this long is dead: its ref contributions
+    # are dropped and its non-detached actors killed.
+    client_timeout_s: float = 45.0
+    # Grace before contains-edge releases propagate to inner objects.
+    ref_release_grace_s: float = 0.5
+    # Client-liveness heartbeat period (empty ref_update when idle).
+    ref_heartbeat_interval_s: float = 5.0
+
+    # --- cluster runtime: resource sync ---
+    raylet_heartbeat_interval_s: float = 0.5
+    # Debounce for event-driven resource pushes.
+    resource_sync_push_delay_s: float = 0.01
+    # Ready-queue depth beyond which a submitted task spills back through
+    # the GCS view.
+    scheduler_spillback_queue_depth: int = 32
+
+    # --- cluster runtime: submission pipeline ---
+    # Hard and soft caps on cached per-address actor-call clients.
+    actor_client_cache_size: int = 8192
+    actor_client_soft_cap: int = 256
+    # Max unacked actor tasks per actor (outbox + frames in flight).
+    actor_submit_window: int = 4096
+    # Tasks packed per lease push RPC, in-flight push groups per lease,
+    # and concurrent leases per resource shape.
+    lease_group_size: int = 64
+    lease_pipeline_depth: int = 2
+    max_leases_per_shape: int = 64
+    # Pickle-once function-export cache (driver), unpickle-once function
+    # cache (worker).
+    fn_export_cache_size: int = 512
+    worker_fn_cache_size: int = 256
+    # Linger before flushing a burst of put-pin / task-return reports.
+    put_report_linger_s: float = 0.0005
+    # Task events per GCS flush, and the staleness-bounding timer.
+    task_event_batch_size: int = 128
+    task_event_flush_interval_s: float = 2.0
+
+    # --- cluster runtime: workers ---
+    # How long a spawned worker may take to register before its actor
+    # creation is failed.
+    worker_register_timeout_s: float = 600.0
+    # A granted lease whose owner never dials the worker's push port is
+    # handed back after this long.
+    lease_never_dialed_timeout_s: float = 10.0
+    # Server-side parking window for a lease request.
+    lease_block_s: float = 5.0
+
+    # --- cluster runtime: fault tolerance ---
+    # Min seconds between lineage re-submissions of the same lost object.
+    lineage_resubmit_grace_s: float = 60.0
+    # Max lineage entries the owner keeps for reconstruction.
+    lineage_max_entries: int = 100_000
+    # Raylet-queue tasks with no location after this grace are presumed
+    # lost in flight and resubmitted from lineage.
+    task_pending_resubmit_grace_s: float = 20.0
+    # Control-plane redial window, attempt cap (0 = window only), and the
+    # exponential backoff with jitter between redials.
+    rpc_redial_window_s: float = 10.0
+    rpc_redial_max_attempts: int = 0
+    rpc_backoff_initial_s: float = 0.05
+    rpc_backoff_multiplier: float = 2.0
+    rpc_backoff_max_s: float = 2.0
+    rpc_backoff_jitter: float = 0.2
+
+    # --- cluster runtime: actor control plane ---
+    # Driver-side registration coalescer: linger, actors per frame, and
+    # unacked registrations before create_actor blocks.
+    actor_register_linger_s: float = 0.002
+    actor_register_batch_size: int = 512
+    actor_register_window: int = 8192
+    # GCS placement executor threads, and placements per host_actors RPC.
+    gcs_placement_pool_size: int = 8
+    gcs_placement_batch_size: int = 256
+    # Driver resolves actor locations from the GCS's pushed actor table.
+    actor_pubsub_enabled: bool = True
+    # GCS-side per-subscriber coalesce window for actor events.
+    actor_pubsub_flush_s: float = 0.002
+    # Wait on the pushed table before one get_actor poll, and the hard
+    # deadline on resolving an actor's location.
+    actor_resolve_fallback_s: float = 1.0
+    actor_resolve_timeout_s: float = 60.0
+    # Raylet-side linger coalescing actor_ready messages into one batch.
+    actor_ready_linger_s: float = 0.002
 
     # --- serve engines ---
     # Steady-state decode steps per dispatched chunk: large chunks cut

@@ -72,8 +72,9 @@ class ActorUnavailableError(ActorError):
 
 class NodeDiedError(RayTpuError):
     """The node hosting the work died (raylet process gone / heartbeat
-    lost). Carries the node id and how many times the cluster supervisor
-    has respawned raylets so far — a crashed peer must surface as this,
+    lost). Carries the node id and how many times its raylet was
+    respawned (the JAX package's supervisor; none here, so 0) — a crashed
+    peer must surface as this,
     never as a bare redial-deadline ``TimeoutError`` (reference:
     ``NodeDiedError`` / ``RayletDiedError``)."""
 

@@ -288,11 +288,28 @@ def test_gpu_resource_and_its_count():
 
 
 def test_runtime_env_and_address_raise():
+    """``runtime_env`` raises; ``address=`` connects to a port cluster
+    (its tasks run in a worker process), and a Ray-client address
+    raises."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
     ray_tpu_torch.shutdown()
+    cluster = Cluster()
     try:
-        with pytest.raises(NotImplementedError, match="cluster runtime"):
-            ray_tpu_torch.init(address="127.0.0.1:6379")
+        cluster.add_node(num_cpus=1)
+        host, port = cluster.gcs_address
+        ray_tpu_torch.init(address=f"{host}:{port}")
+        assert ray_tpu_torch.cluster_resources()["CPU"] == 1.0
+        assert ray_tpu_torch.get(
+            ray_tpu_torch.remote(_add).remote(1)) == 11
+        ray_tpu_torch.shutdown()
+        with pytest.raises(NotImplementedError, match="client"):
+            ray_tpu_torch.init(address="ray_tpu://127.0.0.1:10001")
         assert not ray_tpu_torch.is_initialized()
+    finally:
+        ray_tpu_torch.shutdown()
+        cluster.shutdown()
+    try:
         ray_tpu_torch.init(num_cpus=2, num_gpus=0)
         with pytest.raises(NotImplementedError, match="runtime_env"):
             ray_tpu_torch.remote(runtime_env={"env_vars": {"A": "1"}})(_add)

@@ -382,3 +382,79 @@ def test_core_api_and_serve_export_the_jax_packages_names():
     assert {"run", "deployment", "start_http_proxy", "batch"} <= want
     assert set(port_serve.__all__) == want
     assert all(hasattr(port_serve, n) for n in want)
+
+
+CLUSTER_PROBE = r"""
+import json, os, sys
+
+
+def loaded(name):
+    return sorted(m for m in sys.modules
+                  if m == name or m.startswith(name + "."))
+
+
+def report():
+    import torch
+
+    return {"jax": loaded("jax"), "ray_tpu": loaded("ray_tpu"),
+            "cloudpickle": loaded("cloudpickle"), "grpc": loaded("grpc"),
+            "yaml": loaded("yaml"),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "pid": os.getpid()}
+
+
+if __name__ == "__main__":
+    import ray_tpu_torch.cluster_utils
+    import ray_tpu_torch.runtime.driver
+    import ray_tpu_torch.runtime.gcs
+    import ray_tpu_torch.runtime.raylet
+    import ray_tpu_torch.runtime.worker_main
+    from ray_tpu_torch._private import build, scheduling, shm_store
+
+    built = sorted(os.listdir(build.BUILD_DIR)) \
+        if build.BUILD_DIR.exists() else []
+    imported = {**report(), "store_loaded": shm_store._lib is not None,
+                "scheduling_loaded": scheduling._lib is not None,
+                "built_after_import": built == sys.argv[1:]}
+    import ray_tpu_torch
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    c = Cluster()
+    c.add_node(num_cpus=1)
+    ray_tpu_torch.init(address=c.gcs_address)
+    try:
+        worker = ray_tpu_torch.get(ray_tpu_torch.remote(report).remote())
+    finally:
+        ray_tpu_torch.shutdown()
+        c.shutdown()
+    print(json.dumps({"import": imported, "worker": worker,
+                      "driver_pid": os.getpid()}))
+"""
+
+
+def test_cluster_modules_and_a_worker_load_no_jax_cloudpickle_or_cuda(
+        tmp_path):
+    """Importing ``cluster_utils`` and the cluster runtime's modules loads
+    no jax, no ray_tpu module, no cloudpickle, grpc or yaml and no CUDA,
+    and builds or loads no library; a task in a port worker process
+    reports the same of its own modules."""
+    from ray_tpu_torch._private import build
+
+    script = tmp_path / "cluster_probe.py"
+    script.write_text(CLUSTER_PROBE)
+    before = sorted(os.listdir(build.BUILD_DIR)) \
+        if build.BUILD_DIR.exists() else []
+    proc = subprocess.run([sys.executable, str(script), *before],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    clean = {"jax": [], "ray_tpu": [], "cloudpickle": [], "grpc": [],
+             "yaml": [], "cuda_initialized": False}
+    imported = out["import"]
+    assert {k: imported[k] for k in clean} == clean
+    assert not imported["store_loaded"] and not imported["scheduling_loaded"]
+    assert imported["built_after_import"]
+    worker = out["worker"]
+    assert {k: worker[k] for k in clean} == clean
+    assert worker["pid"] != out["driver_pid"]
