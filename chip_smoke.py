@@ -89,7 +89,16 @@ card's memory back after the phase; then the cluster runtime, a
 weights from the seed (checksums against this process's), the ten
 prompts bit for bit through the handle and over HTTP, the burst across
 the two processes, and after shutdown no worker left and the card's free
-memory back; and the quickstarts. Every
+memory back; then the CLI's cluster: a node started by ``python -m
+ray_tpu_torch.scripts.cli start --head --num-gpus 1`` (its ``status`` and
+``list nodes`` read), K1 in a worker forked from the node's prestart
+template (the template holding no torch, no CUDA and no libcuda; the
+output bit for bit this process's), a JSON config deployed by the CLI's
+``serve-deploy`` (Llama-3-8B at full depth behind a bare ASGI app
+mounted by ``serve.ingress``) answering prompts over HTTP bit for bit,
+a fault-injected crash of its replica answered with the typed error and
+the replica replaced from a fork, then no worker or template left and
+the card's free memory back; and the quickstarts. Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -104,8 +113,10 @@ import gc
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -6856,6 +6867,10 @@ def __getattr__(name):
     if name == "ClusterLLM":
         globals()[name] = cls = _cluster_llm_class()
         return cls
+    if name == "CliLLMHttp":
+        # the bound deployment that cli_serve's config names
+        globals()[name] = dep = _cli_llm_http()
+        return dep
     raise AttributeError(name)
 
 
@@ -6869,6 +6884,16 @@ def smi_apps() -> list:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout
     return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def zombie(pid: int) -> bool:
+    """Whether process ``pid`` exited and waits for its parent to reap
+    it."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rpartition(")")[2].split()[0] == "Z"
+    except OSError:
+        return False
 
 
 def pid_alive(pid: int) -> bool:
@@ -6949,7 +6974,7 @@ def check_cluster_task(torch, ray_tpu_torch, smi: str) -> dict:
             not t["device"].startswith("cuda") or \
             not t["worker_device"].startswith("cuda"):
         raise AssertionError(f"the 1 GiB tensor's trip: {t}")
-    return w["launches"]
+    return w["launches"], out["task_s"]
 
 
 def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
@@ -7098,7 +7123,8 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
     SERVE_REPLICAS more while the replicas were up), and the card's free
     memory is back within SERVE_MEMORY_TOL of its value before the group:
     the engines stop with their processes. Returns the worker's K1
-    launches."""
+    launches and cluster_task's seconds from submission to result (a
+    worker's cold start in them)."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.cluster_utils import Cluster
@@ -7115,7 +7141,8 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
                                 store_capacity=CLUSTER_STORE_BYTES)
         ray_tpu_torch.init(address=cluster.gcs_address)
         resources = ray_tpu_torch.cluster_resources()
-        k1_launches = check_cluster_task(torch, ray_tpu_torch, smi)
+        k1_launches, cold_task_s = check_cluster_task(torch, ray_tpu_torch,
+                                                      smi)
         # the task's lease returns its GPU before the replicas ask
         deadline = time.monotonic() + 60
         while ray_tpu_torch.available_resources().get("GPU") != 1.0:
@@ -7176,7 +7203,468 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
         raise AssertionError(f"the card had {free_before} bytes free "
                              f"before the group and {out['free_after']} "
                              "after")
-    return k1_launches
+    return k1_launches, cold_task_s
+
+
+# ---------------------------------------------------------------------------
+# the CLI's cluster (slice 19): a node started by the port's CLI, K1 in a
+# worker forked from the prestart template, a JSON config deployed by the
+# CLI behind a bare ASGI ingress, and a fault-injected replica crash
+# ---------------------------------------------------------------------------
+
+# prompts over HTTP, each against check_llm_deployment's reference tokens
+CLI_PROMPTS = 3
+# cli_serve's engine, as cluster_serve's
+CLI_SERVE_KW = {"max_batch": 8, "max_len": 2048, "page_size": 128,
+                "decode_chunk": DEPLOY_NEW_TOKENS, "device": "cuda:0"}
+# the deployment that cli_serve's JSON config names
+CLI_TARGET = "chip_smoke:CliLLMHttp"
+# the replica that the ASGI app in its process answers for
+_CLI_REPLICA: list = []
+
+
+def cli_prestart_task() -> dict:
+    """prestart_task's task, run in a worker forked from the template: K1
+    on cluster_task's seeded inputs, its output as a CUDA tensor, the
+    process's report, its K1 launches and the template it came from."""
+    import torch
+
+    from ray_tpu_torch.ops.flash_attention import flash_fwd
+    from ray_tpu_torch.runtime import prestart
+
+    zero_counts()
+    q, k, v = cluster_k1_inputs(torch)
+    out, _ = flash_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    return {"out": out, "launches": launch_counts(), **process_report(),
+            "forked_from": (prestart.CHILD_INFO or {}).get("template_pid")}
+
+
+async def cli_llm_app(scope, receive, send):
+    """cli_serve's bare ASGI app (no framework), mounted by
+    ``serve.ingress`` on the LLM deployment: ``POST /generate`` with a JSON
+    body ``{"prompt": [...], "max_new_tokens": n}`` answers ``{"tokens":
+    [...]}`` (greedy, from the replica's engine, off the app's loop);
+    ``GET /info`` answers the replica's process report and the template
+    it was forked from."""
+    import asyncio
+    import functools
+
+    if scope["type"] == "lifespan":
+        msg = await receive()
+        if msg["type"] == "lifespan.startup":
+            await send({"type": "lifespan.startup.complete"})
+        return
+    msg = await receive()
+    if scope["path"] == "/info":
+        from ray_tpu_torch.runtime import prestart
+
+        payload = {**process_report(), "forked_from": (
+            prestart.CHILD_INFO or {}).get("template_pid")}
+    else:
+        req = json.loads(msg.get("body") or b"{}")
+        prompt = [int(t) for t in req["prompt"]]
+        tokens = await asyncio.get_running_loop().run_in_executor(
+            None, functools.partial(_CLI_REPLICA[0].generate, prompt,
+                                    int(req["max_new_tokens"])))
+        payload = {"tokens": tokens}
+    await send({"type": "http.response.start", "status": 200,
+                "headers": [(b"content-type", b"application/json")]})
+    await send({"type": "http.response.body",
+                "body": json.dumps(payload).encode()})
+
+
+def _cli_llm_http():
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import LLMDeployment
+
+    class CliLLMHttp(LLMDeployment):
+        """``LLMDeployment`` that ``cli_llm_app`` answers for."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            _CLI_REPLICA[:] = [self]
+
+        def generate(self, prompt, max_new_tokens: int) -> list:
+            return LLMDeployment.__call__(self, prompt,
+                                          max_new_tokens=max_new_tokens)
+
+    CliLLMHttp.__module__ = __name__
+    CliLLMHttp.__qualname__ = "CliLLMHttp"
+    body = serve.ingress(cli_llm_app)(CliLLMHttp)
+    return serve.deployment(body, name="LlamaHttp").bind(
+        cluster_serve_model, **CLI_SERVE_KW)
+
+
+def worker_processes() -> dict:
+    """pid -> command line of every live (not zombie) process of the
+    port's workers: cold-started workers, prestart templates and the
+    workers forked from them (which keep their template's command
+    line)."""
+    out = {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().split(b"\0")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rpartition(")")[2].split()[0]
+        except OSError:
+            continue
+        if b"ray_tpu_torch.runtime.worker_main" in cmd and state != "Z":
+            out[int(pid)] = b" ".join(cmd).decode(errors="replace").strip()
+    return out
+
+
+def maps_report(pid: int) -> dict:
+    """Whether process ``pid`` maps the CUDA driver (``libcuda.so``, not
+    the runtime ``libcudart``) and torch's library, from its
+    ``/proc/<pid>/maps``."""
+    with open(f"/proc/{pid}/maps") as f:
+        libs = {ln.split()[-1].rsplit("/", 1)[-1] for ln in f
+                if ".so" in ln}
+    return {"libcuda_mapped": any(n.startswith("libcuda.so") for n in libs),
+            "libtorch_mapped": any(n.startswith("libtorch") for n in libs)}
+
+
+def http_json(url: str, body: dict | None = None, timeout: float = 600):
+    """(status, JSON body) of a GET, or of a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.load(resp)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def cli_env(**extra) -> dict:
+    """This process's environment with this file's directory first on
+    ``PYTHONPATH``: the CLI's processes import the port, and this file by
+    the name ``chip_smoke``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(
+        p for p in (here, os.environ.get("PYTHONPATH")) if p)
+    return dict(os.environ, PYTHONPATH=path, **extra)
+
+
+def cli(*args, timeout: float = 300) -> str:
+    """``python -m ray_tpu_torch.scripts.cli ...`` from this file's
+    directory; its standard output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args],
+        cwd=here, env=cli_env(), capture_output=True, text=True,
+        timeout=timeout)
+    if out.returncode != 0:
+        raise AssertionError(f"cli {args[0]} exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    return out.stdout
+
+
+def check_cli_prestart(torch, ray_tpu_torch, raylet, cold_task_s) -> dict:
+    """prestart_task: the node's template warmed over the raylet's
+    ``prestart_warm``, its own report and its ``/proc/<pid>/maps`` (no
+    torch, no CUDA, no libcuda), then a ``num_gpus=1`` task in a worker
+    forked from it: K1 on cluster_task's inputs bit for bit this process's
+    K1 (control: non-causal), within K1's tolerance of the plain version,
+    one launch, and the pool's snapshot counting the fork."""
+    from ray_tpu_torch.ops.flash_attention import flash_fwd, flash_fwd_plain
+
+    t0 = time.perf_counter()
+    warm = raylet.call("prestart_warm", timeout_s=60.0, timeout=90)
+    warm_s = time.perf_counter() - t0
+    status = raylet.call("prestart_status", timeout=30).get("default", {})
+    template = {"pid": warm["pid"], "ready": warm["ready"],
+                "warm_s": warm_s,
+                "torch_imported": status.get("torch_imported"),
+                "torch_cuda_initialized": status.get("cuda_initialized"),
+                "threads": status.get("threads"),
+                **maps_report(warm["pid"])}
+    print(f"prestart template pid {template['pid']}: "
+          f"torch.cuda.is_initialized() "
+          f"{template['torch_cuda_initialized']}, libcuda mapped "
+          f"{template['libcuda_mapped']} (/proc/{template['pid']}/maps)",
+          flush=True)
+    before = raylet.call("node_info", timeout=30)["prestart"]
+    k1 = ray_tpu_torch.remote(num_gpus=1)(cli_prestart_task)
+    t0 = time.perf_counter()
+    rep = ray_tpu_torch.get(k1.remote(), timeout=300)
+    task_s = time.perf_counter() - t0
+    after = raylet.call("node_info", timeout=30)["prestart"]
+    q, k, v = cluster_k1_inputs(torch)
+    want, _ = flash_fwd(q, k, v, causal=True)
+    control, _ = flash_fwd(q, k, v, causal=False)
+    plain, _ = flash_fwd_plain(q, k, v, scale=q.shape[-1] ** -0.5,
+                               causal=True, with_lse=True)
+    torch.cuda.synchronize()
+    got = rep.pop("out")
+    out = {"template": template, "task_s": task_s,
+           "cold_task_s": cold_task_s, "worker": rep,
+           "forked": after["forked"] - before["forked"],
+           "cold_fallback": after["cold_fallback"] - before["cold_fallback"],
+           "bits_equal": bool(torch.equal(got, want)),
+           "control_bits_equal": bool(torch.equal(got, control)),
+           # against the plain version, with check_flash's bf16 tolerances
+           "max_abs_err": float((got.float() - plain.float()).abs().max()),
+           "row_rel_err": row_rel_err(got, plain),
+           "tol": {"max_abs_err": 8e-3, "row_rel_err": 1e-2}}
+    del q, k, v, want, control, plain, got
+    return out
+
+
+def check_cli_cluster(torch, cfg, smi: str, want: list,
+                      cold_task_s: float) -> dict:
+    """The CLI's cluster: ``python -m ray_tpu_torch.scripts.cli start
+    --head --num-gpus 1`` as a subprocess (the fault plane enabled for its
+    processes), this process attached by ``init(address=)`` and the CLI's
+    ``status`` and ``list nodes`` read; prestart_task; cli_serve:
+    ``serve-deploy`` of a JSON config naming ``CliLLMHttp`` (Llama-3-8B at
+    full width and depth behind ``cli_llm_app``, one replica,
+    ``resources_per_replica {"GPU": 1}``), ``serve-status``, and
+    CLI_PROMPTS prompts as HTTP POSTs through the proxy bit for bit
+    ``check_llm_deployment``'s tokens (control: one token changed);
+    fault_replica: a plan that crashes the replica at
+    ``replica.mid_request`` (nth 1, max 1), the POST that hits it answered
+    with the typed error, the controller's health probe replacing the
+    replica (its process forked from the template), the replacement's
+    tokens bit for bit. After ``serve.shutdown()`` and the node's stop no
+    worker or template process is alive and the card's free memory is
+    back within SERVE_MEMORY_TOL. Returns the forked worker's K1
+    launches."""
+    import socket
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.runtime import fault_injection as fi
+    from ray_tpu_torch.runtime.rpc import RpcClient
+
+    t_group = time.perf_counter()
+    free_card(torch)
+    free_before = torch.cuda.mem_get_info()[0]
+    procs_before = worker_processes()
+    # why the template imports no torch: on a host with a card, a fresh
+    # interpreter that only imports torch maps the driver's libcuda
+    probe = subprocess.Popen(
+        [sys.executable, "-c", "import torch\n"
+         "from ray_tpu_torch.runtime.prestart import cuda_in_process\n"
+         "print(cuda_in_process())"], env=cli_env(),
+        stdout=subprocess.PIPE, text=True)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    address = f"127.0.0.1:{port}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the node's processes (raylet, workers, templates, forked workers)
+    # watch the plan key; this process's plane stays off
+    node_env = cli_env(RAY_TPU_FAULT_INJECTION_ENABLED="1")
+    t0 = time.perf_counter()
+    node = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "start",
+         "--head", "--port", str(port), "--num-cpus", "8",
+         "--num-gpus", "1"], cwd=here, env=node_env,
+        stdout=subprocess.PIPE, text=True)
+    out = {"start_lines": [node.stdout.readline().strip()
+                           for _ in range(3)]}
+    out["start_s"] = time.perf_counter() - t0
+    out["import_torch_alone"] = probe.communicate(timeout=120)[0].strip()
+    ok = False
+    raylet = None
+    cfg_dir = tempfile.mkdtemp(prefix="cli_serve_")
+    try:
+        if not out["start_lines"][-1].startswith("connect with"):
+            raise AssertionError(f"cli start: {out['start_lines']}")
+        out["status"] = cli("status", "--address", address).splitlines()
+        nodes = json.loads(cli("list", "nodes", "--address", address))
+        out["nodes"] = [{"resources": n["resources"], "alive": n["alive"],
+                         "labels": n["labels"]} for n in nodes]
+        raylet = RpcClient(tuple(nodes[0]["address"]))
+        ray_tpu_torch.init(address=address, namespace="serve")
+        out["prestart_task"] = check_cli_prestart(
+            torch, ray_tpu_torch, raylet, cold_task_s)
+        free_card(torch)
+
+        # cli_serve
+        config = os.path.join(cfg_dir, "serve.json")
+        with open(config, "w") as f:
+            json.dump({"applications": [{"name": "cli_llm", "deployments": [
+                {"import_path": CLI_TARGET, "num_replicas": 1,
+                 "resources_per_replica": {"GPU": 1}}]}]}, f)
+        t0 = time.perf_counter()
+        deployed = cli("serve-deploy", config, "--address", address)
+        server, (host, http_port) = serve.start_http_proxy()
+        url = f"http://{host}:{http_port}/LlamaHttp"
+        prompts, _, _ = serve_prompts(cfg)
+        try:
+            code, info = http_json(f"{url}/info")
+            up_s = time.perf_counter() - t0
+            status = json.loads(cli("serve-status", "--address", address))
+            got, seconds = [], []
+            for p in prompts[:CLI_PROMPTS]:
+                t1 = time.perf_counter()
+                code, body = http_json(f"{url}/generate", {
+                    "prompt": [int(x) for x in p],
+                    "max_new_tokens": DEPLOY_NEW_TOKENS})
+                seconds.append(time.perf_counter() - t1)
+                got.append(body.get("tokens") if code == 200 else body)
+            ctl = [list(x) for x in want[:CLI_PROMPTS]]
+            ctl[0][0] = (ctl[0][0] + 1) % cfg.vocab_size
+            dep = status["deployments"].get("LlamaHttp", {})
+            out["cli_serve"] = {
+                "deployed": deployed.strip(), "up_s": up_s,
+                "status": {k: dep.get(k) for k in ("target", "running")},
+                "replica": info, "requests": len(got),
+                "tokens_equal": got == [list(x)
+                                        for x in want[:CLI_PROMPTS]],
+                "control_tokens_equal": got == ctl,
+                "seconds": seconds}
+            mem_up = torch.cuda.mem_get_info()[0]
+
+            # fault_replica: the plan is armed, one request straight to
+            # the replica's actor hits the crash point; the plan is
+            # cleared the moment the replica's process is gone, before
+            # its replacement (a fresh process with fresh rule counters)
+            # reads it
+            before = raylet.call("node_info", timeout=30)["prestart"]
+            controller = ray_tpu_torch.get_actor(serve.api.CONTROLLER_NAME)
+            _, table = ray_tpu_torch.get(
+                controller.get_routing_table.remote("LlamaHttp"))
+            gcs = ("127.0.0.1", port)
+            fi.put_plan(gcs, {"version": 1, "rules": [
+                {"id": "cli-replica", "fault": "crash",
+                 "point": "replica.mid_request", "proc": "worker",
+                 "nth": 1, "max_hits": 1}]})
+            time.sleep(1.0)   # the replica polls the plan key
+            died = threading.Event()
+
+            def heal():
+                while pid_alive(info["pid"]) and not zombie(info["pid"]):
+                    time.sleep(0.01)
+                fi.put_plan(gcs, {"version": 2, "rules": []})
+                died.set()
+
+            healer = threading.Thread(target=heal, daemon=True)
+            healer.start()
+            raw = {"__raw__": True, "method": "POST", "path": "/generate",
+                   "headers": [], "body": json.dumps({
+                       "prompt": [int(x) for x in prompts[0]],
+                       "max_new_tokens": DEPLOY_NEW_TOKENS}).encode()}
+            t_crash = time.perf_counter()
+            try:
+                ray_tpu_torch.get(table[0]["replica"].handle_request.remote(
+                    "__call__", (raw,), {}), timeout=300)
+                crashed = {"error": None}
+            except Exception as e:  # noqa: BLE001 - the typed error
+                crashed = {"error": repr(e)[:400],
+                           "type": type(e).__name__,
+                           "typed": isinstance(e, ray_tpu_torch.exceptions
+                                               .RayTpuError)}
+            crashed["seconds"] = time.perf_counter() - t_crash
+            died.wait(timeout=60)
+            healer.join(timeout=60)
+            # the controller's probe buries the replica and the reconciler
+            # starts its replacement; its first answer bit for bit
+            deadline = time.monotonic() + 300
+            while True:
+                code, info2 = http_json(f"{url}/info")
+                if code == 200 and info2.get("pid") != info.get("pid"):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"no replacement: {code} {info2}")
+                time.sleep(0.5)
+            code, body = http_json(f"{url}/generate", {
+                "prompt": [int(x) for x in prompts[0]],
+                "max_new_tokens": DEPLOY_NEW_TOKENS})
+            replace_s = time.perf_counter() - t_crash
+            after = raylet.call("node_info", timeout=30)["prestart"]
+            failover = ray_tpu_torch.get(
+                controller.failover_stats.remote(), timeout=30)
+            out["fault_replica"] = {
+                "crashed": crashed, "replacement": info2,
+                "replace_s": replace_s,
+                "forked": after["forked"] - before["forked"],
+                "tokens_equal": code == 200
+                and body.get("tokens") == list(want[0]),
+                "failover_events": [
+                    {k: e.get(k) for k in ("deployment", "detected_at",
+                                           "replaced_at")}
+                    for e in failover["events"]]}
+        finally:
+            server.shutdown()
+            server.server_close()
+            serve.shutdown()
+        ok = True
+    finally:
+        ray_tpu_torch.shutdown()
+        if raylet is not None:
+            raylet.close()
+        node.send_signal(signal.SIGTERM)
+        try:
+            out["node_exit"] = node.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            node.kill()
+            out["node_exit"] = node.wait()
+        shutil.rmtree(cfg_dir, ignore_errors=True)
+    deadline = time.monotonic() + 15
+    while time.monotonic() < deadline:
+        left = {p: c for p, c in worker_processes().items()
+                if p not in procs_before}
+        if not left:
+            break
+        time.sleep(0.2)
+    free_card(torch)
+    time.sleep(1.0)   # the card's driver returns the processes' memory
+    out.update({"free_before": free_before, "free_up": mem_up,
+                "free_after": torch.cuda.mem_get_info()[0],
+                "processes_left": left,
+                "seconds": time.perf_counter() - t_group})
+    emit("cli_cluster", nvidia_smi=smi, config="llama3_8b",
+         n_layers=cfg.n_layers, **out)
+    p = out["prestart_task"]
+    t = p["template"]
+    if not ok or not t["ready"] or t["torch_imported"] or \
+            t["torch_cuda_initialized"] or t["libcuda_mapped"]:
+        raise AssertionError(f"the prestart template: {t}")
+    w = p["worker"]
+    if p["forked"] < 1 or w["forked_from"] != t["pid"] or \
+            w["pid"] == os.getpid() or w["jax"] or w["ray_tpu"]:
+        raise AssertionError(f"the task's worker was not forked from the "
+                             f"template: {p}")
+    if not p["bits_equal"] or p["control_bits_equal"] or \
+            p["max_abs_err"] > p["tol"]["max_abs_err"] or \
+            p["row_rel_err"] > p["tol"]["row_rel_err"] or \
+            w["launches"] != {"flash_fwd": 1, "flash_bwd": 0}:
+        raise AssertionError(f"the forked worker's K1: {p}")
+    c = out["cli_serve"]
+    if c["deployed"] != "deployed LlamaHttp" or \
+            c["status"] != {"target": 1, "running": 1} or \
+            not c["tokens_equal"] or c["control_tokens_equal"]:
+        raise AssertionError(f"cli_serve: {c}")
+    f = out["fault_replica"]
+    if not f["crashed"].get("typed") or \
+            "crash point replica.mid_request" not in f["crashed"]["error"]:
+        raise AssertionError(f"the crashed request: {f['crashed']}")
+    # the replacement's process: forked from the template now, or an idle
+    # worker forked earlier that the actor took over
+    if f["replacement"].get("forked_from") != t["pid"] or \
+            f["replacement"]["pid"] == c["replica"]["pid"] or \
+            len(f["failover_events"]) != 1 or not f["tokens_equal"]:
+        raise AssertionError(f"the replacement replica: {f}")
+    if out["processes_left"] or out["node_exit"] != 0:
+        raise AssertionError(f"processes left after the node's stop: "
+                             f"{out['processes_left']}, exit "
+                             f"{out['node_exit']}")
+    if abs(out["free_after"] - free_before) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"the card had {free_before} bytes free "
+                             f"before the group and {out['free_after']} "
+                             "after")
+    return w["launches"]
 
 
 def check_examples(torch, smi: str) -> dict:
@@ -7363,10 +7851,19 @@ def main() -> int:
     # process's are held for their checksums); the worker reports its
     # launches
     t0 = time.perf_counter()
-    cluster_counts = check_cluster(torch, cfg, params, smi, deploy_want,
-                                   serve_run_burst)
+    cluster_counts, cold_task_s = check_cluster(
+        torch, cfg, params, smi, deploy_want, serve_run_burst)
     free_card(torch)
     emit("cluster_phases", seconds=time.perf_counter() - t0)
+    # the CLI's cluster (slice 19): a node the port's CLI started, K1 in a
+    # worker forked from its prestart template, a JSON config deployed by
+    # the CLI behind a bare ASGI ingress, and a fault-injected replica
+    # crash; the forked worker reports its launches
+    t0 = time.perf_counter()
+    cli_counts = check_cli_cluster(torch, cfg, smi, deploy_want,
+                                   cold_task_s)
+    free_card(torch)
+    emit("cli_phases", seconds=time.perf_counter() - t0)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
                                                          peaks)
@@ -7515,6 +8012,7 @@ def main() -> int:
                    "llm_deployment": deploy_counts[k],
                    "serve_run": serve_run_counts[k],
                    "cluster_task_worker": cluster_counts[k],
+                   "cli_prestart_task_forked_worker": cli_counts[k],
                    "examples_train_llama": example_counts["train_llama"][k],
                    "examples_llm_serving": example_counts["llm_serving"][k],
                    "examples_rllib_quickstart":

@@ -7,8 +7,10 @@ points run on the CUDA card unless the caller passes ``device="cpu"``; with
 no card and no explicit CPU request they raise.
 
 The core API (``init``, ``remote``, ``get``, ``put``, ``wait``, actors)
-runs on the in-process runtime (``runtime/core.py``), on which Serve
-(``ray_tpu_torch.serve``) deploys its replicas.
+runs on the in-process runtime (``runtime/core.py``), or on a cluster of
+the port's GCS and raylets (``init(address=)``), on which Serve
+(``ray_tpu_torch.serve``) deploys its replicas; ``RuntimeEnv`` gives a
+task or actor an environment of its own.
 """
 
 from ray_tpu_torch.api import (
@@ -28,6 +30,7 @@ from ray_tpu_torch.api import (
 from ray_tpu_torch.runtime.object_ref import ObjectRef
 from ray_tpu_torch.runtime.streaming import ObjectRefGenerator
 from ray_tpu_torch.runtime_context import get_runtime_context
+from ray_tpu_torch.runtime_env import RuntimeEnv
 from ray_tpu_torch.utils import exceptions
 
 __version__ = "0.1.0"
@@ -48,6 +51,7 @@ __all__ = [
     "available_resources",
     "ObjectRef",
     "ObjectRefGenerator",
+    "RuntimeEnv",
     "exceptions",
     "__version__",
 ]

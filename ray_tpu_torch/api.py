@@ -16,10 +16,12 @@ The card is the ``GPU`` resource (JAX's ``TPU``), asked for with
 ``num_gpus=`` (JAX's ``num_tpus=``). ``init()`` starts the in-process
 runtime; ``init(address=...)`` connects to a running cluster of the port's
 own GCS and raylets (``cluster_utils.Cluster``), whose tasks and actors run
-in worker processes. Waiting for later slices: the Ray client
-(``ray_tpu://`` addresses, ``client/``), ``runtime_env`` (worker processes
-per environment), ``timeline`` (the observability planes) and
-``RemoteFunction.bind`` (``dag/``).
+in worker processes. ``runtime_env=`` (``runtime_env.RuntimeEnv`` or a
+plain dict, validated at submission) runs a task or actor in its
+environment: in-process on the local runtime, in worker processes of its
+own on a cluster. Waiting for later slices: the Ray client
+(``ray_tpu://`` addresses, ``client/``), ``timeline`` (the observability
+planes) and ``RemoteFunction.bind`` (``dag/``).
 """
 
 from __future__ import annotations
@@ -193,7 +195,8 @@ class RemoteFunction:
             resources=options.get("resources"),
         )
         self._strategy = _parse_strategy(options)
-        _refuse_runtime_env(options.get("runtime_env"))
+        self._runtime_env = _normalize_runtime_env(
+            options.get("runtime_env"))
         functools.update_wrapper(self, fn)
 
     def __call__(self, *args, **kwargs):
@@ -232,6 +235,7 @@ class RemoteFunction:
             scheduling_strategy=self._strategy,
             max_retries=opts.get("max_retries", 0),
             retry_exceptions=bool(opts.get("retry_exceptions", False)),
+            runtime_env=self._runtime_env,
         )
         refs = rt.submit_task(spec)
         rt.note_return_owner(spec)
@@ -364,7 +368,6 @@ class ActorClass:
     def remote(self, *args, **kwargs) -> ActorHandle:
         rt = _runtime()
         opts = self._options
-        _refuse_runtime_env(opts.get("runtime_env"))
         max_concurrency = opts.get("max_concurrency")
         if max_concurrency is None:
             # reference default: async actors (any ``async def`` method)
@@ -392,6 +395,7 @@ class ActorClass:
             ),
             max_concurrency=max_concurrency,
             max_restarts=opts.get("max_restarts", 0),
+            runtime_env=_normalize_runtime_env(opts.get("runtime_env")),
         )
         lifetime = opts.get("lifetime")
         if lifetime not in (None, "detached", "non_detached"):
@@ -439,16 +443,17 @@ _TASK_OPTION_KEYS = {
 }
 
 
-def _refuse_runtime_env(env):
-    """Runtime environments (pip, conda, containers, env vars, working
-    dirs) need worker processes per environment: any non-empty one
-    raises until a later slice ports them (``runtime_env.py`` has only
-    the worker-cache key of the empty environment)."""
-    if env:
-        raise NotImplementedError(
-            f"runtime_env={env!r}: runtime environments are a later slice "
-            "of the port; tasks and actors run in the empty environment, "
-            "in this process or in the cluster's worker processes")
+def _normalize_runtime_env(env):
+    """Accept RuntimeEnv or plain dict; validate dicts through RuntimeEnv
+    so unknown or malformed fields fail at submission, not on the
+    worker."""
+    if env is None:
+        return None
+    from ray_tpu_torch.runtime_env import RuntimeEnv
+
+    if isinstance(env, RuntimeEnv):
+        return env.to_dict()
+    return RuntimeEnv(**env).to_dict()
 
 
 def remote(*args, **kwargs):

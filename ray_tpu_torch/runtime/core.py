@@ -13,9 +13,11 @@ bookkeeping (reference ``TaskManager::RetryTaskIfPossible``,
 
 Everything runs in this process, on threads. The cluster backend, which
 runs tasks and actors in worker processes, is ``runtime/driver.py``'s
-``ClusterRuntime`` (``init(address=...)``). Not ported here: runtime
-environments (``api`` refuses them), and the task timeline and counters and
-the trace spans (the observability planes); each waits for its slice.
+``ClusterRuntime`` (``init(address=...)``). Runtime environments apply
+in-process as in JAX: their paths are added to ``sys.path`` and their
+``env_vars`` overlay ``os.environ`` for the task's duration, one such task
+at a time. Not ported here: the task timeline and counters and the trace
+spans (the observability planes); each waits for its slice.
 """
 
 from __future__ import annotations
@@ -34,6 +36,42 @@ from ray_tpu_torch.runtime.task_spec import ResourceSet, TaskSpec, TaskType
 from ray_tpu_torch.utils import exceptions as exc
 from ray_tpu_torch.utils.config import Config, get_config
 from ray_tpu_torch.utils.ids import ActorID, JobID, NodeID, ObjectID, TaskID, _Counter
+
+
+# Serializes tasks that declare env_vars (reference: each runtime_env
+# gets its own worker PROCESS — worker_pool.cc env-keyed caching; the
+# in-process local runtime approximates that by scoping os.environ
+# mutations under one lock so concurrent tasks never see each other's
+# vars half-applied). The lock is SUSPENDED while its holder blocks in
+# get()/wait() (see _note_worker_blocked) — otherwise a task with
+# env_vars waiting on a child that also has env_vars deadlocks.
+_runtime_env_lock = threading.Lock()
+
+
+class _EnvVarSession:
+    """One task execution's os.environ overlay; suspendable."""
+
+    def __init__(self, env_vars: dict):
+        self.env_vars = env_vars
+        self.old: dict | None = None
+        self.held = False
+
+    def acquire(self):
+        _runtime_env_lock.acquire()
+        self.held = True
+        self.old = {k: os.environ.get(k) for k in self.env_vars}
+        os.environ.update(self.env_vars)
+
+    def release(self):
+        if not self.held:
+            return
+        for k, v in (self.old or {}).items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        self.held = False
+        _runtime_env_lock.release()
 
 
 def _isawaitable(x) -> bool:
@@ -247,16 +285,42 @@ class Runtime:
             with self._thread_acct:
                 self._overflow_threads -= 1
 
+    def _call_in_runtime_env(self, runtime_env, fn, args, kwargs):
+        if not runtime_env:
+            return fn(*args, **kwargs)
+        from ray_tpu_torch.runtime_env import apply_paths
+
+        apply_paths(runtime_env)
+        env_vars = runtime_env.get("env_vars")
+        if not env_vars:
+            return fn(*args, **kwargs)
+        tl = self._exec_tl
+        session = _EnvVarSession(env_vars)
+        prev = getattr(tl, "env_session", None)
+        tl.env_session = session
+        session.acquire()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            session.release()
+            tl.env_session = prev
+
     def _note_worker_blocked(self):
         """This thread is about to block on objects produced by other
         tasks (reference analog: a worker blocked in ray.get releases its
-        lease so the raylet can run other work). Releases the blocked
-        task's acquired resources (pool worker threads). Thread
-        availability is handled at dispatch time by _submit_to_workers'
-        overflow threads."""
+        lease so the raylet can run other work). Suspends the thread's
+        env-var session (any thread) and releases the blocked task's
+        acquired resources (pool worker threads). Thread availability is
+        handled at dispatch time by _submit_to_workers' overflow
+        threads."""
         tl = self._exec_tl
         depth = getattr(tl, "block_depth", 0)
         tl.block_depth = depth + 1
+        if depth == 0:
+            sess = getattr(tl, "env_session", None)
+            if sess is not None and sess.held:
+                sess.release()
+                tl.env_suspended = True
         if not threading.current_thread().name.startswith("ray_tpu-worker"):
             return
         spec = getattr(tl, "spec", None)
@@ -266,13 +330,18 @@ class Runtime:
             self._release_resources(spec.resources)
 
     def _note_worker_unblocked(self):
-        """Re-acquire the task's resources on wake. May transiently
-        oversubscribe (available goes negative) — same trade the
-        reference makes when a blocked worker resumes; it self-corrects
-        when the task finishes and releases."""
+        """Re-acquire the task's resources and env session on wake. May
+        transiently oversubscribe (available goes negative) — same trade
+        the reference makes when a blocked worker resumes; it
+        self-corrects when the task finishes and releases."""
         tl = self._exec_tl
         depth = getattr(tl, "block_depth", 1) - 1
         tl.block_depth = depth
+        if depth == 0 and getattr(tl, "env_suspended", False):
+            tl.env_suspended = False
+            sess = getattr(tl, "env_session", None)
+            if sess is not None:
+                sess.acquire()
         if not threading.current_thread().name.startswith("ray_tpu-worker"):
             return
         spec = getattr(tl, "spec", None)
@@ -546,7 +615,8 @@ class Runtime:
                 self._store_error(spec, e)
                 return
             try:
-                result = spec.function(*args, **kwargs)
+                result = self._call_in_runtime_env(
+                    spec.runtime_env, spec.function, args, kwargs)
                 if _isawaitable(result):
                     result = self._await_on_loop(result)
             except BaseException as e:  # noqa: BLE001
@@ -613,7 +683,8 @@ class Runtime:
         try:
             args, kwargs = self._materialize_args(spec)
             cls = spec.function
-            instance = cls(*args, **kwargs)
+            instance = self._call_in_runtime_env(
+                spec.runtime_env, cls, args, kwargs)
         except BaseException as e:  # noqa: BLE001
             state.dead = True
             state.death_reason = f"__init__ failed: {e!r}"
@@ -687,7 +758,9 @@ class Runtime:
         try:
             args, kwargs = self._materialize_args(spec)
             method = getattr(state.instance, spec.actor_method_name)
-            result = method(*args, **kwargs)
+            renv = (state.creation_spec.runtime_env
+                    if state.creation_spec is not None else None)
+            result = self._call_in_runtime_env(renv, method, args, kwargs)
             if _isawaitable(result):
                 # ASYNC actor method: schedule the coroutine on the
                 # shared event loop and RETURN the pool thread

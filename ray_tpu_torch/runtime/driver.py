@@ -16,7 +16,7 @@ travel as the port's stdlib-pickle blobs (``runtime/serialization.py``); a
 body pickle cannot carry raises ``TypeError`` at submission. Left for
 later slices: the worker-log echo, the metrics pusher, the memory plane's
 ownership annex and the trace spans and stuck-call watchdog (the
-observability planes), and the fault-injection plane.
+observability planes).
 """
 
 from __future__ import annotations
@@ -50,6 +50,12 @@ class ClusterRuntime:
     def __init__(self, gcs_address, raylet_address=None,
                  namespace: str | None = None):
         self.gcs_address = tuple(gcs_address)
+        # arm the fault-injection plane (no-op unless the config flag is
+        # set) BEFORE any channel dials: a startup plan must see every
+        # connection this runtime makes
+        from ray_tpu_torch.runtime import fault_injection as _fi
+        _fi.maybe_init_from_config(self.gcs_address,
+                                   process_label="driver")
         # reconnecting: survives a GCS restart (file-backed recovery)
         self._gcs = ReconnectingRpcClient(self.gcs_address, label="driver")
         self.caller_id = WorkerID.from_random().hex()
@@ -1016,7 +1022,7 @@ class ClusterRuntime:
                 "resources": dict(spec.resources.resources),
                 "strategy": _wire_strategy(spec),
                 "max_retries": spec.max_retries,
-                "runtime_env": None,
+                "runtime_env": spec.runtime_env,
                 "namespace": self._effective_namespace(),
             }
             if streaming:
@@ -1136,7 +1142,7 @@ class ClusterRuntime:
             "return_oids": [ObjectID.from_random().hex()],
             "resources": dict(spec.resources.resources),
             "max_concurrency": spec.max_concurrency,
-            "runtime_env": None,
+            "runtime_env": spec.runtime_env,
             "namespace": ns,
         }
         if pin_oids and self._ref_enabled:

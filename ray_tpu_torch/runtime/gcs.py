@@ -17,7 +17,9 @@ job, KV and object-directory tables, the reference counts and
 ``GcsPersistence``. The observability planes' stores (``LogStore``,
 ``MetricsStore``, ``TraceStore``) and the profiling RPCs are a later
 slice: an RPC that only they serve answers ``NotImplementedError``. The
-fault-injection plane is left out too. Resource-driven node picks use the
+fault-injection plane's crash point ``gcs.after_wal_append`` and its plan
+switch key (``kv_put`` of ``__fault_injection__``/``plan``) are as in
+JAX. Resource-driven node picks use the
 port's build of the native hybrid policy (``_private/scheduling.py``).
 """
 
@@ -29,6 +31,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Any
 
+from ray_tpu_torch.runtime import fault_injection as _fi
 from ray_tpu_torch.runtime.rpc import RpcServer, send_msg
 
 # Pubsub channels (reference: pubsub.proto:28 channel enum).
@@ -205,6 +208,8 @@ class GcsServer(RpcServer):
                  heartbeat_timeout_s: float = 5.0,
                  persistence_dir: str | None = None):
         super().__init__(host, port)
+        self.fault_label = "gcs"   # fault-injection endpoint label
+        _fi.maybe_init_from_config()
         self._lock = threading.RLock()
         self._nodes: dict[str, NodeInfo] = {}
         self._actors: dict[str, ActorInfo] = {}
@@ -808,6 +813,8 @@ class GcsServer(RpcServer):
                 self._log_actor(created)
             if named_key is not None:
                 self._log("named", named_key, actor_id)
+        if created is not None or named_key is not None:
+            _fi.maybe_crash("gcs.after_wal_append")
         if not result["ok"]:
             raise ValueError(result["error"])
         if created is None:
@@ -838,6 +845,10 @@ class GcsServer(RpcServer):
             self._plane["register_actors"] += len(actors)
             self._plane["register_batch_max"] = max(
                 self._plane["register_batch_max"], len(actors))
+        # crash point: WAL record durable, client reply NOT sent — the
+        # retried batch after restart must be absorbed by per-actor-id
+        # idempotency, not double-registered
+        _fi.maybe_crash("gcs.after_wal_append")
         node_ids = self._schedule_actors(to_schedule)
         for result, ent in zip(results, actors):
             if result["ok"] and "node_id" not in result:
@@ -1639,6 +1650,19 @@ class GcsServer(RpcServer):
                 return {"ok": False}
             table[key] = value
             self._log("kv", (ns, key), value)
+        # crash point BEFORE the fault-plan self-apply below: a plan
+        # arriving through this very handler must not trip its own crash
+        # rule on the write that installs it — only the NEXT WAL append
+        # (e.g. the retried durable put) can fire
+        _fi.maybe_crash("gcs.after_wal_append")
+        if ns == _fi.KV_NS and key == _fi.KV_KEY:
+            # the fault-plan switch key: other processes poll it, the
+            # GCS applies it to its own plane at write time (outside the
+            # KV lock — load_plan takes the plane's own lock)
+            try:
+                _fi.plane.load_plan(_fi.decode_plan(value))
+            except Exception:  # noqa: BLE001 - bad plan must not break KV
+                pass
         return {"ok": True}
 
     def rpc_kv_get(self, conn, send_lock, *, ns, key):
@@ -1724,6 +1748,10 @@ def main():
     import signal
     import sys
 
+    # role stamp BEFORE construction: crash rules scoped proc="gcs" may
+    # only ever kill a standalone control plane, never a driver-hosted
+    # in-process GcsServer (whose process keeps the "driver" label)
+    _fi.set_process_label("gcs")
     cfg = json.loads(sys.argv[1]) if len(sys.argv) > 1 else {}
     server = GcsServer(
         host=cfg.get("host", "127.0.0.1"),

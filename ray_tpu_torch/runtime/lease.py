@@ -555,9 +555,10 @@ def _typed_death_error(task: dict, error: BaseException,
                        death_info: dict) -> BaseException:
     """Death-boundary error taxonomy: a crashed peer surfaces as
     NodeDiedError / WorkerCrashedError (carrying node/worker identity
-    and the worker's last words when there are some), never a bare
-    transport ConnectionLost/TimeoutError whose redial deadline happens
-    to be the thing that fired."""
+    and the worker's last words when there are some, and the injected
+    crash point when there is one), never a bare transport
+    ConnectionLost/TimeoutError whose redial deadline happens to be the
+    thing that fired."""
     from ray_tpu_torch.utils import exceptions as exc
 
     if isinstance(error, exc.RayTpuError):
@@ -569,6 +570,8 @@ def _typed_death_error(task: dict, error: BaseException,
             f"raylet unreachable while task {name!r} was leased there "
             f"({error!r})")
     reason = f"worker died while running task {name!r}"
+    if death_info.get("crash_point"):
+        reason += f" at crash point {death_info['crash_point']}"
     if death_info.get("last_words"):
         last = " | ".join(death_info["last_words"][-2:])
         reason += f"; last words: {last}"

@@ -10,11 +10,12 @@ manager — ``runtime/scheduler.py`` (queue/dispatch/leases/resources),
 ``runtime/object_manager.py`` (pins/spill/transfer/pulls) — while the
 raylet keeps placement routing, actors, cancellation, and the RPC surface.
 
-Port of ``ray_tpu/runtime/raylet.py`` without the dashboard agent, the
-log monitor, the metrics pusher and gauges, the profiling and stack RPCs
-(the observability planes), the fault-injection plane, and the prestart
-fork server's warm-worker path (later slices). ``python -m
-ray_tpu_torch.runtime.raylet`` runs it as a process.
+Port of ``ray_tpu/runtime/raylet.py`` with the fault-injection plane and
+the prestart fork server (its policy loop, warm-worker takeover for
+actors, and the templates' snapshot in ``node_info``), without the
+dashboard agent, the log monitor, the metrics pusher and gauges, and the
+profiling and stack RPCs (the observability planes, later slices).
+``python -m ray_tpu_torch.runtime.raylet`` runs it as a process.
 
 Differences by design (single-controller Python services):
 - workers attach the node's C++ shm store directly (no UDS protocol hop);
@@ -53,8 +54,11 @@ class Raylet(RpcServer):
                  heartbeat_interval_s: float | None = None,
                  infeasible_timeout_s: float = 10.0):
         super().__init__(host, 0)
+        self.fault_label = "raylet"   # fault-injection endpoint label
         self.node_id = node_id
         self.gcs_address = tuple(gcs_address)
+        from ray_tpu_torch.runtime import fault_injection as _fi
+        _fi.maybe_init_from_config(self.gcs_address)
         self.store_name = f"/rtt_{os.getpid()}_{node_id[:8]}"
         self.store = ShmObjectStore(self.store_name, capacity=store_capacity,
                                     create=True)
@@ -179,7 +183,8 @@ class Raylet(RpcServer):
         loops = [self.scheduler.dispatch_loop, self._heartbeat_loop,
                  self.workers.monitor_loop, self.scheduler.infeasible_loop,
                  self.objects.location_flush_loop,
-                 self._ready_flush_loop]
+                 self._ready_flush_loop,
+                 self.workers.prestart_policy_loop]
         if self.objects.spill_enabled:
             loops.append(self.objects.spill_loop)
         if self._mem_threshold > 0:
@@ -307,6 +312,8 @@ class Raylet(RpcServer):
             from ray_tpu_torch.utils import exceptions as exc
             info = self.workers.death_info(w.worker_id) or {}
             reason = f"worker died executing {task.get('name')}"
+            if info.get("crash_point"):
+                reason += f" at crash point {info['crash_point']}"
             if info.get("last_words"):
                 reason += ("; last words: "
                            + " | ".join(info["last_words"][-2:]))
@@ -513,21 +520,31 @@ class Raylet(RpcServer):
         if not self.scheduler.try_acquire(demand):
             raise RuntimeError(
                 f"node {self.node_id} cannot host actor: {demand} unavailable")
-        # a fresh worker process per actor (the prestart fork server's
-        # warm-worker takeover is a later slice)
-        handle = self.workers.spawn(spec.get("runtime_env"))
-        handle.state = "actor"
+        # prestart fast path: dedicate a warm already-registered idle
+        # worker (its conn is live, so _deliver sends create_actor
+        # immediately — no interpreter boot on the actor-creation path);
+        # otherwise spawn, which itself prefers a zygote fork
+        handle = self.workers.take_idle_for_actor(spec.get("runtime_env"))
+        if handle is None:
+            handle = self.workers.spawn(spec.get("runtime_env"))
+            handle.state = "actor"
         handle.actor_id = actor_id
         handle.incarnation = incarnation
         handle.acquired = dict(demand)
 
         def _deliver():
-            # the registration window is generous (flag): under an
-            # actor-flood spawn storm a fresh interpreter can take >30s
-            # just to get scheduled, and a worker that actually DIED is
-            # caught by poll() below, not by this deadline.
+            # pip envs legitimately take minutes on a cold cache: give
+            # the worker's registration the install window. The plain
+            # window is generous too (flag): under an actor-flood spawn
+            # storm a fresh interpreter can take >30s just to get
+            # scheduled, and a worker that actually DIED is caught by
+            # poll() below, not by this deadline.
             from ray_tpu_torch.utils.config import get_config
+            renv = (spec.get("runtime_env") or {})
             window = get_config().worker_register_timeout_s
+            if renv.get("pip"):
+                # an install never SHRINKS the window a plain env gets
+                window = max(900.0, window)
             deadline = time.monotonic() + window
             while time.monotonic() < deadline and not self._stopping:
                 if handle.conn is not None:
@@ -915,17 +932,50 @@ class Raylet(RpcServer):
             if w is None or w.state != "leased":
                 return {"ok": False}
             acquired, w.acquired = w.acquired, {}
+            w.idle_since = time.monotonic()
             w.state = "idle"
         self._release(acquired)
         self._kick_dispatch()
         return {"ok": True}
+
+    def rpc_prestart_warm(self, conn, send_lock, *, runtime_env=None,
+                          timeout_s: float = 60.0):
+        """Spawn (or keep) the fork-server template of ``runtime_env``'s
+        key and wait until it is ready to fork: ``PrestartManager.warm``
+        for a caller in another process (a driver attached to a node that
+        the CLI started). Returns the template's pid and readiness."""
+        t = self.workers.prestart.warm(runtime_env)
+        if t is None:
+            return {"ok": False, "pid": None, "ready": False}
+        deadline = time.monotonic() + timeout_s
+        while not t.poll_ready(timeout=0.1):
+            if not t.alive() or time.monotonic() > deadline:
+                break
+        return {"ok": t.ready, "pid": t.proc.pid if t.proc else None,
+                "ready": t.ready}
+
+    def rpc_prestart_status(self, conn, send_lock):
+        """Each ready template's own report (pid, preloaded modules,
+        whether torch is imported, CUDA initialized or libcuda mapped,
+        its threads), keyed by env key ("default" for the empty env)."""
+        with self.workers.prestart.lock:
+            templates = dict(self.workers.prestart.templates)
+        out = {}
+        for key, t in templates.items():
+            if t.ready and t.alive():
+                try:
+                    out[key or "default"] = t.status()
+                except (OSError, EOFError):
+                    out[key or "default"] = {"ok": False}
+        return out
 
     def rpc_node_info(self, conn, send_lock):
         return {"node_id": self.node_id, "store_name": self.store_name,
                 "address": self.address, "resources": self.total_resources,
                 "available": self._avail_snapshot(),
                 "num_workers": len(self.workers.workers),
-                "spill_stats": dict(self.objects.spill_stats)}
+                "spill_stats": dict(self.objects.spill_stats),
+                "prestart": self.workers.prestart.snapshot()}
 
     # ------------------------------------------------------------------
     # heartbeat
@@ -986,6 +1036,10 @@ def main():  # runs a raylet as a standalone process (cluster_utils spawns it)
     import json
     import signal
 
+    from ray_tpu_torch.runtime import fault_injection as _fi
+    # role stamp BEFORE construction: crash rules scoped proc="raylet"
+    # may only ever kill external raylet processes like this one
+    _fi.set_process_label("raylet")
     cfg = json.loads(sys.argv[1])
     raylet = Raylet(
         node_id=cfg["node_id"],

@@ -1,8 +1,10 @@
 """Minimal threaded RPC over TCP: length-prefixed pickled messages.
 
-Port of ``ray_tpu/runtime/rpc.py`` without the fault-injection plane, the
-per-method handler timers and the trace headers (the observability planes
-are a later slice); the framing is the same, so the framed bytes equal the
+Port of ``ray_tpu/runtime/rpc.py`` with its fault-injection plane
+(``runtime/fault_injection.py``: every server and client consults it on
+connect, send and receive), without the per-method handler timers and the
+trace headers (the observability planes are a later slice); the framing is
+the same, so the framed bytes equal the
 JAX package's for the same message. Reference analog: ``src/ray/rpc/``
 (async gRPC server/client templates).
 Wire format: 8-byte big-endian length + pickled payload. Two interaction
@@ -27,6 +29,8 @@ import struct
 import threading
 import time
 from typing import Any, Callable
+
+from ray_tpu_torch.runtime import fault_injection as _fi
 
 _LEN = struct.Struct(">Q")
 
@@ -105,6 +109,9 @@ class RpcServer:
         self._stopping = False
         self._conns: set[socket.socket] = set()
         self._conns_lock = threading.Lock()
+        # endpoint label for the fault-injection plane (subclasses set a
+        # role name: "gcs", "raylet", "worker")
+        self.fault_label = type(self).__name__
         # handlers running now: stop() severs their connections, but a
         # handler mid-call runs on; wait_idle lets an owner outlive them
         # before it frees what they touch
@@ -220,13 +227,32 @@ class RpcServer:
                     return
                 req_id = req.pop("_id", None)
                 method = req.pop("method")
-                outcome = self._dispatch_one(conn, send_lock, fmt, method,
-                                             req_id, req)
-                if outcome == "held":
-                    held = True
-                    return
-                if outcome == "gone":
-                    return
+                deliveries = 1
+                if _fi.plane.active:
+                    try:
+                        peer = conn.getpeername()
+                    except OSError:
+                        peer = ("?", 0)
+                    action = _fi.plane.consult(self.fault_label, "recv",
+                                               peer, method)
+                    if action == _fi.DROP:
+                        continue   # request lost before dispatch
+                    if action == _fi.RESET:
+                        return     # finally: discard + on_disconnect
+                    if action == _fi.DUPLICATE:
+                        deliveries = 2
+                for delivery in range(deliveries):
+                    # an injected duplicate re-dispatches from a fresh
+                    # deserialization — handlers may mutate their payload
+                    payload = (req if delivery == deliveries - 1
+                               else pickle.loads(pickle.dumps(req)))
+                    outcome = self._dispatch_one(conn, send_lock, fmt,
+                                                 method, req_id, payload)
+                    if outcome == "held":
+                        held = True
+                        return
+                    if outcome == "gone":
+                        return
         finally:
             if not held:
                 with self._conns_lock:
@@ -285,6 +311,22 @@ class RpcServer:
         return "ok"
 
     def _send_reply(self, conn, obj, send_lock, fmt, method):
+        if _fi.plane.active:
+            try:
+                peer = conn.getpeername()
+            except OSError:
+                peer = ("?", 0)
+            action = _fi.plane.consult(self.fault_label, "send", peer,
+                                       method)
+            if action == _fi.DROP:
+                return   # reply lost in flight (handler still applied)
+            if action == _fi.RESET:
+                raise _fi.InjectedConnectionReset(
+                    f"injected reset replying to {method}")
+            send_msg(conn, obj, send_lock, fmt=fmt)
+            if action == _fi.DUPLICATE:
+                send_msg(conn, obj, send_lock, fmt=fmt)
+            return
         send_msg(conn, obj, send_lock, fmt=fmt)
 
     def on_disconnect(self, conn: socket.socket):
@@ -297,7 +339,9 @@ class RpcClient:
     def __init__(self, address: tuple[str, int], timeout: float | None = None,
                  label: str | None = None):
         self.address = tuple(address)
-        self._label = label   # the caller's role, for diagnostics
+        self._label = label   # fault-injection endpoint of the channel
+        if _fi.plane.active:
+            _fi.plane.check_connect(label, self.address)
         self._sock = socket.create_connection(self.address, timeout=30)
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         self._sock.settimeout(timeout)
@@ -325,6 +369,23 @@ class RpcClient:
                 self._fail_pending()
                 return
             msg_id = msg.get("_id")
+            if _fi.plane.active:
+                with self._pending_lock:
+                    entry = self._pending.get(msg_id)
+                method = entry[2] if entry else None
+                action = _fi.plane.consult(self._label, "recv",
+                                           self.address, method)
+                if action == _fi.DROP:
+                    continue   # reply lost in flight; caller times out
+                if action == _fi.RESET:
+                    self._fail_pending()
+                    try:
+                        self._sock.close()
+                    except OSError:
+                        pass
+                    return
+                # a duplicated reply delivery is inert: the pending
+                # entry is popped exactly once below
             with self._pending_lock:
                 ev_reply = self._pending.pop(msg_id, None)
             if ev_reply is not None:
@@ -371,6 +432,23 @@ class RpcClient:
             self._pending[msg_id] = ev_reply
         kwargs["method"] = method
         kwargs["_id"] = msg_id
+        if _fi.plane.active:
+            action = _fi.plane.consult(self._label, "send", self.address,
+                                       method)
+            if action == _fi.DROP:
+                # request lost in the network: the pending entry waits
+                # out the caller's timeout, as a real drop would
+                return PendingCall(self, method, msg_id, ev_reply)
+            if action == _fi.RESET:
+                self.close()   # reader wakes and drains pending
+                raise ConnectionLost(
+                    f"injected reset: {self._label} -> {self.address}")
+            send_msg(self._sock, kwargs, self._send_lock)
+            if action == _fi.DUPLICATE:
+                # same frame (same _id) on the wire twice: the server
+                # dispatches both; the client keeps the first reply
+                send_msg(self._sock, kwargs, self._send_lock)
+            return PendingCall(self, method, msg_id, ev_reply)
         send_msg(self._sock, kwargs, self._send_lock)
         return PendingCall(self, method, msg_id, ev_reply)
 
@@ -540,6 +618,8 @@ class PushSubscriber:
         self._thread.start()
 
     def _dial(self):
+        if _fi.plane.active:
+            _fi.plane.check_connect(self._label, self._address)
         sock = socket.create_connection(self._address, timeout=30)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         send_msg(sock, self._subscribe_msg)
@@ -549,6 +629,17 @@ class PushSubscriber:
         while not self._closed:
             try:
                 msg = recv_msg(self._sock)
+                if _fi.plane.active:
+                    action = _fi.plane.consult(self._label, "recv",
+                                               self._address, None)
+                    if action == _fi.DROP:
+                        continue   # pushed message lost (pubsub allows)
+                    if action == _fi.RESET:
+                        try:
+                            self._sock.close()
+                        except OSError:
+                            pass
+                        raise ConnectionLost("injected reset")
             except (ConnectionLost, OSError, EOFError):
                 if not self._reconnect or self._closed:
                     return

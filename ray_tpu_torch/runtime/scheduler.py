@@ -1,8 +1,8 @@
 """Per-node task scheduler: the ready queue, the dispatch loop, worker
 lease granting, resource accounting, and infeasible-task parking.
 
-Port of ``ray_tpu/runtime/scheduler.py`` without the fault-injection
-crash points (a later slice). Reference analog: ``src/ray/raylet/scheduling/cluster_task_manager.cc``
+Port of ``ray_tpu/runtime/scheduler.py``, with its crash point
+``raylet.before_lease_grant``. Reference analog: ``src/ray/raylet/scheduling/cluster_task_manager.cc``
 (queue + spillback + infeasible parking) and ``local_task_manager.cc``
 (dispatch to workers), plus the lease queue behind
 ``NodeManager::HandleRequestWorkerLease`` (node_manager.cc:1778). A
@@ -23,6 +23,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 
+from ray_tpu_torch.runtime import fault_injection as _fi
 from ray_tpu_torch.runtime.gcs import _fits
 from ray_tpu_torch.runtime.rpc import send_msg
 
@@ -397,6 +398,10 @@ class TaskScheduler:
                 with pool.lock:
                     worker.state = "idle"
                 continue
+            # crash point: waiter claimed, resources acquired, grant not
+            # yet sent — the owner's retry must land on a respawned node
+            # or spill elsewhere (chaos soak raylet class)
+            _fi.maybe_crash("raylet.before_lease_grant")
             with pool.lock:
                 worker.state = "leased"
                 worker.acquired = dict(waiter["demand"])

@@ -80,3 +80,5 @@ class TaskSpec:
     sequence_number: int = 0
     max_concurrency: int = 1
     max_restarts: int = 0
+    # per-task/actor execution environment (runtime_env.RuntimeEnv dict)
+    runtime_env: dict | None = None

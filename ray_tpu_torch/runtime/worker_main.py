@@ -2,10 +2,12 @@
 
 Port of ``ray_tpu/runtime/worker_main.py``. Functions, classes and
 arguments arrive as the port's stdlib-pickle blobs
-(``runtime/serialization.py``). Left for later slices: the log capture,
-metrics pusher, trace spans and profiling RPCs (the observability planes),
-the fault-injection crash points, runtime environments, and the zygote
-template mode of the prestart fork server.
+(``runtime/serialization.py``). With JAX's runtime environments (applied
+at boot from ``RAY_TPU_TORCH_RUNTIME_ENV``), fault-injection crash points
+(``worker.mid_task``, ``worker.mid_actor_task``) and the zygote template
+mode of the prestart fork server (``--zygote``,
+``runtime/prestart.py``). Left for later slices: the log capture, metrics
+pusher, trace spans and profiling RPCs (the observability planes).
 
 Reference analog: ``python/ray/_private/workers/default_worker.py`` +
 the execution callback ``execute_task`` in ``_raylet.pyx:1457``. The worker
@@ -236,11 +238,43 @@ class TaskPushServer(RpcServer):
 
 class Worker:
     def __init__(self):
+        # Apply this worker's runtime env BEFORE anything else: env_vars,
+        # cached working_dir (chdir), py_modules on sys.path (reference:
+        # the runtime-env agent prepares the context applied at worker
+        # start — _private/runtime_env/agent/runtime_env_agent.py:281).
+        renv_raw = os.environ.get("RAY_TPU_TORCH_RUNTIME_ENV")
+        if renv_raw:
+            import json as _json
+
+            from ray_tpu_torch.runtime_env import apply_runtime_env, env_key
+
+            renv = _json.loads(renv_raw)
+            try:
+                apply_runtime_env(renv)
+            except Exception as e:  # noqa: BLE001
+                # tell the raylet WHY before dying: otherwise the queued
+                # task respawns a fresh worker that re-fails the same
+                # install forever, and the error never leaves stderr
+                try:
+                    failer = RpcClient(
+                        (os.environ["RAY_TPU_TORCH_RAYLET_HOST"],
+                         int(os.environ["RAY_TPU_TORCH_RAYLET_PORT"])))
+                    failer.call("runtime_env_failed",
+                                key=env_key(renv), error=repr(e))
+                    failer.close()
+                except Exception:  # noqa: BLE001
+                    pass
+                raise
         host = os.environ["RAY_TPU_TORCH_RAYLET_HOST"]
         port = int(os.environ["RAY_TPU_TORCH_RAYLET_PORT"])
         self.worker_id = os.environ["RAY_TPU_TORCH_WORKER_ID"]
         self.node_id = os.environ["RAY_TPU_TORCH_NODE_ID"]
         self.raylet_addr = (host, port)
+        from ray_tpu_torch.runtime import fault_injection as _fi
+        _fi.maybe_init_from_config(
+            (os.environ["RAY_TPU_TORCH_GCS_HOST"],
+             int(os.environ["RAY_TPU_TORCH_GCS_PORT"])),
+            process_label="worker")
         self.store = ShmObjectStore(os.environ["RAY_TPU_TORCH_STORE_NAME"])
         # control client: request/response to the raylet (ensure_local etc.)
         self.ctrl = RpcClient(self.raylet_addr, label="worker")
@@ -780,6 +814,12 @@ class Worker:
             self._report_task_event(task, started, False)
             return
         try:
+            from ray_tpu_torch.runtime import fault_injection as _fi
+
+            # crash point: args resolved, function loaded, mid-execution
+            # — the owner's lease channel breaks with no reply and the
+            # retry/typed-error path must cover it (chaos worker class)
+            _fi.maybe_crash("worker.mid_task")
             result = fn(*args, **kwargs)
             if _iscoroutine(result):
                 # async def remote function: drive it to completion
@@ -983,8 +1023,14 @@ class Worker:
             return
         started = _time.monotonic()
         try:
+            from ray_tpu_torch.runtime import fault_injection as _fi
+
             args, kwargs = self._resolve_args(task)
             method = getattr(self.actor_instance, task["method_name"])
+            # crash point: actor method about to run — exercises the
+            # actor RESTARTING/DEAD reconciliation + typed
+            # ActorDiedError surfacing at the caller
+            _fi.maybe_crash("worker.mid_actor_task")
             result = method(*args, **kwargs)
         except BaseException as e:  # noqa: BLE001
             self._store_error(
@@ -1024,6 +1070,19 @@ def _iter_markers(args, kwargs):
 
 
 def main():
+    import sys
+
+    if "--zygote" in sys.argv[1:]:
+        # fork-server template mode (runtime/prestart.py): preload the
+        # worker import set once, then serve os.fork() requests over the
+        # control pipe — each forked child re-enters Worker().run() with
+        # a fresh identity. The template itself NEVER constructs a
+        # Worker and never initializes CUDA (a forked child of a process
+        # holding a CUDA context cannot use the card; the card attaches
+        # post-fork in the child).
+        from ray_tpu_torch.runtime.prestart import zygote_main
+
+        raise SystemExit(zygote_main())
     Worker().run()
 
 

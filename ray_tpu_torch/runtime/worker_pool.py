@@ -1,12 +1,18 @@
 """Per-node worker pool: spawn, registration handshake, idle caching,
 death handling, and the memory-pressure kill policy.
 
-Port of ``ray_tpu/runtime/worker_pool.py`` with cold spawns only: every
-worker is a fresh ``python -m ray_tpu_torch.runtime.worker_main``, which is
-the JAX package's path whenever its zygote template misses (the prestart
-fork server, and its policy loop, are a later slice). Workers inherit the
+Port of ``ray_tpu/runtime/worker_pool.py`` with its prestart fork server
+(``runtime/prestart.py``): a worker is an ``os.fork()`` of the env-keyed
+zygote template once that key's demand justified one, else a fresh
+``python -m ray_tpu_torch.runtime.worker_main`` (also on every template
+miss). The prestart policy loop keeps forked workers warm against the
+lease queue's depth, and an idle warm worker takes over an actor creation.
+A worker boots with its runtime env (``RAY_TPU_TORCH_RUNTIME_ENV``;
+container envs run the worker inside the image). Workers inherit the
 environment's view of the card, as JAX's inherit ``JAX_PLATFORMS``; a
-worker that touches no tensor on the card makes no CUDA context.
+worker that touches no tensor on the card makes no CUDA context, and a
+template never makes one (its fork-safety check refuses to serve if it
+finds CUDA initialized).
 
 Reference analog: ``src/ray/raylet/worker_pool.cc`` (spawn + registration
 handshake + env-keyed idle caching + eviction beyond the soft limit) and
@@ -19,6 +25,7 @@ queueing/error paths so the policy stays in one place.
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -57,6 +64,12 @@ class WorkerHandle:
     # worker with a matching key (reference: (language, runtime_env)-
     # keyed worker caching in worker_pool.cc)
     env_key: str = ""
+    # monotonic time of the last busy→idle transition; the prestart
+    # policy evicts idle workers beyond the demand target older than
+    # prestart_idle_timeout_s
+    idle_since: float = 0.0
+    # spawned via the zygote fork path (runtime/prestart.py)
+    forked: bool = False
 
 
 class WorkerPool:
@@ -68,10 +81,19 @@ class WorkerPool:
     BAD_ENV_TTL_S = 60.0
 
     def __init__(self, node, *, max_workers: int):
+        from ray_tpu_torch.runtime.prestart import PrestartManager
+
         self._node = node
         self.max_workers = max_workers
         self.workers: dict[str, WorkerHandle] = {}
         self.lock = threading.Lock()
+        # fork-server templates (runtime/prestart.py): lazy — no process
+        # is spawned until the first fork attempt
+        self.prestart = PrestartManager(self)
+        # actor-creation misses since the last policy tick: actors do
+        # not flow through the lease queue, so take_idle_for_actor
+        # misses are their demand signal to the prestart policy
+        self._actor_demand = 0
         # why recent workers died, queried by lease owners on break
         # (bounded FIFO; reference: worker exit detail in death reports)
         self._death_info: dict[str, dict] = {}
@@ -92,6 +114,9 @@ class WorkerPool:
         env = dict(os.environ)
         env["PYTHONPATH"] = _worker_pythonpath(env.get("PYTHONPATH", ""))
         env.pop("JAX_PLATFORMS", None)
+        env.pop("RAY_TPU_TORCH_RUNTIME_ENV", None)
+        if runtime_env:
+            env["RAY_TPU_TORCH_RUNTIME_ENV"] = json.dumps(runtime_env)
         env.update({
             "RAY_TPU_TORCH_RAYLET_HOST": node.address[0],
             "RAY_TPU_TORCH_RAYLET_PORT": str(node.address[1]),
@@ -111,7 +136,46 @@ class WorkerPool:
         if log_dir:
             base = os.path.join(log_dir, f"worker-{worker_id[:12]}")
             log_out, log_err = base + ".out", base + ".err"
+        # fork fast path: an os.fork() of the preloaded env-keyed
+        # template instead of a cold interpreter start; any miss
+        # (disabled, template warming/dead, container env) returns None
+        # and the cold path below runs unchanged
+        fork_proc = self.prestart.fork_worker(runtime_env, worker_id,
+                                              log_out, log_err)
+        if fork_proc is not None:
+            handle = WorkerHandle(worker_id=worker_id, proc=fork_proc,
+                                  env_key=_env_key(runtime_env),
+                                  forked=True)
+            handle.log_out, handle.log_err = log_out, log_err
+            with self.lock:
+                self.workers[worker_id] = handle
+            return handle
         cmd = [sys.executable, "-m", "ray_tpu_torch.runtime.worker_main"]
+        container = (runtime_env or {}).get("container")
+        if container:
+            # CONTAINER worker (reference: runtime_env/container.py —
+            # the worker process itself runs in the image). Host
+            # networking + host IPC keep the raylet channel and the
+            # /dev/shm object store working unchanged.
+            from ray_tpu_torch.runtime_env import (container_command,
+                                                   find_container_runtime)
+
+            runtime = find_container_runtime()
+            if runtime is None:
+                # fail every queued task for this env fast instead of a
+                # spawn/crash loop (same path a worker-side env setup
+                # failure takes); the spawned stand-in exits immediately
+                # and the monitor reaps it like any dead worker
+                node.rpc_runtime_env_failed(
+                    None, None, key=_env_key(runtime_env),
+                    error="runtime_env.container requested but no "
+                          "docker/podman on PATH")
+                cmd = [sys.executable, "-c", "raise SystemExit(1)"]
+            else:
+                cmd = container_command(
+                    container,
+                    ["python", "-m", "ray_tpu_torch.runtime.worker_main"],
+                    env, runtime=runtime)
         stdout = stderr = None
         if log_out:
             try:
@@ -163,6 +227,7 @@ class WorkerPool:
                 # actor-designated workers keep their "actor" state — the
                 # dispatcher must never hand them normal tasks
                 handle.state = "idle"
+                handle.idle_since = time.monotonic()
         node._kick_dispatch()
         try:
             while not node._stopping:
@@ -201,6 +266,7 @@ class WorkerPool:
             # (released on death/kill); only per-task resources return here
             node._release(w.acquired)
             w.acquired = {}
+            w.idle_since = time.monotonic()
             w.state = "idle"
         node._kick_dispatch()
 
@@ -218,9 +284,10 @@ class WorkerPool:
         info = {"oom_killed": w.oom_killed}
         if w.proc is not None:
             info["exit_code"] = w.proc.poll()
-        # the raw .err redirect holds the interpreter-level last words:
-        # harvest them into death info so the lease/actor layers can
-        # surface a typed, attributed error
+        # the raw .err redirect holds the interpreter-level last words
+        # (and the fault plane's injected-crash marker): harvest them
+        # into death info so the lease/actor layers can surface a typed,
+        # attributed error
         info.update(_last_words(w.log_err))
         with self.lock:
             if w.state == "dead":
@@ -241,6 +308,8 @@ class WorkerPool:
         w.acquired = {}
         if prior_state == "actor" and w.actor_id is not None:
             reason = f"actor worker {w.worker_id[:8]} died"
+            if info.get("crash_point"):
+                reason += f" at crash point {info['crash_point']}"
             try:
                 with node._gcs_lock:
                     node._gcs.call(
@@ -339,8 +408,8 @@ class WorkerPool:
 
     def _evict_async(self, w: WorkerHandle):
         """Terminate an idle worker off the calling thread: a worker
-        slow to honor SIGTERM must not stall dispatch for every other
-        queued task."""
+        slow to honor SIGTERM must not stall dispatch (or the prestart
+        policy tick) for every other queued task."""
         def _reap():
             try:
                 if w.proc is not None:
@@ -358,6 +427,105 @@ class WorkerPool:
 
         threading.Thread(target=_reap, name="ray_tpu-evict",
                          daemon=True).start()
+
+    def take_idle_for_actor(self, runtime_env: dict | None = None
+                            ) -> WorkerHandle | None:
+        """Dedicate an already-registered idle worker (matching env key)
+        to an actor instead of spawning a fresh process — with the fork
+        pool keeping idle workers warm this makes actor creation an RPC
+        away (reference: PopWorker serving actor-creation leases from
+        the started-worker pool). Gated on prestart_enabled so the
+        legacy fresh-process-per-actor behavior is preserved when the
+        subsystem is off."""
+        if not self.prestart.enabled:
+            return None
+        from ray_tpu_torch.runtime_env import env_key as _env_key
+
+        key = _env_key(runtime_env)
+        with self.lock:
+            for w in self.workers.values():
+                if (w.state == "idle" and w.conn is not None
+                        and w.env_key == key):
+                    w.state = "actor"
+                    return w
+            self._actor_demand += 1
+        return None
+
+    # ------------------------------------------------------------------
+    # prestart policy (reference: worker_pool.h:354 PrestartWorkers —
+    # lease-demand-driven warm pool + idle eviction beyond the target)
+    # ------------------------------------------------------------------
+
+    def prestart_policy_loop(self):
+        from ray_tpu_torch.utils.config import get_config
+
+        node = self._node
+        cfg = get_config()
+        if not cfg.prestart_enabled:
+            return
+        while not node._stopping:
+            node._interruptible_sleep(cfg.prestart_policy_interval_s)
+            if node._stopping:
+                return
+            try:
+                self._prestart_tick(cfg)
+            except Exception:  # noqa: BLE001 - policy must never die
+                pass
+
+    def _prestart_tick(self, cfg):
+        """One policy decision: predict demand from lease-queue + ready-
+        queue depth, fork up to the deficit, evict idle workers beyond
+        the target that outlived the idle timeout."""
+        # The policy only acts where fork-server demand exists: the
+        # default env key crossed the spawn threshold, or an explicit
+        # warm floor is configured. Ungated, every transient queue blip
+        # in a small short-lived pool would speculatively spawn workers
+        # the scheduler's own demand spawning already covers.
+        if (cfg.prestart_min_workers <= 0
+                and not self.prestart.justified("")):
+            return
+        sched = self._node.scheduler
+        with sched.cv:
+            depth = len(sched.ready) + len(sched.lease_waiters)
+        now = time.monotonic()
+        with self.lock:
+            # an actor-creation burst shows up as take_idle misses, not
+            # queue depth — fold it in so the next wave of creations is
+            # served by warm takeovers instead of per-actor forks
+            depth += self._actor_demand
+            self._actor_demand = 0
+            idle = [w for w in self.workers.values()
+                    if w.state == "idle" and w.conn is not None
+                    and w.env_key == ""]
+            n_starting = sum(1 for w in self.workers.values()
+                             if w.state == "starting")
+            n_alive = sum(1 for w in self.workers.values()
+                          if w.state in ("idle", "busy", "starting",
+                                         "leased"))
+        want = min(max(depth, cfg.prestart_min_workers), self.max_workers)
+        deficit = min(want - (len(idle) + n_starting),
+                      self.max_workers - n_alive,
+                      cfg.prestart_max_forks_per_tick)
+        for _ in range(max(0, deficit)):
+            self.spawn(None)
+        if cfg.prestart_idle_timeout_s <= 0:
+            return
+        floor = max(want, cfg.prestart_min_workers)
+        excess = len(idle) - floor
+        if excess <= 0:
+            return
+        victims = []
+        with self.lock:
+            for w in sorted(idle, key=lambda w: w.idle_since):
+                if len(victims) >= excess:
+                    break
+                if (w.state == "idle"
+                        and now - w.idle_since
+                        > cfg.prestart_idle_timeout_s):
+                    w.state = "evicting"
+                    victims.append(w)
+        for w in victims:
+            self._evict_async(w)
 
     # ------------------------------------------------------------------
     # background loops (driven by the raylet's thread registry)
@@ -453,6 +621,7 @@ class WorkerPool:
     def stop(self):
         """Terminate every worker process (called from Raylet.stop after
         background loops have been joined)."""
+        self.prestart.stop()
         with self.lock:
             workers = list(self.workers.values())
         for w in workers:
@@ -496,8 +665,9 @@ def _worker_pythonpath(current: str) -> str:
 
 
 def _last_words(path: str | None, nbytes: int = 4096) -> dict:
-    """Tail a dead worker's raw ``.err`` redirect: its last non-empty
-    lines."""
+    """Tail a dead worker's raw ``.err`` redirect: the last non-empty
+    lines plus the injected crash-point name when the fault plane killed
+    it (SIGKILL leaves nothing else; the redirect is all there is)."""
     if not path:
         return {}
     try:
@@ -511,4 +681,13 @@ def _last_words(path: str | None, nbytes: int = 4096) -> dict:
     lines = [ln.strip() for ln in tail.splitlines() if ln.strip()]
     if not lines:
         return {}
-    return {"last_words": lines[-6:]}
+    out: dict = {"last_words": lines[-6:]}
+    from ray_tpu_torch.runtime import fault_injection as _fi
+
+    for ln in reversed(lines):
+        if _fi.CRASH_MARKER in ln:
+            for part in ln.split():
+                if part.startswith("point="):
+                    out["crash_point"] = part[6:]
+            break
+    return out

@@ -17,8 +17,10 @@ driver's ``__main__`` by its file path (``runtime/serialization.py``),
 which a worker process imports as ``__mp_main__``. A class that
 ``@serve.deployment`` replaced by its ``Deployment`` in its module is
 carried by the name it was bound under. A body that pickle cannot carry (a
-class or closure defined inside a function) raises with that message. The
-ASGI raw-request forwarding of the proxy waits for ``serve/ingress.py``.
+class or closure defined inside a function) raises with that message. A
+deployment wrapped in ``serve.ingress`` (``serve/ingress.py``) is marked
+``asgi`` in its config, and the proxy forwards its raw requests (method,
+path, query, headers, body) to the replica's ASGI app.
 """
 
 from __future__ import annotations
@@ -217,6 +219,9 @@ def run(dep: Deployment, *, name: str | None = None,
         "autoscaling": vars(auto) if auto else None,
         "user_config": dep.config.user_config,
         "resources_per_replica": dep.config.resources_per_replica,
+        # ASGI ingress deployments get raw-request forwarding from the
+        # proxies (serve.ingress sets the marker)
+        "asgi": bool(getattr(dep._cls, "_serve_asgi", False)),
     }
     dep_name = name or dep.name
     api.get(controller.deploy.remote(
@@ -368,6 +373,7 @@ class _ProxyHandler(BaseHTTPRequestHandler):
     # with a fresh dict (a class-level cache would leak stale controller
     # references across serve.shutdown()/restart cycles)
     handles: dict[str, DeploymentHandle]
+    asgi_flags: dict[str, bool]
 
     def log_message(self, *args):  # silence request logging
         pass
@@ -378,12 +384,26 @@ class _ProxyHandler(BaseHTTPRequestHandler):
             handle = get_deployment_handle(name)
             handle._refresh(ttl=0)  # raises KeyError if unknown
             self.handles[name] = handle
-        return handle
+        asgi = self.asgi_flags.get(name)
+        if asgi is None:
+            meta = api.get(
+                handle._controller.deployment_meta.remote(name))
+            asgi = bool(meta.get("asgi"))
+            self.asgi_flags[name] = asgi
+        return handle, asgi
 
     def _reply(self, code: int, body: bytes,
-               content_type: str = "application/json"):
+               content_type: str = "application/json", headers=()):
         self.send_response(code)
-        self.send_header("Content-Type", content_type)
+        sent_ct = False
+        for k, v in headers:
+            if k.lower() == "content-length":
+                continue  # we recompute it
+            if k.lower() == "content-type":
+                sent_ct = True
+            self.send_header(k, v)
+        if not sent_ct:
+            self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -395,15 +415,29 @@ class _ProxyHandler(BaseHTTPRequestHandler):
         from urllib.parse import urlsplit
 
         split = urlsplit(self.path)
-        name = split.path.strip("/").split("/", 1)[0]
+        parts = split.path.strip("/").split("/", 1)
+        name = parts[0]
+        subpath = "/" + (parts[1] if len(parts) > 1 else "")
         try:
-            handle = self._resolve(name)
+            handle, asgi = self._resolve(name)
         except Exception:  # noqa: BLE001
             self.send_error(404, f"no deployment {name!r}")
             return
         length = int(self.headers.get("Content-Length", 0))
         body = self.rfile.read(length) if length else b""
         try:
+            if asgi:
+                # raw-request forwarding: the replica's mounted ASGI app
+                # owns routing/methods/content types
+                out = handle.call({
+                    "__raw__": True, "method": self.command,
+                    "path": subpath, "query_string": split.query,
+                    "headers": list(self.headers.items()), "body": body,
+                })
+                self._reply(out.get("status", 500),
+                            out.get("body", b""),
+                            headers=out.get("headers", ()))
+                return
             payload = json.loads(body) if body else {}
             result = handle.call(payload)
             self._reply(200, json.dumps({"result": result}).encode())
@@ -430,7 +464,7 @@ def start_http_proxy(host: str = "127.0.0.1", port: int = 0):
     """Start the HTTP ingress; returns (server, (host, port)). POST
     /<deployment> with a JSON body routes to the deployment's __call__."""
     handler = type("_ProxyHandlerInstance", (_ProxyHandler,),
-                   {"handles": {}})
+                   {"handles": {}, "asgi_flags": {}})
     server = ThreadingHTTPServer((host, port), handler)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     return server, server.server_address

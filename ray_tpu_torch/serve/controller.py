@@ -13,8 +13,11 @@ cloudpickle), carried by qualified name: a module-level class or function,
 or a ``functools.partial`` of one (``serve/api.py`` ``dump_body``).
 Autoscaling is the polled policy (``metrics()`` of every replica), the one
 the JAX package falls back to when its metrics plane is dark; the
-metrics-driven policy, the ongoing-requests gauge, the log plane's labels
-and the fault-injection crash points wait for their planes.
+metrics-driven policy, the ongoing-requests gauge and the log plane's
+labels wait for their planes. The replicas' fault-injection crash points
+(``replica.mid_request``, ``replica.mid_decode``) are JAX's, and
+``deployment_meta`` tells the HTTP proxy which deployments are ASGI
+ingresses (``serve/ingress.py``).
 """
 
 from __future__ import annotations
@@ -95,6 +98,12 @@ class _Replica:
             self._total += 1
         token = set_request_model_id(model_id)
         try:
+            from ray_tpu_torch.runtime import fault_injection as _fi
+
+            # crash point: request admitted and counted in-flight — the
+            # router must fail callers typed-fast and the controller's
+            # health probes must replace this replica (chaos replica class)
+            _fi.maybe_crash("replica.mid_request")
             target = (self._instance if method_name == "__call__"
                       else getattr(self._instance, method_name))
             fn = target if (inspect.isfunction(target)
@@ -150,11 +159,17 @@ class _Replica:
             self._total += 1
 
         def pump():
+            from ray_tpu_torch.runtime import fault_injection as _fi
+
             token = set_request_model_id(model_id)
             try:
                 target = (self._instance if method_name == "__call__"
                           else getattr(self._instance, method_name))
                 for chunk in target(*args, **kwargs):
+                    # crash point: mid-stream, chunks already delivered —
+                    # the consumer's next_chunks call must fail typed-
+                    # fast, not hang out a redial window
+                    _fi.maybe_crash("replica.mid_decode")
                     q.put(("chunk", chunk), timeout=60.0)
                 q.put(("end", None), timeout=60.0)
             except _q.Full:  # consumer gone: abandon the stream
@@ -317,6 +332,16 @@ class ServeController:
                     and strip(prev["config"]) == strip(config))
         except Exception:  # noqa: BLE001 - uncomparable: full redeploy
             return False
+
+    def deployment_meta(self, name: str) -> dict:
+        """Static facts the proxies need (e.g. whether the deployment is
+        an ASGI ingress, which switches the HTTP proxy to raw-request
+        forwarding)."""
+        with self._lock:
+            dep = self._deployments.get(name)
+            if dep is None:
+                return {}
+            return {"asgi": bool(dep["config"].get("asgi"))}
 
     def deploy(self, name: str, cls_blob: bytes, init_args, init_kwargs,
                config: dict):

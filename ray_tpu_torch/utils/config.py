@@ -115,6 +115,54 @@ class Config:
     # Server-side parking window for a lease request.
     lease_block_s: float = 5.0
 
+    # --- worker prestart / fork-server (runtime/prestart.py; env
+    # overrides RAY_TPU_PRESTART_* — reference analog:
+    # worker_pool.h:354 PrestartWorkers + idle-worker eviction knobs) ---
+    # Master switch for the zygote fork path AND the demand-driven
+    # prestart policy loop. Every miss (template cold, dead, containered
+    # env) degrades to the plain Popen spawn.
+    prestart_enabled: bool = True
+    # Warm floor: forked-but-idle workers the policy loop keeps alive
+    # for the default env even with an empty lease queue.
+    prestart_min_workers: int = 0
+    # Cumulative spawn requests for one env key before its template is
+    # created. A template costs one interpreter start + the preload
+    # imports; short-lived pools (a test cluster spawning a handful of
+    # workers) never amortize that, so the first N-1 requests cold-spawn
+    # without paying it. Burst workloads (actor fan-out) cross the
+    # threshold within the first wave. An explicit warm() call,
+    # prestart_min_workers > 0, or a key that once crossed the threshold
+    # (respawn after template death) bypasses the gate.
+    prestart_spawn_threshold: int = 8
+    # Policy tick: how often lease-queue depth is sampled into a
+    # prestart/evict decision.
+    prestart_policy_interval_s: float = 0.25
+    # Idle workers beyond the demand-predicted target older than this
+    # are evicted (0 disables idle eviction; env-key mismatch eviction
+    # at the cap is separate and always on).
+    prestart_idle_timeout_s: float = 300.0
+    # Fork request/reply deadline on the template control pipe; on
+    # expiry the template is presumed wedged and killed (cold fallback).
+    prestart_fork_timeout_s: float = 15.0
+    # Spawn burst cap per policy tick (keeps one tick from forking the
+    # whole max_workers budget at once on a deep queue).
+    prestart_max_forks_per_tick: int = 8
+    # Live zygote templates per node (LRU-evicted beyond this): one per
+    # runtime-env key in active use.
+    prestart_max_templates: int = 4
+
+    # --- fault injection (runtime/fault_injection.py; env overrides
+    # RAY_TPU_FAULT_INJECTION_* — the chaos tier's knobs) ---
+    # Master switch: off = the plane is never consulted beyond one
+    # boolean read per message.
+    fault_injection_enabled: bool = False
+    # Base seed for probabilistic rules (deterministic replay).
+    fault_injection_seed: int = 0
+    # Startup plan: inline JSON, or @/path/to/plan.json.
+    fault_injection_plan: str = ""
+    # Poll period for the GCS KV plan key (runtime open/heal switch).
+    fault_injection_kv_poll_s: float = 0.25
+
     # --- cluster runtime: fault tolerance ---
     # Min seconds between lineage re-submissions of the same lost object.
     lineage_resubmit_grace_s: float = 60.0

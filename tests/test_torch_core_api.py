@@ -3,10 +3,11 @@
 Each scenario (drawn from tests/test_core_api.py and the local-mode cases
 of tests/test_async_streaming.py) runs once on ``ray_tpu`` and once on
 ``ray_tpu_torch``, each on its own in-process runtime, and must give the
-same result. Then the port's own surface: the ``GPU`` resource, and the
-refusals of ``runtime_env`` and ``address=``.
+same result. Then the port's own surface: the ``GPU`` resource,
+``runtime_env`` on the in-process runtime, and ``address=``.
 """
 
+import os
 import time
 
 import pytest
@@ -287,10 +288,15 @@ def test_gpu_resource_and_its_count():
         ray_tpu_torch.shutdown()
 
 
+def _read_env(name):
+    return os.environ.get(name)
+
+
 def test_runtime_env_and_address_raise():
-    """``runtime_env`` raises; ``address=`` connects to a port cluster
-    (its tasks run in a worker process), and a Ray-client address
-    raises."""
+    """``runtime_env`` applies in-process (its env vars for the task's
+    duration) and a malformed one raises at submission; ``address=``
+    connects to a port cluster (its tasks run in a worker process), and a
+    Ray-client address raises."""
     from ray_tpu_torch.cluster_utils import Cluster
 
     ray_tpu_torch.shutdown()
@@ -311,10 +317,14 @@ def test_runtime_env_and_address_raise():
         cluster.shutdown()
     try:
         ray_tpu_torch.init(num_cpus=2, num_gpus=0)
-        with pytest.raises(NotImplementedError, match="runtime_env"):
-            ray_tpu_torch.remote(runtime_env={"env_vars": {"A": "1"}})(_add)
-        with pytest.raises(NotImplementedError, match="runtime_env"):
-            ray_tpu_torch.remote(runtime_env={"pip": ["x"]})(Counter).remote()
+        f = ray_tpu_torch.remote(
+            runtime_env={"env_vars": {"RTT_CORE_ENV": "1"}})(_read_env)
+        assert ray_tpu_torch.get(f.remote("RTT_CORE_ENV")) == "1"
+        assert "RTT_CORE_ENV" not in os.environ
+        with pytest.raises(ValueError, match="unknown runtime_env"):
+            ray_tpu_torch.remote(runtime_env={"nope": 1})(_add)
+        with pytest.raises(TypeError, match="pip"):
+            ray_tpu_torch.remote(runtime_env={"pip": "x"})(Counter).remote()
         # an empty environment is no environment
         f = ray_tpu_torch.remote(runtime_env={})(_add)
         assert ray_tpu_torch.get(f.remote(1)) == 11

@@ -80,7 +80,10 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "runtime.annex", "utils.ids", "utils.exceptions",
                  "serve.config", "serve.multiplex", "serve.prefix_router",
                  "serve.controller", "serve.handle", "serve.api",
-                 "examples.serve_quickstart"):
+                 "examples.serve_quickstart", "serve.schema",
+                 "serve.ingress", "scripts.cli", "runtime.prestart",
+                 "runtime.fault_injection", "runtime_env", "chaos_soak",
+                 "examples.xlang"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -342,12 +345,12 @@ print(json.dumps({
 }))
 """
 
-# ray_tpu.serve's names that wait for serve/ingress.py and serve/schema.py
-SERVE_WAITING = {"ingress", "grpc_call", "start_grpc_proxy", "apply_config",
-                 "apply_config_file"}
+# ray_tpu.serve's names that wait for their slices: none since
+# serve/ingress.py and serve/schema.py were ported
+SERVE_WAITING: set = set()
 # ray_tpu's names that wait for their planes: the task timeline
-# (observability) and RuntimeEnv (the cluster runtime's worker processes)
-CORE_WAITING = {"timeline", "RuntimeEnv"}
+# (observability)
+CORE_WAITING = {"timeline"}
 
 
 def test_core_api_and_serve_load_no_jax_cloudpickle_yaml_or_cuda():
@@ -458,3 +461,51 @@ def test_cluster_modules_and_a_worker_load_no_jax_cloudpickle_or_cuda(
     worker = out["worker"]
     assert {k: worker[k] for k in clean} == clean
     assert worker["pid"] != out["driver_pid"]
+
+
+SLICE19_PROBE = r"""
+import importlib, json, sys
+names = ["ray_tpu_torch.serve.schema", "ray_tpu_torch.serve.ingress",
+         "ray_tpu_torch.scripts.cli", "ray_tpu_torch.runtime.prestart",
+         "ray_tpu_torch.runtime.fault_injection", "ray_tpu_torch.runtime_env",
+         "ray_tpu_torch.chaos_soak"]
+for name in names:
+    importlib.import_module(name)
+from ray_tpu_torch.runtime.prestart import libcuda_mapped
+import torch
+print(json.dumps({
+    "loaded": [n for n in names if n in sys.modules],
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "ray_tpu": sorted(m for m in sys.modules
+                      if m == "ray_tpu" or m.startswith("ray_tpu.")),
+    "cuda_initialized": torch.cuda.is_initialized(),
+    "libcuda_mapped": libcuda_mapped(),
+}))
+"""
+
+
+def test_ingress_cli_prestart_fault_env_soak_modules_load_alone():
+    """A fresh import of the Serve ingress and schema, the CLI, the
+    prestart fork server, the fault plane, runtime environments and the
+    chaos soak loads no jax, no ray_tpu module and no CUDA (neither
+    ``torch.cuda`` initialized nor the driver's libcuda mapped, which a
+    forked worker could not survive); ``ray_tpu_torch.serve`` exports
+    every name of ``ray_tpu.serve``."""
+    proc = subprocess.run([sys.executable, "-c", SLICE19_PROBE],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(out["loaded"]) == 7
+    assert out["jax"] == [] and out["ray_tpu"] == []
+    assert out["cuda_initialized"] is False
+    if not torch.cuda.is_available():
+        # with a card, importing torch maps libcuda (the reason the
+        # prestart template never imports torch)
+        assert out["libcuda_mapped"] is False
+    import ray_tpu.serve as jserve
+    import ray_tpu_torch.serve as tserve
+
+    assert set(jserve.__all__) <= set(tserve.__all__)
+    for name in jserve.__all__:
+        assert hasattr(tserve, name), name
