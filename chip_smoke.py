@@ -50,26 +50,30 @@ ep 2, tp 2} against the one-place forward. Then the multi-process train
 harness, each phase spawning rank
 processes over torch.distributed: Llama-3-8B at full depth through
 TorchMeshTrainer on one NCCL rank fed by the device feed (its losses
-against the one-process trainer's), two ranks on this card over gloo at
-depth 2 (their parameters and gradient norms against the
+against the one-process trainer's), the same rank fed by a ``Dataset``
+pipeline run in this process (the tokens stored offset, undone by a
+module-level ``map_batches``, then ``sort``, ``drop_columns`` and
+``repartition``; control: the pipeline without the undoing map), two
+ranks on this card over gloo at
+depth 1 (their parameters and gradient norms against the
 single-controller trainer on {dp 2}, with controls that skip the
 gradient all-reduce and that average in place of the sum), and
-ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 2. Then
+ElasticTrainer's reform from {dp 2, fsdp 2} to {dp 2} at depth 1. Then
 one spawn of four gloo rank processes on this card, each phase against
 its single controller run first: fsdp, tp and sp across processes
-sharing one global mesh, Llama-3-8B's width at depth 2 on {fsdp 2, tp 2}
-(one place a process) and at depth 2 on {sp 4} (the ring between the
+sharing one global mesh, Llama-3-8B's width at depth 1 on {fsdp 2, tp 2}
+(one place a process) and at depth 1 on {sp 4} (the ring between the
 processes), with controls (the rank-list psum backward in place of
 Megatron's g, a skipped fsdp reduce-scatter, the ring shifted the wrong
 way); then pp and ep across processes and the elastic reform to a new
 world: Llama-3-8B's width at depth 4 on {pp 4}
 (a stage a process; control: gradients sent to the next stage),
-Mixtral 8x7B's depth-8 forward with fsdp and ep across the processes
+Mixtral 8x7B's depth-4 forward with fsdp and ep across the processes
 (control: the experts' outputs from the wrong ep process), and a save at
 world 4 on {fsdp 2, tp 2} that two survivors restore onto {fsdp 2} bit
 for bit before a step (control: a restore one row off). Then Tune: a
 ``Tuner`` with population-based training over the learning rate, four
-trials of Llama-3-8B's widths at depth 2, two at a time, each one NCCL
+trials of Llama-3-8B's widths at depth 1, two at a time, each one NCCL
 rank process on this card (an exploited trial's first loss against its
 donor's at that step; control: the restore skipped), the serve body
 ``LLMDeployment`` on the full model's weights (its greedy tokens bit for
@@ -98,7 +102,13 @@ output bit for bit this process's), a JSON config deployed by the CLI's
 mounted by ``serve.ingress``) answering prompts over HTTP bit for bit,
 a fault-injected crash of its replica answered with the typed error and
 the replica replaced from a fork, then no worker or template left and
-the card's free memory back; and the quickstarts. Every
+the card's free memory back; Ray Data batch inference: seeded token rows
+through ``ray_tpu_torch.data.from_numpy(...).map_batches(...,
+compute="actors")`` on the in-process runtime over the full model's
+weights, each row's greedy next token and log-probability bit for bit
+the direct forward's (controls: a second weight seed, a row shifted),
+the card's memory back after; and the quickstarts (the data pipeline's
+rows JAX's). Every
 phase prints one JSON line; the last line is the contract line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
@@ -176,6 +186,20 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn) -> tuple:
+    """``fn()``'s result and its device milliseconds: one call between two
+    CUDA events (a plain version's reference call, timed as it runs)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_graph_ms(fn, iters: int) -> float:
@@ -437,7 +461,7 @@ def check_flash(torch, peaks):
         kernel_ms = cuda_graph_ms(kernel, 20)
         kernel_loop_ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(lambda: flash_fwd_plain(
-            qt, kt, vt, scale=scale, causal=causal, with_lse=with_lse), 2)
+            qt, kt, vt, scale=scale, causal=causal, with_lse=with_lse), 1)
         # library yardstick only; the port never calls it (at the training
         # shape with SDPA's own GQA, elsewhere on repeated kv heads)
         sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -612,11 +636,14 @@ def check_flash_bwd(torch, peaks):
         out, lse = flash_fwd(qt, kt, vt, causal=causal, with_lse=True)
         got = flash_bwd(qt, kt, vt, out, lse, dot, **kw)
         torch.cuda.synchronize()
-        # delta as the kernel sums it (float64, rounded to float32)
-        delta = flash_bwd_delta(out, dot)
-        args = (qt, kt, vt, dot, lse, delta)
-        want = (flash_bwd_dq_plain(*args, **kw),
-                *flash_bwd_dkv_plain(*args, **kw))
+        # delta as the kernel sums it (float64, rounded to float32); the
+        # plain version's time is this reference call's
+
+        def plain():
+            dl = flash_bwd_delta(out, dot)
+            return (flash_bwd_dq_plain(qt, kt, vt, dot, lse, dl, **kw),
+                    *flash_bwd_dkv_plain(qt, kt, vt, dot, lse, dl, **kw)), dl
+        (want, delta), plain_ms = timed_once(plain)
         names = ("dq", "dk", "dv")
         errs = {n: grad_row_err(g, w) for n, g, w in zip(names, got, want)}
         abs_errs = {n: float((g.float() - w.float()).abs().max())
@@ -657,14 +684,9 @@ def check_flash_bwd(torch, peaks):
             # graph replay, and the loop of wrapper calls beside it
             def kernel():
                 flash_bwd(qt, kt, vt, out, lse, dot, **kw)
-
-            def plain():
-                dl = flash_bwd_delta(out, dot)
-                flash_bwd_dq_plain(qt, kt, vt, dot, lse, dl, **kw)
-                flash_bwd_dkv_plain(qt, kt, vt, dot, lse, dl, **kw)
             row["kernel_ms"] = cuda_graph_ms(kernel, 10)
             row["kernel_loop_ms"] = cuda_ms(kernel, 10)
-            row["plain_ms"] = cuda_ms(plain, 1)
+            row["plain_ms"] = plain_ms
             # library yardstick only (the port never calls it): SDPA's
             # backward with GQA, as forward + backward minus forward, both
             # by graph replay
@@ -688,7 +710,7 @@ def check_flash_bwd(torch, peaks):
             timed[name] = row
             del q, k, v
         emit("flash_bwd_check", **row)
-        del qt, kt, vt, dot, out, lse, delta, args, got, want
+        del qt, kt, vt, dot, out, lse, delta, got, want
     return timed
 
 
@@ -1971,10 +1993,16 @@ HARNESS_NORM_TOL = 1e-2
 # the cases of a gloo rank: the real one, then the controls (the gradient
 # all-reduce made a no-op; the summed gradients divided by the world size)
 GLOO_CASES = ("all_reduce", "skip_all_reduce", "mean_all_reduce")
-# depth 2 since slice 18 (4 before), to keep the script inside its time
-# limit as the cluster group joins it
-GLOO_DEPTH = 2
-ELASTIC_DEPTH = 2
+# depth 1 since slice 20 (2 since slice 18, 4 before), and one step a
+# case at the schedule's peak (two before, the first at a learning rate of
+# 0; see XPROC_STEPS), to keep the script inside its time limit as the
+# later groups join it
+GLOO_DEPTH = 1
+GLOO_STEPS = 1
+# the gloo ranks are killed after this long, from their spawn (the
+# reference and check_elastic run here while they start)
+GLOO_LIMIT_S = 600.0
+ELASTIC_DEPTH = 1
 
 
 def harness_steps(stats: dict) -> dict:
@@ -2079,7 +2107,8 @@ def check_harness_nccl(torch, cfg, peaks, want_losses, step_counts):
 def gloo_rank_loop(config):
     """A rank of harness_gloo_dp2: ``Trainer`` over the rank's process
     group from ``init_state(seed)``, ``steps`` steps on the global batch
-    for each case of ``GLOO_CASES`` (the real one, then the controls).
+    for each case of ``GLOO_CASES`` (the controls, then the real one: the
+    process's start-up lands in a control's step).
     Reports each step; rank 0 saves each case's parameters to
     ``<out>/<case>.pt``; after the real case both ranks must hold equal
     parameters (``check_same``)."""
@@ -2101,7 +2130,7 @@ def gloo_rank_loop(config):
     # this rank's work: 6 FLOPs a parameter a token of its rows
     session.set_flops_per_step(6.0 * config["n_params"] * batch.numel()
                                / ctx.world_size)
-    for case in GLOO_CASES:
+    for case in (*GLOO_CASES[1:], GLOO_CASES[0]):
         trainer = Trainer(config["model_config"], config["train_config"],
                           device=ctx.device, process_group=pg)
         state = trainer.init_state(seed=SEED)
@@ -2154,65 +2183,73 @@ def update_err(torch, got: dict, ref: dict, init: dict) -> tuple:
     return (num / den) ** 0.5, differing
 
 
-def check_harness_gloo(torch, cfg, peaks):
+def check_harness_gloo(torch, cfg, peaks, meanwhile=None):
     """Two ranks on this one card over gloo (CUDA tensors staged through
-    pinned host memory), llama3_8b() at full width and depth 4 on a
-    {"dp": 2} global mesh, global batch [2, 2049], 2 steps. Held: rank 0's
+    pinned host memory), llama3_8b() at full width and depth GLOO_DEPTH on a
+    {"dp": 2} global mesh, global batch [2, 2049], GLOO_STEPS steps at
+    the schedule's peak. Held: rank 0's
     parameters and gradient norms against the single-controller trainer
-    on a {"dp": 2} mesh of the card, run before the ranks start; the
+    on a {"dp": 2} mesh of the card; the
     ranks' parameters equal each other (check_same in the ranks). The
     controls, ranks that skip the gradient all-reduce and ranks that
-    average in place of the sum, must each break a bound. Returns rank
-    0's launch counts (three cases, 6 steps)."""
+    average in place of the sum, must each break a bound. The ranks start
+    up (``xproc_after_go``) while the single controller and then
+    ``meanwhile()`` (``check_elastic``) run here. Returns rank 0's launch
+    counts (three cases, GLOO_STEPS steps each) and ``meanwhile``'s
+    result."""
     import dataclasses
     import tempfile
 
-    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
     from ray_tpu_torch.parallel.sharding import ShardedTensor
-    from ray_tpu_torch.train.data_parallel_trainer import \
-        DataParallelTrainer
     from ray_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    b, s, steps, world = 2, 2048, 2, 2
+    b, s, steps, world = 2, 2048, GLOO_STEPS, 2
     cfg4 = dataclasses.replace(cfg, n_layers=GLOO_DEPTH)
     train_cfg = TrainConfig(mesh_axes={"dp": world}, fused_loss=True,
-                            loss_chunk=1024, warmup_steps=1)
+                            loss_chunk=1024, warmup_steps=XPROC_WARMUP)
     batch = train_batch(cfg, b, s, SEED + 17)
+    box = {}
 
     def host(params):
         return {n: (t.unshard() if isinstance(t, ShardedTensor) else t)
                 .detach().cpu() for n, t in named_leaves(params)}
 
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg4, train_cfg)
-    state = trainer.init_state(seed=SEED)
-    init = host(state.params)
-    ref_losses, ref_norms = [], []
-    for _ in range(steps):
-        state, m = trainer.train_step(state, batch)
-        ref_losses.append(float(m["loss"]))
-        ref_norms.append(float(m["grad_norm"]))
-    ref = host(state.params)
-    del state, trainer
-    free_card(torch)
-    reference_s = time.perf_counter() - t0
-    zero_counts()
-    t0 = time.perf_counter()
+    def reference_then_go(fit, deadline):
+        """While the ranks start: the single controller, ``meanwhile``,
+        then the ranks' go."""
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg4, train_cfg)
+        state = trainer.init_state(seed=SEED)
+        box["init"] = host(state.params)
+        box["losses"], box["norms"] = [], []
+        for _ in range(steps):
+            state, m = trainer.train_step(state, batch)
+            box["losses"].append(float(m["loss"]))
+            box["norms"].append(float(m["grad_norm"]))
+        box["ref"] = host(state.params)
+        del state, trainer
+        free_card(torch)
+        box["reference_s"] = time.perf_counter() - t0
+        if meanwhile is not None:
+            box["meanwhile"] = meanwhile()
+            free_card(torch)
+        zero_counts()
+        xproc_go(torch, d, {
+            "model_config": cfg4, "train_config": train_cfg,
+            "batch": batch.cpu().numpy(), "steps": steps,
+            "n_params": sum(t.numel() for t in box["init"].values())})
+        box["go_s"] = time.perf_counter() - t0
+
     with tempfile.TemporaryDirectory() as d:
-        result = DataParallelTrainer(
-            gloo_rank_loop,
-            train_loop_config={"model_config": cfg4,
-                               "train_config": train_cfg,
-                               "batch": batch.cpu().numpy(), "steps": steps,
-                               "n_params": sum(t.numel()
-                                               for t in init.values()),
-                               "out": d},
-            scaling_config=ScalingConfig(num_workers=world, use_gpu=True,
-                                         backend="gloo"),
-            run_config=RunConfig(storage_path=d)).fit()
-        fit_s = time.perf_counter() - t0
-        if result.error is not None:
-            raise AssertionError(f"harness_gloo_dp2 failed:\n{result.error}")
+        result, fit_s = xproc_spawn(torch, "harness_gloo_dp2", None, None,
+                                    None, None, d, loop=xproc_after_go,
+                                    world=world, limit_s=GLOO_LIMIT_S,
+                                    while_running=reference_then_go,
+                                    then=gloo_rank_loop,
+                                    go_within_s=GLOO_LIMIT_S)
+        waited = xproc_waited(d, world)
+        init, ref = box.pop("init"), box.pop("ref")
+        ref_losses, ref_norms = box["losses"], box["norms"]
         t0 = time.perf_counter()
         errs, differing = {}, {}
         for case in GLOO_CASES:
@@ -2261,8 +2298,11 @@ def check_harness_gloo(torch, cfg, peaks):
          rank0_staging_s=[r["staging_s"] for r in real],
          rank0_staged_bytes=[r["staged_bytes"] for r in real],
          ranks=per_rank, want_launches=want_counts,
-         reference_s=reference_s, fit_s=fit_s, compare_s=compare_s,
-         spawn_to_first_report_s=result.first_report_s)
+         reference_s=box["reference_s"], go_after_s=box["go_s"],
+         ranks_waited_for_go_s=waited, fit_s=fit_s, compare_s=compare_s,
+         spawn_to_first_report_s=result.first_report_s,
+         go_to_first_report_s=None if result.first_report_s is None
+         else result.first_report_s - box["go_s"])
     def breaks(case):
         return errs[case] > HARNESS_PARAM_TOL or \
             norm_errs[case] > HARNESS_NORM_TOL
@@ -2275,7 +2315,7 @@ def check_harness_gloo(torch, cfg, peaks):
         raise AssertionError(f"harness_gloo_dp2 launches "
                              f"{[r['launches'] for r in per_rank]}, want "
                              f"{want_counts}")
-    return per_rank[0]["launches"]
+    return per_rank[0]["launches"], box.get("meanwhile")
 
 
 def elastic_axes(n: int) -> dict:
@@ -2283,7 +2323,8 @@ def elastic_axes(n: int) -> dict:
 
 
 def check_elastic(torch, cfg):
-    """``ElasticTrainer`` on llama3_8b() at full width and depth 2: 2
+    """``ElasticTrainer`` on llama3_8b() at full width and depth
+    ELASTIC_DEPTH: 2
     steps on {"dp": 2, "fsdp": 2} places of this card with a checkpoint at
     step 2 (into a temporary directory), ``reform`` onto {"dp": 2}, one
     more step. Held: the restored state (parameters, moments, step)
@@ -2364,16 +2405,29 @@ def check_elastic(torch, cfg):
 # ---------------------------------------------------------------------------
 
 XPROC_WORLD = 4
-# depth 2 since slice 11 (4 before), so that the script stays inside its
-# time limit as the later slices' phases join it
-XPROC_FSDP_TP_DEPTH = 2
-XPROC_SP_DEPTH = 2
-XPROC_STEPS = 2
+# depth 1 since slice 20 (2 since slice 11, 4 before), so that the script
+# stays inside its time limit as the later slices' phases join it (it took
+# 1405.9 s at depth 2 on one host of an H100 80GB HBM3 at 700 W)
+XPROC_FSDP_TP_DEPTH = 1
+XPROC_SP_DEPTH = 1
+# One step at the schedule's peak (XPROC_WARMUP 0) since slice 20, for the
+# time limit (each step's gloo collectives take 1-10 s): Adam's first
+# update, lr·g/|g| and the weight decay, as the second of the two steps
+# before it, whose first ran at a learning rate of 0 on the same batch.
+# What a second step adds, the moments carried across steps, the CPU tests
+# hold against JAX across processes (tests/test_torch_cross_process*.py),
+# and here xproc_elastic's step after its reform, which reads the moments
+# its survivors restored from XPROC_ELASTIC_STEPS steps (2 before slice
+# 20).
+XPROC_STEPS = 1
+XPROC_WARMUP = 0
+XPROC_ELASTIC_STEPS = 1
 # a phase's ranks are killed after this long (their fit takes about 40 s
 # on an H100 80GB HBM3 at 700 W)
 XPROC_LIMIT_S = 240.0
-# the cases of a rank: the real one (XPROC_STEPS steps), then each control
-# (one step), with the bound it must leave: the gradient norm's
+# the cases of a rank: each control (one step), then the real one
+# (XPROC_STEPS steps: the process's start-up lands in a control's step),
+# with the bound a control must leave: the gradient norm's
 # (HARNESS_NORM_TOL) or some leaf's first moment's (XPROC_MOMENT_TOL)
 XPROC_CASES = {"xproc_fsdp_tp": ("real", "psum_backward",
                                  "skip_reduce_scatter", "norm_unreduced"),
@@ -2607,8 +2661,8 @@ def xproc_rank_loop(config):
     """A rank of an xproc phase: ``Trainer`` over the rank's process group
     on the global mesh ``config["train_config"].mesh_axes``, from
     ``init_state(seed)`` (the rank's chunks), for each case of
-    ``XPROC_CASES[phase]``: the real one ``XPROC_STEPS`` steps, a control
-    one. Reports each step (its seconds, each collective kind's seconds
+    ``XPROC_CASES[phase]``, the controls first: a control one step, the
+    real one ``XPROC_STEPS`` steps. Reports each step (its seconds, each collective kind's seconds
     and bytes, the launches, the ring's K1 split). After the real case it
     saves its chunks of the parameters and the first moment by index
     range to ``<out>/<case>_rank<r>.pt``, and after a control held by the
@@ -2632,7 +2686,7 @@ def xproc_rank_loop(config):
     ring = xproc_ring_check(torch, pg, config["out"], *XPROC_RING[phase]) \
         if phase in XPROC_RING else None
     reports = []
-    for case in XPROC_CASES[phase]:
+    for case in (*XPROC_CASES[phase][1:], "real"):
         with xproc_control(case):
             trainer = Trainer(config["model_config"], config["train_config"],
                               device=ctx.device, process_group=pg)
@@ -2860,6 +2914,48 @@ def xproc_spawn(torch, phase, cfg, train_cfg, batch, rank_flops, out,
     return result, time.perf_counter() - t0
 
 
+def xproc_after_go(config):
+    """A rank of a spawn started before the parent's work that its config
+    waits on (the phases' single controllers, a reference run), so that
+    its start-up (20-56 s a spawn) overlaps that work: it waits for
+    ``<out>/go`` (``xproc_go``), writes its seconds of waiting to
+    ``<out>/waited_rank<r>`` (0: the parent was ready first), then runs
+    ``config["then"]`` (``xproc_world4_loop``, ``xproc_cut_loop``,
+    ``gloo_rank_loop``) on its config and the go file's keys."""
+    import torch
+
+    from ray_tpu_torch.train import session
+
+    go = os.path.join(config["out"], "go")
+    t0 = time.monotonic()
+    while not os.path.exists(go):
+        if time.monotonic() - t0 > config["go_within_s"]:
+            raise TimeoutError(f"no {go} within {config['go_within_s']} s")
+        time.sleep(0.1)
+    rank = session.get_context().rank
+    with open(os.path.join(config["out"], f"waited_rank{rank}"), "w") as f:
+        json.dump({"seconds": time.monotonic() - t0}, f)
+    config["then"]({**config, **torch.load(go, weights_only=False)})
+
+
+def xproc_go(torch, d: str, keys: dict) -> None:
+    """The ranks' config keys (``phases``: each phase's config) to
+    ``<d>/go`` for the ranks waiting in ``xproc_after_go`` (written under
+    another name, then renamed)."""
+    tmp = os.path.join(d, ".go.tmp")
+    torch.save(keys, tmp)
+    os.replace(tmp, os.path.join(d, "go"))
+
+
+def xproc_waited(d: str, world: int) -> list:
+    """Each rank's seconds of waiting for its go (``xproc_after_go``)."""
+    out = []
+    for r in range(world):
+        with open(os.path.join(d, f"waited_rank{r}")) as f:
+            out.append(json.load(f)["seconds"])
+    return out
+
+
 def xproc_steps(out: str, world: int = XPROC_WORLD) -> list:
     """Every rank's step reports (each rank writes its own: only rank 0's
     stream reaches the harness's result), rank order."""
@@ -2918,7 +3014,8 @@ def xproc_fsdp_tp_setup(torch, cfg) -> dict:
     b, s, L = 2, 2048, XPROC_FSDP_TP_DEPTH
     cfg4 = dataclasses.replace(cfg, n_layers=L)
     train_cfg = TrainConfig(mesh_axes=dict(PLACED_AXES), strategy="fsdp_tp",
-                            fused_loss=True, loss_chunk=1024, warmup_steps=1)
+                            fused_loss=True, loss_chunk=1024,
+                            warmup_steps=XPROC_WARMUP)
     batch = train_batch(cfg, b, s, SEED + 23)
     single = xproc_single_controller(torch, cfg4, train_cfg, batch)
     n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
@@ -2977,7 +3074,7 @@ def check_xproc_fsdp_tp(torch, cfg, peaks, setup: dict, d: str,
     launches = {r: [st["launches"] for st in rs]
                 for r, rs in per_rank.items()}
     step_s = max(st["step_s"] for rs in per_rank.values()
-                 for st in rs[1:])
+                 for st in rs[1:] or rs)
     emit("xproc_fsdp_tp", config="llama3_8b", n_layers=L,
          depth_cut=f"{L} of {cfg.n_layers} layers (four states' chunks and "
                    "the single controller's state on one card)",
@@ -3027,7 +3124,7 @@ def xproc_sp4_setup(torch, cfg) -> dict:
     cfg2 = dataclasses.replace(cfg, n_layers=L)
     train_cfg = TrainConfig(mesh_axes={"sp": RING_SP},
                             strategy="fsdp_tp_sp", fused_loss=True,
-                            loss_chunk=1024, warmup_steps=1)
+                            loss_chunk=1024, warmup_steps=XPROC_WARMUP)
     batch = train_batch(cfg, b, s, SEED + 29)
     single = xproc_single_controller(torch, cfg2, train_cfg, batch,
                                      mesh=sp_mesh(torch))
@@ -3080,7 +3177,7 @@ def check_xproc_sp4(torch, cfg, peaks, setup: dict, d: str, spawn: dict):
     ring_launches = {r: next(x["ring_launches"] for x in steps
                              if x["rank"] == r) for r in range(XPROC_WORLD)}
     step_s = max(st["step_s"] for rs in per_rank.values()
-                 for st in rs[1:])
+                 for st in rs[1:] or rs)
     emit("xproc_sp4", config="llama3_8b", n_layers=L,
          depth_cut=f"{L} of {cfg.n_layers} layers (the state replicated "
                    "over sp: four whole states on one card)",
@@ -3132,13 +3229,14 @@ def check_xproc_sp4(torch, cfg, peaks, setup: dict, d: str, spawn: dict):
 XPROC_PP_DEPTH = PP_STAGES       # one layer a stage
 XPROC_PP_MICRO = 4
 # Mixtral 8x7B's width, EP_AXES dealt to the four processes: fsdp and ep
-# across them, tp inside each; depth 8 since slice 16 (16 before, as
-# ep_placed_forward), to keep the script inside its time limit as the later
-# slices' phases join it
-XPROC_EP_DEPTH = 8
+# across them, tp inside each; depth 4 since slice 20 (8 since slice 16,
+# 16 before, as ep_placed_forward), to keep the script inside its time
+# limit as the later slices' phases join it
+XPROC_EP_DEPTH = 4
 # the wrong-ep control's depth: the fault shows in the first layer
 XPROC_EP_CONTROL_DEPTH = 2
-XPROC_ELASTIC_DEPTH = 2
+# depth 1 since slice 20 (2 before), for the time limit
+XPROC_ELASTIC_DEPTH = 1
 XPROC_SURVIVORS = 2
 
 
@@ -3177,7 +3275,7 @@ def xproc_pp_setup(torch, cfg) -> dict:
     b, s, L, m = 8, 2048, XPROC_PP_DEPTH, XPROC_PP_MICRO
     cfg4 = dataclasses.replace(cfg, n_layers=L)
     train_cfg = TrainConfig(mesh_axes={"pp": PP_STAGES}, strategy="pp_fsdp",
-                            n_microbatches=m, warmup_steps=1)
+                            n_microbatches=m, warmup_steps=XPROC_WARMUP)
     batch = train_batch(cfg, b, s, SEED + 37)
     single = xproc_single_controller(torch, cfg4, train_cfg, batch)
     n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
@@ -3217,7 +3315,7 @@ def check_xproc_pp(torch, cfg, peaks, setup: dict, d: str,
     launches = {r: [st["launches"] for st in rs]
                 for r, rs in per_rank.items()}
     step_s = max(st["step_s"] for rs in per_rank.values()
-                 for st in rs[1:])
+                 for st in rs[1:] or rs)
     emit("xproc_pp", config="llama3_8b", n_layers=L,
          depth_cut=f"{L} of {cfg.n_layers} layers, one a stage (the io "
                    "parameters, their moments and gradients in every "
@@ -3643,8 +3741,8 @@ def restored_mismatches(torch, paths, trees: dict) -> tuple:
 
 def xproc_elastic_loop(config):
     """A rank of xproc_elastic: ``ElasticTrainer(process_group=)`` on the
-    global {fsdp 2, tp 2} of four processes, XPROC_STEPS steps from
-    ``init_state(seed)`` and a checkpoint (each process its chunks, its
+    global {fsdp 2, tp 2} of four processes, XPROC_ELASTIC_STEPS steps
+    from ``init_state(seed)`` and a checkpoint (each process its chunks, its
     file checked bit for bit against its state); then the first
     XPROC_SURVIVORS ranks leave this group, join a new one of their own
     (the port agreed through the old one) and ``reform`` onto {fsdp 2},
@@ -3672,12 +3770,13 @@ def xproc_elastic_loop(config):
                         checkpoint_dir=ckpt_dir,
                         mesh_axes_fn=xproc_elastic_axes,
                         devices=[torch.device(ctx.device)],
-                        checkpoint_every=XPROC_STEPS, run_name=run,
+                        checkpoint_every=XPROC_ELASTIC_STEPS, run_name=run,
                         process_group=pg)
     state = et.init_state(seed=SEED)
     report = {"rank": rank, "mesh_before": et.trainer.mesh.shape,
               "losses": [], "grad_norms": []}
-    state = et.fit(state, iter([batch] * XPROC_STEPS), steps=XPROC_STEPS,
+    state = et.fit(state, iter([batch] * XPROC_ELASTIC_STEPS),
+                   steps=XPROC_ELASTIC_STEPS,
                    on_metrics=lambda m: (report["losses"].append(m["loss"]),
                                          report["grad_norms"].append(
                                              m["grad_norm"])))
@@ -3685,13 +3784,13 @@ def xproc_elastic_loop(config):
     et.ckpt.wait()
     report["save_wait_s"] = time.perf_counter() - t0
     report["file_bytes"] = os.path.getsize(os.path.join(
-        ckpt_dir, f"{XPROC_STEPS}.proc{rank}of{XPROC_WORLD}.pt"))
+        ckpt_dir, f"{XPROC_ELASTIC_STEPS}.proc{rank}of{XPROC_WORLD}.pt"))
     trees = {"params": state.params,
              "opt_state": {k: state.opt_state[k] for k in ("mu", "nu")}}
     report["saved_step"] = state.step
     report["file_not_bit_equal"] = file_mismatches(
-        torch, os.path.join(ckpt_dir,
-                            f"{XPROC_STEPS}.proc{rank}of{XPROC_WORLD}.pt"),
+        torch, os.path.join(ckpt_dir, f"{XPROC_ELASTIC_STEPS}.proc{rank}"
+                                      f"of{XPROC_WORLD}.pt"),
         trees)
     port = pg.all_gather_object(free_port() if rank == 0 else None)[0]
     # every process's file is on disk before a survivor restores
@@ -3711,7 +3810,7 @@ def xproc_elastic_loop(config):
         t0 = time.perf_counter()
         report["restored_not_bit_equal"], report["restored_compared"] = \
             restored_mismatches(torch, [os.path.join(
-                ckpt_dir, f"{XPROC_STEPS}.proc{r}of{XPROC_WORLD}.pt")
+                ckpt_dir, f"{XPROC_ELASTIC_STEPS}.proc{r}of{XPROC_WORLD}.pt")
                 for r in range(XPROC_WORLD)],
                 {"params": state.params, "opt_state": {
                     k: state.opt_state[k] for k in ("mu", "nu")}})
@@ -3729,8 +3828,8 @@ def xproc_elastic_loop(config):
         finally:
             checkpoint._assemble = assemble
         report["control_rows_off_not_bit_equal"] = restored_mismatches(
-            torch, [os.path.join(ckpt_dir,
-                                 f"{XPROC_STEPS}.proc{r}of{XPROC_WORLD}.pt")
+            torch, [os.path.join(ckpt_dir, f"{XPROC_ELASTIC_STEPS}.proc{r}"
+                                           f"of{XPROC_WORLD}.pt")
                     for r in range(XPROC_WORLD)],
             {"params": wrong.params, "opt_state": {
                 k: wrong.opt_state[k] for k in ("mu", "nu")}})[0]
@@ -3765,9 +3864,9 @@ def xproc_elastic_loop(config):
 
 def xproc_elastic_single(torch, cfg, kw: dict, batch) -> dict:
     """The single controller's counterpart on this card: the trainer on
-    {fsdp 2, tp 2} for XPROC_STEPS steps from ``init_state(seed)``, its
-    state then placed on {fsdp 2} (the reform's mesh) and one more step.
-    Host copies of the parameters at the reform and of the parameters and
+    {fsdp 2, tp 2} for XPROC_ELASTIC_STEPS steps from
+    ``init_state(seed)``, its state then placed on {fsdp 2} (the reform's
+    mesh) and one more step. Host copies of the parameters at the reform and of the parameters and
     first moment after; the losses and norms."""
     from ray_tpu_torch.parallel.sharding import (ShardedTensor, map_trees,
                                                  place_tree)
@@ -3786,7 +3885,7 @@ def xproc_elastic_single(torch, cfg, kw: dict, batch) -> dict:
     tr = Trainer(cfg, TrainConfig(mesh_axes=xproc_elastic_axes(4), **kw))
     state = tr.init_state(seed=SEED)
     losses, norms = [], []
-    for _ in range(XPROC_STEPS):
+    for _ in range(XPROC_ELASTIC_STEPS):
         state, m = tr.train_step(state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -3813,15 +3912,16 @@ def xproc_elastic_single(torch, cfg, kw: dict, batch) -> dict:
 def xproc_elastic_setup(torch, cfg) -> dict:
     """``ElasticTrainer(process_group=)`` on ``llama3_8b()`` at full width
     and depth XPROC_ELASTIC_DEPTH: four gloo rank processes on this card
-    on {fsdp 2, tp 2} under fsdp_tp take XPROC_STEPS steps on [2, 2049]
-    and save (each process its chunks, ``<step>.proc<r>of4.pt``); two of
-    them leave the group, join a new one and reform onto {fsdp 2},
+    on {fsdp 2, tp 2} under fsdp_tp take XPROC_ELASTIC_STEPS steps on
+    [2, 2049] and save (each process its chunks,
+    ``<step>.proc<r>of4.pt``); two of them leave the group, join a new
+    one and reform onto {fsdp 2},
     restoring the checkpoint across layouts. Held: each process's file
     bit-equal to its state, each survivor's restored chunks bit-equal to
     every saved chunk they overlap (and every element of its places
     compared), the step restored; the step after the reform against the
-    single controller's (the same two steps, the state placed on {fsdp
-    2}, one step; run first): the update within HARNESS_PARAM_TOL, every
+    single controller's (the same steps, the state placed on {fsdp 2},
+    one step; run first): the update within HARNESS_PARAM_TOL, every
     leaf's first moment within XPROC_MOMENT_TOL, the gradient norm within
     HARNESS_NORM_TOL. Control: a restore that assembles every block one
     row off, which the bit-for-bit check must find unequal. Launches a
@@ -3836,7 +3936,7 @@ def xproc_elastic_setup(torch, cfg) -> dict:
     b, s, L = 2, 2048, XPROC_ELASTIC_DEPTH
     cfg2 = dataclasses.replace(cfg, n_layers=L)
     kw = dict(strategy="fsdp_tp", fused_loss=True, loss_chunk=1024,
-              warmup_steps=1)
+              warmup_steps=XPROC_WARMUP)
     batch = train_batch(cfg, b, s, SEED + 43)
     single = xproc_elastic_single(torch, cfg2, kw, batch)
     return {"single": single, "shape": (b, s, L),
@@ -3875,7 +3975,8 @@ def check_xproc_elastic(torch, cfg, setup: dict, d: str,
                     for r in survivors}
     emit("xproc_elastic", config="llama3_8b", n_layers=L,
          depth_cut=f"{L} of {cfg.n_layers} layers", tokens=[b, s + 1],
-         steps_before=XPROC_STEPS, backend="gloo", world_before=XPROC_WORLD,
+         steps_before=XPROC_ELASTIC_STEPS, backend="gloo",
+         world_before=XPROC_WORLD,
          world_after=XPROC_SURVIVORS,
          mesh_before=reports[0]["mesh_before"],
          mesh_after=survivors[0]["mesh_after"], strategy="fsdp_tp",
@@ -3912,7 +4013,8 @@ def check_xproc_elastic(torch, cfg, setup: dict, d: str,
          ranks_s=spawn["xproc_elastic"], compare_s=compare_s,
          seconds=setup["seconds"] + spawn["xproc_elastic"] + compare_s)
     if any(file_bad.values()) or any(restored_bad.values()) or any(
-            r["restored_step"] != XPROC_STEPS or r["restored_compared"] == 0
+            r["restored_step"] != XPROC_ELASTIC_STEPS or
+            r["restored_compared"] == 0
             or not r["control_rows_off_not_bit_equal"] for r in survivors):
         raise AssertionError(f"xproc_elastic: files not bit-equal "
                              f"{file_bad}, restores not bit-equal "
@@ -3969,12 +4071,13 @@ def xproc_world4_loop(config):
 
 def check_xproc_world4(torch, cfg, peaks) -> dict:
     """fsdp, tp and sp across processes (slice 10), pp and ep across them
-    and the elastic reform (slice 11): each phase's single controller on
-    this card first (``xproc_fsdp_tp_setup``, ``xproc_sp4_setup``,
-    ``xproc_pp_setup``, ``xproc_ep_setup``, ``xproc_elastic_setup``, the
-    card freed after each), then one spawn of four gloo ranks runs the
-    five phases in turn (a spawn costs 24-39 s of start-up), and each
-    phase is held (``check_xproc_fsdp_tp``, ``check_xproc_sp4``,
+    and the elastic reform (slice 11): one spawn of four gloo ranks, which
+    start up (``xproc_after_go``; a spawn costs 24-56 s of start-up) while
+    each phase's single controller runs on this card
+    (``xproc_fsdp_tp_setup``, ``xproc_sp4_setup``, ``xproc_pp_setup``,
+    ``xproc_ep_setup``, ``xproc_elastic_setup``, the card freed after
+    each); then the ranks run the five phases in turn, and each phase is
+    held (``check_xproc_fsdp_tp``, ``check_xproc_sp4``,
     ``check_xproc_pp``, ``check_xproc_ep``) as soon as every rank is done
     with it, while they run the next; the elastic reform, whose survivors
     leave the group, after they end (``check_xproc_elastic``). Returns
@@ -3983,17 +4086,7 @@ def check_xproc_world4(torch, cfg, peaks) -> dict:
     import tempfile
 
     t_start = time.perf_counter()
-    setups = {}
-    for phase, setup in (("xproc_fsdp_tp",
-                          lambda: xproc_fsdp_tp_setup(torch, cfg)),
-                         ("xproc_sp4", lambda: xproc_sp4_setup(torch, cfg)),
-                         ("xproc_pp", lambda: xproc_pp_setup(torch, cfg)),
-                         ("xproc_ep", lambda: xproc_ep_setup(torch)),
-                         ("xproc_elastic",
-                          lambda: xproc_elastic_setup(torch, cfg))):
-        setups[phase] = setup()
-        free_card(torch)
-    setup_s = time.perf_counter() - t_start
+    setups, times = {}, {}
     checks = {
         "xproc_fsdp_tp": lambda out: check_xproc_fsdp_tp(
             torch, cfg, peaks, setups["xproc_fsdp_tp"], out, spawn),
@@ -4023,9 +4116,30 @@ def check_xproc_world4(torch, cfg, peaks) -> dict:
         shutil.rmtree(out)
         free_card(torch)
 
-    def check_each(fit, deadline):
-        """Each phase but the reform checked as soon as every rank is done
-        with it, while they run the next."""
+    def setup_then_check(fit, deadline):
+        """While the ranks start: the single controllers, then the ranks'
+        go; then each phase but the reform checked as soon as every rank
+        is done with it, while they run the next."""
+        t0 = time.perf_counter()
+        for phase, setup in (("xproc_fsdp_tp",
+                              lambda: xproc_fsdp_tp_setup(torch, cfg)),
+                             ("xproc_sp4",
+                              lambda: xproc_sp4_setup(torch, cfg)),
+                             ("xproc_pp", lambda: xproc_pp_setup(torch, cfg)),
+                             ("xproc_ep", lambda: xproc_ep_setup(torch)),
+                             ("xproc_elastic",
+                              lambda: xproc_elastic_setup(torch, cfg))):
+            setups[phase] = setup()
+            free_card(torch)
+        times["setup_s"] = time.perf_counter() - t0
+        reference = os.path.join(d, "xproc_ep", "reference.pt")
+        torch.save(setups["xproc_ep"]["reference"], reference)
+        phases = {p: dict(setups[p]["rank"]) for p in XPROC_WORLD4}
+        phases["xproc_ep"]["reference"] = reference
+        phases["xproc_elastic"]["checkpoint_dir"] = os.path.join(
+            d, "xproc_elastic", "checkpoints")
+        xproc_go(torch, d, {"phases": phases})
+        times["go_s"] = time.perf_counter() - t0
         for phase in XPROC_WORLD4[:-1]:
             while not all(os.path.exists(m) for m in marks_of(phase)):
                 if not fit.is_alive():
@@ -4039,23 +4153,23 @@ def check_xproc_world4(torch, cfg, peaks) -> dict:
     with tempfile.TemporaryDirectory() as d:
         for phase in XPROC_WORLD4:
             os.makedirs(os.path.join(d, phase))
-        reference = os.path.join(d, "xproc_ep", "reference.pt")
-        torch.save(setups["xproc_ep"]["reference"], reference)
-        phases = {p: dict(setups[p]["rank"]) for p in XPROC_WORLD4}
-        phases["xproc_ep"]["reference"] = reference
-        phases["xproc_elastic"]["checkpoint_dir"] = os.path.join(
-            d, "xproc_elastic", "checkpoints")
         result, fit_s = xproc_spawn(torch, "world4", None, None, None,
-                                    None, d, loop=xproc_world4_loop,
+                                    None, d, loop=xproc_after_go,
                                     limit_s=XPROC_WORLD4_LIMIT_S,
-                                    while_running=check_each, phases=phases)
+                                    while_running=setup_then_check,
+                                    then=xproc_world4_loop,
+                                    go_within_s=XPROC_WORLD4_LIMIT_S)
         check("xproc_elastic")
+        waited = xproc_waited(d, XPROC_WORLD)
         if set(counts) != set(XPROC_WORLD4):
             raise AssertionError(f"xproc_world4: checked {sorted(counts)} "
                                  f"of {XPROC_WORLD4}")
     emit("xproc_world4", checked_while_the_ranks_ran=True,
-         setup_s=setup_s, fit_s=fit_s,
-         spawn_to_first_report_s=result.first_report_s,
+         setup_while_the_ranks_started=True, setup_s=times["setup_s"],
+         go_after_s=times["go_s"], ranks_waited_for_go_s=waited,
+         fit_s=fit_s, spawn_to_first_report_s=result.first_report_s,
+         go_to_first_report_s=None if result.first_report_s is None
+         else result.first_report_s - times["go_s"],
          ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
     return counts, setups["xproc_pp"]
 
@@ -4072,17 +4186,19 @@ XPROC_CUT_WORLD = 2
 # the shared spawn's ranks are killed after this long
 XPROC_CUT_LIMIT_S = 600.0
 XPROC_EP_CUT_AXES = {"ep": 4, "tp": 2}
-XPROC_EP_CUT_DEPTH = 8
+# depth 4 since slice 20 (8 before), for the time limit
+XPROC_EP_CUT_DEPTH = 4
 # trainer phase -> (global mesh, strategy, batch rows, sequence, depth,
-# TrainConfig keywords)
+# TrainConfig keywords); depth 1 since slice 20 (2 before), for the time
+# limit
 XPROC_CUT_TRAIN = {
-    "xproc_fsdp4": ({"fsdp": 4}, "fsdp", 4, 2048, 2,
+    "xproc_fsdp4": ({"fsdp": 4}, "fsdp", 4, 2048, 1,
                     {"fused_loss": True, "loss_chunk": 1024}),
-    "xproc_tp4": ({"tp": 4}, "fsdp_tp", 2, 2048, 2,
+    "xproc_tp4": ({"tp": 4}, "fsdp_tp", 2, 2048, 1,
                   {"fused_loss": True, "loss_chunk": 1024}),
-    "xproc_sp2_tp2": ({"sp": 2, "tp": 2}, "fsdp_tp_sp", 1, RING_SHAPE[1], 2,
+    "xproc_sp2_tp2": ({"sp": 2, "tp": 2}, "fsdp_tp_sp", 1, RING_SHAPE[1], 1,
                       {"fused_loss": True, "loss_chunk": 1024}),
-    "xproc_sp4_w2": ({"sp": 4}, "fsdp_tp_sp", 1, RING_SHAPE[1], 2,
+    "xproc_sp4_w2": ({"sp": 4}, "fsdp_tp_sp", 1, RING_SHAPE[1], 1,
                      {"fused_loss": True, "loss_chunk": 1024}),
     "xproc_pp4_w2": ({"pp": PP_STAGES}, "pp_fsdp", 8, 2048, PP_STAGES,
                      {"n_microbatches": XPROC_PP_MICRO}),
@@ -4129,7 +4245,7 @@ def xproc_cut_setup(torch, cfg, phase: str) -> dict:
     axes, strategy, b, s, L, kw = XPROC_CUT_TRAIN[phase]
     cfg_l = dataclasses.replace(cfg, n_layers=L)
     train_cfg = TrainConfig(mesh_axes=dict(axes), strategy=strategy,
-                            warmup_steps=1, **kw)
+                            warmup_steps=XPROC_WARMUP, **kw)
     batch = train_batch(cfg, b, s, SEED + 43 + len(phase))
     single = xproc_single_controller(torch, cfg_l, train_cfg, batch)
     n_matmul = sum(single["init"][f"blocks.{k}"].numel() for k in
@@ -4201,7 +4317,7 @@ def check_xproc_cut_train(torch, cfg, peaks, phase: str, setup: dict,
     launches = {r: [st["launches"] for st in rs]
                 for r, rs in per_rank.items()}
     step_s = max(st["step_s"] for rs in per_rank.values()
-                 for st in rs[1:])
+                 for st in rs[1:] or rs)
     ok = update_rel_err <= HARNESS_PARAM_TOL and \
         moment_err <= XPROC_MOMENT_TOL and \
         norm_errs["real"] <= HARNESS_NORM_TOL and \
@@ -4286,32 +4402,20 @@ def check_xproc_cut(torch, cfg, peaks, pp_setup=None) -> dict:
     """Every layout that JAX runs across processes (slice 16): the axis
     cut at the process boundary ({fsdp 4}, {tp 4}, {sp 4}, {pp 4} and
     Mixtral's {ep 4, tp 2} at world 2) and the ring between processes
-    beside other places in a process ({sp 2, tp 2}). Each phase's single
-    controller on this card first (``xproc_cut_setup``,
-    ``xproc_ep_setup``, the card freed after each), then one spawn of two
-    gloo ranks runs the phases in turn (NCCL refuses two ranks on one
-    GPU), then each phase is held (``check_xproc_cut_train``,
-    ``check_xproc_ep`` with the logits bit for bit), each as soon as the
-    ranks are done with it, while they run the next. ``pp_setup``:
-    xproc_pp's (``xproc_pp_setup``), whose single controller on {pp 4}
-    xproc_pp4_w2 shares. Returns each phase's launches."""
+    beside other places in a process ({sp 2, tp 2}). One spawn of two
+    gloo ranks (NCCL refuses two ranks on one GPU), which start up
+    (``xproc_after_go``) while each phase's single controller runs on
+    this card (``xproc_cut_setup``, ``xproc_ep_setup``, the card freed
+    after each); then the ranks run the phases in turn, and each phase is
+    held (``check_xproc_cut_train``, ``check_xproc_ep`` with the logits
+    bit for bit) as soon as the ranks are done with it, while they run
+    the next. ``pp_setup``: xproc_pp's (``xproc_pp_setup``), whose single
+    controller on {pp 4} xproc_pp4_w2 shares. Returns each phase's
+    launches."""
     import tempfile
 
     t_start = time.perf_counter()
-    setups = {}
-    for phase in XPROC_CUT_TRAIN:
-        if phase == "xproc_pp4_w2" and pp_setup is not None:
-            setups[phase] = {**pp_setup, "shape": pp_setup["shape"][:3],
-                             "seconds": 0.0, "rank": {
-                                 **pp_setup["rank"], "rank_flops":
-                                 pp_setup["flops"] / XPROC_CUT_WORLD}}
-            continue
-        setups[phase] = xproc_cut_setup(torch, cfg, phase)
-        free_card(torch)
-    setups["xproc_ep4_w2"] = xproc_ep_setup(
-        torch, axes=XPROC_EP_CUT_AXES, depth=XPROC_EP_CUT_DEPTH)
-    free_card(torch)
-    setup_s = time.perf_counter() - t_start
+    setups, times = {}, {}
     summary, counts, spawn = {}, {}, {}
 
     def check(phase, d):
@@ -4331,10 +4435,31 @@ def check_xproc_cut(torch, cfg, peaks, pp_setup=None) -> dict:
         del setups[phase]
         free_card(torch)
 
-    def check_each(fit, deadline):
-        """Each phase checked as soon as both ranks are done with it,
-        while they run the next (the files of at most two phases exist
-        at once)."""
+    def setup_then_check(fit, deadline):
+        """While the ranks start: the single controllers, then the ranks'
+        go; then each phase checked as soon as both ranks are done with
+        it, while they run the next (the files of at most two phases
+        exist at once)."""
+        t0 = time.perf_counter()
+        for phase in XPROC_CUT_TRAIN:
+            if phase == "xproc_pp4_w2" and pp_setup is not None:
+                setups[phase] = {**pp_setup, "shape": pp_setup["shape"][:3],
+                                 "seconds": 0.0, "rank": {
+                                     **pp_setup["rank"], "rank_flops":
+                                     pp_setup["flops"] / XPROC_CUT_WORLD}}
+                continue
+            setups[phase] = xproc_cut_setup(torch, cfg, phase)
+            free_card(torch)
+        setups["xproc_ep4_w2"] = xproc_ep_setup(
+            torch, axes=XPROC_EP_CUT_AXES, depth=XPROC_EP_CUT_DEPTH)
+        free_card(torch)
+        times["setup_s"] = time.perf_counter() - t0
+        reference = os.path.join(d, "ep_reference.pt")
+        torch.save(setups["xproc_ep4_w2"]["reference"], reference)
+        phases = {p: dict(setups[p]["rank"]) for p in XPROC_CUT}
+        phases["xproc_ep4_w2"]["reference"] = reference
+        xproc_go(torch, d, {"phases": phases})
+        times["go_s"] = time.perf_counter() - t0
         for phase in XPROC_CUT:
             marks = [os.path.join(d, f"done_{phase}_rank{r}")
                      for r in range(XPROC_CUT_WORLD)]
@@ -4357,21 +4482,24 @@ def check_xproc_cut(torch, cfg, peaks, pp_setup=None) -> dict:
     with tempfile.TemporaryDirectory(dir=shm) as d:
         for phase in XPROC_CUT:
             os.makedirs(os.path.join(d, phase))
-        reference = os.path.join(d, "ep_reference.pt")
-        torch.save(setups["xproc_ep4_w2"]["reference"], reference)
-        phases = {p: dict(setups[p]["rank"]) for p in XPROC_CUT}
-        phases["xproc_ep4_w2"]["reference"] = reference
         result, fit_s = xproc_spawn(torch, "xproc_cut", None, None, None,
-                                    None, d, loop=xproc_cut_loop,
+                                    None, d, loop=xproc_after_go,
                                     world=XPROC_CUT_WORLD,
                                     limit_s=XPROC_CUT_LIMIT_S,
-                                    while_running=check_each, phases=phases)
+                                    while_running=setup_then_check,
+                                    then=xproc_cut_loop,
+                                    go_within_s=XPROC_CUT_LIMIT_S)
+        waited = xproc_waited(d, XPROC_CUT_WORLD)
         if set(summary) != set(XPROC_CUT):
             raise AssertionError(f"xproc_cut: checked {sorted(summary)} of "
                                  f"{XPROC_CUT}")
     emit("xproc_cut", phases=summary, world_size=XPROC_CUT_WORLD,
-         checked_while_the_ranks_ran=True, setup_s=setup_s, fit_s=fit_s,
-         spawn_to_first_report_s=result.first_report_s,
+         checked_while_the_ranks_ran=True,
+         setup_while_the_ranks_started=True, setup_s=times["setup_s"],
+         go_after_s=times["go_s"], ranks_waited_for_go_s=waited,
+         fit_s=fit_s, spawn_to_first_report_s=result.first_report_s,
+         go_to_first_report_s=None if result.first_report_s is None
+         else result.first_report_s - times["go_s"],
          ranks_s_by_phase=spawn, seconds=time.perf_counter() - t_start)
     return counts
 
@@ -6123,8 +6251,11 @@ def check_rllib(torch, smi: str) -> dict:
 # Each PBT trial is llama3_8b() at this depth: 1.27 B parameters, 10 GB of
 # state (parameters, gradients, two moments), so two trials share the card;
 # depth 1 since slice 18 (2 before), to keep the script inside its time
-# limit as the cluster group joins it
+# limit as the cluster group joins it; 4 steps since slice 20 (6 before):
+# a trial saves once (at step 2, 9 GB in 14-16 s), and the exploit at the
+# last trial's first report restores its donor's step-2 checkpoint
 TUNE_DEPTH = 1
+TUNE_STEPS = 4
 # one trial a learning rate, two at a time; the last barely trains, so it
 # is the worst of the four when its wave is ranked against the first
 TUNE_LRS = (3e-5, 1e-4, 3e-4, 1e-8)
@@ -6201,7 +6332,8 @@ class MemWatch:
 
 
 def tune_base() -> dict:
-    return {"preset": "llama3_8b", "n_layers": TUNE_DEPTH, "steps": 6,
+    return {"preset": "llama3_8b", "n_layers": TUNE_DEPTH,
+            "steps": TUNE_STEPS,
             "report_every": 2, "batch_size": 2, "seq_len": 2048,
             "token_range": TUNE_TOKEN_RANGE, "seed": SEED}
 
@@ -6210,8 +6342,8 @@ def check_tune_pbt(torch, smi: str) -> dict:
     """``Tuner`` with ``PopulationBasedTraining`` over ``learning_rate``
     (``ray_tpu_torch/examples/tune_llama.py``): 4 trials of llama3_8b() at
     TUNE_DEPTH, two at a time, each one NCCL rank on this card training
-    6 steps on [2, 2049] batches keyed by the step, reporting every 2
-    steps with a checkpoint. Held: every trial TERMINATED; at least one
+    TUNE_STEPS steps on [2, 2049] batches keyed by the step, reporting
+    every 2 steps with a checkpoint (none after the last). Held: every trial TERMINATED; at least one
     exploit; an exploited trial's first loss within TUNE_TOL (relative)
     of its donor's at that step; the control, the same trial's config
     started at that step without the restore (here, in the parent, after
@@ -7667,16 +7799,291 @@ def check_cli_cluster(torch, cfg, smi: str, want: list,
     return w["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Ray Data (slice 20): a Dataset scored by an actor pool on this card, and
+# a Dataset feeding the harness's NCCL rank
+# ---------------------------------------------------------------------------
+
+# data_infer: rows of [1, 2048] tokens, one block a row, so each forward
+# launches K1 at [1, 32, 8, 2048, 128] (PERF.md section 6's first row)
+DATA_INFER_ROWS = 4
+DATA_INFER_SEQ = 2048
+# data_ingest: the stored tokens are offset by this, mod the vocabulary
+DATA_OFFSET = 7
+# data_ingest: repartitioned into blocks of 3 rows, so a batch of 2 rows
+# is re-batched across a block boundary
+DATA_INGEST_BLOCKS = 2
+
+# the weights the actor pool's callable reads (the in-process runtime runs
+# the actor in this process: nothing is pickled or copied)
+_DATA_MODEL: dict = {}
+
+
+def score_rows(cfg, params, tokens) -> dict:
+    """llama.forward over a block's token rows [n, s] on the card; each
+    row's greedy next token and its log-probability (float32)."""
+    import torch
+
+    from ray_tpu_torch.models import llama
+
+    t = torch.from_numpy(np.ascontiguousarray(tokens)).cuda()
+    with torch.no_grad():
+        logp = torch.log_softmax(llama.forward(cfg, params, t)[:, -1], -1)
+        nxt = logp.argmax(-1)
+        best = logp.gather(-1, nxt[:, None])[:, 0]
+    return {"next_token": nxt.cpu().numpy(), "logprob": best.cpu().numpy()}
+
+
+class NextTokenScorer:
+    """The actor pool's callable (``map_batches(NextTokenScorer,
+    compute="actors")``: each actor builds one): ``score_rows`` on the
+    weights in ``_DATA_MODEL``, keeping each row's index. It reads them at
+    each call and holds no reference, so the weights go when the phase
+    drops them, whatever becomes of the actor's instance."""
+
+    def __call__(self, batch: dict) -> dict:
+        return {"idx": batch["idx"],
+                **score_rows(_DATA_MODEL["cfg"], _DATA_MODEL["params"],
+                             batch["tokens"])}
+
+
+def data_infer_pipeline(tokens):
+    """The batch-inference pipeline over ``tokens`` [n, s]: one block a
+    row, scored by a pool of one actor; its rows by index."""
+    from ray_tpu_torch import data
+
+    ds = data.from_numpy({"tokens": tokens, "idx": np.arange(len(tokens))},
+                         num_blocks=len(tokens)).map_batches(
+        NextTokenScorer, compute="actors", actor_pool_size=1,
+        max_actor_pool_size=1)
+    rows = sorted(ds.take_all(), key=lambda r: int(r["idx"]))
+    return (np.array([r["next_token"] for r in rows]),
+            np.array([r["logprob"] for r in rows]))
+
+
+def check_data_infer(torch, cfg, params, smi: str) -> dict:
+    """Ray Data batch inference on the card: DATA_INFER_ROWS seeded token
+    rows of llama3_8b() (full width and depth) through
+    ``ray_tpu_torch.data.from_numpy(...).map_batches(NextTokenScorer,
+    compute="actors", actor_pool_size=1)`` on the in-process runtime, each
+    row's greedy next token and log-probability held bit for bit against
+    ``score_rows`` called directly on the same rows. Controls: the
+    pipeline on a second weight seed, and on the rows with one row shifted
+    by a token, must differ. K1 launches n_layers a row in the pipeline;
+    the card's memory comes back within SERVE_MEMORY_TOL. Returns the
+    pipeline's launches."""
+    import ray_tpu_torch
+    from ray_tpu_torch.models import llama
+
+    free_card(torch)
+    mem_before = torch.cuda.memory_allocated()
+    rng = np.random.default_rng(SEED + 20)
+    tokens = rng.integers(0, cfg.vocab_size, (DATA_INFER_ROWS,
+                                              DATA_INFER_SEQ)).astype(
+        np.int64)
+    _DATA_MODEL.update(cfg=cfg, params=params)
+    ray_tpu_torch.init()
+    try:
+        data_infer_pipeline(tokens[:1])     # the runtime and the actor warm
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        got_tok, got_lp = data_infer_pipeline(tokens)
+        torch.cuda.synchronize()
+        pipeline_s = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        direct = [score_rows(cfg, params, tokens[i:i + 1])
+                  for i in range(len(tokens))]
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+        want_tok = np.concatenate([d["next_token"] for d in direct])
+        want_lp = np.concatenate([d["logprob"] for d in direct])
+        shifted = tokens.copy()
+        shifted[1] = np.roll(shifted[1], 1)
+        shift_tok, shift_lp = data_infer_pipeline(shifted)
+        _DATA_MODEL["params"] = llama.init_params(cfg, seed=SEED + 1,
+                                                  device="cuda")
+        seed_tok, seed_lp = data_infer_pipeline(tokens)
+    finally:
+        _DATA_MODEL.clear()
+        ray_tpu_torch.shutdown()
+    free_card(torch)
+    mem_after = torch.cuda.memory_allocated()
+
+    def equal(tok, lp):
+        return bool(np.array_equal(tok, want_tok)
+                    and np.array_equal(lp.view(np.int32),
+                                       want_lp.view(np.int32)))
+
+    out = {"rows": DATA_INFER_ROWS, "seq": DATA_INFER_SEQ,
+           "bits_equal": equal(got_tok, got_lp),
+           "next_tokens": got_tok.tolist(), "logprobs": got_lp.tolist(),
+           "control_row_shifted_bits_equal": equal(shift_tok, shift_lp),
+           "control_weight_seed_bits_equal": equal(seed_tok, seed_lp),
+           "launches": counts,
+           "want_launches": {"flash_fwd": cfg.n_layers * DATA_INFER_ROWS,
+                             "flash_bwd": 0},
+           "pipeline_s": pipeline_s, "rows_per_s":
+               DATA_INFER_ROWS / pipeline_s,
+           "direct_s": direct_s, "memory_before": mem_before,
+           "memory_after": mem_after}
+    emit("data_infer", nvidia_smi=smi, config="llama3_8b",
+         n_layers=cfg.n_layers, **out)
+    if not out["bits_equal"] or out["control_row_shifted_bits_equal"] or \
+            out["control_weight_seed_bits_equal"]:
+        raise AssertionError(f"data_infer: {out}")
+    if counts != out["want_launches"]:
+        raise AssertionError(f"data_infer launches {counts}, want "
+                             f"{out['want_launches']}")
+    if abs(mem_after - mem_before) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"the card held {mem_before} bytes before "
+                             f"data_infer and {mem_after} after")
+    return counts
+
+
+def shift_tokens(batch: dict, offset: int, vocab: int) -> dict:
+    """A batch's tokens shifted by ``offset``, mod ``vocab`` (module
+    level: ``map_batches`` takes it bound by ``functools.partial``)."""
+    return {**batch, "tokens": (batch["tokens"] + offset) % vocab}
+
+
+def data_ingest_dataset(cfg, rows, undo: bool = True):
+    """check_train's rows stored offset by DATA_OFFSET in a seeded order
+    with their index; the pipeline undoes the offset (``map_batches``),
+    restores the order (``sort`` on the index, ``drop_columns``) and
+    re-blocks (``repartition``, blocks of 3 rows)."""
+    import functools
+
+    from ray_tpu_torch import data
+
+    perm = np.random.default_rng(SEED + 21).permutation(len(rows))
+    stored = {"tokens": (rows[perm] + DATA_OFFSET) % cfg.vocab_size,
+              "idx": perm}
+    ds = data.from_numpy(stored, num_blocks=3)
+    if undo:
+        ds = ds.map_batches(functools.partial(
+            shift_tokens, offset=-DATA_OFFSET, vocab=cfg.vocab_size))
+    return ds.sort("idx").drop_columns(["idx"]).repartition(
+        DATA_INGEST_BLOCKS)
+
+
+def check_data_ingest(torch, cfg, peaks, want_losses, step_counts):
+    """A ``Dataset`` feeds Llama-3-8B's training step: ``TorchMeshTrainer``
+    over one NCCL rank on llama3_8b() at full width and depth, 3 steps of
+    [2, 2049], with ``datasets={"train": data_ingest_dataset(...)}`` (run
+    once in this process, its blocks sent to the rank's queue). Held as
+    harness_nccl is: the first loss bit for bit check_train's, the later
+    ones within HARNESS_LOSS_TOL; the control (the pipeline without the
+    undoing map, through the one-process trainer from the same seed) must
+    break that bound. Returns the rank's launch counts (3 steps)."""
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.data_parallel_trainer import TorchMeshTrainer
+    from ray_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    b, s, steps = 2, 2048, 3
+    train_cfg = TrainConfig(fused_loss=True, loss_chunk=1024, warmup_steps=1)
+    rows = np.concatenate([train_batch(cfg, b, s, SEED + 4).cpu().numpy()]
+                          * steps)
+    ray_tpu_torch.init()
+    try:
+        t0 = time.perf_counter()
+        blocks = [bl["tokens"] for bl in
+                  data_ingest_dataset(cfg, rows).iter_batches()]
+        pipeline_s = time.perf_counter() - t0
+        rows_equal = bool(np.array_equal(np.concatenate(blocks), rows))
+        zero_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            result = TorchMeshTrainer(
+                cfg, train_cfg,
+                train_loop_config={"seed": SEED, "steps": steps,
+                                   "batch_size": b},
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                             backend="nccl"),
+                run_config=RunConfig(storage_path=d),
+                datasets={"train": data_ingest_dataset(cfg, rows)}).fit()
+        fit_s = time.perf_counter() - t0
+        control_rows = np.concatenate([bl["tokens"] for bl in
+                                       data_ingest_dataset(
+                                           cfg, rows, undo=False)
+                                       .iter_batches()])
+    finally:
+        ray_tpu_torch.shutdown()
+    if result.error is not None:
+        raise AssertionError(f"data_ingest failed:\n{result.error}")
+    stats, = result.rank_stats
+    losses = [m["loss"] for m in result.metrics_history]
+    # the control, after the rank has finished: the parent trains here on
+    # what the pipeline gives without its undoing map
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, train_cfg)
+    state = trainer.init_state(seed=SEED)
+    control = []
+    for i in range(steps):
+        batch = torch.from_numpy(control_rows[i * b:(i + 1) * b]).cuda()
+        state, m = trainer.train_step(state, batch)
+        control.append(float(m["loss"]))
+    del state, trainer
+    free_card(torch)
+    control_s = time.perf_counter() - t0
+    want = want_losses[:steps]
+
+    def errs(ls):
+        return ls[0] == want[0], max(abs(a - w) for a, w in
+                                     zip(ls[1:], want[1:]))
+
+    def breaks(ls):
+        equal, later = errs(ls)
+        return len(ls) != steps or not equal or later > HARNESS_LOSS_TOL
+
+    timing = harness_steps(stats)
+    want_counts = {k: steps * v for k, v in step_counts.items()}
+    emit("data_ingest", config="llama3_8b", n_layers=cfg.n_layers,
+         tokens=[b, s + 1], steps=steps, backend="nccl", world_size=1,
+         device=stats["device_name"], pipeline_rows_equal=rows_equal,
+         pipeline_blocks=[len(x) for x in blocks], pipeline_s=pipeline_s,
+         losses=losses, check_train_losses=want,
+         first_loss_bit_equal=errs(losses)[0],
+         later_max_abs_err=errs(losses)[1] if len(losses) == steps
+         else None, tol=HARNESS_LOSS_TOL, control_losses=control,
+         control_first_loss_bit_equal=errs(control)[0],
+         control_later_max_abs_err=errs(control)[1],
+         data_wait_s=[st.get("data_wait") for st in timing["stages"]],
+         **timing, tokens_per_s=b * s / timing["median_step_s"],
+         spawn_to_first_report_s=result.first_report_s, fit_s=fit_s,
+         control_s=control_s, peak_memory_bytes=stats["peak_memory_bytes"],
+         launches=stats["launches"], want_launches=want_counts)
+    if not rows_equal or [len(x) for x in blocks] != [3, 3]:
+        raise AssertionError(f"the ingest pipeline's blocks "
+                             f"{[len(x) for x in blocks]}, rows equal "
+                             f"{rows_equal}")
+    if breaks(losses) or not breaks(control):
+        raise AssertionError(
+            f"data_ingest losses {losses} against check_train's {want} "
+            f"(first bit-equal, later within {HARNESS_LOSS_TOL}); the "
+            f"control {control} must break that")
+    if stats["launches"] != want_counts:
+        raise AssertionError(f"data_ingest launches {stats['launches']}, "
+                             f"want {want_counts}")
+    return stats["launches"]
+
+
 def check_examples(torch, smi: str) -> dict:
     """The quickstarts on this card: ``train_llama`` (llama_tiny on
     {fsdp 2, tp 2} of the card, 30 steps: losses finite and falling),
     ``llm_serving`` (its prefix-hit check, 4 streamed requests),
     ``rllib_quickstart`` (PPO on CartPole-v1, 10 iterations: stats
-    finite) and ``serve_quickstart`` (a deployment graph on the in-process
-    runtime, called directly and over HTTP: JAX's answers). Returns each
-    one's kernel counts."""
-    from ray_tpu_torch.examples import (llm_serving, rllib_quickstart,
-                                        serve_quickstart, train_llama)
+    finite), ``serve_quickstart`` (a deployment graph on the in-process
+    runtime, called directly and over HTTP: JAX's answers) and
+    ``data_pipeline`` (a Dataset's map, filter and groupby on the host:
+    JAX's rows, DATA_PIPELINE_ROWS). Returns each one's kernel counts."""
+    from ray_tpu_torch.examples import (data_pipeline, llm_serving,
+                                        rllib_quickstart, serve_quickstart,
+                                        train_llama)
 
     t0 = time.perf_counter()
     zero_counts()
@@ -7701,6 +8108,12 @@ def check_examples(torch, smi: str) -> dict:
     graph = serve_quickstart.main()
     graph_counts = launch_counts()
     graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zero_counts()
+    data_rows = [(int(r["group"]), r["mean(y)"])
+                 for r in data_pipeline.main()]
+    data_counts = launch_counts()
+    data_s = time.perf_counter() - t0
     losses = [h["loss"] for h in history]
     emit("examples", nvidia_smi=smi, train_llama_losses=losses,
          train_llama_s=train_s, train_llama_launches=train_counts,
@@ -7709,7 +8122,9 @@ def check_examples(torch, smi: str) -> dict:
          llm_serving_s=serve_s, llm_serving_launches=serve_counts,
          rllib_quickstart_returns=rl_returns, rllib_quickstart_s=rl_s,
          rllib_quickstart_launches=rl_counts, serve_quickstart=graph,
-         serve_quickstart_s=graph_s, serve_quickstart_launches=graph_counts)
+         serve_quickstart_s=graph_s, serve_quickstart_launches=graph_counts,
+         data_pipeline_rows=[[g, float(m)] for g, m in data_rows],
+         data_pipeline_s=data_s, data_pipeline_launches=data_counts)
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train_llama losses {losses}: finite and "
                              "falling")
@@ -7721,8 +8136,19 @@ def check_examples(torch, smi: str) -> dict:
         raise AssertionError(f"rllib_quickstart: {rl_results}")
     if graph != {"direct": {"sum": 12.0}, "http": {"result": {"sum": 18.0}}}:
         raise AssertionError(f"serve_quickstart answered {graph}")
+    # JAX's data_pipeline example prints these rows (each group's mean of
+    # y, float32)
+    if [(g, type(m), float(m)) for g, m in data_rows] != [
+            (g, np.float32, m) for g, m in DATA_PIPELINE_ROWS]:
+        raise AssertionError(f"data_pipeline gave {data_rows}")
     return {"train_llama": train_counts, "llm_serving": serve_counts,
-            "rllib_quickstart": rl_counts, "serve_quickstart": graph_counts}
+            "rllib_quickstart": rl_counts, "serve_quickstart": graph_counts,
+            "data_pipeline": data_counts}
+
+
+# ``python -m ray_tpu.examples.data_pipeline``'s rows: (group, mean(y))
+DATA_PIPELINE_ROWS = ((0, 9997.0), (1, 9999.0), (2, 10001.0), (4, 9998.0),
+                      (5, 10000.0), (6, 10002.0))
 
 
 def build_facts(kernels_mod, name, path, kernel) -> dict:
@@ -7864,6 +8290,12 @@ def main() -> int:
                                    cold_task_s)
     free_card(torch)
     emit("cli_phases", seconds=time.perf_counter() - t0)
+    # Ray Data (slice 20): batch inference by an actor pool of the
+    # in-process runtime over these weights, counts zeroed in it
+    t0 = time.perf_counter()
+    data_infer_counts = check_data_infer(torch, cfg, params, smi)
+    free_card(torch)
+    emit("data_infer_phase", seconds=time.perf_counter() - t0)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
                                                          peaks)
@@ -7921,15 +8353,23 @@ def main() -> int:
     free_card(torch)
     # the multi-process harness (slice 8), the card freed before each
     # phase; the parent holds no model while ranks run: Llama-3-8B through
-    # TorchMeshTrainer on one NCCL rank, two gloo ranks on this card at
-    # depth 4, then ElasticTrainer's reform at depth 2
+    # TorchMeshTrainer on one NCCL rank (then fed by a Dataset), two gloo
+    # ranks on this card at GLOO_DEPTH, and ElasticTrainer's reform at
+    # ELASTIC_DEPTH while those ranks start up
     t0 = time.perf_counter()
     harness_nccl_counts = check_harness_nccl(torch, cfg, peaks, train_losses,
                                              full_counts)
     free_card(torch)
-    harness_gloo_counts = check_harness_gloo(torch, cfg, peaks)
+    # Ray Data (slice 20): the same rank fed by a Dataset's pipeline
+    t1 = time.perf_counter()
+    data_ingest_counts = check_data_ingest(torch, cfg, peaks, train_losses,
+                                           full_counts)
     free_card(torch)
-    elastic_counts = check_elastic(torch, cfg)
+    emit("data_ingest_phase", seconds=time.perf_counter() - t1)
+    # ElasticTrainer's reform runs here while the gloo ranks start up
+    harness_gloo_counts, elastic_counts = check_harness_gloo(
+        torch, cfg, peaks, meanwhile=lambda: check_elastic(torch, cfg))
+    free_card(torch)
     emit("harness_phases", seconds=time.perf_counter() - t0)
     # fsdp, tp and sp across processes (slice 10), pp and ep across them
     # and the elastic reform to a new world (slice 11): one spawn of four
@@ -7994,7 +8434,7 @@ def main() -> int:
                    "fsdp_tp_train_step_full": fsdp_tp_counts[k],
                    "pp_fsdp_train_step_full": pp_counts[k],
                    "harness_nccl_rank_3_steps": harness_nccl_counts[k],
-                   "harness_gloo_dp2_rank0_6_steps": harness_gloo_counts[k],
+                   "harness_gloo_dp2_rank0_3_steps": harness_gloo_counts[k],
                    "elastic_step_after_reform": elastic_counts[k],
                    "xproc_fsdp_tp_rank0_step":
                        world4_counts["xproc_fsdp_tp"][k],
@@ -8013,6 +8453,10 @@ def main() -> int:
                    "serve_run": serve_run_counts[k],
                    "cluster_task_worker": cluster_counts[k],
                    "cli_prestart_task_forked_worker": cli_counts[k],
+                   "data_infer_actor_forward": data_infer_counts[k],
+                   "data_ingest_rank0_step": data_ingest_counts[k] // 3,
+                   "examples_data_pipeline":
+                       example_counts["data_pipeline"][k],
                    "examples_train_llama": example_counts["train_llama"][k],
                    "examples_llm_serving": example_counts["llm_serving"][k],
                    "examples_rllib_quickstart":

@@ -19,9 +19,9 @@ own GCS and raylets (``cluster_utils.Cluster``), whose tasks and actors run
 in worker processes. ``runtime_env=`` (``runtime_env.RuntimeEnv`` or a
 plain dict, validated at submission) runs a task or actor in its
 environment: in-process on the local runtime, in worker processes of its
-own on a cluster. Waiting for later slices: the Ray client
-(``ray_tpu://`` addresses, ``client/``), ``timeline`` (the observability
-planes) and ``RemoteFunction.bind`` (``dag/``).
+own on a cluster. ``f.bind(*args)`` builds a lazy ``dag.DAGNode``.
+Waiting for later slices: the Ray client (``ray_tpu://`` addresses,
+``client/``) and ``timeline`` (the observability planes).
 """
 
 from __future__ import annotations
@@ -242,6 +242,12 @@ class RemoteFunction:
         if num_returns == 1 or not isinstance(num_returns, int):
             return refs[0]   # single ref, or the ObjectRefGenerator
         return refs
+
+    def bind(self, *args, **kwargs):
+        """Lazy DAG node (reference: ``dag_node.py`` .bind)."""
+        from ray_tpu_torch.dag import DAGNode
+
+        return DAGNode(self._fn, args, kwargs, options=self._options)
 
     @property
     def underlying_function(self):

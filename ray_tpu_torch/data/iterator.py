@@ -1,20 +1,25 @@
 """DataIterator: per-consumer batch iteration with the device feed.
 
 Port of ``ray_tpu/data/iterator.py`` (reference:
-``python/ray/data/iterator.py``, ``DataIterator:60``). The JAX package's
-iterator reads blocks from its object store; the port's reads an iterable
-of numpy column dicts (``{"tokens": array, ...}``, equal-length columns),
-so a rank's dataset shard is a list of such blocks. ``iter_batches``
-re-batches them to a fixed size with the JAX package's carry and
-``drop_last`` (``:26``); ``iter_rows`` yields a block's rows as dicts, as
-the JAX package's column-dict blocks do (``ray_tpu/data/block.py:41``).
+``python/ray/data/iterator.py``, ``DataIterator:60``). It reads what it
+is given in order: ``RefBundle``s, whose blocks it reads from the object
+store as JAX's does (``Dataset.iterator()``, ``streaming_split``), or
+blocks themselves, numpy column dicts (``{"tokens": array, ...}``) or
+lists of rows (a rank's feed from the driver; a list of blocks to iterate
+more than once). ``iter_batches`` re-batches them to a fixed size with
+JAX's carry and ``drop_last`` (``:26``); ``iter_rows`` yields each row.
 
 ``iter_torch_batches`` is the counterpart of ``iter_jax_batches``
-(``:58``): where JAX's ``device_put`` is asynchronous, the port copies
-each batch from pinned host memory on a side CUDA stream, ``prefetch``
-batches ahead, and makes the consumer's stream wait on the copy's event
-before it hands the batch over, so the copy of the next batch overlaps
-the current step and no step reads a batch whose copy has not finished.
+(``:58``), on the card and with ``drop_last=True`` by default: where
+JAX's ``device_put`` is asynchronous, the port copies each batch from
+pinned host memory on a side CUDA stream, ``prefetch`` batches ahead, and
+makes the consumer's stream wait on the copy's event before it hands the
+batch over, so the copy of the next batch overlaps the current step and
+no step reads a batch whose copy has not finished. JAX's CPU
+``iter_torch_batches`` (``:89``: ``drop_last=False``, no device) is
+``device="cpu", drop_last=False``. Every column is copied before
+``torch.from_numpy``, so a tensor owns its memory: a block read from the
+shared-memory store is never aliased (``:101-108``).
 """
 
 from __future__ import annotations
@@ -23,42 +28,50 @@ from collections import deque
 from typing import Iterable, Iterator
 
 import numpy as np
-import torch
 
-from ray_tpu_torch._device import resolve_device
-
-
-def _concat(blocks: list) -> dict:
-    return {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
-
-
-def _rows(batch: dict) -> int:
-    return len(next(iter(batch.values())))
+import ray_tpu_torch
+from ray_tpu_torch.data.block import BlockAccessor, concat_blocks
+from ray_tpu_torch.data.execution import RefBundle
 
 
 class DataIterator:
-    """Batches over ``blocks``: an iterable of numpy column dicts (a list,
-    to iterate more than once)."""
+    """Batches over ``bundles``: an iterable of ``RefBundle``s or of blocks
+    (module docstring)."""
 
-    def __init__(self, blocks: Iterable[dict]):
-        self._blocks = blocks
+    def __init__(self, bundles: Iterable):
+        self._bundles = bundles
+
+    def _blocks(self) -> Iterator:
+        for item in self._bundles:
+            if isinstance(item, RefBundle):
+                for ref in item.refs:
+                    yield ray_tpu_torch.get(ref)
+            else:
+                yield item
+
+    def _close(self):
+        """End the source's execution early (a ``streaming_split``'s pump),
+        where it has one."""
+        close = getattr(self._bundles, "close", None)
+        if close is not None:
+            close()
 
     def iter_batches(self, *, batch_size: int | None = None,
                      drop_last: bool = False) -> Iterator[dict]:
         """Column-dict numpy batches, re-batched to ``batch_size`` (the
         blocks as they are when None)."""
         carry: dict | None = None
-        for block in self._blocks:
-            batch = {k: np.asarray(v) for k, v in block.items()}
-            if not batch or _rows(batch) == 0:
+        for block in self._blocks():
+            batch = BlockAccessor.for_block(block).to_batch()
+            if not batch:
                 continue
             if batch_size is None:
                 yield batch
                 continue
             if carry is not None:
-                batch = _concat([carry, batch])
+                batch = concat_blocks([carry, batch])
                 carry = None
-            n = _rows(batch)
+            n = len(next(iter(batch.values())))
             start = 0
             while n - start >= batch_size:
                 yield {k: v[start:start + batch_size]
@@ -69,13 +82,10 @@ class DataIterator:
         if carry is not None and not drop_last:
             yield carry
 
-    def iter_rows(self) -> Iterator[dict]:
-        """Each row of each block as ``{column: value}``, in order."""
-        for block in self._blocks:
-            keys = list(block)
-            n = _rows(block) if keys else 0
-            for i in range(n):
-                yield {k: block[k][i] for k in keys}
+    def iter_rows(self) -> Iterator:
+        """Each row of each block, in order (a dict for a column block)."""
+        for block in self._blocks():
+            yield from BlockAccessor.for_block(block).iter_rows()
 
     def iter_torch_batches(self, *, batch_size: int | None = None,
                            drop_last: bool = True,
@@ -85,6 +95,10 @@ class DataIterator:
         dtype, cast on the host), with ``prefetch`` copies in flight. On
         a card each copy runs from pinned memory on a side stream; on the
         CPU each batch is a tensor of its own memory."""
+        import torch
+
+        from ray_tpu_torch._device import resolve_device
+
         device = resolve_device(device)
         stream = torch.cuda.Stream(device) if device.type == "cuda" \
             else None

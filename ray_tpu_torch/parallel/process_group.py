@@ -40,6 +40,7 @@ from __future__ import annotations
 import datetime
 import itertools
 import math
+import random
 import socket
 import time
 
@@ -62,9 +63,33 @@ _LINES: dict = {}
 _WARM: set = set()
 
 
+def _ephemeral_low() -> int:
+    """The first port of the kernel's ephemeral range (Linux's default
+    where it cannot be read)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def free_port() -> int:
-    """A TCP port of localhost that was free a moment ago (bound as port 0
-    and released)."""
+    """A TCP port of localhost that was free a moment ago (bound and
+    released), for a world's rendezvous. Drawn at random below the
+    kernel's ephemeral range: a port bound as port 0 comes from that
+    range, where an outgoing connection or another process's bind to
+    port 0 can take it in the seconds before rank 0 binds it. Bound as
+    port 0 if no drawn port is free."""
+    low = _ephemeral_low()
+    draw = random.SystemRandom()
+    for _ in range(32):
+        port = draw.randrange(max(1024, low // 2), low)
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+            return port
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]

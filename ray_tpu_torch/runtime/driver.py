@@ -103,6 +103,7 @@ class ClusterRuntime:
         self._actor_windows: dict[str, deque] = {}
         self._actor_gap_fillers: dict[str, list] = {}
         self._actor_reaper_started = False
+        self._actor_reaper: threading.Thread | None = None
         self._seq_lock = threading.Lock()
         # submit-side coalescing: callers enqueue (task, addr) here and the
         # flusher thread packs consecutive submissions to one actor into a
@@ -1855,8 +1856,9 @@ class ClusterRuntime:
                     except Exception:  # noqa: BLE001
                         pass
 
-        threading.Thread(target=loop, daemon=True,
-                         name="actor-submit-flusher").start()
+        self._actor_reaper = threading.Thread(
+            target=loop, daemon=True, name="actor-submit-flusher")
+        self._actor_reaper.start()
 
     def kill_actor(self, actor_id: ActorID, no_restart: bool = True):
         # a kill racing the registration coalescer would find no actor
@@ -1911,6 +1913,13 @@ class ClusterRuntime:
         self._closed = True
         with self._reg_cv:
             self._reg_cv.notify_all()   # reg flusher drains + exits
+        # the submit flusher reads the store (its dead-actor sweep): it
+        # ends its pass before the store unmaps below
+        with self._outbox_cv:
+            self._outbox_cv.notify_all()
+        reaper = self._actor_reaper
+        if reaper is not None and reaper is not threading.current_thread():
+            reaper.join(timeout=5.0)
         if self._actor_sub is not None:
             try:
                 self._actor_sub.close()

@@ -9,12 +9,27 @@ worker group (``train.worker_group``: one process per rank over a
 checkpoint) and keeps the top-k checkpoints of ``CheckpointConfig``.
 
 Ranks call ``train.session.report(metrics, checkpoint_dir=...)``; rank 0's
-metrics are the canonical stream. Data: ``datasets={"train": columns}``,
-``columns`` a dict of equal-length numpy arrays; each rank gets its rows
-(contiguous, split by rank) as ``config["train_shard"]``, a
-``data.iterator.DataIterator``. The loop reaches the ranks by ``pickle``:
-it is a module-level function, with its settings in
+metrics are the canonical stream. The loop reaches the ranks by
+``pickle``: it is a module-level function, with its settings in
 ``train_loop_config``.
+
+Data: ``datasets={"train": ds}``, each rank's part as
+``config["train_shard"]``, a ``data.iterator.DataIterator``. ``ds`` is a
+``data.Dataset`` or a dict of equal-length numpy columns.
+
+- A ``Dataset`` runs once, in the driver, as JAX's does
+  (``ray_tpu/train/data_parallel_trainer.py:124-129``, ``:176-197``):
+  ``DataParallelTrainer`` deals it with ``streaming_split(num_workers)``,
+  round-robin, each bundle to one rank; ``TorchMeshTrainer`` gives every
+  rank the whole stream. The rank processes are not workers of the
+  runtime, so ``streaming_split``'s pump (``data.dataset._Splits``)
+  puts each rank's blocks, as numpy column dicts, straight into a
+  bounded ``multiprocessing`` queue of the rank's (4 blocks, as JAX's
+  split queues; the blocks are token ids, a few kB to a few MB). A rank never
+  waits forever: a pipeline that raises sends every rank its error
+  (and ``fit()`` returns it in ``Result.error`` even if no rank was still
+  reading), and a rank whose driver is gone raises.
+- Columns: each rank gets its contiguous rows, split by rank.
 
 ``TorchMeshTrainer`` is the counterpart of ``JaxMeshTrainer`` (``:200``):
 each rank runs ``train.trainer.Trainer`` over its process group, fed from
@@ -26,7 +41,9 @@ starts.
 from __future__ import annotations
 
 import math
+import multiprocessing as mp
 import os
+import queue as queue_mod
 import shutil
 import time
 import uuid
@@ -36,8 +53,14 @@ from typing import Callable
 import numpy as np
 
 from ray_tpu_torch.air.config import RunConfig, ScalingConfig
+from ray_tpu_torch.data.dataset import Dataset, _SplitError, _Splits
 from ray_tpu_torch.data.iterator import DataIterator
 from ray_tpu_torch.train.worker_group import BackendExecutor
+
+# blocks a rank's queue holds (JAX's streaming_split queues hold 4)
+FEED_DEPTH = 4
+# how often a rank waiting on its queue checks that its driver lives
+_FEED_POLL_S = 1.0
 
 
 @dataclass
@@ -83,7 +106,57 @@ class _TopKCheckpoints:
         return self.entries[-1][1] if self.entries else None
 
 
+class _RankFeed:
+    """A rank's blocks from its driver: iterable once, in the rank. Ends
+    at the driver's end marker; raises at a pipeline's error, or if the
+    driver is gone."""
+
+    def __init__(self, q):
+        self.q = q
+
+    def __iter__(self):
+        parent = mp.parent_process()
+        while True:
+            try:
+                item = self.q.get(timeout=_FEED_POLL_S)
+            except queue_mod.Empty:
+                if parent is not None and not parent.is_alive():
+                    raise RuntimeError(
+                        "the driver feeding this rank's dataset is gone")
+                continue
+            if item is None:
+                return
+            if isinstance(item, _SplitError):
+                raise RuntimeError(
+                    f"the dataset's pipeline raised in the driver: "
+                    f"{item.text}")
+            yield item
+
+
+def _dataset_feed(ds: Dataset, n: int, ctx, deal: bool) -> _Splits:
+    """One run of ``ds`` in the driver for one attempt of ``fit()``:
+    ``streaming_split``'s pump, putting each block into the queue of its
+    rank (``deal``) or of every rank."""
+    feed = _Splits([ctx.Queue(maxsize=FEED_DEPTH) for _ in range(n)],
+                   deal=deal, blocks=True)
+    feed.start(ds)
+    return feed
+
+
+def _close_feed(feed: _Splits):
+    """Stop the pump and the pipeline; the ranks are gone."""
+    feed.close()
+    feed.thread.join(10.0)
+    for q in feed.queues:
+        q.cancel_join_thread()
+        q.close()
+
+
 class DataParallelTrainer:
+    # a Dataset is dealt to the ranks by streaming_split (JAX's); the mesh
+    # trainer gives each rank the whole stream
+    _deal_datasets = True
+
     def __init__(
         self,
         train_loop_per_worker: Callable,
@@ -126,12 +199,14 @@ class DataParallelTrainer:
         return DataIterator([{k: np.asarray(v)[lo:hi]
                               for k, v in columns.items()}])
 
-    def _rank_configs(self) -> list:
+    def _rank_configs(self, feeds: dict) -> list:
         configs = []
         for rank in range(self.scaling.num_workers):
             config = dict(self.config)
-            for name, columns in self.datasets.items():
-                config[f"{name}_shard"] = self._shard(columns, rank)
+            for name, data in self.datasets.items():
+                config[f"{name}_shard"] = (
+                    DataIterator(_RankFeed(feeds[name].queues[rank]))
+                    if name in feeds else self._shard(data, rank))
             configs.append(config)
         return configs
 
@@ -153,10 +228,17 @@ class DataParallelTrainer:
                               time.monotonic() - failed_at)
         manager = _TopKCheckpoints(self.run_config.checkpoint_config)
         result = Result()
+        feeds = {}
         try:
+            for name, data in self.datasets.items():
+                if isinstance(data, Dataset):
+                    feeds[name] = _dataset_feed(
+                        data, self.scaling.num_workers,
+                        executor.group._ctx, self._deal_datasets)
             t_spawn = time.monotonic()
-            executor.start_training(self.train_fn, self._rank_configs(),
-                                    trial_dir, restore_checkpoint=restore_dir,
+            executor.start_training(self.train_fn,
+                                    self._rank_configs(feeds), trial_dir,
+                                    restore_checkpoint=restore_dir,
                                     run_name=self.run_name)
             done = False
             while not done:
@@ -175,6 +257,13 @@ class DataParallelTrainer:
                         manager.add(rep["checkpoint"], rep["metrics"])
         finally:
             executor.shutdown()
+            for feed in feeds.values():
+                _close_feed(feed)
+        # a pipeline that raised after the ranks stopped reading
+        for name, feed in feeds.items():
+            if result.error is None and feed.error is not None:
+                result.error = (f"dataset {name!r}: the pipeline raised: "
+                                f"{feed.error.text}")
         result.rank_stats = executor.rank_stats()
         result.checkpoint_dir = manager.best() or manager.latest()
         return result
@@ -252,7 +341,10 @@ class TorchMeshTrainer(DataParallelTrainer):
     ``seq_len``). With a dataset every rank reads the whole of it as
     global batches, and its ``Trainer`` keeps the rank's rows of each (the
     trainer's contract is the global batch; the rows it drops are token
-    ids, a few kB a step)."""
+    ids, a few kB a step): a ``Dataset`` runs once, in the driver, and
+    every rank gets its whole stream."""
+
+    _deal_datasets = False
 
     def __init__(self, model_config, train_config, **kw):
         config = dict(kw.pop("train_loop_config", None) or {})

@@ -22,8 +22,10 @@ is a module-level function, its settings in the config.
   then kills the others, which would otherwise wait in a collective. A
   rank that dies without a word is reported by its exit code. No rank is
   left running after ``shutdown``.
-- The rendezvous port is picked by binding port 0; if it was taken in the
-  moment before rank 0 bound it, the group starts once more on a new one.
+- The rendezvous port is drawn below the kernel's ephemeral range
+  (``process_group.free_port``); if it was taken in the moment before
+  rank 0 bound it, the group starts once more on a new one, and says so
+  in a warning.
 - ``execute``/``execute_async``/``healthy`` (``ray_tpu/train/
   worker_group.py:115-126``): ranks spawned at the first call stay up,
   each taking ``(fn, args)`` from its own queue and posting the result;
@@ -35,6 +37,7 @@ is a module-level function, its settings in the config.
 from __future__ import annotations
 
 import inspect
+import logging
 import multiprocessing as mp
 import os
 import queue as queue_mod
@@ -44,6 +47,8 @@ from typing import Callable
 
 from ray_tpu_torch.air.config import ScalingConfig
 from ray_tpu_torch.parallel.process_group import check_backend, free_port
+
+_log = logging.getLogger(__name__)
 
 # how long shutdown waits for a killed rank to be reaped
 _JOIN_S = 30.0
@@ -345,6 +350,8 @@ class BackendExecutor:
                 for e in errors):
             # the port was taken before rank 0 bound it: once more
             self._retried_port = True
+            _log.warning("rank 0 could not bind its rendezvous port; "
+                         "starting the group once more on a new one")
             self.group.shutdown()
             self.group = WorkerGroup(self.scaling, env=self.env)
             self.group.start(*self._args)

@@ -83,7 +83,12 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "examples.serve_quickstart", "serve.schema",
                  "serve.ingress", "scripts.cli", "runtime.prestart",
                  "runtime.fault_injection", "runtime_env", "chaos_soak",
-                 "examples.xlang"):
+                 "examples.xlang", "data.dataset", "data.execution",
+                 "data.block", "data.context", "data.stats",
+                 "data.aggregate", "data.grouped", "data.preprocessors",
+                 "data.tfrecord", "data.avro", "data.sql", "data.mongo",
+                 "dag", "workflow", "_private.usage_stats",
+                 "examples.data_pipeline"):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -296,11 +301,13 @@ def test_train_air_data_export_the_jax_packages_names():
     """``ray_tpu_torch.train`` exports every device-plane name that
     ``ray_tpu.train`` exports (``JaxTrainer`` as ``Trainer``,
     ``JaxMeshTrainer`` as ``TorchMeshTrainer``), ``ray_tpu_torch.air``
-    its four configs, ``ray_tpu_torch.data`` its ``DataIterator``, and
+    its four configs, ``ray_tpu_torch.data`` every name of
+    ``ray_tpu.data`` (since the port's ``Dataset``), and
     ``train.telemetry`` JAX's ``STEP_STAGES``; each package's
     ``__all__`` is exactly those. A fresh ``from ray_tpu_torch.train
     import ...`` loads no jax, no ray_tpu module and no CUDA."""
     import ray_tpu.air as jax_air
+    import ray_tpu.data as jax_data
     import ray_tpu.train as jax_train
     import ray_tpu.train.telemetry as jax_telemetry
 
@@ -317,7 +324,8 @@ def test_train_air_data_export_the_jax_packages_names():
     assert all(hasattr(port_train, n) for n in want)
     assert set(port_air.__all__) == set(jax_air.__all__)
     assert all(hasattr(port_air, n) for n in jax_air.__all__)
-    assert port_data.__all__ == ["DataIterator"]
+    assert set(port_data.__all__) == set(jax_data.__all__)
+    assert all(hasattr(port_data, n) for n in jax_data.__all__)
     assert telemetry.STEP_STAGES == jax_telemetry.STEP_STAGES
     proc = subprocess.run([sys.executable, "-c", TRAIN_PROBE], cwd=REPO,
                           env=_clean_env(), capture_output=True, text=True,
@@ -509,3 +517,65 @@ def test_ingress_cli_prestart_fault_env_soak_modules_load_alone():
     assert set(jserve.__all__) <= set(tserve.__all__)
     for name in jserve.__all__:
         assert hasattr(tserve, name), name
+
+
+DATA_MODULES = ["ray_tpu_torch.data", "ray_tpu_torch.data.block",
+                "ray_tpu_torch.data.context", "ray_tpu_torch.data.stats",
+                "ray_tpu_torch.data.execution",
+                "ray_tpu_torch.data.aggregate", "ray_tpu_torch.data.grouped",
+                "ray_tpu_torch.data.dataset", "ray_tpu_torch.data.iterator",
+                "ray_tpu_torch.data.preprocessors",
+                "ray_tpu_torch.data.tfrecord", "ray_tpu_torch.data.avro",
+                "ray_tpu_torch.data.sql", "ray_tpu_torch.data.mongo",
+                "ray_tpu_torch.dag", "ray_tpu_torch.workflow",
+                "ray_tpu_torch._private.usage_stats",
+                "ray_tpu_torch.examples.data_pipeline"]
+
+# the optional packages hidden: a None in sys.modules makes their import
+# raise, so a module that imported one at its top would fail to load
+DATA_PROBE = r"""
+import importlib, json, sys
+HIDDEN = ("jax", "ray_tpu", "pyarrow", "pandas", "PIL")
+for name in HIDDEN:
+    sys.modules[name] = None
+importlib.import_module(sys.argv[1])
+
+
+def loaded(name):
+    return sorted(m for m in sys.modules if (m == name or m.startswith(
+        name + ".")) and sys.modules[m] is not None)
+
+
+print(json.dumps({"hidden": {n: loaded(n) for n in HIDDEN},
+                  "torch": "torch" in sys.modules}))
+"""
+
+
+def test_data_dag_workflow_modules_load_alone():
+    """Each module of ``data``, ``dag`` and ``workflow`` (with
+    ``usage_stats`` and the data quickstart) imports in a fresh
+    interpreter of its own with jax, ray_tpu, pyarrow, pandas and PIL
+    hidden, and loads none of them; ``data``'s modules load no torch
+    either (a cold cluster worker running a map task imports them);
+    ``dag`` and ``workflow`` export JAX's names."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", DATA_PROBE, name], cwd=REPO,
+        env=_clean_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name in DATA_MODULES}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, (name, err[-2000:])
+        got = json.loads(out.strip().splitlines()[-1])
+        assert all(v == [] for v in got["hidden"].values()), (name, got)
+        if name.startswith("ray_tpu_torch.data"):
+            assert got["torch"] is False, name
+    import ray_tpu.dag as jax_dag
+    import ray_tpu.workflow as jax_workflow
+
+    import ray_tpu_torch.dag as port_dag
+    import ray_tpu_torch.workflow as port_workflow
+
+    for jmod, pmod in ((jax_dag, port_dag), (jax_workflow, port_workflow)):
+        names = [n for n, v in vars(jmod).items() if not n.startswith("_")
+                 and getattr(v, "__module__", None) == jmod.__name__]
+        assert names and all(hasattr(pmod, n) for n in names), names
