@@ -7942,6 +7942,293 @@ def check_data_infer(torch, cfg, params, smi: str) -> dict:
     return counts
 
 
+# util_k1 (slice 21): K1 at Llama-3-8B's attention shape in the actors of an
+# ActorPool placed by a placement group, and its outputs through the host
+# collectives (the port's TCP ring and the coordinator actor), a Queue, a
+# multiprocessing Pool, the internal KV and free, on the in-process runtime
+UTIL_K1_SHAPE = CLUSTER_K1_SHAPE
+UTIL_K1_SEEDS = 4
+# where util_k1 makes its inputs (the phase's rehearsal on a host with no
+# card sets "cpu")
+UTIL_K1_DEVICE = "cuda"
+# check_flash's bf16 tolerances of K1 against its plain version
+UTIL_K1_ABS_TOL = 8e-3
+UTIL_K1_ROW_TOL = 1e-2
+# the phase's K1 launches: the pool's seeds, each collective group's two
+# ranks (tcp, actor, the tcp control), the Queue's producer, the Pool's two
+# seeds, the internal KV's digest and the freed object
+UTIL_K1_LAUNCHES = UTIL_K1_SEEDS + 3 * 2 + 1 + 2 + 1 + 1
+
+
+def util_k1_inputs(seed: int) -> tuple:
+    """util_k1's seeded inputs for ``seed`` in the kernel layout: q [b, h,
+    s, d], k and v [b, hk, s, d], bf16."""
+    import torch
+
+    b, h, hk, s, d = UTIL_K1_SHAPE
+    gen = torch.Generator(device=UTIL_K1_DEVICE).manual_seed(
+        SEED + 21 + seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen,
+                           device=UTIL_K1_DEVICE).to(torch.bfloat16)
+    return randn(b, h, s, d), randn(b, hk, s, d), randn(b, hk, s, d)
+
+
+def util_k1(seed: int):
+    """K1 (causal) on ``seed``'s inputs: its output [b, h, s, d], bf16."""
+    from ray_tpu_torch.ops.flash_attention import flash_fwd
+
+    out, _ = flash_fwd(*util_k1_inputs(seed), causal=True)
+    return out
+
+
+def k1_digest(out) -> str:
+    """The sha256 of a K1 output's bf16 bit patterns."""
+    import hashlib
+
+    import torch
+
+    return hashlib.sha256(
+        out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+
+def util_k1_to_queue(queue, seed: int) -> bool:
+    """util_k1's Queue producer: K1 on ``seed``, its output put."""
+    queue.put(util_k1(seed))
+    return True
+
+
+def util_k1_from_queue(queue):
+    """util_k1's Queue consumer: the first item, as it came."""
+    return queue.get(timeout=300)
+
+
+def util_k1_to_kv(seed: int) -> bool:
+    """K1 on ``seed``, its output's digest put in the internal KV."""
+    from ray_tpu_torch.experimental import internal_kv_put
+
+    return internal_kv_put(f"util_k1_digest_{seed}", k1_digest(util_k1(seed)))
+
+
+class UtilK1Actor:
+    """An actor of util_k1's pool: K1 on a seed, and K1's output through a
+    collective group of the pool's actors."""
+
+    def k1(self, seed: int):
+        return util_k1(seed)
+
+    def collectives(self, world: int, rank: int, group: str, backend: str,
+                    seed: int) -> dict:
+        """In a new group ``group`` on ``backend``: the allreduce of K1's
+        output on ``seed`` (timed after a barrier: the host copy, bf16 to
+        float32, and the ring), then rank 0's output broadcast from it and
+        sent by it to rank 1."""
+        from ray_tpu_torch.util import collective as col
+
+        g = col.init_collective_group(world, rank, group, backend=backend)
+        x = util_k1(seed)
+        col.barrier(group)
+        t0 = time.perf_counter()
+        red = col.allreduce(x, group_name=group)
+        allreduce_s = time.perf_counter() - t0
+        bcast = col.broadcast(x if rank == 0 else x.new_zeros(x.shape),
+                              src_rank=0, group_name=group)
+        got = None
+        if rank == 0:
+            col.send(x, 1, group_name=group, tag=5)
+        elif rank == 1:
+            got = col.recv(0, group_name=group, tag=5, timeout=300)
+        col.barrier(group)
+        g.destroy()
+        return {"allreduce": red, "allreduce_s": allreduce_s,
+                "broadcast": bcast, "recv": got}
+
+
+def check_util_k1(torch, smi: str) -> dict:
+    """util_k1: ``ray_tpu_torch.util`` and ``experimental`` carrying K1's
+    outputs on the in-process runtime (``init(num_gpus=1)``). Two
+    UtilK1Actor are made with a ``PlacementGroupSchedulingStrategy`` on a
+    group of two {CPU 1, GPU 0.5} bundles; the in-process runtime has one
+    node and reserves no bundle, as JAX's does, so this drives only the
+    strategy's parsing (bundle placement is held on the CPU cluster in
+    tests/test_torch_cluster.py). An ``ActorPool`` over them maps
+    UTIL_K1_SEEDS seeds, each output bit for bit this process's K1 on the
+    seed (control: the next seed's differs). Both actors then allreduce
+    their outputs (seeds 0 and 1) in a group on the port's TCP ring and in
+    one on the coordinator actor: each result bit for bit the float32 sum
+    of the direct outputs; broadcast and send/recv of rank 0's output bit
+    for bit its float32 copy (control: a tcp group whose rank 1 runs seed
+    2 must differ). Then a Queue carries a task's K1 output to another
+    task, ``multiprocessing.Pool(2).map`` runs K1 on seeds 0 and 1, a
+    task's output digest round-trips the internal KV, and ``free`` of a
+    task's K1 output leaves it unreadable. K1 launches UTIL_K1_LAUNCHES
+    times, its seed-0 output within check_flash's tolerances of the plain
+    version; the card's memory comes back within SERVE_MEMORY_TOL."""
+    import ray_tpu_torch
+    from ray_tpu_torch.experimental import free, internal_kv_get
+    from ray_tpu_torch.ops.flash_attention import flash_fwd_plain
+    from ray_tpu_torch.util import ActorPool, Queue
+    from ray_tpu_torch.util.multiprocessing import Pool
+    from ray_tpu_torch.util.placement_group import (
+        PlacementGroupSchedulingStrategy, placement_group,
+        remove_placement_group)
+    from ray_tpu_torch.utils.exceptions import GetTimeoutError
+
+    t_phase = time.perf_counter()
+    free_card(torch)
+    mem_before = torch.cuda.memory_allocated()
+    ray_tpu_torch.init(num_gpus=1)
+    try:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        pg = placement_group([{"CPU": 1, "GPU": 0.5}] * 2, strategy="PACK")
+        actor_cls = ray_tpu_torch.remote(UtilK1Actor)
+        actors = [actor_cls.options(
+            num_cpus=1, num_gpus=0.5,
+            scheduling_strategy=PlacementGroupSchedulingStrategy(pg, i))
+            .remote() for i in range(2)]
+        pool = ActorPool(actors)
+        pool_out = list(pool.map(lambda a, s: a.k1.remote(s),
+                                 range(UTIL_K1_SEEDS)))
+        pool_s = time.perf_counter() - t0
+
+        def collectives(group, backend, seeds):
+            return ray_tpu_torch.get(
+                [a.collectives.remote(2, r, group, backend, seeds[r])
+                 for r, a in enumerate(actors)], timeout=300)
+
+        t0 = time.perf_counter()
+        tcp = collectives("util_k1_tcp", "tcp", (0, 1))
+        tcp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        act = collectives("util_k1_actor", "actor", (0, 1))
+        actor_s = time.perf_counter() - t0
+        control = collectives("util_k1_control", "tcp", (0, 2))
+        for a in actors:
+            ray_tpu_torch.kill(a)
+        remove_placement_group(pg)
+        del actors, pool
+
+        t0 = time.perf_counter()
+        queue = Queue()
+        take = ray_tpu_torch.remote(num_gpus=0.5)(util_k1_from_queue) \
+            .remote(queue)
+        put = ray_tpu_torch.remote(num_gpus=0.5)(util_k1_to_queue) \
+            .remote(queue, 2)
+        queued = ray_tpu_torch.get(take, timeout=300)
+        queue_put = ray_tpu_torch.get(put, timeout=300)
+        queue.shutdown()
+        queue_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with Pool(2) as mp_pool:
+            pooled = mp_pool.map(util_k1, [0, 1])
+        mp_pool_s = time.perf_counter() - t0
+        kv_put = ray_tpu_torch.get(
+            ray_tpu_torch.remote(util_k1_to_kv).remote(3), timeout=300)
+        kv_digest = internal_kv_get("util_k1_digest_3")
+        ref = ray_tpu_torch.remote(util_k1).remote(0)
+        before_free = ray_tpu_torch.get(ref, timeout=300)
+        free(ref)
+        try:
+            ray_tpu_torch.get(ref, timeout=0.5)
+            freed_unreadable = False
+        except GetTimeoutError:
+            freed_unreadable = True
+        del ref
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t_phase
+        counts = launch_counts()
+    finally:
+        ray_tpu_torch.shutdown()
+
+    # the direct calls and the plain version, after the counts are read
+    direct = [util_k1(s) for s in range(UTIL_K1_SEEDS + 1)]
+    want_sum = (direct[0].float() + direct[1].float()).cpu().numpy()
+    want_rank0 = direct[0].float().cpu().numpy()
+    plain, _ = flash_fwd_plain(*util_k1_inputs(0),
+                               scale=UTIL_K1_SHAPE[4] ** -0.5, causal=True)
+    torch.cuda.synchronize()
+    plain_abs = float((direct[0].float() - plain.float()).abs().max())
+    plain_row = row_rel_err(direct[0], plain)
+
+    def bits(a, b) -> bool:
+        return bool(np.array_equal(np.asarray(a).view(np.int32),
+                                   np.asarray(b).view(np.int32)))
+
+    out = {
+        "shape": list(UTIL_K1_SHAPE), "seeds": UTIL_K1_SEEDS,
+        "pool_bits_equal": [bool(torch.equal(o, direct[s]))
+                            for s, o in enumerate(pool_out)],
+        "control_next_seed_bits_equal": [
+            bool(torch.equal(o, direct[s + 1]))
+            for s, o in enumerate(pool_out)],
+        "pool_s": pool_s,
+        "tcp_allreduce_bits_equal": [bits(r["allreduce"], want_sum)
+                                     for r in tcp],
+        "actor_allreduce_bits_equal": [bits(r["allreduce"], want_sum)
+                                       for r in act],
+        "tcp_broadcast_bits_equal": [bits(r["broadcast"], want_rank0)
+                                     for r in tcp],
+        "actor_broadcast_bits_equal": [bits(r["broadcast"], want_rank0)
+                                       for r in act],
+        "tcp_recv_bits_equal": bits(tcp[1]["recv"], want_rank0),
+        "actor_recv_bits_equal": bits(act[1]["recv"], want_rank0),
+        "control_rank1_seed2_bits_equal": [bits(r["allreduce"], want_sum)
+                                           for r in control],
+        "allreduce_mbytes": want_sum.nbytes / 1e6,
+        "tcp_allreduce_s": [r["allreduce_s"] for r in tcp],
+        "actor_allreduce_s": [r["allreduce_s"] for r in act],
+        "tcp_group_s": tcp_s, "actor_group_s": actor_s,
+        "queue_bits_equal": queue_put and bool(torch.equal(queued,
+                                                           direct[2])),
+        "queue_s": queue_s,
+        "mp_pool_bits_equal": [bool(torch.equal(o, direct[s]))
+                               for s, o in enumerate(pooled)],
+        "mp_pool_s": mp_pool_s,
+        "kv_digest_equal": kv_put and kv_digest == k1_digest(
+            direct[3]).encode(),
+        "free_read_before_bits_equal": bool(torch.equal(before_free,
+                                                        direct[0])),
+        "freed_unreadable": freed_unreadable,
+        "plain_max_abs_err": plain_abs, "plain_abs_tol": UTIL_K1_ABS_TOL,
+        "plain_row_rel_err": plain_row, "plain_row_tol": UTIL_K1_ROW_TOL,
+        "launches": counts,
+        "want_launches": {"flash_fwd": UTIL_K1_LAUNCHES, "flash_bwd": 0},
+        "path_s": path_s,
+    }
+    del direct, plain, pool_out, tcp, act, control, queued, pooled
+    del before_free
+    free_card(torch)
+    out["memory_before"] = mem_before
+    out["memory_after"] = torch.cuda.memory_allocated()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("util_k1", nvidia_smi=smi, **out)
+    held = [*out["pool_bits_equal"],
+            *out["tcp_allreduce_bits_equal"],
+            *out["actor_allreduce_bits_equal"],
+            *out["tcp_broadcast_bits_equal"],
+            *out["actor_broadcast_bits_equal"], out["tcp_recv_bits_equal"],
+            out["actor_recv_bits_equal"], out["queue_bits_equal"],
+            *out["mp_pool_bits_equal"], out["kv_digest_equal"],
+            out["free_read_before_bits_equal"], out["freed_unreadable"]]
+    controls = [*out["control_next_seed_bits_equal"],
+                *out["control_rank1_seed2_bits_equal"]]
+    if not all(held) or any(controls):
+        raise AssertionError(f"util_k1: {out}")
+    if plain_abs > UTIL_K1_ABS_TOL or plain_row > UTIL_K1_ROW_TOL:
+        raise AssertionError(f"util_k1's K1 against the plain version: max "
+                             f"err {plain_abs}, row rel err {plain_row}")
+    if counts != out["want_launches"]:
+        raise AssertionError(f"util_k1 launches {counts}, want "
+                             f"{out['want_launches']}")
+    if abs(out["memory_after"] - mem_before) > SERVE_MEMORY_TOL:
+        raise AssertionError(f"the card held {mem_before} bytes before "
+                             f"util_k1 and {out['memory_after']} after")
+    return counts
+
+
 def shift_tokens(batch: dict, offset: int, vocab: int) -> dict:
     """A batch's tokens shifted by ``offset``, mod ``vocab`` (module
     level: ``map_batches`` takes it bound by ``functools.partial``)."""
@@ -8222,7 +8509,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    paths = _kernels.build()   # one nvcc per source, all together
+    # the host plane's C++ libraries (one g++ each, in a thread beside the
+    # nvcc builds) that later phases would otherwise build at first use
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch._private import build as host_build
+    with ThreadPoolExecutor(1) as host_pool:
+        host_paths = host_pool.submit(
+            lambda: [host_build.build(n) for n in host_build.SOURCES])
+        paths = _kernels.build()   # one nvcc per source, all together
+        host_libraries = [p.name for p in host_paths.result()]
     ptxas = {}
     for src, path in paths.items():
         log = path.with_suffix(".log")
@@ -8234,7 +8530,8 @@ def main() -> int:
                                f"{name}_bf16_kernel")
              for name in ("flash_fwd", "flash_bwd")}
     emit("build", seconds=time.perf_counter() - t0,
-         libraries=[p.name for p in paths.values()], ptxas=ptxas, **facts)
+         libraries=[p.name for p in paths.values()],
+         host_libraries=host_libraries, ptxas=ptxas, **facts)
     fwd_rows = check_flash(torch, peaks)
     main_case, train_case, gpt2_case = (fwd_rows[k] for k in (
         "llama3_8b", "llama3_8b_train", "gpt2_xl_train"))
@@ -8296,6 +8593,12 @@ def main() -> int:
     data_infer_counts = check_data_infer(torch, cfg, params, smi)
     free_card(torch)
     emit("data_infer_phase", seconds=time.perf_counter() - t0)
+    # util and experimental (slice 21): K1 in a placed ActorPool's actors,
+    # its outputs through the host collectives, a Queue, a Pool, the
+    # internal KV and free, on the in-process runtime (the phase prints its
+    # seconds)
+    util_k1_counts = check_util_k1(torch, smi)
+    free_card(torch)
     check_grad(torch, cfg, params)
     full_counts, attn_counts, train_losses = check_train(torch, cfg, params,
                                                          peaks)
@@ -8454,6 +8757,7 @@ def main() -> int:
                    "cluster_task_worker": cluster_counts[k],
                    "cli_prestart_task_forked_worker": cli_counts[k],
                    "data_infer_actor_forward": data_infer_counts[k],
+                   "util_k1_pool_collectives": util_k1_counts[k],
                    "data_ingest_rank0_step": data_ingest_counts[k] // 3,
                    "examples_data_pipeline":
                        example_counts["data_pipeline"][k],

@@ -1,9 +1,11 @@
 """Build the port's host-side C++ libraries and its C API's example.
 
 Each source in ``csrc/host/`` (``shm_store.cc``: the shared-memory object
-store; ``scheduling.cc``: the hybrid scheduling policy) compiles with the
-host compiler (``$CXX``, else ``g++``) into its own shared library, loaded
-with ``ctypes``. The C API in ``csrc/capi/`` (``ray_api.cc``, a framed
+store; ``scheduling.cc``: the hybrid scheduling policy;
+``tcp_collective.cc``: the host collectives over TCP; ``crc32c.cc``:
+TFRecord's checksum) compiles with the host compiler (``$CXX``, else
+``g++``) and flags of its own into its own shared library, loaded with
+``ctypes``. The C API in ``csrc/capi/`` (``ray_api.cc``, a framed
 msgpack client of the cluster) links into the ``example_submit``
 program (``capi_example()``). Each is built at first use into ``_build/``
 beside the package, named by a hash of its sources and flags, so an
@@ -29,10 +31,13 @@ CAPI = Path(__file__).resolve().parent.parent / "csrc" / "capi"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 CXX_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
-# source name -> libraries it links
+# source name -> (its own compile flags, the libraries it links);
+# CRC32C's hardware path is the SSE4.2 instruction
 SOURCES = {
-    "shm_store": ["-lpthread", "-lrt"],
-    "scheduling": [],
+    "shm_store": ([], ["-lpthread", "-lrt"]),
+    "scheduling": ([], []),
+    "tcp_collective": ([], ["-lpthread"]),
+    "crc32c": (["-msse4.2"], []),
 }
 
 _lock = threading.Lock()
@@ -55,16 +60,17 @@ def source(name: str) -> Path:
 def lib_path(name: str) -> Path:
     """``_build/lib<name>-<hash>.so``, the hash over the source and the
     flags."""
+    flags, libs = SOURCES[name]
     h = hashlib.sha256(source(name).read_bytes())
-    h.update(" ".join(CXX_FLAGS + SOURCES[name]).encode())
+    h.update(" ".join(CXX_FLAGS + flags + libs).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
     """The library of source ``name``, compiled first if it is not built
     yet."""
-    return _compile(lib_path(name), CXX_FLAGS, [source(name)],
-                    SOURCES[name])
+    flags, libs = SOURCES[name]
+    return _compile(lib_path(name), CXX_FLAGS + flags, [source(name)], libs)
 
 
 # the C API example: its sources, and the flags of a program (not -shared)

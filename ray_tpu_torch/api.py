@@ -264,6 +264,13 @@ def _parse_strategy(opts: dict) -> SchedulingStrategy:
         return SchedulingStrategy(kind="SPREAD")
     if s == "DEFAULT":
         return SchedulingStrategy()
+    # PlacementGroupSchedulingStrategy (duck-typed: util.placement_group
+    # imports this module)
+    if hasattr(s, "placement_group"):
+        return SchedulingStrategy(
+            kind="PLACEMENT_GROUP",
+            placement_group_id=s.placement_group.id,
+            bundle_index=getattr(s, "bundle_index", -1))
     raise ValueError(f"Unknown scheduling strategy: {s!r}")
 
 
@@ -399,6 +406,7 @@ class ActorClass:
                 memory=opts.get("memory"),
                 resources=opts.get("resources"),
             ),
+            scheduling_strategy=_parse_strategy(opts),
             max_concurrency=max_concurrency,
             max_restarts=opts.get("max_restarts", 0),
             runtime_env=_normalize_runtime_env(opts.get("runtime_env")),
@@ -439,9 +447,12 @@ def get_actor(name: str, namespace: str | None = None) -> ActorHandle:
 # client disconnects or misses heartbeats, and ``lifetime="detached"`` opts
 # it out; in the in-process runtime the owner is this process, so every
 # actor dies with it either way.
+# an actor takes a scheduling strategy too (JAX's refuses one), so a
+# PlacementGroupSchedulingStrategy places it on its bundle's node
 _ACTOR_OPTION_KEYS = {
     "name", "namespace", "max_concurrency", "max_restarts", "num_cpus",
     "num_gpus", "memory", "resources", "lifetime", "runtime_env",
+    "scheduling_strategy",
 }
 _TASK_OPTION_KEYS = {
     "num_returns", "num_cpus", "num_gpus", "memory", "resources",

@@ -863,6 +863,10 @@ class Runtime:
     # Cancellation
     # ------------------------------------------------------------------
 
+    def free(self, refs: list):
+        """Release stored objects (reference: ray.internal.free)."""
+        self.store.free([r.id for r in refs])
+
     def cancel(self, ref: ObjectRef, force: bool = False):
         # Best-effort: mark every task whose return id matches. Local mode
         # cannot interrupt a running Python frame (same caveat as the

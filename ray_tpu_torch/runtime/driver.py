@@ -1951,6 +1951,9 @@ def _wire_strategy(spec: TaskSpec) -> dict:
     if s.node_id is not None:
         out["node_id"] = s.node_id if isinstance(s.node_id, str) \
             else s.node_id.hex()
+    if s.placement_group_id is not None:
+        out["pg_id"] = s.placement_group_id.hex()
+        out["bundle_index"] = s.bundle_index
     return out
 
 

@@ -12,7 +12,8 @@ from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any
 
-from ray_tpu_torch.utils.ids import ActorID, ObjectID, TaskID
+from ray_tpu_torch.utils.ids import (ActorID, ObjectID, PlacementGroupID,
+                                     TaskID)
 
 
 class TaskType(Enum):
@@ -51,13 +52,16 @@ class ResourceSet:
 @dataclass
 class SchedulingStrategy:
     """Placement policy for one task (reference:
-    ``util/scheduling_strategies.py``): DEFAULT (hybrid), SPREAD, or node
-    affinity. The in-process runtime has one node, so all place alike;
-    the cluster runtime routes NODE_AFFINITY to ``node_id``'s raylet.
-    Placement-group bundles wait for ``util/placement_group``'s slice."""
+    ``util/scheduling_strategies.py``): DEFAULT (hybrid), SPREAD, node
+    affinity, or placement-group bundle affinity. The in-process runtime
+    has one node, so all place alike; the cluster runtime routes
+    NODE_AFFINITY to ``node_id``'s raylet and PLACEMENT_GROUP to the node
+    that holds the group's bundle."""
 
-    kind: str = "DEFAULT"  # DEFAULT | SPREAD | NODE_AFFINITY
+    kind: str = "DEFAULT"  # DEFAULT | SPREAD | NODE_AFFINITY | PLACEMENT_GROUP
     node_id: Any = None
+    placement_group_id: PlacementGroupID | None = None
+    bundle_index: int = -1
 
 
 @dataclass

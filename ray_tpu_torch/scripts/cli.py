@@ -146,7 +146,7 @@ def cmd_serve_status(args):
     print(json.dumps(serve.status(), indent=2, default=str))
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ray-tpu-torch", description="ray_tpu_torch cluster CLI")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -192,7 +192,11 @@ def main(argv=None):
     p.add_argument("--address", required=True)
     p.set_defaults(fn=cmd_serve_status)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     args.fn(args)
 
 

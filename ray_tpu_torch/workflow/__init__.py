@@ -19,7 +19,6 @@ from __future__ import annotations
 import functools
 import os
 import pickle
-import threading
 
 from ray_tpu_torch._private.usage_stats import record_library_usage as _rlu
 
@@ -260,76 +259,34 @@ def metadata(workflow_id: str, *, storage: str | None = None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# events (reference: workflow/http_event_provider.py). JAX keeps them in
-# its internal KV (``ray_tpu.experimental``), so any process can signal
-# them; the port's ``experimental`` is a later slice, so the same table
-# lives here: the GCS's KV (namespace "internal_kv") on a cluster, a table
-# of this process on the in-process runtime
+# events (reference: workflow/http_event_provider.py: here events live in
+# the internal KV, so any process can signal them)
 # ---------------------------------------------------------------------------
-
-_KV_NS = "internal_kv"
-_local_kv: dict[str, bytes] = {}
-_kv_lock = threading.Lock()
-
-
-def _gcs():
-    """The GCS client of the runtime this process is attached to, or
-    None for the in-process runtime (as JAX's ``internal_kv._backend``)."""
-    from ray_tpu_torch.runtime import core
-
-    if not core.is_initialized():
-        if not os.environ.get("RAY_TPU_TORCH_GCS_HOST"):
-            return None
-        ray_tpu_torch.api._runtime()   # a cluster worker attaches
-    return getattr(core.get_runtime(), "_gcs", None)
-
-
-def _kv_put(key: str, value: bytes) -> None:
-    gcs = _gcs()
-    if gcs is not None:
-        gcs.call("kv_put", ns=_KV_NS, key=key, value=value, overwrite=True)
-        return
-    with _kv_lock:
-        _local_kv[key] = value
-
-
-def _kv_get(key: str):
-    gcs = _gcs()
-    if gcs is not None:
-        return gcs.call("kv_get", ns=_KV_NS, key=key)
-    with _kv_lock:
-        return _local_kv.get(key)
-
-
-def _kv_del(key: str) -> None:
-    gcs = _gcs()
-    if gcs is not None:
-        gcs.call("kv_del", ns=_KV_NS, key=key)
-        return
-    with _kv_lock:
-        _local_kv.pop(key, None)
-
 
 def signal_event(name: str, payload=b"1") -> None:
     """Fire an event; a workflow blocked in wait_for_event resumes."""
-    payload = payload if isinstance(payload, bytes) else \
-        str(payload).encode()
-    _kv_put(f"__wf_event_{name}", payload)
+    from ray_tpu_torch.experimental import internal_kv_put
+
+    internal_kv_put(f"__wf_event_{name}", payload)
 
 
 def clear_event(name: str) -> None:
     """Remove a fired event so its name can be reused without the new
     waiter seeing the stale payload."""
-    _kv_del(f"__wf_event_{name}")
+    from ray_tpu_torch.experimental import internal_kv_del
+
+    internal_kv_del(f"__wf_event_{name}")
 
 
 def _wait_event(name: str, poll_interval_s: float, timeout_s: float):
     """The step of ``event(name)``: the payload once the event fires."""
     import time as _time
 
+    from ray_tpu_torch.experimental import internal_kv_get
+
     deadline = _time.monotonic() + timeout_s
     while _time.monotonic() < deadline:
-        val = _kv_get(f"__wf_event_{name}")
+        val = internal_kv_get(f"__wf_event_{name}")
         if val is not None:
             # BROADCAST semantics: the payload stays so every waiter
             # (concurrent workflows, parallel event nodes) resumes;

@@ -37,10 +37,11 @@ from ray_tpu.cluster_utils import Cluster as JaxCluster
 from ray_tpu_torch.cluster_utils import Cluster as TorchCluster
 
 import torch_cluster_tasks
-from torch_cluster_tasks import (Counter, Pinger, Registry, add,
+from torch_cluster_tasks import (Counter, NodeOf, Pinger, Registry, add,
                                  add_nested, boom, consume, describe, die,
-                                 die_once, double, node_of, passthrough,
-                                 pid, produce, sleep_then, tensors_back)
+                                 die_once, double, kv_read, node_of,
+                                 passthrough, pid, produce, read_env,
+                                 set_env, sleep_then, tensors_back)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = ("jax", "torch")
@@ -376,6 +377,87 @@ def test_return_refs_registered_before_the_pusher(clusters):
 
     got = both(clusters, scenario)
     assert got["torch"] == got["jax"] == [True, True, True]
+
+
+# ---------------------------------------------------------------------------
+# tests/test_cluster_extras.py and tests/test_util_extras.py: placement
+# groups, the internal KV and multiprocessing.Pool on a cluster
+# ---------------------------------------------------------------------------
+
+def test_placement_group_strategy_places_a_task_and_an_actor(clusters):
+    """JAX's ``test_placement_group_api_and_strategy``: a PACK group of two
+    bundles that ask for ``other_res`` is CREATED on the second node, and
+    a task under ``PlacementGroupSchedulingStrategy`` runs on a bundle's
+    node, which a plain ``other_res`` task finds once the group is gone.
+    The port's actor takes the strategy too and lands there; JAX's
+    refuses the option."""
+    def scenario(pkg):
+        pgm = importlib.import_module(f"{pkg.__name__}.util.placement_group")
+        pg = pgm.placement_group([{"CPU": 1, "other_res": 0.5}] * 2,
+                                 strategy="PACK")
+        try:
+            ready = pg.ready(timeout=10)
+            table = pgm.placement_group_table(pg)
+            strategy = pgm.PlacementGroupSchedulingStrategy(pg)
+            node = pkg.get(pkg.remote(num_cpus=1, scheduling_strategy=strategy)
+                           (node_of).remote(pkg.__name__), timeout=60)
+            try:
+                actor = pkg.remote(NodeOf).options(
+                    num_cpus=1, scheduling_strategy=strategy).remote()
+            except ValueError as e:
+                actor_node = type(e).__name__
+            else:
+                actor_node = pkg.get(actor.node.remote(pkg.__name__),
+                                     timeout=60) in table["bundle_nodes"]
+                pkg.kill(actor)
+        finally:
+            pgm.remove_placement_group(pg)
+        other = pkg.get(pkg.remote(node_of).options(
+            resources={"other_res": 1}).remote(pkg.__name__), timeout=60)
+        return [ready, table["state"], len(set(table["bundle_nodes"])),
+                node in table["bundle_nodes"], node == other, actor_node]
+
+    got = both(clusters, scenario)
+    assert got["jax"] == [True, "CREATED", 1, True, True, "ValueError"]
+    assert got["torch"] == [True, "CREATED", 1, True, True, True]
+
+
+def test_internal_kv_on_the_gcs(clusters):
+    """JAX's ``test_internal_kv_cluster``: the driver's put is read by a
+    task in a worker process (through the GCS); then the rest of the API
+    on the GCS's table."""
+    def scenario(pkg):
+        kv = importlib.import_module(f"{pkg.__name__}.experimental")
+        put = kv.internal_kv_put("shared", b"cluster-val")
+        kept = kv.internal_kv_put("shared", b"other", overwrite=False)
+        read = pkg.get(pkg.remote(kv_read).remote(pkg.__name__, "shared"))
+        listed = kv.internal_kv_list("sha")
+        deleted = kv.internal_kv_del("shared")
+        return [put, kept, read, listed, deleted,
+                kv.internal_kv_get("shared")]
+
+    got = both(clusters, scenario)
+    assert got["torch"] == got["jax"] == [True, False, b"cluster-val",
+                                          ["shared"], True, None]
+
+
+def test_pool_tasks_reach_cluster_workers(clusters):
+    """``multiprocessing.Pool`` on a cluster: its tasks run in worker
+    processes, the initializer once in each, ``map``, ``apply`` and
+    ``starmap`` as in the stdlib. The port's pool task (a module-level
+    callable class) goes by stdlib pickle."""
+    def scenario(pkg):
+        mp = importlib.import_module(f"{pkg.__name__}.util.multiprocessing")
+        with mp.Pool(2, initializer=set_env,
+                     initargs=("POOL_INIT_V", "9")) as pool:
+            return [pool.map(double, range(6)),
+                    pool.apply(pid) != os.getpid(),
+                    pool.map(read_env, ["POOL_INIT_V"]),
+                    pool.starmap(add, [(1, 2), (3, 4)])]
+
+    got = both(clusters, scenario)
+    assert got["torch"] == got["jax"] == [[0, 2, 4, 6, 8, 10], True, ["9"],
+                                          [3, 7]]
 
 
 # ---------------------------------------------------------------------------

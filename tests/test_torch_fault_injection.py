@@ -137,7 +137,21 @@ def _echo_server(rpc):
                 self.calls += 1
             return {"value": value}
 
+        def rpc_ping(self, conn, send_lock):
+            return "pong"
+
     return Echo().start()
+
+
+def _settle(client) -> None:
+    """Returns once the server has finished every request sent before on
+    ``client``'s connection, the handler and its reply (or its dropped
+    reply): a server serves one connection's requests in order, so the
+    reply to a ``ping``, which no rule matches, comes after them. Without
+    it a duplicate's second dispatch, or a handler whose reply is dropped,
+    can still be running when the scenario reads ``server.calls`` or loads
+    its next plan."""
+    assert client.call("ping", timeout=5) == "pong"
 
 
 def _rpc_scenario(fi, rpc) -> list:
@@ -184,6 +198,7 @@ def _rpc_scenario(fi, rpc) -> list:
             {"fault": "duplicate", "src": "server", "direction": "recv",
              "method": "echo", "nth": 1}]})
         out.append(healed.call("echo", value=6, timeout=5)["value"])
+        _settle(healed)
         out.append(server.calls - before)
         # the server's reply is lost: the handler ran, the caller times out
         before = server.calls
@@ -195,6 +210,7 @@ def _rpc_scenario(fi, rpc) -> list:
             out.append("answered")
         except TimeoutError:
             out.append("timed out")
+        _settle(healed)
         out.append(server.calls - before)
         fi.plane.load_plan({"version": 6, "rules": []})
         out.append(healed.call("echo", value=8, timeout=5)["value"])

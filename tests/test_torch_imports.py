@@ -44,6 +44,16 @@ def _clean_env():
     return env
 
 
+# ray_tpu_torch.util and .experimental, and the host collectives' binding
+SLICE21_MODULES = ("util", "util.actor_pool", "util.queue", "util.iter",
+                   "util.multiprocessing", "util.placement_group",
+                   "util.accelerators", "util.collective",
+                   "util.joblib_backend", "util.dask", "util.spark",
+                   "experimental", "experimental.internal_kv",
+                   "experimental.free", "experimental.tqdm_ray",
+                   "_private.tcp_collective")
+
+
 def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
     proc = subprocess.run([sys.executable, "-c", PROBE], cwd=REPO,
                           env=_clean_env(), capture_output=True, text=True,
@@ -88,7 +98,7 @@ def test_fresh_import_loads_no_jax_no_ray_tpu_no_cuda():
                  "data.aggregate", "data.grouped", "data.preprocessors",
                  "data.tfrecord", "data.avro", "data.sql", "data.mongo",
                  "dag", "workflow", "_private.usage_stats",
-                 "examples.data_pipeline"):
+                 "examples.data_pipeline", *SLICE21_MODULES):
         assert f"ray_tpu_torch.{name}" in out["modules"]
     assert out["jax"] == []
     assert out["ray_tpu"] == []
@@ -579,3 +589,51 @@ def test_data_dag_workflow_modules_load_alone():
         names = [n for n, v in vars(jmod).items() if not n.startswith("_")
                  and getattr(v, "__module__", None) == jmod.__name__]
         assert names and all(hasattr(pmod, n) for n in names), names
+
+
+SLICE21_PROBE = r"""
+import importlib, json, os, sys
+HIDDEN = ("jax", "ray_tpu", "joblib", "dask", "pyspark")
+for name in HIDDEN:
+    sys.modules[name] = None
+from ray_tpu_torch._private import build
+before = sorted(os.listdir(build.BUILD_DIR)) if build.BUILD_DIR.exists() \
+    else []
+import ray_tpu_torch.util
+util_loaded = sorted(m for m in sys.modules
+                     if m.startswith("ray_tpu_torch.util."))
+for name in sys.argv[1:]:
+    importlib.import_module("ray_tpu_torch." + name)
+from ray_tpu_torch._private import tcp_collective
+from ray_tpu_torch.data import tfrecord
+import torch
+after = sorted(os.listdir(build.BUILD_DIR)) if build.BUILD_DIR.exists() \
+    else []
+print(json.dumps({
+    "hidden": {n: sorted(m for m in sys.modules if (m == n or m.startswith(
+        n + ".")) and sys.modules[m] is not None) for n in HIDDEN},
+    "util_loaded": util_loaded,
+    "libraries_loaded": [tcp_collective._lib is not None,
+                         tfrecord._crc_lib is not None],
+    "built": after != before,
+    "cuda_initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def test_util_and_experimental_load_alone_and_build_nothing():
+    """Every module of ``util`` and ``experimental`` imports in a fresh
+    interpreter with jax, ray_tpu, joblib, dask and pyspark hidden, loads
+    none of them, builds and loads no host library (the TCP ring and the
+    CRC32C build at first use), and initializes no CUDA; ``util``'s
+    package, imported first, loads none of its modules (PEP 562
+    exports)."""
+    names = [n for n in SLICE21_MODULES if n != "util"]
+    proc = subprocess.run([sys.executable, "-c", SLICE21_PROBE, *names],
+                          cwd=REPO, env=_clean_env(), capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert all(v == [] for v in got["hidden"].values()), got
+    assert got["libraries_loaded"] == [False, False]
+    assert got["built"] is False and got["cuda_initialized"] is False
+    assert got["util_loaded"] == []

@@ -112,3 +112,22 @@ class Pinger:
 
     def pid(self):
         return os.getpid()
+
+
+class NodeOf:
+    def node(self, pkg_name):
+        return os.environ[NODE_ENV[pkg_name]]
+
+
+def kv_read(pkg_name, key):
+    """The internal KV's value of ``key``, read in a worker process."""
+    kv = importlib.import_module(f"{pkg_name}.experimental")
+    return kv.internal_kv_get(key)
+
+
+def set_env(name, value):
+    os.environ[name] = value
+
+
+def read_env(name):
+    return os.environ.get(name)
