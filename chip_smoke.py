@@ -93,7 +93,14 @@ card's memory back after the phase; then the cluster runtime, a
 weights from the seed (checksums against this process's), the ten
 prompts bit for bit through the handle and over HTTP, the burst across
 the two processes, and after shutdown no worker left and the card's free
-memory back; then the CLI's cluster: a node started by ``python -m
+memory back; on that cluster the metrics and log planes (its ``planes``
+line): the K1 worker's printed line back by ``get_log(task_id=)`` and
+its histogram by ``cluster_metrics``, a traceback folded into one error
+group, the deployment autoscaling on the plane, requests on a fresh
+prefix landing on the replica that holds it through the digests its
+pusher ships to the GCS, and the replicas' stage histograms and pool
+gauges read back from the GCS against their own numbers; then the CLI's
+cluster: a node started by ``python -m
 ray_tpu_torch.scripts.cli start --head --num-gpus 1`` (its ``status`` and
 ``list nodes`` read), K1 in a worker forked from the node's prestart
 template (the template holding no torch, no CUDA and no libcuda; the
@@ -101,7 +108,8 @@ output bit for bit this process's), a JSON config deployed by the CLI's
 ``serve-deploy`` (Llama-3-8B at full depth behind a bare ASGI app
 mounted by ``serve.ingress``) answering prompts over HTTP bit for bit,
 a fault-injected crash of its replica answered with the typed error and
-the replica replaced from a fork, then no worker or template left and
+the replica replaced from a fork, ``list_logs`` naming the node's raylet
+and the forked worker, then no worker or template left and
 the card's free memory back; Ray Data batch inference: seeded token rows
 through ``ray_tpu_torch.data.from_numpy(...).map_batches(...,
 compute="actors")`` on the in-process runtime over the full model's
@@ -109,8 +117,10 @@ weights, each row's greedy next token and log-probability bit for bit
 the direct forward's (controls: a second weight seed, a row shifted),
 the card's memory back after; and the quickstarts (the data pipeline's
 rows JAX's). Every
-phase prints one JSON line; the last line is the contract line
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+phase prints one JSON line (the drivers attached to a cluster echo its
+workers' lines too, each prefixed ``(fn pid=N, node=M)``); the last line
+is the contract line ``{"ok": true, "device": {...}}``, printed once
+every cluster group has shut down and no echo thread is left. Any failed check raises, so the exit
 code is non-zero and that line is never printed. Without a CUDA card, or
 without the rest of the repository beside this file, it exits non-zero
 and prints no result.
@@ -6665,11 +6675,12 @@ def check_serve_run(torch, cfg, params, smi: str, want: list,
 
     import ray_tpu_torch
     from ray_tpu_torch import serve
-    from ray_tpu_torch.runtime import annex, core
+    from ray_tpu_torch.runtime import core
     from ray_tpu_torch.serve.llm import LLMDeployment
     from ray_tpu_torch.serve.prefix_router import (DIGEST_PREFIX,
                                                    PrefixRouter,
                                                    digest_hashes)
+    from ray_tpu_torch.util import state
     from ray_tpu_torch.utils.config import get_config
 
     t_phase = time.perf_counter()
@@ -6752,7 +6763,7 @@ def check_serve_run(torch, cfg, params, smi: str, want: list,
         chain = set(digest_hashes(prefix, kw["page_size"]))
         holders = sorted(
             r["payload"]["tag"]
-            for r in annex.cluster_metric_annexes(DIGEST_PREFIX)
+            for r in state.cluster_metric_annexes(DIGEST_PREFIX)
             if chain <= set(r["payload"]["hashes"]))
         if len(holders) != 1:
             raise AssertionError(f"prefix holders {holders}")
@@ -6775,7 +6786,7 @@ def check_serve_run(torch, cfg, params, smi: str, want: list,
         control = aff[1].copy()
         control[0] = control[0] % (cfg.vocab_size - 1) + 1
         router = PrefixRouter()
-        router.ingest(annex.cluster_metric_annexes(DIGEST_PREFIX))
+        router.ingest(state.cluster_metric_annexes(DIGEST_PREFIX))
         ctl = [int(x) for x in control]
         handle.call(control, max_new_tokens=DEPLOY_NEW_TOKENS,
                     _prefix_tokens=ctl)
@@ -6884,6 +6895,13 @@ CLUSTER_STORE_BYTES = 4 << 30
 # a request that holds one replica while the shared-prefix pair goes to
 # the other by power-of-two choices
 CLUSTER_HOLD_TOKENS = 128
+# the metrics and log planes on the cluster group (slice 22): the
+# processes' push interval (workers inherit it), the histogram the K1
+# worker observes, and the requests on a fresh 512-token prefix that
+# prefix affinity sends, after the first, to the replica holding it
+PLANES_PUSH_S = 0.5
+CLUSTER_K1_HIST = "chip_smoke_cluster_k1_s"
+CLUSTER_AFFINITY_REQUESTS = 8
 
 
 def cluster_k1_inputs(torch) -> tuple:
@@ -6910,20 +6928,64 @@ def process_report() -> dict:
             "cloudpickle": "cloudpickle" in sys.modules}
 
 
+def k1_line(checksum: float, task_id) -> str:
+    """The line cluster_task's worker prints: its K1 output's float32
+    checksum (exact: ``repr`` of the float) and its task id."""
+    return f"cluster_k1 checksum={checksum!r} task={task_id}"
+
+
 def cluster_k1_task() -> dict:
     """cluster_task's task, run in a worker process: K1 on the seeded
     inputs, its output returned as a CUDA tensor, the process's report
-    and its K1 launches."""
+    and its K1 launches. It prints ``k1_line`` (its output's float32
+    sum and its task id) and observes its K1 seconds in CLUSTER_K1_HIST,
+    for the log and metrics planes to carry to the driver."""
     import torch
 
+    import ray_tpu_torch
     from ray_tpu_torch.ops.flash_attention import flash_fwd
+    from ray_tpu_torch.util import metrics
 
     zero_counts()
     q, k, v = cluster_k1_inputs(torch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     out, _ = flash_fwd(q, k, v, causal=True)
     torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t0
+    ctx = ray_tpu_torch.get_runtime_context()
+    checksum = float(out.float().sum())
+    print(k1_line(checksum, ctx.get_task_id()))
+    metrics.histogram(CLUSTER_K1_HIST, "cluster_task's K1 seconds").observe(
+        k1_s)
     return {"out": out, "launches": launch_counts(), **process_report(),
-            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "task_id": ctx.get_task_id(), "worker_id": ctx.get_worker_id(),
+            "checksum": checksum, "k1_s": k1_s}
+
+
+def cluster_error_task() -> str:
+    """A task that prints a deliberate traceback's last line twice, the
+    numbers differing: the log plane must fold them into one group."""
+    import ray_tpu_torch
+
+    for i in (1, 2):
+        print("Traceback (most recent call last):")
+        print(f"RuntimeError: chip_smoke deliberate traceback #{i}")
+    return ray_tpu_torch.get_runtime_context().get_worker_id()
+
+
+def wait_for(predicate, timeout: float):
+    """``predicate()``'s first true value within ``timeout`` seconds (and
+    the seconds it took), or (None, timeout)."""
+    t0 = time.perf_counter()
+    while True:
+        v = predicate()
+        if v:
+            return v, time.perf_counter() - t0
+        if time.perf_counter() - t0 > timeout:
+            return None, time.perf_counter() - t0
+        time.sleep(0.05)
 
 
 def cluster_echo_task(refs: list) -> dict:
@@ -6977,6 +7039,8 @@ def _cluster_llm_class():
         numbers."""
 
         def replica_info(self, checksums: bool = False) -> dict:
+            import ray_tpu_torch
+
             e = self._engine
             return {**process_report(),
                     "checksums": leaf_checksums(e.params) if checksums
@@ -6984,7 +7048,10 @@ def _cluster_llm_class():
                     "total_finished": e.total_finished,
                     "ttfts": list(e.ttfts),
                     "chunk_period_s": e._chunk_period,
-                    "hit_pages": e.stats()["prefix_cache"]["hit_pages"]}
+                    "hit_pages": e.stats()["prefix_cache"]["hit_pages"],
+                    "kv_pages_total": e.num_pages,
+                    "src": ray_tpu_torch.get_runtime_context()
+                    .get_worker_id()[:12]}
 
     ClusterLLM.__module__ = __name__
     ClusterLLM.__qualname__ = "ClusterLLM"
@@ -7044,7 +7111,9 @@ def check_cluster_task(torch, ray_tpu_torch, smi: str) -> dict:
     for bit against this process's K1 on the same inputs (control: the
     non-causal output must fail); the worker reports its pid, its modules
     and one launch. Then a 1 GiB bf16 tensor of this card through ``put``,
-    a worker's ``get`` and the task's return, bit for bit."""
+    a worker's ``get`` and the task's return, bit for bit. The metrics and
+    log planes (``cluster_planes``) read the worker's line and histogram
+    back through the GCS."""
     from ray_tpu_torch.ops.flash_attention import flash_fwd
 
     t_phase = time.perf_counter()
@@ -7062,7 +7131,9 @@ def check_cluster_task(torch, ray_tpu_torch, smi: str) -> dict:
            "bits_equal": bool(torch.equal(got, want)),
            "max_abs_err": float((got.float() - want.float()).abs().max()),
            "control_bits_equal": bool(torch.equal(got, control))}
+    want_line = k1_line(float(want.float().sum()), rep["task_id"])
     del q, k, v, want, control, got
+    planes = cluster_planes(ray_tpu_torch, rep, want_line)
     # the 1 GiB trip
     x = torch.randn(CLUSTER_PUT_BYTES // 2, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(
@@ -7106,7 +7177,70 @@ def check_cluster_task(torch, ray_tpu_torch, smi: str) -> dict:
             not t["device"].startswith("cuda") or \
             not t["worker_device"].startswith("cuda"):
         raise AssertionError(f"the 1 GiB tensor's trip: {t}")
-    return w["launches"], out["task_s"]
+    return w["launches"], out["task_s"], planes
+
+
+def cluster_planes(ray_tpu_torch, rep: dict, want_line: str) -> dict:
+    """The metrics and log planes on cluster_task: the K1 worker's line
+    back by ``get_log(task_id=)`` (exactly that line, from that worker's
+    segment), its histogram back by ``cluster_metrics`` grouped by src
+    (count 1 from the worker's src, within two push intervals); then a
+    task's two deliberate traceback lines folded into one error group of
+    ``summarize_errors``, and ``list_logs`` naming both workers."""
+    from ray_tpu_torch.util import state
+
+    wid, tid = rep["worker_id"], rep["task_id"]
+    proc = f"worker-{wid[:12]}"
+    out = {"task_id": tid, "worker_proc": proc,
+           "push_interval_s": PLANES_PUSH_S, "k1_s": rep["k1_s"]}
+    # the histogram first: its wait starts as the task's result arrives
+
+    def by_src():
+        res = state.cluster_metrics(CLUSTER_K1_HIST, group_by=("src",))
+        return {g["tags"]["src"]: g["value"]["count"]
+                for g in res.get("groups", ())} or None
+
+    counts, out["metrics_s"] = wait_for(by_src, 2 * PLANES_PUSH_S + 1.0)
+    out["metrics"] = {"counts_by_src": counts, "worker_src": wid[:12],
+                      "within_two_intervals":
+                          out["metrics_s"] <= 2 * PLANES_PUSH_S + 0.1}
+
+    def segment():
+        got = state.get_log(task_id=tid)
+        return got if got.get("lines") else None
+
+    seg, out["get_log_s"] = wait_for(segment, 20.0)
+    seg = seg or {}
+    lines = [r["line"] for r in seg.get("lines", ())]
+    out["get_log"] = {"proc": seg.get("proc"), "lines": lines,
+                      "segment": seg.get("segment"),
+                      "line_equal": lines == [want_line],
+                      "checksum_equal": rep["checksum"] == float(
+                          want_line.split("checksum=")[1].split()[0])}
+
+    err_wid = ray_tpu_torch.get(ray_tpu_torch.remote(
+        cluster_error_task).remote(), timeout=120)
+
+    def group():
+        hits = [g for g in state.summarize_errors()
+                if "chip_smoke deliberate traceback" in g["sample"]]
+        return hits if hits and hits[0]["count"] >= 2 else None
+
+    groups, out["errors_s"] = wait_for(group, 20.0)
+    out["errors"] = [{k: g[k] for k in ("signature", "count", "procs")}
+                     for g in groups or ()]
+    want_procs = {proc, f"worker-{err_wid[:12]}"}
+    listed, out["list_logs_s"] = wait_for(
+        lambda: want_procs <= set(state.list_logs()["procs"]), 20.0)
+    out["list_logs"] = sorted(state.list_logs()["procs"])
+    out["workers_listed"] = bool(listed)
+    ok = (out["get_log"]["line_equal"] and out["get_log"]["checksum_equal"]
+          and seg.get("proc") == proc and counts == {wid[:12]: 1}
+          and out["metrics"]["within_two_intervals"]
+          and len(out["errors"]) == 1 and out["errors"][0]["count"] == 2
+          and out["workers_listed"])
+    out["ok"] = ok
+    return out
 
 
 def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
@@ -7119,10 +7253,14 @@ def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
     checksums against this process's weights; the ten prompts through the
     handle bit for bit ``check_llm_deployment``'s reference tokens (the
     shared-prefix pair on one replica, as on the reference engine, by
-    power-of-two choices while a long request holds the other: prefix
-    digests stay in the replicas' processes), a one-token-changed control
+    power-of-two choices while a long request holds the other: these
+    requests carry no ``_prefix_tokens``), a one-token-changed control
     that must fail; one request over HTTP; the burst across the two
-    processes beside serve_run's in-process figures."""
+    processes beside serve_run's in-process figures. The deployment
+    autoscales between 2 and 2 replicas, so the controller reads the
+    metrics plane (``autoscale_mode`` "metrics") and adds none. Then
+    ``serve_planes``: prefix affinity through the GCS, the stage
+    histograms and the pool gauge read back."""
     import urllib.request
 
     from ray_tpu_torch import serve
@@ -7136,6 +7274,8 @@ def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
     cls = getattr(sys.modules[__name__], "ClusterLLM")
     llm = serve.deployment(
         cls, name="LLMDeployment", num_replicas=SERVE_REPLICAS,
+        autoscaling_config={"min_replicas": SERVE_REPLICAS,
+                            "max_replicas": SERVE_REPLICAS},
         resources_per_replica={"GPU": 1 / SERVE_REPLICAS}).bind(
             cluster_serve_model, **kw)
     t0 = time.perf_counter()
@@ -7241,8 +7381,130 @@ def check_cluster_serve(torch, ray_tpu_torch, cfg, params, smi: str,
         "in_process": {k: in_process_burst[k] for k in (
             "tokens_per_s", "p50_ttft_s", "chunk_period_s")},
         "single_engine": in_process_burst["single_engine"]["tokens_per_s"]}
+    out["planes"] = serve_planes(ray_tpu_torch, cfg, handle, controller,
+                                 infos)
     out["seconds"] = time.perf_counter() - t_phase
     return out, mem_up
+
+
+def serve_planes(ray_tpu_torch, cfg, handle, controller, infos) -> dict:
+    """cluster_serve on the metrics plane: the controller's autoscale
+    mode; CLUSTER_AFFINITY_REQUESTS requests on a fresh 512-token prefix,
+    each carrying ``_prefix_tokens``: the first goes by power-of-two
+    choices and makes a holder, whose digest the replica's pusher ships
+    to the GCS; every later one lands on the holder, its hit pages grow,
+    the other's do not (which replica served each request recorded).
+    Then, from the GCS: ``ray_tpu_serve_stage_s`` grouped by replica and
+    stage, each replica's counts the requests it served and its four
+    stages' sums its TTFTs' sum within 1e-6 s a request; and
+    ``ray_tpu_serve_kv_pages`` ``total`` each replica's pool. Each
+    replica's series are read from its own process (its ``src``): this
+    process's registry still holds serve_run's in-process replicas'
+    series under the same deployment and replica tags, and its pusher
+    ships them too."""
+    from ray_tpu_torch.serve.prefix_router import DIGEST_PREFIX, digest_hashes
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.utils.config import get_config
+
+    t0 = time.perf_counter()
+    out = {}
+
+    def mode():
+        m = ray_tpu_torch.get(controller.list_deployments.remote())[
+            "LLMDeployment"]["autoscale_mode"]
+        return m if m == "metrics" else None
+
+    m, out["autoscale_metrics_s"] = wait_for(mode, 30.0)
+    dep = ray_tpu_torch.get(controller.list_deployments.remote())[
+        "LLMDeployment"]
+    out["autoscale"] = {"mode": m or dep["autoscale_mode"],
+                        "target": dep["target"], "running": dep["running"]}
+
+    rng = np.random.default_rng(SEED + 5)
+    prefix = rng.integers(1, cfg.vocab_size, 512)
+    chain = set(digest_hashes(prefix, 128))
+    served, hits = [], []
+    before = infos()
+    holder = None
+    for i in range(CLUSTER_AFFINITY_REQUESTS):
+        p = [int(x) for x in np.concatenate(
+            [prefix, rng.integers(1, cfg.vocab_size, 40)])]
+        handle.call(p, max_new_tokens=DEPLOY_NEW_TOKENS, _prefix_tokens=p)
+        after = infos()
+        served += [t for t in after if after[t]["total_finished"]
+                   > before[t]["total_finished"]]
+        hits.append({t: after[t]["hit_pages"] - before[t]["hit_pages"]
+                     for t in after})
+        before = after
+        if i == 0:
+            # infos() made every replica publish its digest (stats());
+            # the holder is the one whose digest in the GCS has the chain
+            def holders():
+                tags = [r["payload"]["tag"] for r in
+                        state.cluster_metric_annexes(DIGEST_PREFIX)
+                        if chain <= set(r["payload"]["hashes"])]
+                return tags if len(tags) == 1 else None
+
+            got, out["digest_in_gcs_s"] = wait_for(holders,
+                                                   4 * PLANES_PUSH_S + 2.0)
+            holder = got[0] if got else None
+            # the handle pulls digests at most once an interval: the
+            # first request's pull saw no holder yet
+            time.sleep(get_config().serve_digest_publish_interval_s)
+    others = [t for t in before if t != holder]
+    out["affinity"] = {
+        "requests": CLUSTER_AFFINITY_REQUESTS, "prefix_pages": len(chain),
+        "holder": holder, "served_by": served, "hit_pages_grew": hits,
+        "after_first_on_holder": holder is not None
+        and served[1:] == [holder] * (CLUSTER_AFFINITY_REQUESTS - 1),
+        "holder_hit_pages": sum(h[holder] for h in hits[1:])
+        if holder else 0,
+        "other_hit_pages": sum(h[t] for h in hits[1:] for t in others)}
+
+    # the stage histograms in the GCS against the replicas' own TTFTs
+    stages = ("queue_wait", "prefill", "pipeline_stall", "ship")
+    final = infos()
+
+    def stage_groups():
+        res = state.cluster_metrics(
+            "ray_tpu_serve_stage_s", tags={"deployment": "LLMDeployment"},
+            group_by=("src", "replica", "stage"))
+        g = {(x["tags"]["src"], x["tags"]["replica"], x["tags"]["stage"]):
+             x["value"] for x in res.get("groups", ())}
+        # each replica's series from its own process
+        g = {(t, st): g.get((i["src"], t, st), {})
+             for t, i in final.items() for st in stages}
+        full = all(g[(t, st)].get("count") == len(i["ttfts"])
+                   for t, i in final.items() for st in stages)
+        return g if full else None
+
+    groups, out["stage_counts_s"] = wait_for(stage_groups,
+                                             4 * PLANES_PUSH_S + 2.0)
+    per = {}
+    for t, i in final.items():
+        n = len(i["ttfts"])
+        got = {st: (groups or {}).get((t, st), {}) for st in stages}
+        stage_sum = sum(v.get("sum", 0.0) for v in got.values())
+        per[t] = {"requests": n, "finished": i["total_finished"],
+                  "counts": {st: v.get("count") for st, v in got.items()},
+                  "stage_sums_s": {st: v.get("sum") for st, v in
+                                   got.items()},
+                  "ttft_sum_s": float(sum(i["ttfts"])),
+                  "abs_diff_s": abs(stage_sum - float(sum(i["ttfts"])))}
+        per[t]["within_tol"] = per[t]["abs_diff_s"] <= 1e-6 * max(n, 1)
+    out["stage_hist"] = per
+    kv = state.cluster_metrics(
+        "ray_tpu_serve_kv_pages",
+        tags={"deployment": "LLMDeployment", "state": "total"},
+        group_by=("src", "replica"))
+    kv = {(g["tags"]["src"], g["tags"]["replica"]): g["value"]
+          for g in kv.get("groups", ())}
+    out["kv_pages_total"] = {t: kv.get((i["src"], t))
+                             for t, i in final.items()}
+    out["kv_pages_equal"] = out["kv_pages_total"] == {
+        t: float(i["kv_pages_total"]) for t, i in final.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def check_cluster(torch, cfg, params, smi: str, want: list,
@@ -7254,17 +7516,24 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
     many processes on the card as before the group (and at least
     SERVE_REPLICAS more while the replicas were up), and the card's free
     memory is back within SERVE_MEMORY_TOL of its value before the group:
-    the engines stop with their processes. Returns the worker's K1
-    launches and cluster_task's seconds from submission to result (a
+    the engines stop with their processes. The group's processes push
+    their metrics every PLANES_PUSH_S; its ``planes`` line gathers the
+    metrics and log planes' checks of both phases. Returns the worker's
+    K1 launches and cluster_task's seconds from submission to result (a
     worker's cold start in them)."""
     import ray_tpu_torch
     from ray_tpu_torch import serve
     from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.utils.config import reset_config
 
     t_group = time.perf_counter()
     free_card(torch)
     free_before = torch.cuda.mem_get_info()[0]
     apps_before = smi_apps()
+    # this process's config and the workers' environment read the flag
+    push_env = os.environ.get("RAY_TPU_METRICS_PUSH_INTERVAL_S")
+    os.environ["RAY_TPU_METRICS_PUSH_INTERVAL_S"] = str(PLANES_PUSH_S)
+    reset_config()
     cluster = Cluster()
     pids = set()
     ok = False
@@ -7273,8 +7542,8 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
                                 store_capacity=CLUSTER_STORE_BYTES)
         ray_tpu_torch.init(address=cluster.gcs_address)
         resources = ray_tpu_torch.cluster_resources()
-        k1_launches, cold_task_s = check_cluster_task(torch, ray_tpu_torch,
-                                                      smi)
+        k1_launches, cold_task_s, task_planes = check_cluster_task(
+            torch, ray_tpu_torch, smi)
         # the task's lease returns its GPU before the replicas ask
         deadline = time.monotonic() + 60
         while ray_tpu_torch.available_resources().get("GPU") != 1.0:
@@ -7294,6 +7563,11 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
     finally:
         ray_tpu_torch.shutdown()
         cluster.shutdown()
+        if push_env is None:
+            os.environ.pop("RAY_TPU_METRICS_PUSH_INTERVAL_S", None)
+        else:
+            os.environ["RAY_TPU_METRICS_PUSH_INTERVAL_S"] = push_env
+        reset_config()
     free_card(torch)
     time.sleep(1.0)   # the card's driver returns the processes' memory
     apps = smi_apps()
@@ -7303,11 +7577,30 @@ def check_cluster(torch, cfg, params, smi: str, want: list,
            "alive_after": sorted(p for p in pids if pid_alive(p)),
            "smi_apps_before": apps_before, "smi_apps_after": apps,
            **serve_out, "seconds": time.perf_counter() - t_group}
+    serve_planes_out = out.pop("planes")
     emit("cluster_serve", nvidia_smi=smi, config="llama3_8b",
          n_layers=cfg.n_layers, replicas=SERVE_REPLICAS,
          gpu_per_replica=1 / SERVE_REPLICAS,
          **{k: v for k, v in out.items() if k != "seconds"},
          group_seconds=out["seconds"])
+    emit("planes", nvidia_smi=smi, push_interval_s=PLANES_PUSH_S,
+         cluster_task=task_planes, cluster_serve=serve_planes_out,
+         group_seconds=out["seconds"])
+    if not task_planes["ok"]:
+        raise AssertionError(f"the planes on cluster_task: {task_planes}")
+    sp = serve_planes_out
+    a = sp["affinity"]
+    if sp["autoscale"] != {"mode": "metrics", "target": SERVE_REPLICAS,
+                           "running": SERVE_REPLICAS}:
+        raise AssertionError(f"the autoscaler: {sp['autoscale']}")
+    if not a["after_first_on_holder"] or a["holder_hit_pages"] <= 0 or \
+            a["other_hit_pages"] != 0:
+        raise AssertionError(f"prefix affinity across processes: {a}")
+    if not all(h["within_tol"] and set(h["counts"].values()) ==
+               {h["requests"]} for h in sp["stage_hist"].values()):
+        raise AssertionError(f"the stage histograms: {sp['stage_hist']}")
+    if not sp["kv_pages_equal"]:
+        raise AssertionError(f"the KV pool gauges: {sp['kv_pages_total']}")
     reps = out["replica_processes"]
     rep_pids = {r["pid"] for r in reps.values()}
     if not ok or len(reps) != SERVE_REPLICAS or len(rep_pids) != \
@@ -7358,9 +7651,11 @@ _CLI_REPLICA: list = []
 def cli_prestart_task() -> dict:
     """prestart_task's task, run in a worker forked from the template: K1
     on cluster_task's seeded inputs, its output as a CUDA tensor, the
-    process's report, its K1 launches and the template it came from."""
+    process's report, its K1 launches and the template it came from. It
+    prints one line, which the node's log plane carries to the GCS."""
     import torch
 
+    import ray_tpu_torch
     from ray_tpu_torch.ops.flash_attention import flash_fwd
     from ray_tpu_torch.runtime import prestart
 
@@ -7368,8 +7663,11 @@ def cli_prestart_task() -> dict:
     q, k, v = cluster_k1_inputs(torch)
     out, _ = flash_fwd(q, k, v, causal=True)
     torch.cuda.synchronize()
+    wid = ray_tpu_torch.get_runtime_context().get_worker_id()
+    print(f"cli_prestart_task worker {wid} launched K1")
     return {"out": out, "launches": launch_counts(), **process_report(),
-            "forked_from": (prestart.CHILD_INFO or {}).get("template_pid")}
+            "forked_from": (prestart.CHILD_INFO or {}).get("template_pid"),
+            "worker_id": wid}
 
 
 async def cli_llm_app(scope, receive, send):
@@ -7621,6 +7919,17 @@ def check_cli_cluster(torch, cfg, smi: str, want: list,
         out["prestart_task"] = check_cli_prestart(
             torch, ray_tpu_torch, raylet, cold_task_s)
         free_card(torch)
+        # the log plane on the CLI's node: its raylet process and the
+        # forked worker are named by list_logs
+        from ray_tpu_torch.util import state
+        want_procs = {f"raylet-{nodes[0]['node_id'][:12]}",
+                      "worker-" + out["prestart_task"]["worker"][
+                          "worker_id"][:12]}
+        listed, listed_s = wait_for(
+            lambda: want_procs <= set(state.list_logs()["procs"]), 20.0)
+        out["list_logs"] = {"want": sorted(want_procs),
+                            "procs": sorted(state.list_logs()["procs"]),
+                            "listed": bool(listed), "seconds": listed_s}
 
         # cli_serve
         config = os.path.join(cfg_dir, "serve.json")
@@ -7788,6 +8097,9 @@ def check_cli_cluster(torch, cfg, smi: str, want: list,
             f["replacement"]["pid"] == c["replica"]["pid"] or \
             len(f["failover_events"]) != 1 or not f["tokens_equal"]:
         raise AssertionError(f"the replacement replica: {f}")
+    if not out["list_logs"]["listed"]:
+        raise AssertionError(f"list_logs on the CLI's node: "
+                             f"{out['list_logs']}")
     if out["processes_left"] or out["node_exit"] != 0:
         raise AssertionError(f"processes left after the node's stop: "
                              f"{out['processes_left']}, exit "
@@ -8846,7 +9158,16 @@ def main() -> int:
                                    bwd_rows["sp2_chunk_noncausal"]))},
             "sass": {k: facts["flash_bwd"][k] for k in ("HGMMA", "UTMALDG")},
         })
-    emit("done", seconds=time.perf_counter() - t_start)
+    # every cluster group has shut down: no worker line may echo from
+    # here on, so no driver's echo thread is left
+    from ray_tpu_torch.runtime.driver import ECHO_THREAD
+    echo = [t.name for t in threading.enumerate()
+            if t.name == ECHO_THREAD and t.is_alive()]
+    if echo:
+        raise AssertionError(f"echo threads alive before the result: "
+                             f"{echo}")
+    emit("done", seconds=time.perf_counter() - t_start,
+         echo_threads_alive=len(echo))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

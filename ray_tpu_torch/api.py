@@ -54,6 +54,7 @@ def init(
     system_config: dict | None = None,
     ignore_reinit_error: bool = True,
     namespace: str | None = None,
+    log_to_driver: bool = True,
 ):
     """Start the runtime (reference: ``ray.init``, ``worker.py:1139``).
 
@@ -61,7 +62,8 @@ def init(
     ``GPU`` resource unless ``num_gpus`` says otherwise. Pass
     ``address=(host, port)`` (a GCS address, e.g.
     ``cluster_utils.Cluster().gcs_address``) or ``"host:port"`` to connect
-    to a running cluster instead."""
+    to a running cluster instead; there ``log_to_driver`` echoes the
+    workers' captured output on this process's stdout/stderr."""
     if _core.is_initialized():
         if ignore_reinit_error:
             return _core.get_runtime()
@@ -81,7 +83,8 @@ def init(
             address = (host or "127.0.0.1", int(port))
         from ray_tpu_torch.runtime.driver import ClusterRuntime
 
-        rt = ClusterRuntime(address, namespace=namespace)
+        rt = ClusterRuntime(address, namespace=namespace,
+                            log_to_driver=log_to_driver)
         _core.install_runtime(rt)
         return rt
     reset_config()

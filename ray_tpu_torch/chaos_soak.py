@@ -4,12 +4,14 @@ workload, with conservation invariants.
 Port of ``ray_tpu/chaos_soak.py`` over the port's supervisor, GCS
 restarts and fault plane, with the same schedule, workloads, ledgers and
 MTTR accounting. The workloads' task, actor and deployment bodies are
-module-level (the port carries them by stdlib pickle). The observability
-planes are a later slice, so the invariants that read them (no stuck
-calls, the log/metrics/trace planes answer) are left out; the last-words
-invariant reads the raylets' harvested death info instead of the log
-plane's crash groups, and the ``partition`` class (a cut of the metrics
-push channel, which the port does not have yet) only switches the plan.
+module-level (the port carries them by stdlib pickle). The invariants
+that read the metrics and log planes are JAX's: both planes still answer
+at the end, and an injected crash's last words reach the log plane as a
+``crash`` group of ``summarize_errors()`` (the raylets' harvested death
+info is reported beside it). The ``partition`` class cuts the metrics
+push channel (the pushers' and the log monitors' connections carry the
+``metrics`` label). The invariants that read the tracing plane (no stuck
+calls, the trace plane answers) wait for it.
 JAX's multi-seed driver (``run_soak_matrix``, with its health-probe
 overhead guard) has no caller in the port and is left out.
 
@@ -307,6 +309,28 @@ def run_soak(duration_s: float = 300.0, seed: int = 0,
         for t in threads:
             t.start()
 
+        # the GCS log store is rebuilt empty on a crash-restart (error
+        # groups are not WAL'd), so a crash group harvested before the
+        # run's last GCS death is gone by the final check — poll live
+        # and latch the sighting instead
+        crash_group_live = threading.Event()
+
+        def crash_group_poll():
+            from ray_tpu_torch.util import state as state_api
+            while not stop.is_set():
+                try:
+                    if any(g.get("kind") == "crash"
+                           for g in state_api.summarize_errors()):
+                        crash_group_live.set()
+                        return
+                except Exception:  # noqa: BLE001 - GCS mid-restart
+                    pass
+                stop.wait(2.0)
+
+        poller = threading.Thread(target=crash_group_poll, daemon=True,
+                                  name="soak-crash-group-poll")
+        poller.start()
+
         # warm up, then baseline the leak counters
         time.sleep(3.0)
         fd0, threads0 = _fd_count(), threading.active_count()
@@ -337,9 +361,8 @@ def run_soak(duration_s: float = 300.0, seed: int = 0,
             t0 = time.time()
             ev = {"class": cls, "t": t0, "recovered_s": None}
             if cls == "partition":
-                # the metrics push channel's cut in JAX (observability
-                # degrades, conservation must not); the port has no
-                # metrics pusher yet, so no channel carries the label
+                # the metrics push channel's cut (observability
+                # degrades, conservation must not)
                 put([{"id": "soak-cut-metrics", "fault": "partition",
                       "src": "metrics", "dst": "gcs",
                       "direction": "both"}])
@@ -466,21 +489,40 @@ def run_soak(duration_s: float = 300.0, seed: int = 0,
             violations.append({"invariant": "no_thread_leak",
                                "delta": thread_delta})
 
-        # last words: the in-process raylets' death info names the
-        # crash point an injected death wrote to its .err redirect
-        harvested = sorted({
+        # last words: an injected death's crash marker reaches the log
+        # plane as a 'crash' error group; the in-process raylets' death
+        # info names the crash points too (reported beside it)
+        from ray_tpu_torch.util import state as state_api
+
+        planes = {"crash_points_harvested": sorted({
             info["crash_point"]
             for h in cluster.nodes.values() if h.raylet is not None
             for info in list(h.raylet.workers._death_info.values())
-            if info.get("crash_point")})
-        planes = {"crash_points_harvested": harvested,
-                  "crash_group_seen": bool(harvested)}
+            if info.get("crash_point")})}
+        try:
+            errs = state_api.summarize_errors()
+            planes["log"] = isinstance(errs, list)
+            planes["crash_group_seen"] = (
+                any(g.get("kind") == "crash" for g in errs)
+                or crash_group_live.is_set())
+        except Exception as e:  # noqa: BLE001
+            planes["log"] = False
+            violations.append({"invariant": "planes_intact",
+                               "plane": "log", "detail": repr(e)[:200]})
+        try:
+            planes["metrics"] = isinstance(
+                state_api.cluster_metrics(), dict)
+        except Exception as e:  # noqa: BLE001
+            planes["metrics"] = False
+            violations.append({"invariant": "planes_intact",
+                               "plane": "metrics",
+                               "detail": repr(e)[:200]})
         crash_injected = any(e["class"] in ("worker", "replica")
                              for e in injections)
         if crash_injected and not planes.get("crash_group_seen"):
             violations.append({
                 "invariant": "crash_last_words_harvested",
-                "detail": "no crash point in the raylets' death info"})
+                "detail": "no 'crash' group in summarize_errors()"})
 
         report.update({
             "injections": injections,

@@ -1,17 +1,18 @@
 """The process's annex registry: small payloads published by one part of
-the process and read by another.
+the process and shipped, or read, by another.
 
-Port of the annex registry of ``ray_tpu/runtime/metrics_plane.py:63-90``
-(``set_annex``, ``set_annex_provider``, ``local_annexes``) and of the local
-branch of ``ray_tpu/util/state.py:179-200`` (``cluster_metric_annexes``).
-A serve replica's engine publishes its prefix-cache digest here
-(``serve/paged_llm.py``); handles read every replica's digest here to route
-a prompt to the replica that already holds its prefix
-(``serve/prefix_router.py``). In the in-process runtime every replica
-shares the one registry. The pusher that ships annexes on metrics frames,
-and the GCS store that keeps them for other processes, wait for the
-cluster slice. Same best-effort contract as the JAX package: a lost annex
-costs routing fidelity, never correctness.
+Port of the annex registry of ``ray_tpu/runtime/metrics_plane.py:40-123``
+(``set_annex``, ``set_annex_provider``, ``local_annexes`` and the
+pusher's versioned snapshot). It is the one registry of the process: a
+serve replica's engine publishes its prefix-cache digest here
+(``serve/paged_llm.py``), the log plane its task segments
+(``runtime/log_plane.py``), and the process's metrics pusher
+(``runtime/metrics_plane.py``) ships the current set on its frames to
+the GCS store, where ``util.state.cluster_metric_annexes`` reads every
+process's set. In the in-process runtime every replica shares this
+registry and the state API reads it directly. Same best-effort contract
+as the JAX package: a lost annex costs routing fidelity, never
+correctness.
 """
 
 from __future__ import annotations
@@ -21,31 +22,53 @@ import time
 
 _annex_lock = threading.Lock()
 _annexes: dict[str, tuple[float, object]] = {}
-# annex PROVIDERS: key -> zero-arg callable evaluated at read time, for
-# payloads that must reflect live state rather than a value frozen at
-# publish time. A provider returning None skips the key; exceptions are
-# swallowed.
+# bumped on every publish/retract: the pusher re-ships the set when it
+# moved since its last successful push
+_annex_version = 0
+# annex PROVIDERS: key -> zero-arg callable evaluated at snapshot time,
+# for payloads that must reflect live state rather than a value frozen
+# at publish time. A provider returning None skips the key this round;
+# exceptions are swallowed (best-effort, same contract as the frames
+# they ride).
 _annex_providers: dict[str, object] = {}
 
 
 def set_annex(key: str, payload) -> None:
     """Publish (payload) or retract (None) one annex under ``key``."""
+    global _annex_version
     with _annex_lock:
         if payload is None:
             _annexes.pop(key, None)
         else:
             _annexes[key] = (time.time(), payload)
+        _annex_version += 1
 
 
 def set_annex_provider(key: str, fn) -> None:
     """Register (fn) or retract (None) a live annex under ``key``:
-    ``fn()`` is called on every read and its return value is the
-    payload."""
+    ``fn()`` is called on every snapshot and its return value ships as
+    the payload. Providers re-ship on the pusher's periodic re-stamp
+    cadence even when no static annex changed."""
+    global _annex_version
     with _annex_lock:
         if fn is None:
             _annex_providers.pop(key, None)
         else:
             _annex_providers[key] = fn
+        _annex_version += 1
+
+
+def _evaluate(providers: list, out: dict, wrap):
+    # providers run OUTSIDE the annex lock: they take their own locks
+    # and must not order against annex publication
+    for key, fn in providers:
+        try:
+            payload = fn()
+        except Exception:  # noqa: BLE001 - provider is best-effort
+            continue
+        if payload is not None:
+            out[key] = wrap(payload)
+    return out
 
 
 def local_annexes() -> dict[str, tuple[float, object]]:
@@ -55,27 +78,14 @@ def local_annexes() -> dict[str, tuple[float, object]]:
         out = dict(_annexes)
         providers = list(_annex_providers.items())
     now = time.time()
-    # providers run OUTSIDE the lock: they may take their own locks
-    for key, fn in providers:
-        try:
-            payload = fn()
-        except Exception:  # noqa: BLE001 - provider is best-effort
-            continue
-        if payload is not None:
-            out[key] = (now, payload)
-    return out
+    return _evaluate(providers, out, lambda p: (now, p))
 
 
-def cluster_metric_annexes(prefix: str = "",
-                           max_age_s: float | None = None) -> list[dict]:
-    """[{src, key, ts, payload}] annexes under ``prefix``, newest first
-    (e.g. serve prefix-cache digests under ``serve/prefix_digest/``),
-    those older than ``max_age_s`` left out."""
-    now = time.time()
-    items = [(k, ts, payload)
-             for k, (ts, payload) in local_annexes().items()
-             if k.startswith(prefix)
-             and (max_age_s is None or now - ts <= max_age_s)]
-    items.sort(key=lambda it: -it[1])
-    return [{"src": "local", "key": k, "ts": ts, "payload": payload}
-            for k, ts, payload in items]
+def annex_snapshot() -> tuple[int, dict]:
+    """(version, {key: payload}): what the pusher ships, providers
+    evaluated now."""
+    with _annex_lock:
+        ver = _annex_version
+        out = {k: v[1] for k, v in _annexes.items()}
+        providers = list(_annex_providers.items())
+    return ver, _evaluate(providers, out, lambda p: p)

@@ -13,10 +13,13 @@ raylet's pull-based object manager.
 
 Port of ``ray_tpu/runtime/driver.py``. Functions, classes and arguments
 travel as the port's stdlib-pickle blobs (``runtime/serialization.py``); a
-body pickle cannot carry raises ``TypeError`` at submission. Left for
-later slices: the worker-log echo, the metrics pusher, the memory plane's
-ownership annex and the trace spans and stuck-call watchdog (the
-observability planes).
+body pickle cannot carry raises ``TypeError`` at submission. With the
+metrics and log planes: the process's metrics pusher, the
+``ray_tpu_actor_resolve_s`` histogram and the worker-log echo
+(``log_to_driver``: CH_LOGS lines printed ``(fn pid=N, node=M)``-prefixed
+under a per-source rate limit; ``shutdown`` joins the echo's thread, so
+nothing echoes after it returns). Left for later slices: the memory
+plane's ownership annex and the trace spans and stuck-call watchdog.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ from ray_tpu_torch.runtime.task_spec import TaskSpec, TaskType
 from ray_tpu_torch.utils import exceptions as exc
 from ray_tpu_torch.utils.ids import ActorID, ObjectID, WorkerID
 
+# the name of the thread that echoes workers' lines (log_to_driver)
+ECHO_THREAD = "log-echo"
+
 
 _SCALAR_TYPES = (type(None), bool, int, float, str, bytes)
 
@@ -48,7 +54,8 @@ class ClusterRuntime:
     """Connects ``ray_tpu_torch.api`` to a running cluster (GCS + raylets)."""
 
     def __init__(self, gcs_address, raylet_address=None,
-                 namespace: str | None = None):
+                 namespace: str | None = None,
+                 log_to_driver: bool = False):
         self.gcs_address = tuple(gcs_address)
         # arm the fault-injection plane (no-op unless the config flag is
         # set) BEFORE any channel dials: a startup plan must see every
@@ -188,6 +195,22 @@ class ClusterRuntime:
             on_task_failed=self._fail_task_returns,
             on_direct_results=self._accept_direct_results,
         )
+        # Worker-log echo (reference: log_monitor -> GCS pubsub ->
+        # driver stdout). Only top-level drivers subscribe — nested
+        # in-worker runtimes echoing would loop their own output back
+        # through the capture files forever.
+        self._log_sub = None
+        # per-source echo rate limiter: proc -> [tokens, last, suppressed]
+        self._echo_state: dict[str, list] = {}
+        if log_to_driver:
+            from ray_tpu_torch.runtime.rpc import PushSubscriber
+
+            self._log_sub = PushSubscriber(
+                self.gcs_address,
+                {"method": "subscribe", "channels": ["logs"]},
+                self._print_worker_logs,
+                reconnect=True,   # survive a GCS restart like _gcs does
+                label="driver", name=ECHO_THREAD)
         # --- distributed refcounting (reference: reference_count.h:61;
         # see runtime/refcount.py): this runtime flushes the process's
         # ref deltas to the GCS and doubles as the client heartbeat that
@@ -248,6 +271,78 @@ class ClusterRuntime:
                 pass
             threading.Thread(target=self._ref_flush_loop, daemon=True,
                              name="ref-flusher").start()
+        # metrics plane: this process's registry pushes delta frames to
+        # the GCS (claim machinery keeps it to ONE pusher per process —
+        # a nested in-worker runtime loses the claim to the first one)
+        from ray_tpu_torch.runtime.metrics_plane import MetricsPusher
+        self._metrics_pusher = MetricsPusher(
+            self.gcs_address, src=self.client_id[:12],
+            kind="worker" if in_worker else "driver").start()
+        from ray_tpu_torch.util import metrics as _metrics
+        self._h_actor_resolve = _metrics.histogram(
+            "ray_tpu_actor_resolve_s",
+            "actor location resolve latency (cache misses only)").handle()
+
+    def _print_worker_logs(self, msg: dict):
+        """Echo CH_LOGS lines as ``(fn pid=N, node=M)``-prefixed output
+        (reference: the driver-side worker-log echo). Lines stamped with
+        another job's namespace are filtered out; unstamped lines (raw
+        .out/.err crash output, pre-capture startup prints) always echo.
+        A per-source token bucket keeps a log-spamming worker from
+        wedging the driver's terminal — suppressed lines are summarized,
+        not silently dropped."""
+        import sys
+
+        msgs = msg.get("batch") if isinstance(msg.get("batch"), list) \
+            else [msg]
+        for m in msgs:
+            entry = m.get("entry")
+            if not entry:
+                continue
+            node = (m.get("node_id") or "")[:8]
+            proc = entry.get("proc") or "?"
+            pid = entry.get("pid") or 0
+            for rec in entry.get("lines", ()):
+                try:
+                    _off, _ts, stream, text, _trace, _task, name, job = rec
+                except (TypeError, ValueError):
+                    continue
+                if job is not None and job != self.namespace:
+                    continue
+                ok, missed = self._echo_allow(proc)
+                out = sys.stderr if stream == "e" else sys.stdout
+                if missed:
+                    print(f"({proc} pid={pid}, node={node}) "
+                          f"... {missed} line(s) suppressed by the echo "
+                          f"rate limit (RAY_TPU_LOG_ECHO_RATE_LINES_S)",
+                          file=out)
+                if not ok:
+                    continue
+                fn = name or proc
+                print(f"({fn} pid={pid}, node={node}) {text}", file=out)
+
+    def _echo_allow(self, proc: str) -> tuple:
+        """Token-bucket admission for one source; returns (allowed,
+        suppressed_count_to_report)."""
+        from ray_tpu_torch.utils.config import get_config
+
+        rate = float(get_config().log_echo_rate_lines_s)
+        if rate <= 0:   # 0 disables the limiter
+            return True, 0
+        now = time.monotonic()
+        st = self._echo_state.get(proc)
+        if st is None:
+            if len(self._echo_state) > 512:   # dead-proc churn bound
+                self._echo_state.clear()
+            st = self._echo_state[proc] = [rate, now, 0]
+        st[0] = min(rate, st[0] + (now - st[1]) * rate)
+        st[1] = now
+        if st[0] < 1.0:
+            st[2] += 1
+            return False, 0
+        st[0] -= 1.0
+        missed, st[2] = st[2], 0
+        return True, missed
 
     # ------------------------------------------------------------------
     # refcount flushing
@@ -1334,6 +1429,10 @@ class ClusterRuntime:
         cached = self._actor_locations.get(actor_id_hex)
         if cached is not None:
             return cached
+        # only the MISS path is timed: the cache hit above runs at
+        # >10k calls/s on the direct-call path and must stay bare
+        from ray_tpu_torch.util import metrics as _metrics
+        t_resolve = time.perf_counter() if _metrics.enabled() else 0.0
         if timeout is None:
             timeout = self._resolve_timeout_s
         deadline = time.monotonic() + timeout
@@ -1348,6 +1447,9 @@ class ClusterRuntime:
                     if ent["state"] == "ALIVE":
                         addr = ent.get("push_addr") or ent.get("address")
                         if addr is not None:
+                            if t_resolve:
+                                self._h_actor_resolve.observe(
+                                    time.perf_counter() - t_resolve)
                             return self._install_location(
                                 actor_id_hex, addr,
                                 ent.get("num_restarts", 0))
@@ -1375,6 +1477,9 @@ class ClusterRuntime:
                                              "unknown actor")
                 if info["state"] == "ALIVE":
                     addr = info.get("push_addr") or info["address"]
+                    if t_resolve:
+                        self._h_actor_resolve.observe(
+                            time.perf_counter() - t_resolve)
                     return self._install_location(
                         actor_id_hex, addr, info.get("num_restarts", 0))
                 if info["state"] == "DEAD":
@@ -1911,8 +2016,15 @@ class ClusterRuntime:
             self._refs.remove_serialize_hook(self._memstore_serialize_hook)
             self._memstore.clear()
         self._closed = True
+        try:
+            self._metrics_pusher.stop()
+        except Exception:  # noqa: BLE001 - best-effort plane teardown
+            pass
         with self._reg_cv:
             self._reg_cv.notify_all()   # reg flusher drains + exits
+        if self._log_sub is not None:
+            # joined: no worker line echoes after shutdown() returns
+            self._log_sub.close(join_timeout=5.0)
         # the submit flusher reads the store (its dead-actor sweep): it
         # ends its pass before the store unmaps below
         with self._outbox_cv:

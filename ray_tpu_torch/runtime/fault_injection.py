@@ -33,7 +33,8 @@ Rule fields (all optional except ``fault``):
   points* registered throughout the runtime (``maybe_crash("gcs.
   after_wal_append")``) — on the nth seeded hit the host process writes
   a last-words marker line to raw stderr (the worker's ``.err``
-  redirect keeps it; supervisors harvest it) and dies via ``os._exit``
+  redirect keeps it; supervisors harvest it and the log plane groups
+  it) and dies via ``os._exit``
   (or SIGKILL with ``signal: "kill"``).
 - ``src``: the LOCAL endpoint label of the channel (clients are labeled
   at construction — ``driver``, ``owner``, ``raylet``, ``worker``;
@@ -113,8 +114,9 @@ _FAULTS = (DROP, DELAY, DUPLICATE, RESET, PARTITION, KILL_TEMPLATE,
 
 # Last-words marker written to raw fd 2 right before an injected death.
 # The worker/raylet ``.err`` redirect keeps it even through SIGKILL;
-# supervisors key off this prefix (the worker pool's and the cluster
-# supervisor's last-words harvest).
+# supervisors and the log plane key off this prefix (the worker pool's
+# and the cluster supervisor's last-words harvest, and the ``crash``
+# groups of log_plane.LogStore).
 CRASH_MARKER = "RAY_TPU_CRASH"
 
 

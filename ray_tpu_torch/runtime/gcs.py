@@ -13,11 +13,14 @@ One process/thread, guarded by a single lock — the control plane is
 low-rate; the data plane (objects) never flows through here.
 
 Port of ``ray_tpu/runtime/gcs.py`` with the node, actor, placement-group,
-job, KV and object-directory tables, the reference counts and
-``GcsPersistence``. The observability planes' stores (``LogStore``,
-``MetricsStore``, ``TraceStore``) and the profiling RPCs are a later
-slice: an RPC that only they serve answers ``NotImplementedError``. The
-fault-injection plane's crash point ``gcs.after_wal_append`` and its plan
+job, KV and object-directory tables, the reference counts,
+``GcsPersistence`` and the metrics and log planes' stores
+(``MetricsStore``, ``LogStore``: ``push_metrics``, ``query_metrics``,
+``query_metric_annexes``, ``push_logs``, ``get_log``, ``list_logs``,
+``summarize_errors``, the GCS's own self-ingest loop and, as a process,
+its own capture). The tracing, memory and profiling planes are not
+ported yet: an RPC that only they serve answers ``NotImplementedError``.
+The fault-injection plane's crash point ``gcs.after_wal_append`` and its plan
 switch key (``kv_put`` of ``__fault_injection__``/``plan``) are as in
 JAX. Resource-driven node picks use the
 port's build of the native hybrid policy (``_private/scheduling.py``).
@@ -39,6 +42,8 @@ CH_NODE = "node"            # node added/dead
 CH_ACTOR = "actor"          # actor state transitions
 CH_OBJECT = "object"        # object location added (get() wakeups)
 CH_ERROR = "error"          # error broadcast to drivers
+CH_LOGS = "logs"            # captured log lines (log plane fan-out)
+CH_METRICS = "metrics"      # rolled metric-window summaries (dashboards)
 
 
 @dataclass
@@ -258,6 +263,23 @@ class GcsServer(RpcServer):
             "place_s": 0.0, "placed": 0, "ready_s": 0.0, "ready": 0,
         }
         self._plane_t: dict[str, list] = {}
+        # --- cluster metrics plane: ring-buffer time-series store fed
+        # by rpc_push_metrics; rolled windows fan out on CH_METRICS ---
+        from ray_tpu_torch.runtime.metrics_plane import MetricsStore
+        self._metrics_store = MetricsStore(
+            window_s=_pcfg.metrics_window_s,
+            windows=_pcfg.metrics_windows,
+            on_roll=self._publish_metrics_window)
+        self._metrics_push_interval = _pcfg.metrics_push_interval_s
+        self._metrics_stop = threading.Event()
+        # --- cluster log plane: bounded per-proc line rings + error
+        # groups, fed by rpc_push_logs; accepted lines fan out on
+        # CH_LOGS (runtime/log_plane.py) ---
+        from ray_tpu_torch.runtime.log_plane import LogStore
+        self._log_store = LogStore(
+            lines_per_proc=_pcfg.log_store_lines,
+            error_lines=_pcfg.log_store_error_lines,
+            error_groups=_pcfg.log_store_error_groups)
         self._hb_timeout = heartbeat_timeout_s
         # --- distributed refcounting (reference: reference_count.h:61;
         # centralized here to match the centralized object directory).
@@ -495,6 +517,10 @@ class GcsServer(RpcServer):
         self._health_thread.start()
         threading.Thread(target=self._pub_flush_loop, daemon=True,
                          name="gcs-pub-flusher").start()
+        from ray_tpu_torch.util import metrics as _metrics
+        if _metrics.enabled():
+            threading.Thread(target=self._metrics_self_loop, daemon=True,
+                             name="gcs-metrics-self").start()
         if self._persist is not None:
             threading.Thread(target=self._snapshot_loop,
                              daemon=True).start()
@@ -507,6 +533,12 @@ class GcsServer(RpcServer):
 
     def stop(self):
         super().stop()
+        self._metrics_stop.set()
+        # release the process-wide pusher claim the self-loop may hold:
+        # a later runtime in this process (test clusters churn them)
+        # must be able to claim, or its annex/metric frames never ship
+        from ray_tpu_torch.runtime import metrics_plane as _mp
+        _mp.release_pusher(f"gcs:{self.address[1]}")
         with self._place_cv:
             self._place_cv.notify_all()   # placement workers exit
         with self._pub_cv:
@@ -543,17 +575,35 @@ class GcsServer(RpcServer):
         send_msg(conn, {"subscribed": channels}, send_lock)
         return RpcServer.HELD
 
+    def rpc_push_logs(self, conn, send_lock, *, node_id: str,
+                      entries: list):
+        """Raylet log monitors ship captured line batches here. Ingest
+        is idempotent per (proc, file@epoch, offset) watermark — a
+        chaos-duplicated frame (or a monitor retry after a lost ack)
+        neither double-stores nor double-echoes; only the ACCEPTED lines
+        fan out to CH_LOGS subscribers (drivers echoing worker output —
+        reference: log_monitor.py -> GCS pubsub -> driver stdout)."""
+        self._ingest_logs(node_id, entries)
+        return {"ok": True}
+
+    def _ingest_logs(self, node_id: str, entries: list):
+        accepted = self._log_store.ingest(node_id, entries or [])
+        for entry in accepted:
+            self.publish(CH_LOGS, {"node_id": node_id, "entry": entry})
+        return accepted
+
     def publish(self, channel: str, message: dict):
         message = {"channel": channel, **message}
         with self._lock:
             subs = list(self._subs.get(channel, []))
         if not subs:
             return
-        if channel == CH_ACTOR and self._pub_flush_s > 0:
+        if channel in (CH_ACTOR, CH_METRICS, CH_LOGS) and \
+                self._pub_flush_s > 0:
             # coalesce: buffer per (subscriber, channel), flusher ships
             # one framed batch per window — the publisher (often
-            # rpc_actor_ready under the creation flood) never blocks on
-            # N sockets
+            # rpc_actor_ready under the creation flood, or a metrics
+            # window roll) never blocks on N sockets
             with self._pub_cv:
                 for conn, send_lock in subs:
                     ent = self._pub_buf.get((id(conn), channel))
@@ -1723,6 +1773,138 @@ class GcsServer(RpcServer):
             return self._task_events[-limit:]
 
     # ------------------------------------------------------------------
+    # cluster metrics plane (runtime/metrics_plane.py: delta frames in,
+    # windowed time series out; reference analog: the node metrics
+    # agents + Prometheus, centralized here like the object directory)
+    # ------------------------------------------------------------------
+
+    def _publish_metrics_window(self, window: dict):
+        """A rolled aggregation window fans out to CH_METRICS
+        subscribers (live dashboard views) through the same coalesced
+        pushed-channel path CH_ACTOR uses. Best-effort by construction:
+        publish() drops dead subscribers and never blocks ingest."""
+        self.publish(CH_METRICS, {"event": "window",
+                                  "start": window["start"],
+                                  "end": window["end"],
+                                  "data": window["data"]})
+
+    def rpc_push_metrics(self, conn, send_lock, *, src, frame,
+                         kind="worker", ts=None, annex=None):
+        """Ingest one delta frame from a process's MetricsPusher.
+        Duplicate delivery over-counts a window slightly (at-most-once
+        is traded for never-blocking); the store is additive so the
+        damage is bounded to the duplicated frame. ``annex`` is the
+        pusher's piggybacked annex set (e.g. serve prefix-cache
+        digests): latest-wins per (src, key), no windowing."""
+        if frame:
+            self._metrics_store.ingest(src, frame, ts)
+        if annex is not None:
+            self._metrics_store.put_annexes(src, annex)
+        return {"ok": True}
+
+    def rpc_query_metrics(self, conn, send_lock, *, name=None,
+                          tags=None, last_s=None, group_by=(),
+                          per_window=False):
+        if name is None:
+            return {"names": self._metrics_store.names()}
+        return self._metrics_store.query(
+            name, tags=tags, last_s=last_s, group_by=group_by,
+            per_window=per_window)
+
+    def rpc_query_metric_annexes(self, conn, send_lock, *, prefix="",
+                                 max_age_s=None):
+        return {"annexes": self._metrics_store.annexes(
+            prefix, max_age_s=max_age_s)}
+
+    def _metrics_self_loop(self):
+        """The GCS ingests its OWN registry on the same delta protocol
+        workers use — unless another runtime in this process already
+        claimed the process-wide pusher (in-process GCS under a driver:
+        the driver's or a raylet's pusher ships the shared registry).
+        As a process of its own it also drains its own capture into the
+        log store: no raylet monitor tails its files."""
+        from ray_tpu_torch.runtime import annex as _annex
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+        from ray_tpu_torch.runtime import metrics_plane as _mp
+        from ray_tpu_torch.util import metrics as _metrics
+
+        prev = None
+        while not self._metrics_stop.wait(self._metrics_push_interval):
+            # re-checked EVERY tick (claim_pusher is idempotent for the
+            # holder): the moment another pusher in this process takes
+            # the claim over this loop stops shipping the registry
+            if not _mp.claim_pusher(f"gcs:{self.address[1]}"):
+                continue
+            try:
+                frame, prev = _metrics.snapshot_delta(prev)
+                if frame:
+                    self._metrics_store.ingest("gcs", frame)
+                ann = _annex.local_annexes()
+                if ann:
+                    self._metrics_store.put_annexes(
+                        "gcs", {k: v[1] for k, v in ann.items()})
+                cap = _log_plane.active_capture()
+                if cap is not None:
+                    recs = cap.drain_records()
+                    if recs:
+                        by_file: dict[str, dict] = {}
+                        for r in recs:
+                            e = by_file.setdefault(r["file"], {
+                                "proc": cap.proc, "pid": r["pid"],
+                                "file": r["file"], "lines": []})
+                            e["lines"].append(
+                                (r["offset"], r["ts"], r["stream"],
+                                 r["line"], r["trace"], r["task"],
+                                 r["name"], r["job"]))
+                        self._ingest_logs("gcs", list(by_file.values()))
+            except Exception:  # noqa: BLE001 - observability only
+                pass
+
+    # ------------------------------------------------------------------
+    # cluster log plane queries (store: runtime/log_plane.LogStore)
+    # ------------------------------------------------------------------
+
+    def rpc_get_log(self, conn, send_lock, *, proc=None, task_id=None,
+                    tail=100, after=None):
+        """Recent lines of one process, or exactly one task's attributed
+        segment. The task path resolves through the ``logs/segments/*``
+        annexes (pushed by the emitting worker's MetricsPusher) to a
+        (file@epoch, start, end) window, then filters interleaved
+        neighbors by the per-line task stamp."""
+        if task_id:
+            seg = self._find_log_segment(task_id)
+            if seg is None:
+                return {"task": task_id, "lines": [],
+                        "error": f"no log segment for task {task_id!r} "
+                                 f"(annex not pushed yet, or the task "
+                                 f"predates capture)"}
+            out = self._log_store.segment(seg)
+            # offsets bound the window; the per-line stamp is the
+            # authority on WHOSE lines they are (concurrent async-actor
+            # tasks interleave inside each other's offset windows)
+            out["lines"] = [r for r in out["lines"]
+                            if r.get("task") in (task_id, None)]
+            return out
+        if not proc:
+            return {"lines": [], "error": "get_log needs proc or task_id"}
+        return self._log_store.tail(
+            proc, n=tail, after=tuple(after) if after else None)
+
+    def _find_log_segment(self, task_id: str):
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+        for item in self._metrics_store.annexes(_log_plane.ANNEX_PREFIX):
+            for seg in item["payload"] or []:
+                if seg.get("task") == task_id:
+                    return seg
+        return None
+
+    def rpc_list_logs(self, conn, send_lock):
+        return self._log_store.list()
+
+    def rpc_summarize_errors(self, conn, send_lock, *, last_s=None):
+        return {"groups": self._log_store.summarize_errors(last_s)}
+
+    # ------------------------------------------------------------------
     # cluster summary
     # ------------------------------------------------------------------
 
@@ -1763,28 +1945,39 @@ def main():
     signal.signal(signal.SIGTERM, lambda *_: stop_ev.set())
     signal.signal(signal.SIGINT, lambda *_: stop_ev.set())
     print(json.dumps({"address": server.address}), flush=True)
+    # capture AFTER the readiness line (the parent blocks reading the
+    # JSON above from the real stdout pipe); the GCS self-ingests its
+    # drain ring in _metrics_self_loop — no monitor tails these files
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.runtime import log_plane as _log_plane
+    log_dir = tempfile.mkdtemp(prefix="rtt-gcs-logs-")
+    _log_plane.install_capture(f"gcs-{server.address[1]}",
+                               log_dir=log_dir)
     try:
         stop_ev.wait()
     finally:
+        _log_plane.uninstall_capture()
         server.stop()
+        shutil.rmtree(log_dir, ignore_errors=True)
 
 
-# RPCs that only the observability planes serve (their stores, the
-# memory-plane joins over their annexes, the profilers): a later slice
+# RPCs that only the tracing, memory and profiling planes serve (the
+# dashboard agent's registration, the memory-plane joins, the trace
+# store, the stack dumps and profilers): not ported yet
 _PLANE_RPCS = (
-    "push_logs", "register_agent", "push_metrics", "query_metrics",
-    "query_metric_annexes", "memory_table", "memory_summary",
-    "memory_leaks", "push_spans", "get_trace", "list_traces", "stuck_calls",
-    "flight_record", "get_log", "list_logs", "summarize_errors",
-    "dump_stacks", "profile",
+    "register_agent", "memory_table", "memory_summary", "memory_leaks",
+    "push_spans", "get_trace", "list_traces", "stuck_calls",
+    "flight_record", "dump_stacks", "profile",
 )
 
 
 def _plane_rpc(name: str):
     def handler(self, conn, send_lock, **kwargs):
         raise NotImplementedError(
-            f"GCS rpc {name!r} belongs to the observability planes, a "
-            "later slice of the port")
+            f"GCS rpc {name!r} belongs to the tracing, memory or "
+            "profiling planes, which the port does not have yet")
     handler.__name__ = f"rpc_{name}"
     return handler
 

@@ -1,7 +1,7 @@
 """Owner-side worker-lease protocol.
 
 Port of ``ray_tpu/runtime/lease.py`` without the owner-side stage timers
-of the metrics plane (a later slice). Reference:
+of the metrics plane (``ray_tpu_lease_owner_s``; not ported). Reference:
 ``CoreWorkerDirectTaskSubmitter`` (``direct_task_transport.cc:134``
 ``RequestNewWorkerIfNeeded``, ``:191`` ``OnWorkerIdle``, ``:234``
 ``PushNormalTask``). The owner leases a worker slot from a raylet, then

@@ -1,9 +1,8 @@
 """Fork-server worker spawn: preforked zygote templates + prestart policy.
 
 Port of ``ray_tpu/runtime/prestart.py``: the same template protocol,
-demand gate, fallback contract and counters (without ``log_stems``, which
-only the raylet's log monitor reads: an observability plane, a later
-slice). Its fork-safety rule is
+demand gate, fallback contract and counters (and ``log_stems``, which
+the raylet's log monitor reads). Its fork-safety rule is
 CUDA's (below) in place of JAX's XLA-backend rule.
 
 Reference analog: ``src/ray/raylet/worker_pool.h:354`` ``PrestartWorkers``
@@ -191,6 +190,7 @@ class ZygoteTemplate:
         self.last_used = time.monotonic()
         self._base_env = base_env
         self._log_dir = log_dir
+        self.log_stem: str | None = None
 
     def start(self):
         parent, child = socket.socketpair()
@@ -200,11 +200,12 @@ class ZygoteTemplate:
             env["RAY_TPU_TORCH_RUNTIME_ENV"] = json.dumps(self.runtime_env)
         stdout = stderr = None
         if self._log_dir:
-            base = os.path.join(self._log_dir,
-                                f"zygote-{(self.env_key or 'default')[:12]}")
+            stem = f"zygote-{(self.env_key or 'default')[:12]}"
+            base = os.path.join(self._log_dir, stem)
             try:
                 stdout = open(base + ".out", "ab", buffering=0)
                 stderr = open(base + ".err", "ab", buffering=0)
+                self.log_stem = stem
             except OSError:
                 if stdout is not None:
                     stdout.close()
@@ -353,6 +354,12 @@ class PrestartManager:
             "RAY_TPU_TORCH_NODE_ID": node.node_id,
             "PYTHONUNBUFFERED": "1",
         })
+        if getattr(node, "log_dir", None):
+            # forked children re-enter Worker() directly; the in-process
+            # log capture reads this to find its stamped-file home (the
+            # template itself installs no capture: a child must not
+            # inherit a tee or its lock across the fork)
+            env["RAY_TPU_TORCH_LOG_DIR"] = node.log_dir
         env.pop("RAY_TPU_TORCH_WORKER_ID", None)
         env.pop("RAY_TPU_TORCH_RUNTIME_ENV", None)
         return env
@@ -492,6 +499,14 @@ class PrestartManager:
         return ForkedProc(pid)
 
     # -- observability + shutdown --------------------------------------
+
+    def log_stems(self) -> dict:
+        """stem -> pid of live templates, so the raylet's log monitor
+        treats their capture files as live (not dead-worker leftovers)."""
+        with self.lock:
+            return {t.log_stem: t.proc.pid
+                    for t in self.templates.values()
+                    if t.log_stem is not None and t.proc is not None}
 
     def snapshot(self) -> dict:
         with self.lock:

@@ -12,9 +12,10 @@ raylet keeps placement routing, actors, cancellation, and the RPC surface.
 
 Port of ``ray_tpu/runtime/raylet.py`` with the fault-injection plane and
 the prestart fork server (its policy loop, warm-worker takeover for
-actors, and the templates' snapshot in ``node_info``), without the
-dashboard agent, the log monitor, the metrics pusher and gauges, and the
-profiling and stack RPCs (the observability planes, later slices).
+actors, and the templates' snapshot in ``node_info``), the metrics
+pusher and the log monitor (the metrics and log planes), without the
+dashboard agent, the memory plane's node annex and the profiling and
+stack RPCs (planes the port does not have yet).
 ``python -m ray_tpu_torch.runtime.raylet`` runs it as a process.
 
 Differences by design (single-controller Python services):
@@ -63,7 +64,10 @@ class Raylet(RpcServer):
         self.store = ShmObjectStore(self.store_name, capacity=store_capacity,
                                     create=True)
         self.labels = labels or {}
-        # per-worker stdout/stderr files (a dead worker's last words)
+        # per-worker stdout/stderr capture + forwarding to the driver
+        # (reference: the log_monitor process tailing the session log
+        # dir); workers write to files here, _log_monitor_loop tails
+        # them, and a dead worker's last words feed its death info
         import tempfile
 
         self.log_dir = tempfile.mkdtemp(
@@ -134,6 +138,12 @@ class Raylet(RpcServer):
         self._ready_linger_s = _cfg.actor_ready_linger_s
         self.objects = LocalObjectManager(
             self, store=self.store, store_capacity=store_capacity, cfg=_cfg)
+        # metrics plane: this raylet's registry pushes to the GCS under
+        # its node id (in an in-process cluster the process's one pusher
+        # is whichever runtime claims it first)
+        from ray_tpu_torch.runtime.metrics_plane import MetricsPusher
+        self._metrics_pusher = MetricsPusher(
+            self.gcs_address, src=self.node_id[:12], kind="raylet")
     # component-facing compatibility views (tests and the
     # worker pool read these under their historical names)
     @property
@@ -184,6 +194,7 @@ class Raylet(RpcServer):
                  self.workers.monitor_loop, self.scheduler.infeasible_loop,
                  self.objects.location_flush_loop,
                  self._ready_flush_loop,
+                 self._log_monitor_loop,
                  self.workers.prestart_policy_loop]
         if self.objects.spill_enabled:
             loops.append(self.objects.spill_loop)
@@ -194,10 +205,208 @@ class Raylet(RpcServer):
             t = threading.Thread(target=target, daemon=True)
             t.start()
             self._threads.append(t)
+        self._metrics_pusher.start()
         return self
+
+    def _log_monitor_loop(self, poll_s: float | None = None,
+                          dead_linger_s: float = 5.0):
+        """Tail every capture file in the log dir and ship new COMPLETE
+        lines to the GCS LogStore over ``push_logs`` (reference:
+        log_monitor.py). Two file kinds coexist: ``<proc>.log`` is the
+        in-process tee's stamped+rotated output (parsed per line, epoch
+        headers tracked so offsets stay attributable across rotation);
+        ``<proc>.out/.err`` is the raw Popen fd capture that only
+        interpreter-level crashes write to (shipped unparsed). Scanning
+        the DIRECTORY (not live worker handles) means a crashed worker's
+        final output — its traceback — still ships even though the pool
+        reaps the handle within ~0.1s; fully-drained files of dead
+        workers are deleted after a short linger so dicts and disk stay
+        bounded under worker churn.
+
+        Drop-not-block: pushes go over a dedicated short-timeout client
+        (fault label "metrics" — a metrics↔GCS partition covers logs
+        too) into a bounded pending deque; a slow or partitioned GCS
+        costs at most one 2s timeout per tick and then old batches,
+        never task execution."""
+        from collections import deque as _deque
+
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+        from ray_tpu_torch.utils.config import get_config
+
+        if poll_s is None:
+            poll_s = get_config().log_push_interval_s
+
+        offsets: dict[str, int] = {}        # path -> bytes consumed
+        partial: dict[str, bytes] = {}      # path -> incomplete tail
+        epochs: dict[str, int] = {}         # path -> live generation
+        inodes: dict[str, int] = {}
+        pid_of: dict[str, int] = {}         # filename stem -> pid
+        dead_since: dict[str, float] = {}
+        pending: _deque = _deque(maxlen=max(
+            8, int(get_config().log_push_buffer)))
+        self._log_push_client = None
+        self._log_push_dropped = 0
+
+        def _parse_block(path, name, data, base_off, out):
+            """Split ``data`` (starting at byte ``base_off``) into wire
+            line tuples, tracking epoch headers; incomplete tail bytes
+            go back to ``partial``."""
+            lines = data.split(b"\n")
+            if lines and lines[-1]:
+                partial[path] = lines[-1]
+            else:
+                partial.pop(path, None)
+            lines = lines[:-1]
+            stamped = name.endswith(".log")
+            stream_default = "e" if name.endswith(".err") else "o"
+            off = base_off
+            cur = None               # (epoch, [wire tuples])
+            for raw in lines:
+                text = raw.decode("utf-8", "replace")
+                start = off
+                off += len(raw) + 1
+                if stamped:
+                    ep = _log_plane.parse_epoch(text)
+                    if ep is not None:
+                        epochs[path] = ep
+                        continue
+                    parsed = _log_plane.parse_line(text)
+                    ts, stream, trace, task, tname, job, body = parsed
+                    rec = (start, ts, stream, body, trace, task, tname,
+                           job)
+                else:
+                    rec = (start, time.time(), stream_default, text,
+                           None, None, None, None)
+                epoch = epochs.get(path, 0) if stamped else 0
+                if cur is None or cur[0] != epoch or len(cur[1]) >= 500:
+                    cur = (epoch, [])
+                    out.append((path, name, epoch, cur[1]))
+                cur[1].append(rec)
+
+        while not self._stopping:
+            with self.workers.lock:
+                live = {h.worker_id[:12]: (h.proc.pid if h.proc else 0)
+                        for h in self.workers.workers.values()}
+            # zygote templates log here too; without this their capture
+            # files read as dead-worker leftovers and get deleted
+            live.update(self.workers.prestart.log_stems())
+            pid_of.update(live)
+            blocks = []   # (path, name, epoch, [wire tuples])
+            try:
+                names = sorted(os.listdir(self.log_dir))
+            except OSError:
+                names = []
+            for name in names:
+                stem, _, ext = name.rpartition(".")
+                if ext not in ("log", "out", "err"):
+                    continue   # rotated generations read on demand below
+                path = os.path.join(self.log_dir, name)
+                short = stem[len("worker-"):] if stem.startswith(
+                    "worker-") else stem
+                try:
+                    st = os.stat(path)
+                    size, ino = st.st_size, st.st_ino
+                except OSError:
+                    continue
+                off = offsets.get(path, 0)
+                if ext == "log" and (ino != inodes.setdefault(path, ino)
+                                     or size < off):
+                    # the live file rotated out from under us: drain the
+                    # unread remainder from the shifted generation, then
+                    # restart at the new file's epoch header
+                    prev = f"{path}.1"
+                    try:
+                        psize = os.path.getsize(prev)
+                        if psize > off:
+                            tail = partial.pop(path, b"")
+                            with open(prev, "rb") as f:
+                                f.seek(off)
+                                data = tail + f.read(
+                                    min(psize - off, 1 << 20))
+                            _parse_block(path, name, data,
+                                         off - len(tail), blocks)
+                    except OSError:
+                        pass
+                    partial.pop(path, None)
+                    offsets[path] = off = 0
+                    inodes[path] = ino
+                if size > off:
+                    take = min(size - off, 1 << 20)
+                    try:
+                        with open(path, "rb") as f:
+                            f.seek(off)
+                            tail = partial.pop(path, b"")
+                            data = tail + f.read(take)
+                    except OSError:
+                        continue
+                    offsets[path] = off + take
+                    _parse_block(path, name, data, off - len(tail),
+                                 blocks)
+                elif short not in live and not stem.startswith(
+                        ("raylet", "gcs", "driver")):
+                    # drained file of a dead worker: linger, then drop
+                    first = dead_since.setdefault(path, time.monotonic())
+                    if time.monotonic() - first > dead_linger_s:
+                        tail = partial.get(path)
+                        if tail:
+                            # a crashed worker's final line may lack a
+                            # trailing newline — ship it before cleanup
+                            _parse_block(path, name, tail + b"\n",
+                                         offsets.get(path, 0) -
+                                         len(tail), blocks)
+                        for d in (offsets, partial, dead_since, epochs,
+                                  inodes):
+                            d.pop(path, None)
+                        pid_of.pop(short, None)
+                        for gen in [path] + [f"{path}.{i}"
+                                             for i in range(1, 10)]:
+                            try:
+                                os.unlink(gen)
+                            except OSError:
+                                if gen != path:
+                                    break   # no further generations
+            for path, name, epoch, recs in blocks:
+                if not recs:
+                    continue
+                stem = name.rpartition(".")[0]
+                short = stem[len("worker-"):] if stem.startswith(
+                    "worker-") else stem
+                before = len(pending)
+                pending.append({
+                    "proc": stem,
+                    "pid": pid_of.get(short, 0),
+                    "file": f"{name}@{epoch}",
+                    "lines": recs,
+                })
+                if len(pending) == before:   # maxlen hit: oldest fell
+                    self._log_push_dropped += 1
+            if pending:
+                try:
+                    if self._log_push_client is None:
+                        # dedicated short-timeout channel: the shared GCS
+                        # client would serialize log pushes behind
+                        # scheduling traffic (and vice versa on a stall)
+                        self._log_push_client = RpcClient(
+                            self.gcs_address, timeout=2.0,
+                            label="metrics")
+                    batch = list(pending)
+                    self._log_push_client.call(
+                        "push_logs", node_id=self.node_id, entries=batch)
+                    for _ in batch:
+                        if pending:
+                            pending.popleft()
+                except Exception:  # noqa: BLE001 - GCS slow/partitioned
+                    try:
+                        if self._log_push_client is not None:
+                            self._log_push_client.close()
+                    except Exception:  # noqa: BLE001
+                        pass
+                    self._log_push_client = None
+            self._interruptible_sleep(poll_s)
 
     def stop(self):
         super().stop()
+        self._metrics_pusher.stop()
         self.objects.stop()
         self.scheduler.stop()
         with self._ready_cv:
@@ -215,6 +424,13 @@ class Raylet(RpcServer):
         import shutil
 
         shutil.rmtree(self.log_dir, ignore_errors=True)
+        client, self._log_push_client = \
+            getattr(self, "_log_push_client", None), None
+        if client is not None:
+            try:
+                client.close()
+            except OSError:
+                pass
         try:
             self._gcs_beat.close()
         except OSError:
@@ -1032,6 +1248,23 @@ class Raylet(RpcServer):
                 pass
 
 
+def capture_node_output(raylet: Raylet):
+    """Tee a node process's stdout/stderr into ``raylet-<node>.log`` in
+    the raylet's log dir, which its own log monitor tails, so the
+    process's prints reach the cluster log store like any worker's; then
+    print one line there (JAX's raylet prints none): the process shows in
+    ``list_logs`` from its start, not from its first print. Called once
+    the process has printed whatever its parent reads from the real
+    stdout."""
+    from ray_tpu_torch.runtime import log_plane as _log_plane
+
+    if _log_plane.install_capture(f"raylet-{raylet.node_id[:12]}",
+                                  log_dir=raylet.log_dir) is not None:
+        print(f"raylet {raylet.node_id[:12]} at "
+              f"{raylet.address[0]}:{raylet.address[1]}, resources "
+              f"{raylet.total_resources}, store {raylet.store_name}")
+
+
 def main():  # runs a raylet as a standalone process (cluster_utils spawns it)
     import json
     import signal
@@ -1058,9 +1291,14 @@ def main():  # runs a raylet as a standalone process (cluster_utils spawns it)
     # signal readiness to the parent via stdout
     print(json.dumps({"address": raylet.address,
                       "store_name": raylet.store_name}), flush=True)
+    # capture AFTER the readiness line: the parent blocks on reading the
+    # JSON above from the real stdout pipe
+    capture_node_output(raylet)
     try:
         stop_ev.wait()
     finally:
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+        _log_plane.uninstall_capture()
         raylet.stop()
 
 

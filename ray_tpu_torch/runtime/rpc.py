@@ -605,7 +605,7 @@ class PushSubscriber:
                  callback: Callable[[Any], None], *,
                  reconnect: bool = False,
                  reconnect_delay_s: float = 1.0,
-                 label: str | None = None):
+                 label: str | None = None, name: str | None = None):
         self._address = tuple(address)
         self._subscribe_msg = subscribe_msg
         self._callback = callback
@@ -614,7 +614,8 @@ class PushSubscriber:
         self._label = label
         self._closed = False
         self._sock = self._dial()
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name=name)
         self._thread.start()
 
     def _dial(self):
@@ -654,12 +655,22 @@ class PushSubscriber:
             except Exception:  # noqa: BLE001 - subscriber errors are isolated
                 pass
 
-    def close(self):
+    def close(self, join_timeout: float | None = None):
+        """Close the channel; with ``join_timeout``, also wait for the
+        receive thread (and a callback it is running) to end."""
         self._closed = True
+        try:
+            # wakes a recv blocked on this socket (close alone does not)
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
         try:
             self._sock.close()
         except OSError:
             pass
+        if join_timeout is not None and \
+                self._thread is not threading.current_thread():
+            self._thread.join(join_timeout)
 
 
 def wait_for_port(address: tuple[str, int], timeout: float = 10.0):

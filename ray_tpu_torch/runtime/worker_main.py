@@ -6,8 +6,10 @@ arguments arrive as the port's stdlib-pickle blobs
 at boot from ``RAY_TPU_TORCH_RUNTIME_ENV``), fault-injection crash points
 (``worker.mid_task``, ``worker.mid_actor_task``) and the zygote template
 mode of the prestart fork server (``--zygote``,
-``runtime/prestart.py``). Left for later slices: the log capture, metrics
-pusher, trace spans and profiling RPCs (the observability planes).
+``runtime/prestart.py``), the log capture (stdout/stderr through the
+stamped tee, every task and actor call bracketed by ``task_context``)
+and the process's metrics pusher. Left for later slices: trace spans,
+the memory plane's ownership annex and the profiling RPCs.
 
 Reference analog: ``python/ray/_private/workers/default_worker.py`` +
 the execution callback ``execute_task`` in ``_raylet.pyx:1457``. The worker
@@ -41,6 +43,20 @@ from ray_tpu_torch.runtime.rpc import (
     send_msg,
 )
 from ray_tpu_torch.utils import exceptions as exc
+
+
+def _task_log_context(task: dict, job: str | None = None):
+    """Log-plane execution bracket for ``task``: binds the ambient
+    task_id and records the (file, start_offset, end_offset) segment in
+    the offset annex so captured lines are attributable (reference: the
+    task-log offsets the worker reports next to its log file)."""
+    from ray_tpu_torch.runtime import log_plane as _log_plane
+
+    tc = task.get("trace_ctx") or {}
+    return _log_plane.task_context(
+        task.get("task_id"), task.get("name", "?"),
+        job if job is not None else task.get("namespace"),
+        tc.get("trace_id") if isinstance(tc, dict) else None)
 
 
 class TaskPushServer(RpcServer):
@@ -269,6 +285,14 @@ class Worker:
         port = int(os.environ["RAY_TPU_TORCH_RAYLET_PORT"])
         self.worker_id = os.environ["RAY_TPU_TORCH_WORKER_ID"]
         self.node_id = os.environ["RAY_TPU_TORCH_NODE_ID"]
+        # log plane capture: stdout/stderr through the stamped tee into
+        # a rotating <proc>.log the raylet's log monitor tails. Here
+        # (not main()) so the zygote fork path — which re-enters
+        # Worker() directly — installs it in the child, after the fork.
+        # The Popen fd redirect to .out/.err stays underneath for
+        # interpreter-level last words.
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+        _log_plane.install_capture(f"worker-{self.worker_id[:12]}")
         self.raylet_addr = (host, port)
         from ray_tpu_torch.runtime import fault_injection as _fi
         _fi.maybe_init_from_config(
@@ -352,6 +376,16 @@ class Worker:
                 pass
             threading.Thread(target=self._ref_flush_loop, daemon=True,
                              name="ref-flusher").start()
+        # metrics plane: this worker process's registry (serve replica
+        # gauges, engine histograms, prefix-digest and log-segment
+        # annexes) pushes delta frames to the GCS. The process-wide
+        # claim keeps it to ONE pusher even when a nested in-worker
+        # runtime starts later.
+        from ray_tpu_torch.runtime.metrics_plane import MetricsPusher
+        self._metrics_pusher = MetricsPusher(
+            (os.environ["RAY_TPU_TORCH_GCS_HOST"],
+             int(os.environ["RAY_TPU_TORCH_GCS_PORT"])),
+            src=self.worker_id[:12], kind="worker").start()
         self._install_sigint_router()
         # Owner-facing push port, then registration — ALL execution state
         # above must exist first: the instant registration lands, the
@@ -667,6 +701,22 @@ class Worker:
         self.ctrl.call("request_space", nbytes=nbytes)
 
     def _store_error(self, task: dict, error: BaseException):
+        # errors are sealed into TaskError objects (never printed here),
+        # so a captured worker also emits the traceback into its log
+        # file — that is what summarize_errors() aggregates; without a
+        # capture the console stays quiet
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+
+        cap = _log_plane.active_capture()
+        if cap is not None:
+            try:
+                tb = getattr(error, "remote_traceback", None) or "".join(
+                    traceback.format_exception(
+                        type(error), error, error.__traceback__))
+                for ln in str(tb).splitlines():
+                    cap.emit("e", ln)
+            except Exception:  # noqa: BLE001 - logging must not mask
+                pass
         sink = task.get("_direct_sink")
         for oid_hex in task["return_oids"]:
             oid = bytes.fromhex(oid_hex)
@@ -783,7 +833,12 @@ class Worker:
 
         ns_token = set_task_namespace(task.get("namespace"))
         try:
-            self._execute_inner(task)
+            # log-plane bracket: begin/end byte offsets around the WHOLE
+            # execution (arg resolve through error sealing) so every
+            # captured line — including the stored traceback — is
+            # attributable to this task_id via the offset annex
+            with _task_log_context(task):
+                self._execute_inner(task)
         finally:
             reset_task_namespace(ns_token)
             self._release_task_pin(task)
@@ -979,28 +1034,30 @@ class Worker:
             def done():
                 self._release_task_pin(task)
                 _done()
-            try:
-                method = getattr(self.actor_instance,
-                                 task["method_name"])
-                result = method(*args, **kwargs)
-                if inspect.isawaitable(result):
-                    result = await result
-            except BaseException as e:  # noqa: BLE001
-                self._store_error(
-                    task, exc.TaskError(task.get("name", "?"), e,
-                                        tb=traceback.format_exc()))
-                self._report_task_event(task, started, False)
+            with _task_log_context(
+                    task, getattr(self, "actor_namespace", None)):
+                try:
+                    method = getattr(self.actor_instance,
+                                     task["method_name"])
+                    result = method(*args, **kwargs)
+                    if inspect.isawaitable(result):
+                        result = await result
+                except BaseException as e:  # noqa: BLE001
+                    self._store_error(
+                        task, exc.TaskError(task.get("name", "?"), e,
+                                            tb=traceback.format_exc()))
+                    self._report_task_event(task, started, False)
+                    done()
+                    return
+                try:
+                    self._store_returns(task, result)
+                except BaseException as e:  # noqa: BLE001
+                    self._store_error(task, e)
+                    self._report_task_event(task, started, False)
+                    done()
+                    return
+                self._report_task_event(task, started, True)
                 done()
-                return
-            try:
-                self._store_returns(task, result)
-            except BaseException as e:  # noqa: BLE001
-                self._store_error(task, e)
-                self._report_task_event(task, started, False)
-                done()
-                return
-            self._report_task_event(task, started, True)
-            done()
 
     def _run_actor_task(self, task: dict):
         import time as _time
@@ -1022,32 +1079,34 @@ class Worker:
             done()
             return
         started = _time.monotonic()
-        try:
-            from ray_tpu_torch.runtime import fault_injection as _fi
+        with _task_log_context(task, getattr(self, "actor_namespace",
+                                             None)):
+            try:
+                from ray_tpu_torch.runtime import fault_injection as _fi
 
-            args, kwargs = self._resolve_args(task)
-            method = getattr(self.actor_instance, task["method_name"])
-            # crash point: actor method about to run — exercises the
-            # actor RESTARTING/DEAD reconciliation + typed
-            # ActorDiedError surfacing at the caller
-            _fi.maybe_crash("worker.mid_actor_task")
-            result = method(*args, **kwargs)
-        except BaseException as e:  # noqa: BLE001
-            self._store_error(
-                task, exc.TaskError(task.get("name", "?"), e,
-                                    tb=traceback.format_exc()))
-            self._report_task_event(task, started, False)
+                args, kwargs = self._resolve_args(task)
+                method = getattr(self.actor_instance, task["method_name"])
+                # crash point: actor method about to run — exercises the
+                # actor RESTARTING/DEAD reconciliation + typed
+                # ActorDiedError surfacing at the caller
+                _fi.maybe_crash("worker.mid_actor_task")
+                result = method(*args, **kwargs)
+            except BaseException as e:  # noqa: BLE001
+                self._store_error(
+                    task, exc.TaskError(task.get("name", "?"), e,
+                                        tb=traceback.format_exc()))
+                self._report_task_event(task, started, False)
+                done()
+                return
+            try:
+                self._store_returns(task, result)
+            except BaseException as e:  # noqa: BLE001
+                self._store_error(task, e)
+                self._report_task_event(task, started, False)
+                done()
+                return
+            self._report_task_event(task, started, True)
             done()
-            return
-        try:
-            self._store_returns(task, result)
-        except BaseException as e:  # noqa: BLE001
-            self._store_error(task, e)
-            self._report_task_event(task, started, False)
-            done()
-            return
-        self._report_task_event(task, started, True)
-        done()
 
 
 def _iscoroutine(x) -> bool:

@@ -134,6 +134,10 @@ class WorkerPool:
         log_dir = getattr(node, "log_dir", None)
         log_out = log_err = None
         if log_dir:
+            # the worker's in-process tee writes its stamped .log file
+            # here; the Popen fd redirect below still owns .out/.err for
+            # C-level / interpreter-crash output the tee can't see
+            env["RAY_TPU_TORCH_LOG_DIR"] = log_dir
             base = os.path.join(log_dir, f"worker-{worker_id[:12]}")
             log_out, log_err = base + ".out", base + ".err"
         # fork fast path: an os.fork() of the preloaded env-keyed

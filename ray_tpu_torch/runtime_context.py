@@ -4,8 +4,8 @@
 Port of ``ray_tpu/runtime_context.py``. In a cluster worker process the
 node id, worker id and GCS address come from the worker's environment
 (``RAY_TPU_TORCH_*``), and the namespace is the one of the task or actor
-it executes. The task id (``get_task_id``, from the JAX package's log
-plane) waits for the observability planes.
+it executes. The task id (``get_task_id``) comes from the log plane's
+execution bracket (``runtime/log_plane.py``).
 """
 
 from __future__ import annotations
@@ -63,6 +63,15 @@ class RuntimeContext:
 
     def get_job_id(self) -> str:
         return self.job_id
+
+    def get_task_id(self) -> str | None:
+        """Id of the currently executing task/actor method, or None
+        outside one (reference: ``RuntimeContext.get_task_id``). Comes
+        from the log plane's execution bracket, so it is also the key
+        ``util.state.get_log(task_id=...)`` resolves."""
+        from ray_tpu_torch.runtime import log_plane as _lp
+
+        return _lp.current_task_id()
 
 
 def get_runtime_context() -> RuntimeContext:

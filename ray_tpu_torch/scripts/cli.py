@@ -5,7 +5,8 @@ Port of ``ray_tpu/scripts/cli.py``: the same argparse tree and printed
 lines for ``start`` (``--num-gpus`` for JAX's ``--num-tpus``), ``status``,
 ``list``, ``submit``, ``serve-deploy`` and ``serve-status``. ``start``
 also stops its raylet and GCS on SIGTERM, so the node's workers and
-templates go with it. ``submit`` hands the script its cluster in
+templates go with it, and after its three lines it sends its output to
+the log plane as ``raylet-<node>`` (``raylet.capture_node_output``). ``submit`` hands the script its cluster in
 ``RAY_TPU_TORCH_ADDRESS``. ``serve-deploy`` and ``serve-status`` attach
 in the namespace ``serve`` (``SERVE_NAMESPACE``), where Serve's
 detached controller is found by name: what one deploys the other reads,
@@ -62,6 +63,11 @@ def cmd_start(args):
           f"(store {raylet.store_name})")
     print(f"connect with: ray_tpu_torch.init(address="
           f"'{gcs_address[0]}:{gcs_address[1]}')", flush=True)
+    # from here the node's output goes to the log plane (the caller may
+    # stop reading the real stdout once it has the lines above)
+    from ray_tpu_torch.runtime import log_plane
+    from ray_tpu_torch.runtime.raylet import capture_node_output
+    capture_node_output(raylet)
 
     def _interrupt(*_):
         raise KeyboardInterrupt
@@ -73,6 +79,7 @@ def cmd_start(args):
         while True:
             time.sleep(3600)
     except KeyboardInterrupt:
+        log_plane.uninstall_capture()
         raylet.stop()
         if gcs is not None:
             gcs.stop()

@@ -1,12 +1,11 @@
 """Deployment configuration (reference: ``serve/config.py`` +
 ``serve/schema.py`` pydantic models, collapsed to dataclasses).
 
-A copy of ``ray_tpu/serve/config.py``. The port's controller runs the
-polled autoscaling policy (per-replica ongoing counts), the one the JAX
-package falls back to when its metrics plane is dark; the fields of the
-metrics-driven policy (``policy``, ``metrics_window_s``,
-``upscale_queue_wait_s``, ``kv_upscale_occupancy``) are accepted, so a
-JAX configuration loads, and wait for the metrics plane.
+A copy of ``ray_tpu/serve/config.py``. ``policy="metrics"`` scales on
+the metrics plane's windowed signals (``metrics_window_s``,
+``upscale_queue_wait_s``, ``kv_upscale_occupancy``) and falls back to
+the polled per-replica counts when the plane is dark; ``"polled"``
+always polls.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ class AutoscalingConfig:
     target_ongoing_requests: float = 2.0
     upscale_delay_s: float = 0.5
     downscale_delay_s: float = 2.0
-    # -- the metrics-driven policy (waits for the metrics plane) ------
+    # -- the metrics-driven policy ------------------------------------
     policy: str = "metrics"
     metrics_window_s: float = 3.0
     upscale_queue_wait_s: float = 0.25

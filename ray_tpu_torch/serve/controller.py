@@ -11,10 +11,11 @@ autoscaling from replica queue metrics.
 The deployment body reaches its replicas as stdlib ``pickle`` bytes (JAX:
 cloudpickle), carried by qualified name: a module-level class or function,
 or a ``functools.partial`` of one (``serve/api.py`` ``dump_body``).
-Autoscaling is the polled policy (``metrics()`` of every replica), the one
-the JAX package falls back to when its metrics plane is dark; the
-metrics-driven policy, the ongoing-requests gauge and the log plane's
-labels wait for their planes. The replicas' fault-injection crash points
+Autoscaling reads the metrics plane (``autoscale_mode`` "metrics": the
+replicas' pushed ``ray_tpu_serve_ongoing`` gauge, queue-wait stage and KV
+occupancy over a window) and falls back to polling every replica's
+``metrics()`` ("polled") when the plane has nothing fresh. A replica's
+captured lines carry its ``deployment/replica`` label. The replicas' fault-injection crash points
 (``replica.mid_request``, ``replica.mid_decode``) are JAX's, and
 ``deployment_meta`` tells the HTTP proxy which deployments are ASGI
 ingresses (``serve/ingress.py``).
@@ -58,6 +59,19 @@ class _Replica:
         self._total = 0
         self._streams: dict = {}
         self._stream_errors: dict = {}
+        # pushed ongoing gauge: the metrics-driven autoscaler consumes
+        # this instead of polling each replica's metrics() every tick
+        from ray_tpu_torch.util import metrics as _metrics
+        self._g_ongoing = (_metrics.gauge(
+            "ray_tpu_serve_ongoing", "in-flight requests per replica",
+            tag_keys=("deployment", "replica"))
+            if _metrics.enabled() else None)
+        self._set_ongoing_gauge()
+
+    def _set_ongoing_gauge(self):
+        if self._g_ongoing is not None:
+            self._g_ongoing.set(self._ongoing, tags={
+                "deployment": self._deployment, "replica": self._tag})
 
     @staticmethod
     def _resolve_refs(value):
@@ -87,8 +101,6 @@ class _Replica:
         methods at await points, and SYNC handlers in a thread executor (the reference replica runs sync user code in a
         thread pool too; a deployment that needs strictly serial
         execution sets max_concurrent_queries=1)."""
-        import inspect
-
         from ray_tpu_torch.serve.multiplex import (MODEL_ID_KWARG,
                                                    set_request_model_id)
 
@@ -96,7 +108,21 @@ class _Replica:
         with self._lock:
             self._ongoing += 1
             self._total += 1
+            self._set_ongoing_gauge()
         token = set_request_model_id(model_id)
+        # log attribution: lines the handler prints echo/store under the
+        # deployment/replica tag instead of the generic actor-method name
+        from ray_tpu_torch.runtime import log_plane as _log_plane
+
+        with _log_plane.label_context(
+                f"{self._deployment}/{self._tag}"):
+            return await self._handle_request_inner(
+                method_name, args, kwargs, token)
+
+    async def _handle_request_inner(self, method_name, args, kwargs,
+                                    token):
+        import inspect
+
         try:
             from ray_tpu_torch.runtime import fault_injection as _fi
 
@@ -136,6 +162,7 @@ class _Replica:
             _request_model_id.reset(token)
             with self._lock:
                 self._ongoing -= 1
+                self._set_ongoing_gauge()
 
     # -- streaming (reference: replica.py handle_request_streaming:323) --
 
@@ -157,6 +184,7 @@ class _Replica:
             self._streams[stream_id] = q
             self._ongoing += 1
             self._total += 1
+            self._set_ongoing_gauge()
 
         def pump():
             from ray_tpu_torch.runtime import fault_injection as _fi
@@ -187,6 +215,7 @@ class _Replica:
                 _request_model_id.reset(token)
                 with self._lock:
                     self._ongoing -= 1
+                    self._set_ongoing_gauge()
 
         threading.Thread(target=pump, daemon=True).start()
         return stream_id
@@ -376,10 +405,7 @@ class ServeController:
             dep = self._deployments.pop(name, None)
             self._version += 1
         if dep:
-            for r in dep["replicas"]:
-                _kill_quietly(r)
-            for ent in dep.get("draining", ()):
-                _kill_quietly(ent["replica"])
+            _retire(dep)
         return True
 
     def get_replicas(self, name: str):
@@ -424,10 +450,7 @@ class ServeController:
             deps = list(self._deployments.values())
             self._deployments.clear()
         for dep in deps:
-            for r in dep["replicas"]:
-                _kill_quietly(r)
-            for ent in dep.get("draining", ()):
-                _kill_quietly(ent["replica"])
+            _retire(dep)
         return True
 
     def failover_stats(self):
@@ -626,8 +649,9 @@ class ServeController:
                     self._version += 1
 
     def _autoscale_once(self):
-        """The polled policy: scale on the mean of the replicas' ongoing
-        requests (reference: ``_private/autoscaling_policy.py``)."""
+        """One autoscaling decision per deployment (reference:
+        ``_private/autoscaling_policy.py``): the metrics plane's windowed
+        signals when it has them, else the polled loop."""
         now = time.monotonic()
         with self._lock:
             items = list(self._deployments.items())
@@ -636,27 +660,105 @@ class ServeController:
             if not auto or not dep["replicas"]:
                 continue
             n = len(dep["replicas"])
-            dep["autoscale_mode"] = "polled"
-            try:
-                metrics = api.get(
-                    [r.metrics.remote() for r in dep["replicas"]],
-                    timeout=5)
-            except Exception:  # noqa: BLE001
-                continue
-            per_replica = sum(m["ongoing"] for m in metrics) / n
+            signals = None
+            if auto.get("policy", "metrics") == "metrics":
+                signals = self._pushed_signals(name, auto)
+            queue_p50 = kv_occ = None
+            if signals is not None:
+                dep["autoscale_mode"] = "metrics"
+                per_replica = signals["ongoing"] / n
+                queue_p50 = signals.get("queue_wait_p50")
+                kv_occ = signals.get("kv_occupancy")
+            else:
+                # pushed windows missing or stale (metrics plane
+                # partitioned, or nothing flowing yet): degrade to the
+                # polled per-replica loop — scaling must not stop
+                # because observability did
+                dep["autoscale_mode"] = "polled"
+                try:
+                    metrics = api.get(
+                        [r.metrics.remote() for r in dep["replicas"]],
+                        timeout=5)
+                except Exception:  # noqa: BLE001
+                    continue
+                per_replica = sum(m["ongoing"] for m in metrics) / n
             target_per = auto.get("target_ongoing_requests", 2.0)
-            if (per_replica > target_per
+            hot_queue = (queue_p50 is not None and queue_p50
+                         > auto.get("upscale_queue_wait_s", 0.25))
+            hot_kv = (kv_occ is not None and kv_occ
+                      > auto.get("kv_upscale_occupancy", 0.9))
+            want_up = per_replica > target_per or hot_queue or hot_kv
+            want_down = (per_replica < target_per / 2
+                         and not hot_queue and not hot_kv)
+            if (want_up
                     and dep["target"] < auto.get("max_replicas", 4)
                     and now - dep["last_scale"] > auto.get(
                         "upscale_delay_s", 0.5)):
                 dep["target"] += 1
                 dep["last_scale"] = now
-            elif (per_replica < target_per / 2
+            elif (want_down
                     and dep["target"] > auto.get("min_replicas", 1)
                     and now - dep["last_scale"] > auto.get(
                         "downscale_delay_s", 2.0)):
                 dep["target"] -= 1
                 dep["last_scale"] = now
+
+    def _pushed_signals(self, name: str, auto: dict) -> dict | None:
+        """Windowed autoscaling signals from the cluster metrics plane,
+        or None when the plane has nothing fresh for this deployment —
+        the caller then degrades to the polled loop. The GCS keeps its
+        windows rolling on queries, so partitioned replicas' series age
+        out of the query horizon within ~one window and this returns
+        None without any explicit partition detector."""
+        horizon = auto.get("metrics_window_s", 3.0)
+        try:
+            from ray_tpu_torch.runtime.metrics_plane import \
+                summarize_histogram
+            from ray_tpu_torch.util.state import cluster_metrics
+            res = cluster_metrics("ray_tpu_serve_ongoing",
+                                  tags={"deployment": name},
+                                  last_s=horizon)
+            if res.get("kind") is None or not res.get("groups"):
+                return None
+            out = {"ongoing": float(sum(
+                g["value"] for g in res["groups"]))}
+            qres = cluster_metrics("ray_tpu_serve_stage_s",
+                                   tags={"stage": "queue_wait",
+                                         "deployment": name},
+                                   last_s=horizon)
+            digest = summarize_histogram(qres, quantiles=(0.5,))
+            if digest.get("count"):
+                out["queue_wait_p50"] = digest["p50"]
+            kres = cluster_metrics("ray_tpu_serve_kv_pages",
+                                   tags={"deployment": name},
+                                   group_by=("state",),
+                                   last_s=horizon)
+            kv = {g["tags"].get("state"): g["value"]
+                  for g in kres.get("groups", ())}
+            if kv.get("total"):
+                out["kv_occupancy"] = max(
+                    0.0, 1.0 - kv.get("free", 0.0) / kv["total"])
+            return out
+        except Exception:  # noqa: BLE001 - plane unreachable: degrade
+            return None
+
+
+def _retire(dep: dict):
+    """Kill a deployment's replicas, draining ones included, and retract
+    their prefix digests from this process's annex registry: in the
+    in-process runtime the replicas' engines publish there, and a
+    digest left behind would ride the next cluster driver's pusher to
+    the GCS as a live replica's."""
+    from ray_tpu_torch.runtime import annex
+
+    for r in dep["replicas"]:
+        _kill_quietly(r)
+    for ent in dep.get("draining", ()):
+        _kill_quietly(ent["replica"])
+    for tag in list(dep["tags"]) + [ent.get("tag") for ent in
+                                    dep.get("draining", ())]:
+        if tag:
+            annex.set_annex(f"serve/prefix_digest/{tag}", None)
 
 
 def _kill_quietly(handle):

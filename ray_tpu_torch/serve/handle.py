@@ -175,8 +175,8 @@ class DeploymentHandle:
         if now - self._router_at >= cfg.serve_digest_publish_interval_s:
             self._router_at = now
             try:
-                from ray_tpu_torch.runtime.annex import cluster_metric_annexes
                 from ray_tpu_torch.serve.prefix_router import DIGEST_PREFIX
+                from ray_tpu_torch.util.state import cluster_metric_annexes
 
                 self._router.ingest(cluster_metric_annexes(
                     DIGEST_PREFIX, max_age_s=cfg.serve_digest_ttl_s))

@@ -1,7 +1,7 @@
 """ASGI mounting + gRPC ingress for Serve.
 
-Port of ``ray_tpu/serve/ingress.py`` without its ingress-latency histogram
-(the metrics plane is a later slice) and the driver's synchronous
+Port of ``ray_tpu/serve/ingress.py``, with its ingress-latency histogram
+(``ray_tpu_serve_ingress_s``) and without the driver's synchronous
 ``handle``, which nothing calls. ``grpc`` is imported inside the gRPC
 functions, as in JAX; where it is not installed they raise
 ``ImportError``.
@@ -27,6 +27,15 @@ from __future__ import annotations
 import asyncio
 import json
 import threading
+import time
+
+from ray_tpu_torch.util import metrics as _metrics
+
+# per-request ingress timer (metrics plane): full replica-side handling
+# latency of one proxied HTTP request through the ASGI app
+_h_ingress = _metrics.histogram(
+    "ray_tpu_serve_ingress_s",
+    "replica-side ASGI ingress request handling latency").handle()
 
 
 class _ASGIDriver:
@@ -117,12 +126,16 @@ class _ASGIDriver:
         with the same per-request timeout the sync path enforces — a
         hung app must surface an error, not hold a concurrency slot
         forever."""
+        t0 = time.perf_counter()
         fut = asyncio.run_coroutine_threadsafe(self._run(request),
                                                self._loop)
         try:
-            return await asyncio.wait_for(
+            out = await asyncio.wait_for(
                 asyncio.wrap_future(fut),
                 timeout=request.get("timeout_s", 60))
+            if _metrics.enabled():
+                _h_ingress.observe(time.perf_counter() - t0)
+            return out
         except asyncio.TimeoutError:
             fut.cancel()
             raise TimeoutError(

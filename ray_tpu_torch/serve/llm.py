@@ -26,8 +26,10 @@ model builder, with ``__call__`` and ``stats``. An engine built while a
 thread holds a replica context (``serve/context.py``; a Serve replica
 sets it) carries its deployment name and replica tag.
 
-Not ported: the metrics-plane histograms and the trace spans, which
-belong to the JAX package's host planes.
+Every request's TTFT stages feed the metrics plane's
+``ray_tpu_serve_stage_s`` histogram through handles resolved once per
+engine (one lock, no RPC, no device sync on the engine thread). Not
+ported: the trace spans, which belong to the tracing plane.
 
 Threading: one engine thread owns the device loop (prefill/decode);
 callers enqueue requests and read token queues.
@@ -49,6 +51,21 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import decoding
 from ray_tpu_torch.models.decoding import KVCache
+from ray_tpu_torch.util import metrics as _metrics
+
+# Per-request TTFT decomposition (metrics plane): every request's time to
+# first token splits into queue_wait (submit -> prefill dispatch),
+# prefill (dispatch -> device completion, stamped by the ready watcher),
+# pipeline_stall (device completion -> the loop draining the firsts) and
+# ship (the host copy of the first-token batch). The four stages sum to
+# the observed TTFT exactly (see Request.breakdown). Series carry the
+# hosting deployment + replica tags (from the serve replica context) so
+# the controller's autoscaler and the dashboard can split per
+# deployment/replica; engines outside serve tag deployment="-".
+_STAGES = ("queue_wait", "prefill", "pipeline_stall", "ship")
+_serve_hist = _metrics.histogram(
+    "ray_tpu_serve_stage_s", "per-request serve TTFT stage latency",
+    tag_keys=("stage", "deployment", "replica"))
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -207,6 +224,10 @@ class LLMEngine:
         self.total_finished = 0
         self.ttfts: "deque[float]" = deque(maxlen=1024)
         self.breakdowns: "deque[dict]" = deque(maxlen=1024)
+        # pre-resolved per-(deployment, replica) stage-histogram handles
+        self._h_stage = {s: _serve_hist.handle(
+            {"stage": s, "deployment": self.deployment_name,
+             "replica": self.replica_tag}) for s in _STAGES}
         # ready watcher (card only): stamps Request.ready_t when a prefill
         # batch's device work completes, off the loop thread
         self._ready_q: "queue.Queue | None" = None
@@ -501,6 +522,9 @@ class LLMEngine:
                 bd = req.breakdown
                 if bd is not None:
                     self.breakdowns.append(bd)
+                    if _metrics.enabled():
+                        for stage in _STAGES:
+                            self._h_stage[stage].observe(bd[f"{stage}_s"])
                 self._emit(req, int(first))
         self._pending_firsts = keep
 

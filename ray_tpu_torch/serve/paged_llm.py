@@ -19,9 +19,11 @@ device memory scales with tokens in flight, not ``max_batch * max_len``.
   of the cached pages' chained hashes, and the pool's free and total
   pages) into the process's annex registry (``runtime/annex.py``) under
   its replica tag, at most every ``serve_digest_publish_interval_s`` as
-  chunks are emitted and on every ``stats()``; serve handles route a
-  prompt to the replica that holds its prefix
-  (``serve/prefix_router.py``).
+  chunks are emitted and on every ``stats()``, which also sets the
+  metrics plane's ``ray_tpu_serve_kv_pages`` gauge (free and total
+  pages). The process's metrics pusher ships both to the GCS, so serve
+  handles in any process route a prompt to the replica that holds its
+  prefix (``serve/prefix_router.py``).
 
 Out-of-range writes: JAX drops a scatter to page ``num_pages``; PyTorch
 would fault on the device. The pool therefore holds one extra SINK page
@@ -498,6 +500,17 @@ class PagedLLMEngine(LLMEngine):
         out = super().stats()
         out["kv_pages_total"] = self.num_pages
         out["kv_pages_free"] = len(self._alloc.free)
+        # feed the metrics plane: pool occupancy rides the process's next
+        # pushed delta frame
+        from ray_tpu_torch.util import metrics as _m
+        if _m.enabled():
+            g = _m.gauge("ray_tpu_serve_kv_pages",
+                         "paged-KV pool size by state",
+                         tag_keys=("state", "deployment", "replica"))
+            base = {"deployment": self.deployment_name,
+                    "replica": self.replica_tag}
+            g.set(out["kv_pages_free"], tags={"state": "free", **base})
+            g.set(self.num_pages, tags={"state": "total", **base})
         self._publish_digest(force=True)
         out["prefix_cache"] = {
             "enabled": self._prefix_enabled,

@@ -9,9 +9,11 @@ scheduling).
 Each ``PagedLLMEngine`` replica periodically publishes a compact
 PREFIX DIGEST — the chained full-page hashes currently resident in its
 prefix cache (truncated to 8 bytes) plus KV-pool occupancy — as an ANNEX
-in the process's registry (``runtime/annex.py``). The handle pulls the
-digests (throttled, ``serve_digest_publish_interval_s``) via
-``annex.cluster_metric_annexes`` and scores candidate replicas by
+in the process's registry (``runtime/annex.py``), which the process's
+metrics pusher ships to the GCS. The handle pulls the digests (throttled,
+``serve_digest_publish_interval_s``) via
+``util.state.cluster_metric_annexes`` (the GCS store on a cluster, the
+process's registry in the in-process runtime) and scores candidate replicas by
 the longest run of LEADING request pages already cached there. Because
 page hashes are chained (hash_i covers tokens of pages 0..i), a single
 set-membership hit at rank i proves the whole prefix matches — the

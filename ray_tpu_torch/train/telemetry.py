@@ -4,7 +4,8 @@ Port of ``ray_tpu/train/telemetry.py``: ``StepTelemetry`` (``:96``) keeps
 the same step clock, buckets and goodput accounting, in this process.
 The JAX package also sends each step out as metric series, trace spans,
 a progress annex and a watchdog token through its host observability
-planes; the port has no such planes, so a rank's telemetry stays in its
+planes; the port's metrics plane does not carry them yet (their emission
+comes with the tracing plane), so a rank's telemetry stays in its
 ``StepTelemetry`` (``history``, ``goodput``), which the harness sends back
 to the driver when the rank finishes.
 

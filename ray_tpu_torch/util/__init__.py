@@ -2,7 +2,10 @@
 
 Lazy re-exports (PEP 562), as JAX's: the helpers here call
 ``ray_tpu_torch.remote`` at import time, so this package's ``__init__``
-imports none of them until a name is asked for.
+imports none of them until a name is asked for. ``metrics`` (which the
+runtime's own modules import for hot-path instrumentation) and ``state``
+are submodules, loaded on first attribute access too; ``__all__`` stays
+JAX's.
 """
 
 __all__ = [
@@ -20,12 +23,15 @@ _HOMES = {
     "from_range": "ray_tpu_torch.util.iter",
     "Queue": "ray_tpu_torch.util.queue",
 }
+_SUBMODULES = ("metrics", "state")
 
 
 def __getattr__(name):
+    import importlib
+
+    if name in _SUBMODULES:
+        return importlib.import_module(f"{__name__}.{name}")
     home = _HOMES.get(name)
     if home is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    import importlib
-
     return getattr(importlib.import_module(home), name)

@@ -2,7 +2,8 @@
 
 A copy of the parts of ``ray_tpu/utils/config.py`` that the in-process
 runtime, the cluster runtime (GCS, raylets, workers, the object store),
-the Serve plane and the serve engines read, with the same names,
+the Serve plane, the serve engines and the metrics and log planes read
+(the memory plane's flags wait for it), with the same names,
 defaults and environment overrides (``RAY_TPU_<NAME>``), and the same
 process-wide instance: ``init(system_config=...)`` resets it and applies
 the overrides (``reset_config``, ``Config.apply_overrides``).
@@ -238,6 +239,45 @@ class Config:
     # Scale-down grace: a draining replica keeps serving its in-flight
     # requests up to this long before the controller kills it anyway.
     serve_drain_timeout_s: float = 5.0
+
+    # --- cluster metrics plane (util/metrics.py + runtime/metrics_plane.py)
+    # Master switch for hot-path instrumentation AND the push loop.
+    metrics_enabled: bool = True
+    # Delta-frame push period per process (driver / worker / raylet /
+    # GCS self-ingest).
+    metrics_push_interval_s: float = 2.0
+    # Ring-buffer time-series store on the GCS: window width and how
+    # many windows are kept per (metric, tags) series.
+    metrics_window_s: float = 5.0
+    metrics_windows: int = 60
+    # Bounded pusher buffer: frames queued past this are DROPPED (a slow
+    # or partitioned GCS must never block a hot path).
+    metrics_push_buffer: int = 8
+
+    # --- cluster log plane (runtime/log_plane.py) ---
+    # Master switch for the in-process stdout/stderr tee in workers,
+    # external raylets and the external GCS (the Popen fd capture stays
+    # on regardless: interpreter crashes must leave last words somewhere).
+    log_capture_enabled: bool = True
+    # Rotation bounds per capture file (<proc>.log, .log.1, ...).
+    log_max_bytes: int = 16 << 20
+    log_rotate_count: int = 3
+    # Log-monitor tail/push period and its bounded pending-entry queue
+    # (oldest entries dropped).
+    log_push_interval_s: float = 0.25
+    log_push_buffer: int = 256
+    # GCS LogStore rings: recent lines per process, the error ring and
+    # its deduplicated groups.
+    log_store_lines: int = 2000
+    log_store_error_lines: int = 2000
+    log_store_error_groups: int = 256
+    # Driver echo budget per SOURCE process (token bucket, lines/s;
+    # 0 disables the limiter).
+    log_echo_rate_lines_s: float = 200.0
+    # task_id -> (file, start, end) segments each process publishes.
+    log_segments_max: int = 128
+    # Recent captured lines kept in memory per process.
+    log_tail_lines: int = 50
 
     def __post_init__(self):
         for f in fields(self):

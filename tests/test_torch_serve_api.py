@@ -42,6 +42,7 @@ from ray_tpu_torch.runtime import core as tcore
 from ray_tpu_torch.serve import prefix_router as trouter
 from ray_tpu_torch.serve.llm import LLMDeployment
 from ray_tpu_torch.serve.paged_llm import PagedLLMEngine
+from ray_tpu_torch.util import state as tstate
 
 PACKAGES = {"jax": (ray_tpu, jserve), "torch": (ray_tpu_torch, tserve)}
 
@@ -565,16 +566,16 @@ def test_prefix_router_picks_equal_across_packages():
 def test_local_annex_registry_roundtrip():
     annex.set_annex("serve/prefix_digest/t0", {"tag": "t0"})
     annex.set_annex("other/x", {"tag": "x"})
-    got = annex.cluster_metric_annexes(trouter.DIGEST_PREFIX)
+    got = tstate.cluster_metric_annexes(trouter.DIGEST_PREFIX)
     assert [r["payload"]["tag"] for r in got] == ["t0"]
-    assert annex.cluster_metric_annexes("serve/", max_age_s=-1) == []
+    assert tstate.cluster_metric_annexes("serve/", max_age_s=-1) == []
     annex.set_annex_provider("serve/prefix_digest/live", lambda: {"n": 1})
-    assert {r["key"] for r in annex.cluster_metric_annexes(
+    assert {r["key"] for r in tstate.cluster_metric_annexes(
         trouter.DIGEST_PREFIX)} == {"serve/prefix_digest/t0",
                                     "serve/prefix_digest/live"}
     annex.set_annex_provider("serve/prefix_digest/live", None)
     annex.set_annex("serve/prefix_digest/t0", None)  # retract
-    assert annex.cluster_metric_annexes(trouter.DIGEST_PREFIX) == []
+    assert tstate.cluster_metric_annexes(trouter.DIGEST_PREFIX) == []
 
 
 # --- the engines under Serve ---
@@ -721,7 +722,7 @@ def test_prefix_affinity_end_to_end(both, tiny):
         control = np.concatenate([prefix, tails[1]])
         control[0] = (control[0] % (tcfg.vocab_size - 1)) + 1
         router = trouter.PrefixRouter()
-        router.ingest(annex.cluster_metric_annexes(trouter.DIGEST_PREFIX))
+        router.ingest(tstate.cluster_metric_annexes(trouter.DIGEST_PREFIX))
         assert router.score(control.tolist(), holder) == 0
         assert router.score(np.concatenate([prefix, tails[1]]).tolist(),
                             holder) == 2
